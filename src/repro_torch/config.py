@@ -1,0 +1,135 @@
+"""Model configuration for the PyTorch port.
+
+The same frozen dataclass as the JAX package's ``ModelConfig``, field for
+field, so a config resolves to equal values in both packages (the port's
+tests compare them). Only the fields' *values* matter to the port; the
+family-specific sub-configs (``moe``, ``ssm``) stay untyped until a slice
+that serves those families brings their dataclasses over.
+
+Every ported architecture lives in ``repro_torch.configs.<id>`` exposing
+``CONFIG`` (full size) and ``smoke_config()`` (reduced, runs on the CPU).
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+from typing import Any
+
+# Layer kinds used by block patterns.
+ATTN = "attn"            # full global attention block
+LOCAL_ATTN = "local"     # sliding-window attention block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str               # dense | moe | ssm | hybrid | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # --- attention options -------------------------------------------------
+    rope_theta: float = 10000.0
+    rope_sections: tuple[int, ...] | None = None   # M-RoPE (qwen2-vl): (t,h,w)
+    qk_norm: bool = False                           # qwen3 family
+    attn_logit_softcap: float | None = None         # gemma2 (50.0), grok
+    final_logit_softcap: float | None = None        # gemma2 (30.0)
+    sliding_window: int | None = None               # local-attn window size
+    attn_scale: float | None = None                 # override 1/sqrt(head_dim)
+    # --- block structure ----------------------------------------------------
+    block_pattern: tuple[str, ...] = (ATTN,)
+    shared_attn_period: int = 0
+    # --- MLP ------------------------------------------------------------------
+    mlp_activation: str = "silu"     # silu (SwiGLU) | gelu (GeGLU) | gelu_mlp
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    post_block_norm: bool = False
+    tie_embeddings: bool = False
+    embedding_scale: bool = False
+    # --- mixture / ssm (not ported yet: see ROADMAP queue 1) -----------------
+    moe: Any = None
+    ssm: Any = None
+    # --- encoder-decoder ----------------------------------------------------
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0
+    # --- modality frontend stub ----------------------------------------------
+    frontend: str | None = None
+    # --- numerics -------------------------------------------------------------
+    dtype: str = "bfloat16"
+    sub_quadratic: bool = False
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab padded to a multiple of 256 (the JAX package shards the
+        table over its mesh "model" axis); padded logit columns are masked."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def layer_kinds(self) -> tuple[str, ...]:
+        """Expanded per-layer kind list of length num_layers."""
+        pat = self.block_pattern
+        reps = -(-self.num_layers // len(pat))
+        return (pat * reps)[: self.num_layers]
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense attention decoder
+        (embedding + blocks + head)."""
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        mats = 2 if self.mlp_activation == "gelu_mlp" else 3
+        return n + self.num_layers * (attn + mats * d * self.d_ff + 2 * d)
+
+
+ARCHS: tuple[str, ...] = (
+    "glm4_9b",
+    "starcoder2_3b",
+    "gemma2_27b",
+    "qwen3_32b",
+    "whisper_large_v3",
+    "zamba2_2p7b",
+    "qwen2_vl_2b",
+    "qwen3_moe_30b_a3b",
+    "grok1_314b",
+    "mamba2_370m",
+)
+
+# Accept dashed ids from the assignment table as aliases.
+_ALIASES = {
+    "glm4-9b": "glm4_9b",
+    "starcoder2-3b": "starcoder2_3b",
+    "gemma2-27b": "gemma2_27b",
+    "qwen3-32b": "qwen3_32b",
+    "whisper-large-v3": "whisper_large_v3",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "grok-1-314b": "grok1_314b",
+    "mamba2-370m": "mamba2_370m",
+}
+
+# The architectures whose configs the port carries so far.
+PORTED_ARCHS: tuple[str, ...] = ("glm4_9b",)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    """Resolve an architecture id to its full-size or smoke config."""
+    arch = _ALIASES.get(arch, arch)
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCHS}")
+    if arch not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch} is not ported to repro_torch yet (ported: "
+            f"{PORTED_ARCHS}); see ROADMAP.md queue 1 item 3")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.smoke_config() if smoke else mod.CONFIG

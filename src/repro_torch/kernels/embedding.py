@@ -1,0 +1,61 @@
+"""Embedding-row gather: the hand-written CUDA kernel and its plain version.
+
+Port of ``repro.kernels.embedding.gather`` (a Pallas TPU kernel driven by
+scalar-prefetched ids). The kernel is ``csrc/embedding.cu``; the plain
+version is ``gather_plain`` (``table[ids]``), which ``kernels.ops`` runs
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+
+def gather_plain(table, ids):
+    """table: (V, d); ids: integer of any shape -> (*ids.shape, d)."""
+    return table[ids.long()]
+
+
+def _lib():
+    lib = build.load("embedding")
+    lib.embedding_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.embedding_gather.restype = ctypes.c_int
+    return lib
+
+
+def gather(table, ids):
+    """CUDA gather ``table[ids]``. table: (V, d) contiguous on the card,
+    rows a multiple of 16 bytes; ids: int32 of any shape on the same card.
+    Returns (*ids.shape, d) in table.dtype. Ids are clamped into [0, V)."""
+    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
+        raise ValueError("gather: table and ids must be on the same CUDA "
+                         f"device (got {table.device}, {ids.device})")
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"gather: table must be 2-D contiguous, got "
+                         f"{tuple(table.shape)}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"gather: ids must be int32, got {ids.dtype}")
+    V, d = table.shape
+    row_bytes = d * table.element_size()
+    if row_bytes % 16 or table.data_ptr() % 16:
+        raise ValueError("gather: table rows must be 16-byte multiples at a "
+                         f"16-byte aligned address (row bytes {row_bytes})")
+    flat = ids.reshape(-1).contiguous()
+    out = torch.empty((flat.shape[0], d), dtype=table.dtype,
+                      device=table.device)
+    with torch.cuda.device(table.device):
+        rc = _lib().embedding_gather(
+            table.data_ptr(), flat.data_ptr(), out.data_ptr(),
+            flat.shape[0], V, row_bytes, build.current_stream(table))
+    if rc != 0:
+        raise RuntimeError(f"embedding_gather launch failed: cudaError {rc}")
+    gather.launches += 1
+    return out.reshape(*ids.shape, d)
+
+
+gather.launches = 0

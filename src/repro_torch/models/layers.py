@@ -1,0 +1,65 @@
+"""Norms, rotary embeddings and MLP blocks (port of ``repro.models.layers``).
+
+Same op order as the JAX package: norms in fp32 and cast back, rope tables
+in fp32 cast to the activation dtype before the rotate-half products, MLP
+weights cast to the activation dtype before the products.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+
+def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    if cfg.norm == "layernorm":
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        var = x.square().mean(dim=-1, keepdim=True)
+        y = x * torch.rsqrt(var + eps) * params["scale"].float()
+    return y.to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """cos/sin tables (B, S, hd/2) fp32 for (B, S) integer positions."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (B, S, hd/2). Rotate-half convention."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+_ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def apply_mlp(params, x, cfg: ModelConfig):
+    w = {k: v.to(x.dtype) for k, v in params.items()}
+    if cfg.mlp_activation == "gelu_mlp":
+        return _ACT["gelu"](x @ w["w_in"]) @ w["w_out"]
+    g = _ACT[cfg.mlp_activation](x @ w["w_gate"])
+    return (g * (x @ w["w_in"])) @ w["w_out"]
+
+
+def softcap(x, cap: float | None):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

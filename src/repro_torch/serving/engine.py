@@ -1,0 +1,331 @@
+"""Continuous-batching inference engine (port of
+``repro.serving.engine`` for the dense paged transformer).
+
+One ``InferenceEngine`` owns the model parameters, a runner, the page
+pools, a ``BlockManager`` and a ``Scheduler``. Every iteration is one
+budgeted step:
+
+    plan = scheduler.schedule()      # decodes (1 token each) + one chunk
+    apply COW page copies
+    runner step: the chunk (if any), then the max_batch-wide decode batch,
+        then per-slot sampling over the decode logits + the chunk's logits
+    append sampled tokens; retire on EOS / max_new; publish the content
+        hashes of newly full blocks
+
+Time is measured in engine steps; request arrivals are given in the same
+unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
+unless the caller asks for "cpu"); there is no fallback between the two.
+
+What this slice refuses, each with the ROADMAP item that brings it: a
+``kv_dtype`` other than bf16, ``prefill_pack > 1``, speculative decoding,
+swap space, a cross-replica ``shared_index``, the full sampling surface,
+and any mesh or tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.api import init_model
+from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
+from repro_torch.serving.runners import make_runner
+from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
+                                           StepPlan)
+from repro_torch.serving.stats import Histogram, SECONDS_BUCKETS, STEP_BUCKETS
+
+__all__ = ["InferenceEngine", "Request", "SamplingParams"]
+
+# oldest completed per-request latency records are dropped past this; every
+# retirement is first aggregated into the fixed-size histograms
+LATENCY_RECORD_CAP = 4096
+
+
+def _refuse(kv_dtype, prefill_pack, swap_space_bytes, shared_index, mesh):
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported yet "
+            "(ROADMAP.md queue 1 item 7)")
+    if prefill_pack != 1:
+        raise NotImplementedError(
+            f"prefill_pack={prefill_pack}: packed ragged prefill is not "
+            "ported yet (ROADMAP.md, Next item 1)")
+    if swap_space_bytes:
+        raise NotImplementedError(
+            "swap_space_bytes: the host swap tier is not ported yet "
+            "(ROADMAP.md queue 1 item 7)")
+    if shared_index is not None:
+        raise NotImplementedError(
+            "shared_index: cross-replica prefix sharing is not ported yet "
+            "(ROADMAP.md queue 1 item 11)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: tensor-parallel serving is not ported yet (ROADMAP.md "
+            "queue 1 item 12)")
+
+
+class InferenceEngine:
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 max_batch: int = 8, block_size: int = 16,
+                 max_len: int = 128, num_blocks: int | None = None,
+                 max_num_batched_tokens: int | None = None,
+                 enable_prefix_caching: bool = True,
+                 debug_invariants: bool = False, seed: int = 0, params=None,
+                 prefill_pack: int = 1, kv_dtype: str = "bf16",
+                 draft_cfg: ModelConfig | None = None,
+                 num_speculative_tokens: int = 0,
+                 swap_space_bytes: int = 0, shared_index=None, mesh=None):
+        _refuse(kv_dtype, prefill_pack, swap_space_bytes, shared_index, mesh)
+        self.runner = make_runner(                  # raises if unsupported
+            cfg, draft_cfg=draft_cfg,
+            num_speculative_tokens=num_speculative_tokens)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.block_size = block_size
+        self.max_len = max_len
+        self.max_blocks_per_seq = -(-max_len // block_size)
+        if num_blocks is None:
+            # every slot can reach max_len; +1 trash block
+            num_blocks = max_batch * self.max_blocks_per_seq + 1
+        if max_num_batched_tokens is None:
+            max_num_batched_tokens = max_batch + 2 * block_size
+        self.max_num_batched_tokens = max_num_batched_tokens
+        # fixed chunk width: a full decode batch plus a full chunk stay in
+        # the budget, and no chunk is longer than max_len
+        self.chunk_width = min(max_num_batched_tokens - max_batch, max_len)
+        self.bm = BlockManager(num_blocks, block_size)
+        self.sched = Scheduler(self.bm, max_batch, self.max_blocks_per_seq,
+                               max_num_batched_tokens, self.chunk_width,
+                               enable_prefix_caching=enable_prefix_caching,
+                               max_context=self.max_blocks_per_seq
+                               * block_size)
+        self.max_batch = max_batch
+        self.debug_invariants = debug_invariants
+        self.params = (init_model(cfg, seed, self.device) if params is None
+                       else params)
+        self.runner.bind(self.params)
+        self.cache = self.runner.init_cache(num_blocks, block_size,
+                                            self.device)
+        cache_mib = num_blocks * block_bytes(cfg, block_size) / 2 ** 20
+        self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
+                      "tokens": 0, "prefill_tokens": 0,
+                      "cache_hit_tokens": 0, "cow_copies": 0,
+                      "requests": 0, "requests_done": 0,
+                      "peak_block_utilization": 0.0, "peak_blocks_in_use": 0,
+                      "latency": {}, "kv_cache_mib": round(cache_mib, 3)}
+        self.step_count = 0           # virtual clock: one step() = one tick
+        self.hist = {"ttft_seconds": Histogram(SECONDS_BUCKETS),
+                     "e2e_seconds": Histogram(SECONDS_BUCKETS),
+                     "ttft_steps": Histogram(STEP_BUCKETS),
+                     "e2e_steps": Histogram(STEP_BUCKETS)}
+
+    # -- derived stats -----------------------------------------------------
+
+    @property
+    def cache_hit_rate(self) -> float:
+        """Prefill KV served from the prefix cache: hits / (hits +
+        prefill tokens computed); 0.0 before any prefill."""
+        hits = self.stats["cache_hit_tokens"]
+        denom = hits + self.stats["prefill_tokens"]
+        return hits / denom if denom else 0.0
+
+    @property
+    def preemption_rate(self) -> float:
+        n = self.stats["requests"]
+        return self.stats["preemptions"] / n if n else 0.0
+
+    # -- device helpers ----------------------------------------------------
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """The device half of a copy-on-write: pool row src -> dst in every
+        layer's k and v pools, in place."""
+        for pool in self.cache.values():
+            pool[:, dst] = pool[:, src]
+
+    def _build_arrays(self, plan: StepPlan) -> dict:
+        B, C, nbmax = self.max_batch, self.chunk_width, self.max_blocks_per_seq
+        a = {"d_tok": np.zeros(B, np.int32),
+             "d_pos": np.zeros(B, np.int32),
+             "d_tables": np.zeros((B, nbmax), np.int32),
+             "d_active": np.zeros(B, bool),
+             "c_tok": np.zeros((1, C), np.int32),
+             "c_start": np.zeros(1, np.int32),
+             "c_len": np.zeros(1, np.int32),
+             "c_table": np.full((1, nbmax), TRASH_BLOCK, np.int32)}
+        samp = {"temps": np.zeros(B + 1, np.float32),
+                "top_ks": np.zeros(B + 1, np.int32),
+                "seeds": np.zeros(B + 1, np.int64),
+                "rids": np.zeros(B + 1, np.int64),
+                "counters": np.zeros(B + 1, np.int64)}
+
+        def fill_samp(i, req):
+            samp["temps"][i] = req.sampling.temperature
+            samp["top_ks"][i] = req.sampling.top_k
+            samp["seeds"][i] = req.sampling.seed
+            samp["rids"][i] = req.rid
+            samp["counters"][i] = len(req.out)
+
+        for slot, req in plan.decodes:
+            a["d_active"][slot] = True
+            a["d_tok"][slot] = req.out[-1]
+            a["d_pos"][slot] = req.context_len - 1  # write position of out[-1]
+            row = self.bm.table(req.rid)
+            a["d_tables"][slot, :len(row)] = row
+            fill_samp(slot, req)
+        if plan.chunk is not None:
+            slot, req, n = plan.chunk
+            toks = req.prefill_tokens()
+            a["c_tok"][0, :n] = toks[req.num_computed:req.num_computed + n]
+            a["c_start"][0] = req.num_computed
+            a["c_len"][0] = n
+            row = self.bm.table(req.rid)
+            a["c_table"][0, :len(row)] = row
+            fill_samp(B, req)
+        out = {k: torch.from_numpy(v).to(self.device) for k, v in a.items()}
+        out.update(samp)
+        return out
+
+    # -- host-side step ----------------------------------------------------
+
+    def _lat(self, rid: int) -> dict:
+        return self.stats["latency"].setdefault(rid, {})
+
+    def _note_arrival(self, req: Request) -> None:
+        self.stats["requests"] += 1
+        self._lat(req.rid).update(arrival_step=self.step_count,
+                                  arrival_wall=time.monotonic())
+
+    def _observe_latency(self, rec: dict) -> None:
+        if "arrival_step" not in rec:        # driven without _note_arrival
+            return
+        self.hist["ttft_steps"].observe(
+            rec["first_token_step"] - rec["arrival_step"])
+        self.hist["e2e_steps"].observe(
+            rec["done_step"] - rec["arrival_step"])
+        self.hist["ttft_seconds"].observe(
+            rec["first_token_wall"] - rec["arrival_wall"])
+        self.hist["e2e_seconds"].observe(
+            rec["done_wall"] - rec["arrival_wall"])
+
+    def _append_token(self, slot: int, req: Request, tok: int) -> None:
+        req.out.append(tok)
+        self.stats["tokens"] += 1
+        rec = self._lat(req.rid)
+        if "first_token_step" not in rec:
+            rec.update(first_token_step=self.step_count,
+                       first_token_wall=time.monotonic())
+        self.sched.note_progress(req)
+        if req.done:
+            rec.update(done_step=self.step_count, done_wall=time.monotonic())
+            self._observe_latency(rec)
+            self.stats["requests_done"] += 1
+            lat = self.stats["latency"]
+            if len(lat) > LATENCY_RECORD_CAP:
+                # evict oldest *completed* records only
+                for rid in list(lat):
+                    if "done_step" in lat[rid]:
+                        del lat[rid]
+                        if len(lat) <= LATENCY_RECORD_CAP:
+                            break
+            self.sched.retire(slot)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One engine iteration. Returns True when any work ran."""
+        plan = self.sched.schedule()
+        self.stats["preemptions"] = self.sched.n_preemptions
+        self.stats["cache_hit_tokens"] = self.sched.cache_hit_tokens
+        st = self.bm.stats()
+        self.stats["peak_block_utilization"] = max(
+            self.stats["peak_block_utilization"], st.utilization)
+        self.stats["peak_blocks_in_use"] = max(
+            self.stats["peak_blocks_in_use"], st.blocks_in_use)
+        if self.debug_invariants:
+            self._check_invariants(plan)
+        for src, dst in plan.copies:
+            self.stats["cow_copies"] += 1
+            self._copy_block(src, dst)
+        if plan.scheduled_tokens == 0:
+            # no compute, but an admission (e.g. a full prefix-cache hit
+            # that is immediately decode-ready) is still progress
+            if plan.admitted:
+                self.step_count += 1
+            return plan.admitted > 0
+        nxt = self.runner.step(self.params, self.cache,
+                               self._build_arrays(plan),
+                               has_chunk=plan.chunk is not None)
+        for slot, req in plan.decodes:
+            req.num_computed += 1
+            self._append_token(slot, req, int(nxt[slot]))
+        for slot, req, n in plan.chunks:
+            req.num_computed += n
+            self.stats["prefill_chunks"] += 1
+            self.stats["prefill_tokens"] += n
+            if req.num_computed == req.context_len:
+                self._append_token(slot, req, int(nxt[self.max_batch]))
+            else:
+                self.sched.note_progress(req)
+        self.stats["steps"] += 1
+        self.step_count += 1
+        if self.debug_invariants:
+            self.bm.check()
+        return True
+
+    def _check_invariants(self, plan: StepPlan) -> None:
+        assert plan.scheduled_tokens <= self.max_num_batched_tokens
+        self.bm.check()
+        bs = self.block_size
+        for slot, req in self.sched.running.items():
+            t = self.bm.table(req.rid)
+            assert len(t) <= self.max_blocks_per_seq, (req.rid, len(t))
+            assert len(t) * bs >= req.num_computed, \
+                f"request {req.rid}: table does not cover computed KV"
+        for _, req, n in plan.chunks:
+            t = self.bm.table(req.rid)
+            assert len(t) * bs >= req.num_computed + n
+            # COW guarantee: the chunk writes only exclusively-owned blocks
+            lo, hi = req.num_computed // bs, (req.num_computed + n - 1) // bs
+            for j in range(lo, hi + 1):
+                assert self.bm.refcount(t[j]) == 1, \
+                    f"chunk would write shared block {t[j]}"
+        for slot, req in plan.decodes:
+            t = self.bm.table(req.rid)
+            p = req.context_len - 1
+            assert self.bm.refcount(t[p // bs]) == 1, \
+                f"decode would write shared block {t[p // bs]}"
+
+    def run(self, requests: list[Request],
+            arrival_steps: list[int] | None = None) -> dict[int, np.ndarray]:
+        """Serve ``requests`` to completion. ``arrival_steps[i]`` is the
+        engine step at which request i becomes visible (default: all at
+        step 0). Returns {rid: generated token array}; wall time and
+        throughput land in ``self.stats``."""
+        if arrival_steps is None:
+            arrival_steps = [0] * len(requests)
+        for r in requests:
+            self.sched.validate(r)         # fail fast, not at arrival time
+        pending = deque(sorted(zip(arrival_steps, range(len(requests))),
+                               key=lambda t: t[0]))
+        t0 = time.time()
+        tok0 = self.stats["tokens"]
+        while pending or self.sched.has_work:
+            while pending and pending[0][0] <= self.step_count:
+                req = requests[pending.popleft()[1]]
+                self.sched.add(req)
+                self._note_arrival(req)
+            if not self.sched.has_work and pending:
+                self.step_count = pending[0][0]      # idle: jump the clock
+                continue
+            if not self.step():
+                raise RuntimeError(
+                    "engine stuck: scheduler made no progress with work "
+                    f"pending — {self.bm.stats()}")
+        dt = time.time() - t0
+        self.stats["wall_s"] = round(dt, 3)
+        self.stats["tok_s"] = round((self.stats["tokens"] - tok0)
+                                    / max(dt, 1e-9), 1)
+        return {r.rid: np.asarray(r.out, np.int32) for r in requests}

@@ -1,0 +1,132 @@
+"""Model runners for the serving engine (port of ``repro.serving.runners``).
+
+A runner owns what is family-specific about serving one model: the device
+cache it needs and the budgeted step (one prefill chunk, the wide decode
+batch, per-slot sampling). The step has exactly two shapes: with and
+without the chunk. Decode always runs ``max_batch`` wide (idle slots are
+masked with ctx_len 0 and write into the trash block); the chunk always
+runs ``chunk_width`` wide. Sampling row B is the chunk's last-token
+logits.
+
+This slice ports the dense paged transformer only; ``make_runner`` refuses
+every other family and speculative decoding, naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.embedding import head_table
+from repro_torch.serving.kv_cache import init_paged_cache
+from repro_torch.serving.sampling import sample_tokens
+
+__all__ = ["ModelRunner", "TransformerRunner", "make_runner"]
+
+
+class ModelRunner:
+    """Family-agnostic interface the engine programs against."""
+
+    needs_blocks: bool = False
+    supports_prefix_caching: bool = False
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def bind(self, params):
+        """Derive what the step needs from the parameters, once."""
+        raise NotImplementedError
+
+    def init_cache(self, num_blocks: int, block_size: int, device):
+        raise NotImplementedError
+
+    def step(self, params, cache, a, *, has_chunk: bool):
+        """One budgeted step over the engine's array dict ``a`` (device
+        tensors for the model, host arrays for sampling). Returns the
+        (B + 1,) sampled tokens on the host."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _chunk_batch(a):
+        return {"tokens": a["c_tok"], "q_start": a["c_start"],
+                "q_lens": a["c_len"], "block_tables": a["c_table"],
+                "ctx_lens": a["c_start"] + a["c_len"]}
+
+    @staticmethod
+    def _decode_batch(a):
+        ctx_lens = torch.where(a["d_active"], a["d_pos"] + 1, 0)
+        return {"token": a["d_tok"][:, None], "pos": a["d_pos"],
+                "block_tables": a["d_tables"],
+                "ctx_lens": ctx_lens.to(torch.int32)}
+
+    @staticmethod
+    def _sample(logits_d, logits_c, a):
+        if logits_c is None:
+            logits_c = torch.zeros((1,) + logits_d.shape[1:],
+                                   dtype=logits_d.dtype,
+                                   device=logits_d.device)
+        logits = torch.cat([logits_d, logits_c], dim=0)
+        toks = sample_tokens(logits, a["temps"], a["top_ks"], a["seeds"],
+                             a["rids"], a["counters"])
+        return toks.cpu().numpy()
+
+
+class TransformerRunner(ModelRunner):
+    """Dense decoder-only attention models: everything is paged KV, and
+    prefix caching applies (KV depends only on the token prefix)."""
+
+    needs_blocks = True
+    supports_prefix_caching = True
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.head = None
+
+    def bind(self, params):
+        """Keep one fp32 copy of the logits table: ``decode_logits`` is a
+        true fp32 product, and casting the table on every step would move
+        three times its bf16 bytes."""
+        self.head = head_table(params["embed"], self.cfg).float()
+
+    def init_cache(self, num_blocks, block_size, device):
+        return init_paged_cache(self.cfg, num_blocks, block_size, device)
+
+    def step(self, params, cache, a, *, has_chunk):
+        logits_c = None
+        if has_chunk:
+            logits_c, _ = transformer.prefill_chunk_paged(
+                params, cache, self._chunk_batch(a), self.cfg, self.head)
+        logits_d, _ = transformer.decode_step_paged(
+            params, cache, self._decode_batch(a), self.cfg, self.head)
+        return self._sample(logits_d, logits_c, a)
+
+
+def _unported(cfg: ModelConfig) -> str | None:
+    """Why ``cfg`` cannot be served by this slice, or None."""
+    if cfg.encoder_layers:
+        return "encoder-decoder models (ROADMAP.md queue 1 item 10)"
+    if cfg.moe is not None:
+        return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
+    if cfg.ssm is not None or cfg.shared_attn_period:
+        return "SSM and hybrid models (ROADMAP.md queue 1 item 9)"
+    if cfg.frontend is not None or cfg.rope_sections is not None:
+        return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
+    if cfg.qk_norm or cfg.post_block_norm or cfg.embedding_scale:
+        return ("qk-norm, post-block norms and embedding scale "
+                "(ROADMAP.md queue 1 item 3)")
+    return None
+
+
+def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
+                num_speculative_tokens: int = 0) -> ModelRunner:
+    """Family dispatch; raises NotImplementedError naming the missing slice
+    for everything but the dense paged transformer."""
+    if draft_cfg is not None or num_speculative_tokens:
+        raise NotImplementedError(
+            "speculative decoding is not ported yet (ROADMAP.md queue 1 "
+            "item 8)")
+    why = _unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    return TransformerRunner(cfg)

@@ -1,0 +1,329 @@
+"""Token-budget continuous-batching scheduler (port of
+``repro.serving.scheduler`` with ``prefill_pack=1``).
+
+Every engine step hands out up to ``max_num_batched_tokens`` of work in one
+:class:`StepPlan`: **1 token** for every decode-ready running request, and
+the leftover budget funds **one prefill chunk** (the request streaming its
+prompt in, or a freshly admitted one). Admission shares full cached blocks
+through the ``BlockManager`` prefix cache; a whole-prompt hit recomputes
+its last token behind a copy-on-write of the final shared block. When the
+pool runs dry the newest request is preempted and recomputed later
+(vLLM's recompute strategy), so greedy outputs are preemption-invariant.
+
+Pure host logic: the same requests give the same plans as the JAX
+package's scheduler (the port's tests compare them step by step).
+
+Not ported yet: speculative lookahead, swap preemption, cross-replica
+prefix adoption, slot/encoder caches, packed multi-chunk plans and the
+full sampling surface (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.serving.kv_cache import BlockManager, extend_chain_hashes
+
+_RID = itertools.count()
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling. This slice serves greedy (temperature 0) and
+    temperature/top-k; the other fields keep the JAX package's request
+    surface, and a request that sets any of them is refused."""
+
+    temperature: float = 0.0       # 0 => greedy
+    top_k: int = 0                 # 0 => no truncation
+    seed: int = 0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    logprobs: int = 0
+    stop: tuple = ()
+
+    @property
+    def needs_pipeline(self) -> bool:
+        """True when sampling needs the full pipeline (penalties, top-p,
+        min-p, logprobs, stop), which this slice does not serve."""
+        return (self.top_p < 1.0 or self.min_p > 0.0
+                or self.repetition_penalty != 1.0
+                or self.presence_penalty != 0.0
+                or self.frequency_penalty != 0.0
+                or self.logprobs > 0 or bool(self.stop))
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray                      # (prompt_len,) int32
+    max_new: int = 16
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+    eos_id: int | None = None
+    min_new: int = 0                        # EOS ignored before this many
+    rid: int = field(default_factory=lambda: next(_RID))
+    out: list[int] = field(default_factory=list)
+    num_computed: int = 0                   # prefill_tokens() with KV cached
+    n_published: int = 0                    # full blocks hash-registered
+    n_preempted: int = 0
+    hash_chain: list = field(default_factory=list, repr=False)
+
+    @property
+    def done(self) -> bool:
+        if len(self.out) >= self.max_new:
+            return True
+        if len(self.out) < self.min_new:
+            return False
+        return bool(self.out) and self.eos_id is not None \
+            and self.out[-1] == self.eos_id
+
+    def prefill_tokens(self) -> np.ndarray:
+        """Prompt plus already-generated tokens (recompute after preempt)."""
+        if not self.out:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out, np.int32)])
+
+    @property
+    def context_len(self) -> int:
+        return len(self.prompt) + len(self.out)
+
+    @property
+    def decode_ready(self) -> bool:
+        """Exactly one token left to compute and a sampled token to feed."""
+        return bool(self.out) and self.num_computed == self.context_len - 1
+
+
+@dataclass
+class StepPlan:
+    """One step's worth of work, within the token budget."""
+    decodes: list[tuple[int, Request]]            # slot -> 1 token each
+    chunks: list[tuple[int, Request, int]]        # at most one (slot, req, n)
+    copies: list[tuple[int, int]]                 # device page copies (COW)
+    admitted: int = 0                             # waiting -> running joins
+
+    @property
+    def chunk(self) -> tuple[int, Request, int] | None:
+        return self.chunks[0] if self.chunks else None
+
+    @property
+    def scheduled_tokens(self) -> int:
+        return len(self.decodes) + sum(c[2] for c in self.chunks)
+
+
+class Scheduler:
+    """Token-budget scheduler over a paged KV cache."""
+
+    def __init__(self, bm: BlockManager, max_batch: int,
+                 max_blocks_per_seq: int, max_num_batched_tokens: int,
+                 chunk_width: int, *, enable_prefix_caching: bool = True,
+                 max_context: int | None = None):
+        if max_num_batched_tokens <= max_batch:
+            raise ValueError(
+                f"max_num_batched_tokens={max_num_batched_tokens} must "
+                f"exceed max_batch={max_batch} (a prefill chunk needs "
+                "leftover budget)")
+        self.bm = bm
+        self.max_batch = max_batch
+        self.max_blocks_per_seq = max_blocks_per_seq
+        self.max_num_batched_tokens = max_num_batched_tokens
+        self.chunk_width = chunk_width
+        self.max_context = (max_context if max_context is not None
+                            else max_blocks_per_seq * bm.block_size)
+        self.enable_prefix_caching = enable_prefix_caching
+        self.waiting: deque[Request] = deque()
+        self.running: dict[int, Request] = {}      # slot -> request
+        self._join_order: list[int] = []           # slots, oldest first
+        self.n_preemptions = 0
+        self.cache_hit_tokens = 0
+
+    # -- queries ----------------------------------------------------------
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def free_slots(self) -> list[int]:
+        return [s for s in range(self.max_batch) if s not in self.running]
+
+    # -- submission -------------------------------------------------------
+
+    def validate(self, req: Request) -> None:
+        """Reject at submission what this slice cannot serve: a horizon
+        past the block-table capacity, or the full sampling surface."""
+        if req.sampling.needs_pipeline:
+            raise NotImplementedError(
+                f"request {req.rid}: top-p / min-p / penalties / logprobs / "
+                "stop sequences are not ported yet (ROADMAP.md queue 1 "
+                "item 5)")
+        horizon = len(req.prompt) + req.max_new
+        if horizon > self.max_context:
+            raise ValueError(
+                f"request {req.rid}: prompt+max_new = {horizon} tokens "
+                f"exceeds max_len capacity {self.max_context}")
+
+    def add(self, req: Request) -> None:
+        self.validate(req)
+        self.waiting.append(req)
+
+    # -- the budgeted step ------------------------------------------------
+
+    def schedule(self) -> StepPlan:
+        """Decode capacity first (preempting the newest requests when the
+        pool runs dry), then spend the leftover budget on one prefill
+        chunk: the in-flight prefill, or a newly admitted request."""
+        copies: list[tuple[int, int]] = []
+        self._ensure_decode_capacity()
+        decodes = [(s, r) for s, r in sorted(self.running.items())
+                   if r.decode_ready]
+        budget_left = self.max_num_batched_tokens - len(decodes)
+
+        admitted = 0
+        pres = [(s, r) for s, r in sorted(self.running.items())
+                if not r.decode_ready]
+        while (not pres and budget_left > 0 and self.waiting
+               and len(self.running) < self.max_batch):
+            slot, req = self._admit_one(copies)
+            admitted += 1
+            if not req.decode_ready:   # else: full cache hit minus one —
+                pres.append((slot, req))  # it joins the decode batch next
+        chunks: list[tuple[int, Request, int]] = []
+        if pres and budget_left > 0:
+            slot, req = pres[0]
+            remaining = req.context_len - req.num_computed
+            n = min(budget_left, self.chunk_width, remaining)
+            if n > 0:
+                n = self._fit_chunk(req, n)
+            if n > 0:
+                chunks.append((slot, req, n))
+        return StepPlan(decodes=decodes, chunks=chunks, copies=copies,
+                        admitted=admitted)
+
+    def _ensure_decode_capacity(self) -> None:
+        """Every decode-ready request must own blocks for context_len + 1;
+        preempt the newest requests until the survivors fit."""
+        for slot in list(self._join_order):             # oldest first
+            req = self.running.get(slot)
+            if req is None or not req.decode_ready:
+                continue
+            horizon = req.context_len + 1
+            while not self.bm.ensure(req.rid, horizon):
+                victim_slot = self._pick_victim()       # newest running
+                if victim_slot == slot and len(self.running) == 1 and \
+                        self.bm.blocks_for(horizon) \
+                        > self.bm.num_blocks - 1:
+                    raise MemoryError(
+                        f"block pool too small for request {req.rid} "
+                        f"at {horizon} tokens")
+                self._preempt(victim_slot)
+                if victim_slot == slot:
+                    break        # self-preempted: back to waiting, move on
+
+    def _fit_chunk(self, req: Request, n: int) -> int:
+        """Reserve blocks for the next ``n`` prefill tokens, shrinking the
+        chunk to what the pool can cover. Admission never preempts."""
+        avail = (len(self.bm.table(req.rid)) + self.bm.num_free) \
+            * self.bm.block_size - req.num_computed
+        n = min(n, avail)
+        if n <= 0:
+            if len(self.running) == 1:
+                raise MemoryError(
+                    f"block pool too small for request {req.rid} "
+                    f"at {req.num_computed + 1} tokens")
+            return 0
+        ok = self.bm.ensure(req.rid, req.num_computed + n)
+        assert ok, "ensure failed after availability check"
+        return n
+
+    def _admit_one(self, copies: list[tuple[int, int]]) -> \
+            tuple[int, Request]:
+        """FCFS admission with prefix-cache sharing: the new table starts
+        as the matched cached blocks; fresh blocks arrive chunk by chunk."""
+        req = self.waiting.popleft()
+        bs = self.bm.block_size
+        total = req.context_len
+        hits: list[int] = []
+        if self.enable_prefix_caching:
+            hits = self.bm.match(extend_chain_hashes(
+                req.hash_chain, req.prefill_tokens(), bs))
+        n_cached = len(hits) * bs
+        cow_idx = None
+        if n_cached > total - 1:
+            # Whole stream cached: recompute the last token for its logits.
+            # Its KV write lands inside the final shared block — COW it, or
+            # drop that hit when no spare block remains after adoption
+            # revives the matched cached-free blocks.
+            n_cached = total - 1
+            cow_idx = n_cached // bs
+            n_revived = sum(1 for b in hits if self.bm.refcount(b) == 0)
+            if self.bm.refcount(hits[-1]) >= 1 \
+                    and self.bm.num_free - n_revived < 1:
+                hits = hits[:-1]
+                n_cached = len(hits) * bs
+                cow_idx = None
+        self.bm.adopt(req.rid, hits)
+        req.num_computed = n_cached
+        req.n_published = len(hits)               # all registered
+        self.cache_hit_tokens += n_cached
+        if cow_idx is not None:
+            src = self.bm.table(req.rid)[cow_idx]
+            dst = self.bm.cow(req.rid, cow_idx)
+            if dst is not None:
+                copies.append((src, dst))
+            else:
+                # refcount was 1 (a revived cached block): the recompute
+                # writes its last position in place, so pull it from the
+                # index first; it re-registers after the write
+                self.bm.deregister(src)
+                req.n_published = cow_idx
+        slot = self.free_slots()[0]
+        self.running[slot] = req
+        self._join_order.append(slot)
+        return slot, req
+
+    # -- progress / bookkeeping -------------------------------------------
+
+    def note_progress(self, req: Request) -> None:
+        """Publish content hashes for every block req has fully computed."""
+        if not self.enable_prefix_caching:
+            return
+        bs = self.bm.block_size
+        n_full = req.num_computed // bs
+        if n_full <= req.n_published:
+            return
+        table = self.bm.table(req.rid)
+        hashes = extend_chain_hashes(req.hash_chain,
+                                     req.prefill_tokens(), bs)
+        for j in range(req.n_published, n_full):
+            self.bm.register(table[j], hashes[j])
+        req.n_published = n_full
+
+    def _pick_victim(self) -> int | None:
+        for slot in reversed(self._join_order):         # newest first
+            if slot in self.running:
+                return slot
+        return None
+
+    def _preempt(self, slot: int) -> Request:
+        """Evict one running request: blocks freed hash-retained, the
+        prompt + generated tokens replay on re-admission."""
+        req = self.running.pop(slot)
+        self._join_order.remove(slot)
+        self.bm.free(req.rid)
+        req.num_computed = 0
+        req.n_published = 0
+        req.n_preempted += 1
+        self.n_preemptions += 1
+        self.waiting.appendleft(req)
+        return req
+
+    def retire(self, slot: int) -> Request:
+        req = self.running.pop(slot)
+        self._join_order.remove(slot)
+        self.bm.free(req.rid)
+        return req

@@ -1,0 +1,70 @@
+"""Rules of the PyTorch port: ``repro_torch`` imports neither jax nor
+``repro``, and its configs equal the JAX package's field for field."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro.config import get_config as jax_get_config
+from repro_torch.config import ModelConfig, get_config
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    """Every module of the package imports in a fresh interpreter (the
+    test process already holds jax, via conftest) without pulling in jax
+    or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20, r.stdout
+
+
+def test_no_source_imports_repro():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)\b(?!_torch)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_glm4_config_equals_reference_field_for_field(smoke):
+    ours = get_config("glm4_9b", smoke=smoke)
+    ref = jax_get_config("glm4_9b", smoke=smoke)
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    assert names == [f.name for f in dataclasses.fields(type(ref))]
+    for name in names:
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert ours.padded_vocab_size == ref.padded_vocab_size
+    assert ours.layer_kinds() == ref.layer_kinds()
+    assert ours.param_count() == ref.param_count()
+
+
+def test_unported_arch_is_refused_by_name():
+    with pytest.raises(NotImplementedError, match="qwen3_32b"):
+        get_config("qwen3_32b")
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("no_such_model")
+    assert get_config("glm4-9b") == get_config("glm4_9b")
