@@ -7,21 +7,43 @@ Phases, each of which raises on failure:
   1. card: name and power limit (nvidia-smi); build the CUDA kernels from
      src/repro_torch/csrc with nvcc, all sources in parallel.
   2. kernels vs plain versions on the card, at glm4_9b's widths (H=32,
-     K=2, hd=128, 16-token pages, 8 sequences up to 2048 tokens, a
-     256-row prefill chunk, a 151552 x 4096 embedding table), bf16: each
-     output row within 1e-2 relative, every value within 1e-2 absolute;
-     a 1-row chunk equals a decode step bit for bit; inactive and padding
-     rows are exact zeros; window + softcap at hd 128 and 16.
+     K=2, hd=128, 16-token pages), over bf16, int8 and fp8 pools (the
+     narrow ones with fp32 per-row scales, dequantized in-tile): each
+     output row within 1e-2 relative to its norm, every value within 1e-2
+     absolute (1e-2 relative above a magnitude of 1).
+     a. decode (8 sequences up to 2048 tokens) and a 256-row prefill
+        chunk: a 1-row chunk equals a decode step bit for bit; inactive
+        and padding rows are exact zeros; window + softcap at hd 128 and
+        16; the gather from the 151552 x 4096 embedding table.
+     b. the packed (ragged) kernel: T=512 flat rows, S=4 sequences with
+        q_lens [200, 96, 150, 40] at ctx [2048, 96, 700, 1000] (one fresh
+        prompt, 26 rows that no sequence owns), without and with the
+        fused KV write: a 1-sequence launch equals the chunk kernel and
+        each packed sequence equals its unpacked launch, bit for bit; pool
+        bytes after the fused write equal the separate scatter; the fused
+        output equals the kernel run after that scatter, bit for bit;
+        unowned rows are exact zeros.
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
      from a seed) through repro_torch.serving.InferenceEngine: 8 requests
      of 512 tokens sharing a 256-token prefix, 32 new tokens each, 256-
-     token chunks. Every kernel's launch count is zeroed before the run
-     and must be positive after it.
-  4. card vs CPU: the same engine at glm4 smoke size on both, same
-     weights and requests; greedy tokens must agree, except after a first
-     difference whose top-2 logit margin is below the bf16 tolerance.
+     token chunks, bf16 pools.
+  4. packed serving over int8 pools: the same model and weights,
+     prefill_pack 4, max_batch 8, a 520-token step budget (512-row chunk
+     row), 16 requests at step 0 with prompts of 96-480 tokens (seed 0),
+     the first 8 sharing a 128-token prefix, 16 new tokens each: some
+     step carries >= 2 chunks, prefix hits, int8 pools. Then four shorter
+     runs of the first 8 requests (4 new tokens) cover the other pool and
+     pack pairs: (4, bf16), (4, fp8), (1, int8), (1, fp8).
+     Before every serving run each kernel's launch count is zeroed; after
+     it the run's kernels must have launched. Every kernel variant in the
+     summary launched on one of these full-width runs.
+  5. card vs CPU: the same engine at glm4 smoke size on both, same
+     weights and requests, at (prefill_pack, kv_dtype) = (1, bf16),
+     (4, bf16), (4, int8) and (1, fp8): greedy tokens must agree, except
+     after a first difference whose top-2 logit margin is below the bf16
+     tolerance. On the card, pack 4 and pack 1 give the same bf16 tokens.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -43,6 +65,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same source
 TOL = 1e-2
 DEV = "cuda"                     # every phase runs on the card
+KV_DTYPES = ("bf16", "int8", "fp8")
+DECODE_SRC = "src/repro_torch/csrc/paged_attention.cu"
+RAGGED_SRC = "src/repro_torch/csrc/ragged_paged_attention.cu"
+REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:203",
+            "paged_prefill_attention":
+                "src/repro/kernels/paged_attention.py:417",
+            "ragged_paged_prefill_attention":
+                "src/repro/kernels/paged_attention.py:682",
+            "gather": "src/repro/kernels/embedding.py:23"}
 
 
 def fail(msg: str) -> None:
@@ -56,9 +87,21 @@ def check(cond, msg: str) -> None:
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time for the work on the card: bytes over HBM rate or
-    operations over the bf16 peak, whichever is larger."""
+    operations over the bf16 peak, whichever is larger. The paged kernels
+    dequantize int8/fp8 keys and values to bf16 before the products, so
+    their operations count at the bf16 rate."""
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def variant(kernel: str, pool: str) -> str:
+    """Summary name of a kernel over a pool dtype."""
+    return kernel if pool == "bf16" else f"{kernel}_{pool}"
+
+
+def kv_row_bytes(kv: str, K: int, hd: int) -> int:
+    """Bytes of one token's K (or V) across its kv heads, scales included."""
+    return K * (2 * hd if kv == "bf16" else hd + 4)
 
 
 class Timer:
@@ -113,6 +156,16 @@ def paged_case(torch, gen, B, H, K, hd, bs, nb, ctx, C=None):
     return q, kp, vp, bt, ctx
 
 
+def pools_in(kv, kp, vp):
+    """bf16 pools -> (k, v, scale keywords) stored as ``kv``."""
+    if kv == "bf16":
+        return kp, vp, {}
+    from repro_torch.models.quant import quantize_kv
+    k, ks = quantize_kv(kp, kv)
+    v, vs = quantize_kv(vp, kv)
+    return k, v, {"k_scale": ks, "v_scale": vs}
+
+
 def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -130,96 +183,230 @@ def row_err(a, b) -> float:
 
 
 def check_close(name: str, a, b) -> tuple[float, float]:
-    """Kernel vs plain: every row within TOL relative, and TOL absolute
-    as an outer cap. Returns (max abs err, max row relative err)."""
+    """Kernel vs plain: every row within TOL relative to its norm, and
+    every value within TOL absolute as an outer cap, TOL relative where
+    the plain value exceeds 1 in magnitude (there one bf16 ulp of the
+    output is 2^-8 relative: 0.0156 between 2 and 4, which rows that see
+    only a few keys reach). Returns (max abs err, max row relative
+    err)."""
     e, r = err(a, b), row_err(a, b)
-    check(e <= TOL and r <= TOL, f"{name}: max abs err {e}, max row "
-          f"relative err {r} (limit {TOL})")
+    scaled = float(((a.float() - b.float()).abs()
+                    / b.float().abs().clamp(min=1.0)).max())
+    check(scaled <= TOL and r <= TOL, f"{name}: max abs err {e} ({scaled} "
+          f"scaled to max(1, |plain|)), max row relative err {r} (limit "
+          f"{TOL})")
     return e, r
 
 
-def check_kernels(torch, timer):
-    from repro_torch.kernels import embedding as emb
+def same_bytes(a, b) -> bool:
+    import torch
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def check_paged(torch, timer, gen, rows):
+    """Decode and chunk kernels over every pool dtype (phase 2a)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.models.attention import paged_chunk_attention_xla
 
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(0)
     H, K, hd, bs = 32, 2, 128, 16
-    rows = {}
-
     # decode: 8 sequences, contexts up to 2048, one inactive slot
     ctx = [2048, 1536, 1024, 777, 2000, 1, 0, 300]
     B, nb = len(ctx), 2048 // bs
-    q, kp, vp, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs, nb, ctx)
-    o_k = pa.paged_attention(q, kp, vp, bt, ctxt)
-    o_p = ref.paged_attention_ref(q, kp, vp, bt, ctxt)
-    e, rel = check_close("paged_attention vs plain", o_k, o_p)
-    check(bool((o_k[6] == 0).all()), "paged_attention: ctx=0 row not zero")
-    # a one-row chunk is a decode step, bit for bit
-    o_c = pa.paged_prefill_attention(
-        q[:, None].contiguous(), kp, vp, bt, ctxt,
-        torch.ones(B, dtype=torch.int32, device=DEV))
-    check(torch.equal(o_c[:, 0], o_k), "chunk(C=1) != decode bitwise")
+    q, kp16, vp16, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs, nb,
+                                         ctx)
+    ones = torch.ones(B, dtype=torch.int32, device=DEV)
     S = sum(ctx)
-    b_dec = (2 * q.numel() * 2 + 2 * S * K * hd * 2 + bt.numel() * 4
-             + B * 4)
-    rows["paged_attention"] = dict(
-        source="src/repro_torch/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:203",
-        max_abs_err=e, max_row_rel_err=rel,
-        ms=timer(lambda: pa.paged_attention(q, kp, vp, bt, ctxt)),
-        plain_ms=timer(lambda: ref.paged_attention_ref(q, kp, vp, bt, ctxt)),
-        library_ms=None,
-        shape=f"B={B} H={H} K={K} hd={hd} bs={bs} ctx={ctx}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(b_dec, 4.0 * S * H * hd))))
+    for kv in KV_DTYPES:
+        kp, vp, sc = pools_in(kv, kp16, vp16)
+        o_k = pa.paged_attention(q, kp, vp, bt, ctxt, **sc)
+        o_p = ref.paged_attention_ref(q, kp, vp, bt, ctxt, **sc)
+        e, rel = check_close(f"paged_attention[{kv}] vs plain", o_k, o_p)
+        check(bool((o_k[6] == 0).all()),
+              f"paged_attention[{kv}]: ctx=0 row not zero")
+        # a one-row chunk is a decode step, bit for bit
+        o_c = pa.paged_prefill_attention(q[:, None].contiguous(), kp, vp, bt,
+                                         ctxt, ones, **sc)
+        check(torch.equal(o_c[:, 0], o_k), f"[{kv}] chunk(C=1) != decode "
+              "bitwise")
+        b_dec = (2 * q.numel() * 2 + 2 * S * kv_row_bytes(kv, K, hd)
+                 + bt.numel() * 4 + B * 4)
+        rows[variant("paged_attention", kv)] = dict(
+            kernel="paged_attention", source=DECODE_SRC,
+            max_abs_err=e, max_row_rel_err=rel,
+            ms=timer(lambda: pa.paged_attention(q, kp, vp, bt, ctxt, **sc)),
+            plain_ms=timer(lambda: ref.paged_attention_ref(
+                q, kp, vp, bt, ctxt, **sc)),
+            library_ms=None,
+            shape=f"B={B} H={H} K={K} hd={hd} bs={bs} ctx={ctx}",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_dec, 4.0 * S * H * hd))))
 
     # chunked prefill: one 256-row chunk ending at 2048 tokens, 200 rows
     # valid (the rest are padding and must come out as exact zeros)
     C, qlen, ctx1 = 256, 200, 2048
-    q, kp, vp, bt, ctxt = paged_case(torch, gen, 1, H, K, hd, bs, nb, [ctx1],
-                                     C=C)
+    q, kp16, vp16, bt, ctxt = paged_case(torch, gen, 1, H, K, hd, bs, nb,
+                                         [ctx1], C=C)
     ql = torch.tensor([qlen], dtype=torch.int32, device=DEV)
-    o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql)
-    o_p = paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql)
-    e, rel = check_close("paged_prefill_attention vs plain",
-                         o_k[:, :qlen], o_p[:, :qlen])
-    check(bool((o_k[:, qlen:] == 0).all()), "chunk padding rows not zero")
     keys = sum(ctx1 - qlen + i + 1 for i in range(qlen))   # causal pairs
-    b_chk = 2 * q.numel() * 2 + 2 * ctx1 * K * hd * 2 + bt.numel() * 4 + 8
-    rows["paged_prefill_attention"] = dict(
-        source="src/repro_torch/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:417",
-        max_abs_err=e, max_row_rel_err=rel,
-        ms=timer(lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql)),
-        plain_ms=timer(lambda: paged_chunk_attention_xla(q, kp, vp, bt,
-                                                         ctxt, ql)),
-        library_ms=None,
-        shape=f"B=1 C={C} q_len={qlen} ctx={ctx1} H={H} K={K} hd={hd}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(b_chk, 4.0 * keys * H * hd))))
+    for kv in KV_DTYPES:
+        kp, vp, sc = pools_in(kv, kp16, vp16)
+        o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql, **sc)
+        o_p = paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql, **sc)
+        e, rel = check_close(f"paged_prefill_attention[{kv}] vs plain",
+                             o_k[:, :qlen], o_p[:, :qlen])
+        check(bool((o_k[:, qlen:] == 0).all()),
+              f"[{kv}] chunk padding rows not zero")
+        b_chk = (2 * q.numel() * 2 + 2 * ctx1 * kv_row_bytes(kv, K, hd)
+                 + bt.numel() * 4 + 8)
+        rows[variant("paged_prefill_attention", kv)] = dict(
+            kernel="paged_prefill_attention", source=DECODE_SRC,
+            max_abs_err=e, max_row_rel_err=rel,
+            ms=timer(lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
+                                                        ql, **sc)),
+            plain_ms=timer(lambda: paged_chunk_attention_xla(
+                q, kp, vp, bt, ctxt, ql, **sc)),
+            library_ms=None,
+            shape=f"B=1 C={C} q_len={qlen} ctx={ctx1} H={H} K={K} hd={hd}",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_chk, 4.0 * keys * H * hd))))
 
     # window + softcap, multi-sequence chunks with an empty one, at the
     # full head dim and the smoke head dim
     for (Hs, Ks, hds) in ((H, K, hd), (4, 2, 16)):
-        q, kp, vp, bt, ctxt = paged_case(torch, gen, 3, Hs, Ks, hds, bs, 8,
-                                         [128, 37, 0], C=40)
+        q, kp16, vp16, bt, ctxt = paged_case(torch, gen, 3, Hs, Ks, hds, bs,
+                                             8, [128, 37, 0], C=40)
         ql = torch.tensor([40, 11, 0], dtype=torch.int32, device=DEV)
-        kw = dict(window=50, cap=30.0)
-        o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql, **kw)
-        o_r = ref.paged_prefill_attention_ref(q, kp, vp, bt, ctxt, ql, **kw)
-        check_close(f"window+cap chunk hd={hds}", o_k, o_r)
-        check(bool((o_k[1, 11:] == 0).all() and (o_k[2] == 0).all()),
-              f"window+cap chunk hd={hds}: padding rows not zero")
         q1 = q[:, 0].contiguous()
         ctx_d = torch.tensor([128, 27, 0], dtype=torch.int32, device=DEV)
-        o_d = pa.paged_attention(q1, kp, vp, bt, ctx_d, **kw)
-        check_close(f"window+cap decode hd={hds}", o_d,
-                    ref.paged_attention_ref(q1, kp, vp, bt, ctx_d, **kw))
+        kw = dict(window=50, cap=30.0)
+        for kv in KV_DTYPES:
+            kp, vp, sc = pools_in(kv, kp16, vp16)
+            o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql, **kw,
+                                             **sc)
+            o_r = ref.paged_prefill_attention_ref(q, kp, vp, bt, ctxt, ql,
+                                                  **kw, **sc)
+            check_close(f"window+cap chunk hd={hds} [{kv}]", o_k, o_r)
+            check(bool((o_k[1, 11:] == 0).all() and (o_k[2] == 0).all()),
+                  f"window+cap chunk hd={hds} [{kv}]: padding rows not "
+                  "zero")
+            o_d = pa.paged_attention(q1, kp, vp, bt, ctx_d, **kw, **sc)
+            check_close(f"window+cap decode hd={hds} [{kv}]", o_d,
+                        ref.paged_attention_ref(q1, kp, vp, bt, ctx_d, **kw,
+                                                **sc))
         print(f"[kernels] window=50 cap=30 hd={hds}: chunk and decode "
-              f"within {TOL}", flush=True)
+              f"within {TOL} over {'/'.join(KV_DTYPES)} pools", flush=True)
+
+
+def check_ragged(torch, timer, gen, rows):
+    """The packed kernel, without and with the fused write (phase 2b)."""
+    import numpy as np
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import (ragged_chunk_attention_xla,
+                                              update_paged_cache_ragged)
+    from repro_torch.models.quant import quantize_kv
+    from repro_torch.serving.engine import pack_ragged
+
+    H, K, hd, bs, T = 32, 2, 128, 16, 512
+    q_lens, ctx = [200, 96, 150, 40], [2048, 96, 700, 1000]
+    S, nb = len(q_lens), 2048 // bs
+    q, kp16, vp16, bt, ctxt = paged_case(torch, gen, S, H, K, hd, bs, nb,
+                                         ctx, C=T)
+    q = q[0].contiguous()                                   # (T, H, hd)
+    _, seq, st, en = (torch.from_numpy(a).to(DEV) for a in pack_ragged(
+        [np.zeros(n) for n in q_lens], T, S))
+    pad = torch.ones(T, dtype=torch.bool, device=DEV)
+    for a, b in zip(st.tolist(), en.tolist()):
+        pad[a:b] = False
+    check(int(pad.sum()) == T - sum(q_lens), "packing")
+    own = ~pad
+    kn16 = torch.randn((T, K, hd), generator=gen, device=DEV).bfloat16()
+    vn16 = torch.randn((T, K, hd), generator=gen, device=DEV).bfloat16()
+    seqs = (bt, ctxt, st, en)
+    pairs = sum(n * (c - n) + n * (n + 1) // 2 for n, c in zip(q_lens, ctx))
+    flops = 4.0 * pairs * H * hd
+    zero1 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    for kv in KV_DTYPES:
+        name = f"ragged_paged_prefill_attention[{kv}]"
+        kp, vp, sc = pools_in(kv, kp16, vp16)
+        o_k = pa.ragged_paged_prefill_attention(q, kp, vp, *seqs, **sc)
+        o_p = ragged_chunk_attention_xla(q, kp, vp, *seqs, seq, **sc)
+        e_n, rel_n = check_close(f"{name} vs plain", o_k[own], o_p[own])
+        check(bool((o_k[pad] == 0).all()), f"{name}: unowned rows not zero")
+        # one sequence alone == the chunk kernel; packed == unpacked
+        for s, (a, b) in enumerate(zip(st.tolist(), en.tolist())):
+            one = torch.zeros_like(q)
+            one[:b - a] = q[a:b]
+            tab, cx = bt[s:s + 1].contiguous(), ctxt[s:s + 1].contiguous()
+            ql = (en - st)[s:s + 1].contiguous()
+            o_c = pa.paged_prefill_attention(one[None], kp, vp, tab, cx, ql,
+                                             **sc)[0]
+            o_1 = pa.ragged_paged_prefill_attention(one, kp, vp, tab, cx,
+                                                    zero1, ql, **sc)
+            check(torch.equal(o_1, o_c), f"{name}: S=1 != chunk kernel "
+                  f"(sequence {s})")
+            check(torch.equal(o_k[a:b], o_c[:b - a]),
+                  f"{name}: packed != unpacked (sequence {s})")
+        # the fused write: new rows quantized first, their scale rows in
+        # the scale pools before the launch
+        kn, vn, nsc = kn16, vn16, {}
+        if kv != "bf16":
+            kn, ksr = quantize_kv(kn16, kv)
+            vn, vsr = quantize_kv(vn16, kv)
+            nsc = {n: update_paged_cache_ragged(sc[n].clone(), r[None],
+                                                *seqs, seq)
+                   for n, r in (("k_scale", ksr), ("v_scale", vsr))}
+        k1, v1 = kp.clone(), vp.clone()
+        o_w, _, _ = pa.ragged_paged_prefill_attention(
+            q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)
+        k2 = update_paged_cache_ragged(kp.clone(), kn[None], *seqs, seq)
+        v2 = update_paged_cache_ragged(vp.clone(), vn[None], *seqs, seq)
+        check(same_bytes(k1[1:], k2[1:]) and same_bytes(v1[1:], v2[1:]),
+              f"{name}: pool bytes after the fused write != the scatter")
+        check(not same_bytes(k1, kp), f"{name}: the fused write wrote nothing")
+        check(torch.equal(o_w, pa.ragged_paged_prefill_attention(
+            q, k2, v2, *seqs, **nsc)), f"{name}: fused != scatter + kernel")
+        e, rel = check_close(f"{name} fused vs plain", o_w[own],
+                             ragged_chunk_attention_xla(q, k2, v2, *seqs,
+                                                        seq, **nsc)[own])
+
+        def plain_fused():
+            update_paged_cache_ragged(k2, kn[None], *seqs, seq)
+            update_paged_cache_ragged(v2, vn[None], *seqs, seq)
+            return ragged_chunk_attention_xla(q, k2, v2, *seqs, seq, **nsc)
+
+        qb = 2 * q.numel() * 2                      # q read + out written
+        rb = kv_row_bytes(kv, K, hd)
+        eb = 2 if kv == "bf16" else 1
+        meta = bt.numel() * 4 + 3 * S * 4
+        b_read = qb + 2 * sum(ctx) * rb + meta
+        b_write = (qb + 2 * (sum(ctx) - sum(q_lens)) * K * hd * eb
+                   + 2 * sum(ctx) * (rb - K * hd * eb)
+                   + 4 * sum(q_lens) * K * hd * eb + meta)
+        nw_bound = bound_ms(b_read, flops)
+        rows[variant("ragged_paged_prefill_attention", kv)] = dict(
+            kernel="ragged_paged_prefill_attention", source=RAGGED_SRC,
+            max_abs_err=e, max_row_rel_err=rel,
+            ms=timer(lambda: pa.ragged_paged_prefill_attention(
+                q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)),
+            plain_ms=timer(plain_fused),
+            library_ms=None,
+            no_write_ms=timer(lambda: pa.ragged_paged_prefill_attention(
+                q, kp, vp, *seqs, **sc)),
+            no_write_plain_ms=timer(lambda: ragged_chunk_attention_xla(
+                q, kp, vp, *seqs, seq, **sc)),
+            no_write_bound_ms=nw_bound[0], no_write_max_abs_err=e_n,
+            no_write_max_row_rel_err=rel_n,
+            shape=f"T={T} S={S} q_lens={q_lens} ctx={ctx} H={H} K={K} "
+                  f"hd={hd} bs={bs}; fused KV write ({pairs} row-key pairs)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_write, flops))))
+        print(f"[kernels] {name}: S=1 == chunk kernel, packed == unpacked, "
+              "fused write == scatter (bit for bit)", flush=True)
+
+
+def check_gather(torch, timer, gen, rows):
+    from repro_torch.kernels import embedding as emb
 
     # embedding gather from the full glm4 table: a 256-token chunk row
     # (the decode batch's 8 ids are checked too)
@@ -235,8 +422,7 @@ def check_kernels(torch, timer):
           "gather != table[ids]")
     flat = ids.reshape(-1)
     rows["gather"] = dict(
-        source="src/repro_torch/csrc/embedding.cu",
-        replaces="src/repro/kernels/embedding.py:23",
+        kernel="gather", source="src/repro_torch/csrc/embedding.cu",
         max_abs_err=0.0, max_row_rel_err=0.0,
         ms=timer(lambda: emb.gather(table, ids)),
         plain_ms=timer(lambda: emb.gather_plain(table, ids)),
@@ -245,22 +431,133 @@ def check_kernels(torch, timer):
               f"{timer(lambda: emb.gather(table, ids8)):.4f} ms",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(2 * 256 * d * 2 + 256 * 4, 0.0))))
-    del table
+
+
+def check_kernels(torch, timer):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    rows = {}
+    check_paged(torch, timer, gen, rows)
+    check_ragged(torch, timer, gen, rows)
+    check_gather(torch, timer, gen, rows)
     for name, r in rows.items():
+        extra = ""
+        if "no_write_ms" in r:
+            extra = (f" no_write: kernel_ms={r['no_write_ms']:.4f} "
+                     f"plain_ms={r['no_write_plain_ms']:.4f} "
+                     f"bound_ms={r['no_write_bound_ms']:.4f} "
+                     f"max_row_rel_err={r['no_write_max_row_rel_err']:.3g}")
         print(f"[kernels] {name}: {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"max_abs_err={r['max_abs_err']:.3g} "
-              f"max_row_rel_err={r['max_row_rel_err']:.3g}", flush=True)
+              f"max_row_rel_err={r['max_row_rel_err']:.3g}{extra}",
+              flush=True)
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve glm4_9b at full width and depth
+# launch counts
 # ---------------------------------------------------------------------------
 
 
+def reset_launches(counters) -> None:
+    for fn in counters:
+        if isinstance(fn.launches, dict):
+            fn.launches.clear()
+        else:
+            fn.launches = 0
+
+
+def read_launches(counters) -> dict:
+    """{summary name: launches since the last reset}."""
+    out = {}
+    for fn in counters:
+        if isinstance(fn.launches, dict):
+            for pool, n in fn.launches.items():
+                out[variant(fn.__name__, pool)] = n
+        else:
+            out[fn.__name__] = fn.launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: serve glm4_9b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def serve(torch, counters, eng, reqs, max_new, expect):
+    """One instrumented ``eng.run``: launch counts zeroed before and read
+    after (the kernels named in ``expect`` must have launched), per-step
+    wall times, finite logits, tokens in range, the most chunks any step
+    carried. Returns the run's measurements."""
+    cfg = eng.cfg
+    step_s, finite, widest = [], [], [0]
+    run_step, sample = eng.runner.step, eng.runner._sample
+    schedule = eng.sched.schedule
+
+    def timed_step(*a, **kw):
+        t = time.monotonic()
+        out = run_step(*a, **kw)
+        step_s.append((kw["has_chunk"], time.monotonic() - t))
+        return out
+
+    def checked_sample(logits_d, logits_c, a):
+        for lg in (logits_d, logits_c):
+            if lg is not None:
+                finite.append(bool(torch.isfinite(
+                    lg[:, :cfg.vocab_size]).all()))
+        return sample(logits_d, logits_c, a)
+
+    def counted_schedule():
+        plan = schedule()
+        widest[0] = max(widest[0], len(plan.chunks))
+        return plan
+
+    eng.runner.step, eng.runner._sample = timed_step, checked_sample
+    eng.sched.schedule = counted_schedule
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    outs = eng.run(reqs)
+    launches = read_launches(counters)
+    s = eng.stats
+    for r in reqs:
+        o = outs[r.rid]
+        check(len(o) == max_new, f"request {r.rid}: {len(o)} tokens, not "
+              f"{max_new}")
+        check(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
+              f"request {r.rid}: token out of range")
+    check(all(finite), "non-finite logits")
+    for name in expect:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} never launched on the main path")
+    chunk_s = [t for c, t in step_s if c]
+    dec_s = [t for c, t in step_s if not c]
+    lat = [s["latency"][r.rid] for r in reqs]
+    ttft = [x["first_token_wall"] - x["arrival_wall"] for x in lat]
+    gap = [(x["done_wall"] - x["first_token_wall"]) / max(max_new - 1, 1)
+           for x in lat]
+    return {"kv_dtype": s["kv_dtype"], "prefill_pack": eng.prefill_pack,
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+            "token_gap_s_median": statistics.median(gap),
+            "token_gap_s_max": max(gap),
+            "tok_s": s["tok_s"], "wall_s": s["wall_s"], "steps": s["steps"],
+            "tokens": s["tokens"], "first_step_s": step_s[0][1],
+            "chunk_step_ms_mean": 1e3 * sum(chunk_s[1:]) / max(
+                len(chunk_s) - 1, 1),
+            "decode_step_ms_mean": 1e3 * sum(dec_s) / max(len(dec_s), 1),
+            "chunk_steps": len(chunk_s), "decode_steps": len(dec_s),
+            "most_chunks_in_a_step": widest[0],
+            "cache_hit_tokens": s["cache_hit_tokens"],
+            "prefill_chunks": s["prefill_chunks"],
+            "kv_cache_mib": s["kv_cache_mib"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+
+
 def serve_full(torch, counters, card):
+    """Phase 3: bf16 pools, one chunk per step. Returns (measurements,
+    the engine's parameters, kept for phase 4)."""
     import numpy as np
     from repro_torch.config import get_config
     from repro_torch.serving import InferenceEngine, Request
@@ -278,71 +575,88 @@ def serve_full(torch, counters, card):
     reqs = [Request(np.concatenate(
         [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)]),
         max_new=32) for _ in range(8)]
-
-    # instrument the runner: per-step wall time and finite logits
-    step_s, finite = [], []
-    run_step, sample = eng.runner.step, eng.runner._sample
-
-    def timed_step(*a, **kw):
-        t = time.monotonic()
-        out = run_step(*a, **kw)
-        step_s.append((kw["has_chunk"], time.monotonic() - t))
-        return out
-
-    def checked_sample(logits_d, logits_c, a):
-        for lg in (logits_d, logits_c):
-            if lg is not None:
-                finite.append(bool(torch.isfinite(
-                    lg[:, :cfg.vocab_size]).all()))
-        return sample(logits_d, logits_c, a)
-
-    eng.runner.step, eng.runner._sample = timed_step, checked_sample
-    for fn in counters:
-        fn.launches = 0
-    outs = eng.run(reqs)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    s = eng.stats
-    for r in reqs:
-        o = outs[r.rid]
-        check(len(o) == 32, f"request {r.rid}: {len(o)} tokens, not 32")
-        check(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
-              f"request {r.rid}: token out of range")
-    check(all(finite), "non-finite logits")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
-    check(s["cache_hit_tokens"] > 0, "no prefix-cache hits")
-    check(s["prefill_chunks"] > len(reqs), "no prompt took two chunks")
-    chunk_s = [t for c, t in step_s if c]
-    dec_s = [t for c, t in step_s if not c]
-    lat = [s["latency"][r.rid] for r in reqs]
-    ttft = [x["first_token_wall"] - x["arrival_wall"] for x in lat]
-    gap = [(x["done_wall"] - x["first_token_wall"]) / 31 for x in lat]
-    res = {"params": cfg.param_count(), "init_s": init_s,
-           "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
-           "token_gap_s_median": statistics.median(gap),
-           "token_gap_s_max": max(gap),
-           "tok_s": s["tok_s"], "wall_s": s["wall_s"], "steps": s["steps"],
-           "tokens": s["tokens"], "first_step_s": step_s[0][1],
-           "chunk_step_ms_mean": 1e3 * sum(chunk_s[1:]) / max(
-               len(chunk_s) - 1, 1),
-           "decode_step_ms_mean": 1e3 * sum(dec_s) / max(len(dec_s), 1),
-           "chunk_steps": len(chunk_s), "decode_steps": len(dec_s),
-           "cache_hit_tokens": s["cache_hit_tokens"],
-           "prefill_chunks": s["prefill_chunks"],
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": launches}
+    res = serve(torch, counters, eng, reqs, 32,
+                ("paged_attention", "paged_prefill_attention", "gather"))
+    check(res["cache_hit_tokens"] > 0, "no prefix-cache hits")
+    check(res["prefill_chunks"] > len(reqs), "no prompt took two chunks")
+    res.update(params=cfg.param_count(), init_s=init_s)
     print(f"[serve] {card}: glm4_9b full width, 40 layers "
-          f"({res['params'] / 1e9:.2f} B params): {res['tok_s']} tok/s, "
-          f"decode step {res['decode_step_ms_mean']:.1f} ms, chunk step "
+          f"({res['params'] / 1e9:.2f} B params), bf16 pools: "
+          f"{res['tok_s']} tok/s, decode step "
+          f"{res['decode_step_ms_mean']:.1f} ms, chunk step "
           f"{res['chunk_step_ms_mean']:.1f} ms: {json.dumps(res)}",
           flush=True)
+    params = eng.params
     del eng
     torch.cuda.empty_cache()
-    return res
+    return res, params
+
+
+def packed_requests(cfg, n, max_new):
+    """Phase 4's requests: prompt lengths drawn from [96, 480] (seed 0),
+    the first 8 starting with one shared 128-token prefix."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(96, 481, 16)
+    prefix = rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+    reqs = []
+    for i, n_tok in enumerate(lens[:n]):
+        p = rng.integers(0, cfg.vocab_size, int(n_tok)).astype(np.int32)
+        if i < 8:
+            k = min(128, len(p))
+            p[:k] = prefix[:k]
+        reqs.append(Request(p, max_new=max_new))
+    return reqs
+
+
+def serve_packed(torch, counters, card, params):
+    """Phase 4: int8 pools with prefill_pack 4 (16 requests), then the
+    other pool/pack pairs at full width (8 requests, 4 new tokens)."""
+    from repro_torch.config import get_config
+    from repro_torch.serving import InferenceEngine
+
+    cfg = get_config("glm4_9b")
+    runs = [(4, "int8", 16, 16), (4, "bf16", 8, 4), (4, "fp8", 8, 4),
+            (1, "int8", 8, 4), (1, "fp8", 8, 4)]
+    results = []
+    for pack, kv, n, max_new in runs:
+        eng = InferenceEngine(cfg, device=DEV, params=params, max_batch=8,
+                              block_size=16, max_len=1024,
+                              max_num_batched_tokens=8 + 512, seed=0,
+                              prefill_pack=pack, kv_dtype=kv)
+        check(eng.chunk_width == 512 and eng.prefill_pack == pack,
+              f"chunk width {eng.chunk_width}, pack {eng.prefill_pack}")
+        from repro_torch.models.quant import KV_DTYPES
+        check(eng.cache["k"].dtype == KV_DTYPES[kv],
+              f"pools are {eng.cache['k'].dtype}, not {kv}")
+        prefill = ("ragged_paged_prefill_attention" if pack > 1
+                   else "paged_prefill_attention")
+        res = serve(torch, counters, eng, packed_requests(cfg, n, max_new),
+                    max_new, (variant(prefill, kv),
+                              variant("paged_attention", kv), "gather"))
+        check(res["cache_hit_tokens"] > 0, f"({pack}, {kv}): no prefix hits")
+        if pack > 1:
+            check(res["most_chunks_in_a_step"] >= 2,
+                  f"({pack}, {kv}): no step carried two chunks")
+        res["requests"] = n
+        print(f"[serve-packed] {card}: glm4_9b full width, prefill_pack "
+              f"{pack}, {kv} pools, {n} requests: {res['tok_s']} tok/s, "
+              f"decode step {res['decode_step_ms_mean']:.1f} ms, chunk step "
+              f"{res['chunk_step_ms_mean']:.1f} ms, TTFT median "
+              f"{res['ttft_s_median']:.3f} s max {res['ttft_s_max']:.3f} s, "
+              f"token gap median {1e3 * res['token_gap_s_median']:.1f} ms "
+              f"max {1e3 * res['token_gap_s_max']:.1f} ms, peak "
+              f"{res['peak_mem_gib']:.2f} GiB: {json.dumps(res)}",
+              flush=True)
+        results.append(res)
+        del eng
+        torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card vs CPU at smoke size
+# phase 5: card vs CPU at smoke size
 # ---------------------------------------------------------------------------
 
 
@@ -365,41 +679,54 @@ def card_vs_cpu(torch):
                rng.integers(0, cfg.vocab_size, 20).astype(np.int32)]
     kw = dict(max_batch=2, block_size=16, max_len=96, num_blocks=8,
               max_num_batched_tokens=2 + 12, debug_invariants=True)
-    outs = {}
-    for dev in (DEV, "cpu"):
-        eng = InferenceEngine(cfg, device=dev, params=params_to(params, dev),
-                              **kw)
-        reqs = [Request(p.copy(), max_new=20) for p in prompts]
-        got = eng.run(reqs, arrival_steps=[0, 5, 9, 9])
-        outs[dev] = [got[r.rid].tolist() for r in reqs]
-        check(eng.stats["preemptions"] >= 1 and eng.stats["cow_copies"] >= 1,
-              f"{dev}: smoke run did not preempt and copy-on-write")
-    margins = []
-    for p, a, b in zip(prompts, outs[DEV], outs["cpu"]):
-        if a == b:
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        toks = np.concatenate([p, np.asarray(b[:i], np.int32)])
-        n = len(toks)
-        nb = -(-n // 16)
-        cache = init_paged_cache(cfg, nb + 1, 16, "cpu")
-        i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
-        batch = {"tokens": i32([toks.tolist()]), "q_start": i32([0]),
-                 "q_lens": i32([n]),
-                 "block_tables": i32([list(range(1, nb + 1))]),
-                 "ctx_lens": i32([n])}
-        with torch.no_grad():
-            lg, _ = transformer.prefill_chunk_paged(params, cache, batch, cfg)
-        top = torch.topk(lg[0, :cfg.vocab_size], 2)
-        margin = float(top.values[0] - top.values[1])
-        margins.append(margin)
-        check(margin < TOL and {a[i], b[i]} == set(top.indices.tolist()),
-              f"card and CPU differ at step {i} with top-2 margin {margin}")
-    same = sum(a == b for a, b in zip(outs[DEV], outs["cpu"]))
-    print(f"[card-vs-cpu] glm4 smoke: {same}/{len(prompts)} requests "
-          f"token-identical; first-difference top-2 margins: {margins}",
-          flush=True)
-    return {"identical": same, "requests": len(prompts), "margins": margins}
+    outs, summary = {}, {}
+    for pack, kv in ((1, "bf16"), (4, "bf16"), (4, "int8"), (1, "fp8")):
+        for dev in (DEV, "cpu"):
+            eng = InferenceEngine(cfg, device=dev,
+                                  params=params_to(params, dev),
+                                  prefill_pack=pack, kv_dtype=kv, **kw)
+            reqs = [Request(p.copy(), max_new=20) for p in prompts]
+            got = eng.run(reqs, arrival_steps=[0, 5, 9, 9])
+            outs[pack, kv, dev] = [got[r.rid].tolist() for r in reqs]
+            check(eng.stats["preemptions"] >= 1
+                  and eng.stats["cow_copies"] >= 1,
+                  f"{dev} ({pack}, {kv}): smoke run did not preempt and "
+                  "copy-on-write")
+        margins = []
+        for p, a, b in zip(prompts, outs[pack, kv, DEV],
+                           outs[pack, kv, "cpu"]):
+            if a == b:
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            toks = np.concatenate([p, np.asarray(b[:i], np.int32)])
+            n = len(toks)
+            nb = -(-n // 16)
+            cache = init_paged_cache(cfg, nb + 1, 16, "cpu", kv)
+            i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+            batch = {"tokens": i32([toks.tolist()]), "q_start": i32([0]),
+                     "q_lens": i32([n]),
+                     "block_tables": i32([list(range(1, nb + 1))]),
+                     "ctx_lens": i32([n])}
+            with torch.no_grad():
+                lg, _ = transformer.prefill_chunk_paged(params, cache, batch,
+                                                        cfg)
+            top = torch.topk(lg[0, :cfg.vocab_size], 2)
+            margin = float(top.values[0] - top.values[1])
+            margins.append(margin)
+            check(margin < TOL and {a[i], b[i]} == set(top.indices.tolist()),
+                  f"({pack}, {kv}): card and CPU differ at step {i} with "
+                  f"top-2 margin {margin}")
+        same = sum(a == b for a, b in zip(outs[pack, kv, DEV],
+                                          outs[pack, kv, "cpu"]))
+        summary[f"pack{pack}_{kv}"] = {"identical": same, "margins": margins}
+        print(f"[card-vs-cpu] glm4 smoke, prefill_pack {pack}, {kv} pools: "
+              f"{same}/{len(prompts)} requests token-identical; "
+              f"first-difference top-2 margins: {margins}", flush=True)
+    check(outs[4, "bf16", DEV] == outs[1, "bf16", DEV],
+          "on the card, prefill_pack 4 and 1 gave different bf16 tokens")
+    print("[card-vs-cpu] on the card, prefill_pack 4 == prefill_pack 1 "
+          "(bf16), token for token", flush=True)
+    return summary
 
 
 def main() -> int:
@@ -436,16 +763,24 @@ def main() -> int:
     rows = check_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
-    counters = (pa.paged_attention, pa.paged_prefill_attention, emb.gather)
-    serve = serve_full(torch, counters, card)
+    counters = (pa.paged_attention, pa.paged_prefill_attention,
+                pa.ragged_paged_prefill_attention, emb.gather)
+    res, params = serve_full(torch, counters, card)
+    runs = [res] + serve_packed(torch, counters, card, params)
+    del params
+    torch.cuda.empty_cache()
     card_vs_cpu(torch)
 
+    launches = {name: sum(r["launches"].get(name, 0) for r in runs)
+                for name in rows}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on a serving path")
     kernels = [dict(name=name, route="cuda", source=r["source"],
-                    replaces=r["replaces"],
-                    launches=serve["launches"][name],
+                    replaces=REPLACES[r["kernel"]], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **{k: v for k, v in r.items() if k.startswith("no_write")})
                for name, r in rows.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``src/repro_torch/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
-into its own shared library with a plain C interface. The libraries land
-in ``build/repro_torch/<hash>/`` at the repo root, keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one
-loads at once. All ``nvcc`` processes start together. Nothing here runs
+into its own shared library with a plain C interface; ``*.cuh`` headers
+there are shared between sources. The libraries land in
+``build/repro_torch/<hash>/`` at the repo root, keyed by a hash of the
+sources, headers and flags, so an edited source rebuilds and an unchanged
+one loads at once. All ``nvcc`` processes start together. Nothing here runs
 at import: the CPU tests import every module of the package, and this
 host may have no ``nvcc``.
 """
@@ -39,7 +40,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """The directory the current sources build into."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

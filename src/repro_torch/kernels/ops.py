@@ -4,8 +4,11 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises;
 nothing falls back. A CPU tensor goes to the plain PyTorch version, which
 is what the JAX package's ops run off the TPU (``repro.kernels.ops``):
 ``ref.paged_attention_ref`` for decode, ``paged_chunk_attention_xla`` for
-chunked prefill, ``table[ids]`` for the gather. There is no switch
-between the two other than where the tensors live.
+chunked prefill, ``ragged_chunk_attention_xla`` for packed prefill (after
+``update_paged_cache_ragged`` for the fused write), ``table[ids]`` for the
+gather. There is no switch between the two other than where the tensors
+live. ``k_scale``/``v_scale`` mark int8/fp8 pools, dequantized in-tile by
+the kernels and after the gather by the plain versions.
 """
 
 from __future__ import annotations
@@ -16,28 +19,70 @@ from repro_torch.kernels import ref
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
-                    window=None, cap=None, scale=None):
+                    window=None, cap=None, scale=None, k_scale=None,
+                    v_scale=None):
     """Decode attention through a block table. q: (B, H, hd)."""
-    if q.is_cuda:
-        return pa.paged_attention(q, k_pages, v_pages, block_tables,
-                                  ctx_lens, window=window, cap=cap,
-                                  scale=scale)
-    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   ctx_lens, window=window, cap=cap,
-                                   scale=scale)
+    fn = pa.paged_attention if q.is_cuda else ref.paged_attention_ref
+    return fn(q, k_pages, v_pages, block_tables, ctx_lens, window=window,
+              cap=cap, scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
-                            q_lens, *, window=None, cap=None, scale=None):
+                            q_lens, *, window=None, cap=None, scale=None,
+                            k_scale=None, v_scale=None):
     """Chunked-prefill attention through a block table. q: (B, C, H, hd)."""
     if q.is_cuda:
-        return pa.paged_prefill_attention(q, k_pages, v_pages, block_tables,
-                                          ctx_lens, q_lens, window=window,
-                                          cap=cap, scale=scale)
-    from repro_torch.models.attention import paged_chunk_attention_xla
-    return paged_chunk_attention_xla(q, k_pages, v_pages, block_tables,
-                                     ctx_lens, q_lens, window=window,
-                                     cap=cap, scale=scale)
+        fn = pa.paged_prefill_attention
+    else:
+        from repro_torch.models.attention import \
+            paged_chunk_attention_xla as fn
+    return fn(q, k_pages, v_pages, block_tables, ctx_lens, q_lens,
+              window=window, cap=cap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+
+
+def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
+                                   ctx_lens, starts, ends, row_seq, *,
+                                   window=None, cap=None, scale=None,
+                                   k_scale=None, v_scale=None):
+    """Packed (ragged) chunked-prefill attention through per-sequence
+    block tables: q (T, H, hd), sequence s owning flat rows [starts[s],
+    ends[s]), row_seq each row's owner. The chunk's own KV must already
+    be in the pages."""
+    kw = dict(window=window, cap=cap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return pa.ragged_paged_prefill_attention(
+            q, k_pages, v_pages, block_tables, ctx_lens, starts, ends, **kw)
+    from repro_torch.models.attention import ragged_chunk_attention_xla
+    return ragged_chunk_attention_xla(q, k_pages, v_pages, block_tables,
+                                      ctx_lens, starts, ends, row_seq, **kw)
+
+
+def ragged_prefill_update_attend(q, k_new, v_new, k_pages, v_pages,
+                                 block_tables, ctx_lens, starts, ends,
+                                 row_seq, *, window=None, cap=None,
+                                 scale=None, k_scale=None, v_scale=None):
+    """Packed-prefill KV store and attention in one op: k_new / v_new
+    (T, K, hd) in the flat row layout of q, already quantized for an
+    int8/fp8 pool whose scale pools already hold the chunk's scale rows.
+    Returns ``(o, k_pages, v_pages)``, the pools updated in place: by the
+    kernel's fused write on the card, by ``update_paged_cache_ragged``
+    before the attention on the CPU (the same pool bytes)."""
+    kw = dict(window=window, cap=cap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return pa.ragged_paged_prefill_attention(
+            q, k_pages, v_pages, block_tables, ctx_lens, starts, ends,
+            k_new=k_new, v_new=v_new, **kw)
+    from repro_torch.models.attention import (ragged_chunk_attention_xla,
+                                              update_paged_cache_ragged)
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        update_paged_cache_ragged(pool, new[None], block_tables, ctx_lens,
+                                  starts, ends, row_seq)
+    o = ragged_chunk_attention_xla(q, k_pages, v_pages, block_tables,
+                                   ctx_lens, starts, ends, row_seq, **kw)
+    return o, k_pages, v_pages
 
 
 def embedding_gather(table, ids):

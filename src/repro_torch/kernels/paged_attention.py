@@ -1,44 +1,55 @@
-"""Paged attention (decode and chunked prefill): the hand-written CUDA
-kernels, ported from the Pallas TPU kernels ``paged_attention`` and
-``paged_prefill_attention`` in ``repro.kernels.paged_attention``.
+"""Paged attention (decode, chunked prefill and packed ragged prefill): the
+hand-written CUDA kernels, ported from the Pallas TPU kernels
+``paged_attention``, ``paged_prefill_attention`` and
+``ragged_paged_prefill_attention`` in ``repro.kernels.paged_attention``.
 
-Both wrappers launch ``csrc/paged_attention.cu``, which follows the
-Pallas schedule: one program per (sequence, kv head) walking the block
+The wrappers launch ``csrc/paged_attention.cu`` (decode, chunk) and
+``csrc/ragged_paged_attention.cu`` (packed, optionally with the fused KV
+write), one templated kernel (``csrc/paged_attention.cuh``) that follows
+the Pallas schedule: one program per (sequence, kv head) walking the block
 table in order with an fp32 online softmax, the masked-row guard, and a
 divide by the running sum at the end. The plain versions of the same
-functions are ``kernels.ref.paged_attention_ref`` (decode) and
-``models.attention.paged_chunk_attention_xla`` (chunk); they follow the
-repo's rounding convention instead (normalize, cast, then multiply by V),
-so kernel and plain agree to the bf16 tolerance, not bit for bit.
+functions are ``kernels.ref.paged_attention_ref`` (decode),
+``models.attention.paged_chunk_attention_xla`` (chunk) and
+``models.attention.ragged_chunk_attention_xla`` (packed; with
+``update_paged_cache_ragged`` before it for the fused write). They follow
+the repo's rounding convention instead (normalize, cast, then multiply by
+V), so kernel and plain agree to the bf16 tolerance, not bit for bit.
+Between the kernels a row's bits depend only on its own query and keys:
+a 1-row chunk equals a decode step, and a packed sequence equals its
+unpacked chunk.
 
-Layouts are the JAX package's: q (B, H, hd) or (B, C, H, hd), page pools
-(num_blocks, block_size, K, hd), block tables (B, nb) int32, ctx_lens and
-q_lens (B,) int32. The kernels take bf16 only, block_size up to 32 and
-head_dim 128 (glm4_9b) or 16 (its smoke size).
+Layouts are the JAX package's: q (B, H, hd), (B, C, H, hd) or flat
+(T, H, hd); page pools (num_blocks, block_size, K, hd) in bf16, int8 or
+fp8 e4m3; for int8/fp8 pools, fp32 scale pools (num_blocks, block_size,
+K, 1), dequantized in-tile; block tables (n_seqs, nb) int32; ctx_lens,
+q_lens, starts and ends (n_seqs,) int32. The kernels take bf16 queries,
+block_size up to 32 and head_dim 128 (glm4_9b) or 16 (its smoke size).
+
+Each wrapper counts its launches by pool dtype name in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.models.quant import kv_dtype_name
 
 MAX_BLOCK_SIZE = 32
 HEAD_DIMS = (16, 128)
+POOL_CODES = {"bf16": 0, "int8": 1, "fp8": 2}   # csrc's PoolType
+_VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def refuse_unported(pages_per_compute_block, block_mask, return_lse,
-                    k_scale, v_scale):
-    """Raise for the kernel options this slice does not port."""
+def refuse_unported(pages_per_compute_block, block_mask, return_lse):
+    """Raise for the kernel options the port does not take yet."""
     if block_mask is not None or return_lse:
         raise NotImplementedError(
             "block_mask / return_lse partials are not ported yet "
-            "(ROADMAP.md, Next item 2)")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized pools (fused int8/fp8 dequant) are not ported yet "
             "(ROADMAP.md, Next item 2)")
     if pages_per_compute_block not in (None, 1):
         raise NotImplementedError(
@@ -46,12 +57,51 @@ def refuse_unported(pages_per_compute_block, block_mask, return_lse,
             "not ported yet (ROADMAP.md, Next item 2)")
 
 
-def _check(q, k_pages, v_pages, block_tables, ctx_lens, q_lens=None):
-    """Raise on anything the CUDA kernel does not take."""
+def _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, n_seqs,
+           **meta):
+    """Raise ValueError on anything the CUDA kernel does not take. Shapes
+    and dtypes are checked before devices, so a malformed call says what
+    is malformed on any device. Returns the pool dtype's name."""
+    try:
+        pool = kv_dtype_name(k_pages.dtype)
+    except ValueError as e:
+        raise ValueError(f"k_pages: {e}") from None
+    if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
+        raise ValueError(f"k/v pools differ: {k_pages.dtype} "
+                         f"{tuple(k_pages.shape)} vs {v_pages.dtype} "
+                         f"{tuple(v_pages.shape)}")
+    if k_pages.dim() != 4:
+        raise ValueError(f"pools must be (num_blocks, block_size, K, hd), "
+                         f"got {tuple(k_pages.shape)}")
+    _, bs, K, hd = k_pages.shape
+    if hd not in HEAD_DIMS or bs > MAX_BLOCK_SIZE:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} or block_size "
+                         f"{bs} > {MAX_BLOCK_SIZE}")
+    if q.dtype != torch.bfloat16 or q.shape[-1] != hd or q.shape[-2] % K:
+        raise ValueError(f"q {q.dtype} {tuple(q.shape)} does not fit bf16 "
+                         f"queries for pools with K={K}, hd={hd}")
+    want_scale = tuple(k_pages.shape[:3]) + (1,)
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if pool == "bf16":
+            if s is not None:
+                raise ValueError(f"{name} given for a bf16 pool")
+        elif s is None or s.dtype != torch.float32 \
+                or tuple(s.shape) != want_scale:
+            got = None if s is None else f"{s.dtype} {tuple(s.shape)}"
+            raise ValueError(f"{name} of a {pool} pool must be float32 "
+                             f"{want_scale}, got {got}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != n_seqs:
+        raise ValueError(f"block_tables must be ({n_seqs}, nb), got "
+                         f"{tuple(block_tables.shape)}")
+    for name, t in meta.items():
+        if t is not None and tuple(t.shape) != (n_seqs,):
+            raise ValueError(f"{name} must be ({n_seqs},), got "
+                             f"{tuple(t.shape)}")
     dev = q.device
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("ctx_lens", ctx_lens),
-                    ("q_lens", q_lens)):
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               "k_scale": k_scale, "v_scale": v_scale,
+               "block_tables": block_tables, **meta}
+    for name, t in tensors.items():
         if t is None:
             continue
         if not t.is_cuda or t.device != dev:
@@ -59,47 +109,42 @@ def _check(q, k_pages, v_pages, block_tables, ctx_lens, q_lens=None):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = torch.bfloat16 if "pages" in name or name == "q" \
-            else torch.int32
-        if t.dtype != want:
-            raise ValueError(f"{name} must be {want}, got {t.dtype}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    _, bs, K, hd = k_pages.shape
-    if v_pages.shape != k_pages.shape:
-        raise ValueError(f"k/v pools differ: {tuple(k_pages.shape)} vs "
-                         f"{tuple(v_pages.shape)}")
-    if hd not in HEAD_DIMS or bs > MAX_BLOCK_SIZE:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} or block_size "
-                         f"{bs} > {MAX_BLOCK_SIZE}")
-    H = q.shape[-2]
-    if q.shape[-1] != hd or H % K:
-        raise ValueError(f"q {tuple(q.shape)} does not fit pools with K={K}, "
-                         f"hd={hd}")
-    B = q.shape[0]
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or ctx_lens.shape != (B,) \
-            or (q_lens is not None and q_lens.shape != (B,)):
-        raise ValueError("block_tables (B, nb), ctx_lens (B,) and q_lens "
-                         f"(B,) must match q's batch {B}")
+        if (name in meta or name == "block_tables") \
+                and t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if name in ("q", "k_pages", "v_pages") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "reads it in 16-byte vectors)")
+    return pool
 
 
-def _lib():
-    lib = build.load("paged_attention")
-    common = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
-                                   ctypes.c_int, ctypes.c_void_p]
-    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + common
-    lib.paged_decode.restype = ctypes.c_int
-    lib.paged_prefill.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] \
-        + common
-    lib.paged_prefill.restype = ctypes.c_int
+def _lib(stem):
+    lib = build.load(stem)
+    knobs = [_INT, _F, _F, _INT, _VP]      # pool_type, scale, cap, window,
+    if stem == "paged_attention":           # stream
+        lib.paged_decode.argtypes = [_VP] * 8 + [_INT] * 6 + knobs
+        lib.paged_decode.restype = _INT
+        lib.paged_prefill.argtypes = [_VP] * 9 + [_INT] * 7 + knobs
+        lib.paged_prefill.restype = _INT
+    else:
+        lib.ragged_paged_prefill.argtypes = [_VP] * 12 + [_INT] * 7 + knobs
+        lib.ragged_paged_prefill.restype = _INT
     return lib
 
 
-def _knobs(hd, window, cap, scale):
+def _knobs(pool, hd, window, cap, scale):
     scale = hd ** -0.5 if scale is None else float(scale)
-    return (scale, 0.0 if cap is None else float(cap),
+    return (POOL_CODES[pool], scale, 0.0 if cap is None else float(cap),
             0 if window is None else int(window))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -108,21 +153,21 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                     k_scale=None, v_scale=None):
     """Decode: q (B, H, hd), one query per sequence -> (B, H, hd) bf16.
     ctx_lens == 0 marks an inactive slot, whose output row is zeros."""
-    refuse_unported(pages_per_compute_block, block_mask, return_lse,
-                    k_scale, v_scale)
-    _check(q, k_pages, v_pages, block_tables, ctx_lens)
+    refuse_unported(pages_per_compute_block, block_mask, return_lse)
     B, H, hd = q.shape
+    pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, B,
+                  ctx_lens=ctx_lens)
     _, bs, K, _ = k_pages.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = _lib().paged_decode(
+        rc = _lib("paged_attention").paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            B, H, K, hd, bs, block_tables.shape[1],
-            *_knobs(hd, window, cap, scale), build.current_stream(q))
-    if rc != 0:
-        raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
-    paged_attention.launches += 1
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            ctx_lens.data_ptr(), out.data_ptr(), B, H, K, hd, bs,
+            block_tables.shape[1], *_knobs(pool, hd, window, cap, scale),
+            build.current_stream(q))
+    _raise_on(rc, "paged_decode")
+    paged_attention.launches[pool] += 1
     return out
 
 
@@ -135,23 +180,75 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     absolute position ``ctx_lens[b] - q_lens[b] + i`` (the chunk's KV is
     already in the pages). Rows at or past q_lens are zeros.
     Returns (B, C, H, hd) bf16."""
-    refuse_unported(pages_per_compute_block, block_mask, return_lse,
-                    k_scale, v_scale)
-    _check(q, k_pages, v_pages, block_tables, ctx_lens, q_lens)
+    refuse_unported(pages_per_compute_block, block_mask, return_lse)
     B, C, H, hd = q.shape
+    pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, B,
+                  ctx_lens=ctx_lens, q_lens=q_lens)
     _, bs, K, _ = k_pages.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = _lib().paged_prefill(
+        rc = _lib("paged_attention").paged_prefill(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), ctx_lens.data_ptr(), q_lens.data_ptr(),
-            out.data_ptr(), B, C, H, K, hd, bs, block_tables.shape[1],
-            *_knobs(hd, window, cap, scale), build.current_stream(q))
-    if rc != 0:
-        raise RuntimeError(f"paged_prefill launch failed: cudaError {rc}")
-    paged_prefill_attention.launches += 1
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            ctx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), B, C, H,
+            K, hd, bs, block_tables.shape[1],
+            *_knobs(pool, hd, window, cap, scale), build.current_stream(q))
+    _raise_on(rc, "paged_prefill")
+    paged_prefill_attention.launches[pool] += 1
     return out
 
 
-paged_attention.launches = 0
-paged_prefill_attention.launches = 0
+def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
+                                   ctx_lens, starts, ends, *, k_new=None,
+                                   v_new=None, window=None, cap=None,
+                                   scale=None, block_mask=None,
+                                   return_lse=False,
+                                   pages_per_compute_block=1, k_scale=None,
+                                   v_scale=None):
+    """Packed (ragged) chunked prefill: q (T, H, hd), the chunks of S
+    sequences back to back; sequence s owns flat rows [starts[s],
+    ends[s]) and its row i sits at absolute position ``ctx_lens[s] -
+    (ends[s] - starts[s]) + i`` (``starts == ends``: an unused pack slot).
+    Rows no sequence owns are zeros. Returns (T, H, hd) bf16.
+
+    With ``k_new``/``v_new`` ((T, K, hd) in the pool dtype, already
+    quantized for an int8/fp8 pool, whose chunk scale rows must already be
+    in the scale pools) the chunk's KV is also stored into the pages, in
+    place, and ``(o, k_pages, v_pages)`` is returned."""
+    refuse_unported(pages_per_compute_block, block_mask, return_lse)
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new must be given together")
+    T, H, hd = q.shape
+    S = starts.shape[0]
+    pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, S,
+                  ctx_lens=ctx_lens, starts=starts, ends=ends)
+    _, bs, K, _ = k_pages.shape
+    if k_new is not None:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            if t.dtype != k_pages.dtype or tuple(t.shape) != (T, K, hd):
+                raise ValueError(f"{name} must be {k_pages.dtype} "
+                                 f"{(T, K, hd)}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            if t.device != q.device or not t.is_contiguous() \
+                    or t.data_ptr() % 16:
+                raise ValueError(f"{name} must be contiguous, 16-byte "
+                                 f"aligned and on {q.device}")
+    out = torch.zeros_like(q)         # rows no sequence owns stay zero
+    with torch.cuda.device(q.device):
+        rc = _lib("ragged_paged_attention").ragged_paged_prefill(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), _ptr(k_new), _ptr(v_new),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), out.data_ptr(), T, S, H, K, hd, bs,
+            block_tables.shape[1], *_knobs(pool, hd, window, cap, scale),
+            build.current_stream(q))
+    _raise_on(rc, "ragged_paged_prefill")
+    ragged_paged_prefill_attention.launches[pool] += 1
+    if k_new is None:
+        return out
+    return out, k_pages, v_pages
+
+
+paged_attention.launches = Counter()
+paged_prefill_attention.launches = Counter()
+ragged_paged_prefill_attention.launches = Counter()

@@ -3,11 +3,16 @@ densifying. ``paged_attention_ref`` is also the plain decode path the port
 runs on the CPU, as the JAX package's ``ops.paged_attention`` does off the
 TPU. Same op order as the JAX oracles: fp32 logits, masked softmax with
 the all-masked guard, normalize in fp32, cast to the value dtype, then
-multiply by V (``docs/kernels.md`` §The rounding convention)."""
+multiply by V (``docs/kernels.md`` §The rounding convention). Quantized
+pools (``k_scale``/``v_scale``: fp32 (num_blocks, block_size, K, 1)
+per-row scales) dequantize right after the gather, through bf16 as the
+kernels do in-tile."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.quant import dequantize_kv, take_rows
 
 NEG_INF = -1.0e30
 
@@ -39,15 +44,21 @@ def attention_ref(q, k, v, *, causal=True, window=None, cap=None, scale=None,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _dense_pages(pages, block_tables):
-    """(num_blocks, bs, K, hd) gathered through (B, nb) -> (B, nb*bs, K, hd)."""
+def _gather_pages(pages, scale, block_tables):
+    """(num_blocks, bs, K, hd) gathered through (B, nb) -> (B, nb*bs, K,
+    hd); a quantized pool (``scale`` given) dequantizes after the gather."""
     B = block_tables.shape[0]
     _, _, K, hd = pages.shape
-    return pages[block_tables.long()].reshape(B, -1, K, hd)
+    bt = block_tables.long()
+    g = take_rows(pages, bt).reshape(B, -1, K, hd)
+    if scale is not None:
+        g = dequantize_kv(g, scale[bt].reshape(B, -1, K, 1))
+    return g
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
-                        window=None, cap=None, scale=None):
+                        window=None, cap=None, scale=None, k_scale=None,
+                        v_scale=None):
     """Paged decode attention oracle.
 
     q: (B, H, hd); pages: (num_blocks, block_size, K, hd); block_tables:
@@ -57,8 +68,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
     K = k_pages.shape[2]
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
-    k = _dense_pages(k_pages, block_tables)
-    v = _dense_pages(v_pages, block_tables)
+    k = _gather_pages(k_pages, k_scale, block_tables)
+    v = _gather_pages(v_pages, v_scale, block_tables)
     S = k.shape[1]
     qg = q.reshape(B, G, K, hd)
     logits = torch.einsum("bgkh,bskh->bgks", qg.float(), k.float()) * scale
@@ -79,7 +90,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
-                                q_lens, *, window=None, cap=None, scale=None):
+                                q_lens, *, window=None, cap=None, scale=None,
+                                k_scale=None, v_scale=None):
     """Multi-query (chunked-prefill) paged attention oracle.
 
     q: (B, C, H, hd) — row i of sequence b is the query at absolute
@@ -91,8 +103,8 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     K = k_pages.shape[2]
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
-    k = _dense_pages(k_pages, block_tables)
-    v = _dense_pages(v_pages, block_tables)
+    k = _gather_pages(k_pages, k_scale, block_tables)
+    v = _gather_pages(v_pages, v_scale, block_tables)
     S = k.shape[1]
     qg = q.reshape(B, C, G, K, hd)
     logits = torch.einsum("bcgkh,bskh->bcgks", qg.float(), k.float()) * scale
@@ -112,3 +124,54 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     p = (p / sm).to(v.dtype)
     o = torch.einsum("bcgks,bskh->bcgkh", p.float(), v.float())
     return o.reshape(B, C, H, hd).to(q.dtype)
+
+
+def ragged_paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                       ctx_lens, starts, ends, row_seq, *,
+                                       window=None, cap=None, scale=None,
+                                       k_scale=None, v_scale=None):
+    """Packed (ragged) multi-sequence chunked-prefill oracle.
+
+    q: (T, H, hd), the chunks of up to S sequences packed into one flat
+    row batch; sequence s owns flat rows [starts[s], ends[s]) and row_seq
+    maps each flat row to its owner. Flat row t (owned by s) is the query
+    at absolute position ``ctx_lens[s] - (ends[s] - starts[s]) + (t -
+    starts[s])`` and attends causally to sequence s's keys through
+    block_tables[s] (the chunk's own KV already scattered). Rows owned by
+    no sequence produce zeros. S == 1 with starts = [0] reduces to
+    ``paged_prefill_attention_ref`` with B == 1.
+    """
+    T, H, hd = q.shape
+    K = k_pages.shape[2]
+    G = H // K
+    S = starts.shape[0]
+    scale = hd ** -0.5 if scale is None else scale
+    k = _gather_pages(k_pages, k_scale, block_tables)     # (S, E, K, hd)
+    v = _gather_pages(v_pages, v_scale, block_tables)
+    E = k.shape[1]
+    qg = q.reshape(T, G, K, hd)
+    logits = torch.einsum("tgkh,sekh->tgkse", qg.float(), k.float()) * scale
+    logits = _softcap(logits, cap)
+    dev = q.device
+    t = torch.arange(T, device=dev)
+    st, en, rs = starts.long(), ends.long(), row_seq.long()
+    own = (t[:, None] >= st[None]) & (t[:, None] < en[None]) \
+        & (rs[:, None] == torch.arange(S, device=dev)[None])      # (T, S)
+    q_pos = (ctx_lens.long() - (en - st))[rs] + (t - st[rs])
+    k_pos = torch.arange(E, device=dev)
+    ok = own[:, :, None] & (k_pos[None, None] <= q_pos[:, None, None])
+    if window is not None:
+        ok &= k_pos[None, None] > q_pos[:, None, None] - window
+    ok = ok[:, None, None]                                 # (T, 1, 1, S, E)
+    logits = torch.where(ok, logits, NEG_INF)
+    # one softmax over the flattened (sequence, key) axes: exactly one
+    # sequence is unmasked per row, so this is that sequence's softmax
+    flat = logits.reshape(T, G, K, S * E)
+    okf = ok.reshape(T, 1, 1, S * E)
+    mx = flat.amax(dim=-1, keepdim=True)
+    p = torch.where(okf, torch.exp(flat - mx), 0.0)    # unowned rows -> 0
+    sm = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
+    p = (p / sm).to(v.dtype)
+    o = torch.einsum("tgkf,fkh->tgkh", p.float(),
+                     v.reshape(S * E, K, hd).float())
+    return o.reshape(T, H, hd).to(q.dtype)

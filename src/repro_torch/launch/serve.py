@@ -4,6 +4,8 @@ async front-end, fleets or meshes, which later slices bring).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --prefill-pack 4 --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
 
 The default device is the card ("cuda"); ``--device cpu`` runs the plain
@@ -80,7 +82,11 @@ def run_engine(cfg, args):
         block_size=args.block_size, max_len=args.max_len,
         num_blocks=args.num_blocks,
         max_num_batched_tokens=args.max_batched_tokens,
-        enable_prefix_caching=not args.no_prefix_caching, seed=args.seed)
+        enable_prefix_caching=not args.no_prefix_caching, seed=args.seed,
+        prefill_pack=args.prefill_pack, kv_dtype=args.kv_dtype)
+    if eng.device.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()            # compile before, not inside, the run
     rng = np.random.default_rng(args.seed)
     reqs = make_requests(cfg, args, rng)
     arrivals = poisson_arrival_steps(len(reqs), args.rate, rng)
@@ -90,6 +96,7 @@ def run_engine(cfg, args):
         outs = eng.run(reqs, arrival_steps=arrivals)
     s = eng.stats
     print(f"[serve] device={eng.device} arch={cfg.name} "
+          f"kv_dtype={s['kv_dtype']} prefill_pack={eng.prefill_pack} "
           f"kv_cache_mib={s['kv_cache_mib']}")
     print(f"[serve] runner={type(eng.runner).__name__} {len(reqs)} requests "
           f"(poisson rate={args.rate}/step, arrivals={arrivals}), "
@@ -125,9 +132,17 @@ def main(argv=None):
                     help="KV pool size in blocks (default: sized for "
                          "max_batch x max_len)")
     ap.add_argument("--max-batched-tokens", type=int, default=None,
-                    help="per-step token budget across decodes + one "
-                    "prefill chunk (default: max_batch + 2*block_size)")
+                    help="per-step token budget across decodes + the "
+                    "prefill chunks (default: max_batch + 2*block_size)")
     ap.add_argument("--no-prefix-caching", action="store_true")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=("bf16", "int8", "fp8"),
+                    help="KV page-pool storage dtype; int8/fp8 keep fp32 "
+                    "per-row scales beside the pools, dequantized inside "
+                    "the attention kernels")
+    ap.add_argument("--prefill-pack", type=int, default=1,
+                    help="most prefill chunks packed into one step's flat "
+                    "ragged token row (1 = one chunk per step)")
     ap.add_argument("--rate", type=float, default=0.5,
                     help="poisson arrivals per engine step")
     ap.add_argument("--temperature", type=float, default=0.0)

@@ -5,7 +5,12 @@ Weights keep the JAX package's einsum layouts (``wq (d, H, hd)``,
 ``wk/wv (d, K, hd)``, ``wo (H, hd, d)``) and run as plain matrix products
 over the flattened head axes. Page pools are updated in place where the
 JAX package donates them: ``update_paged_cache*`` write into the pool they
-are given and return it.
+are given and return it, and so does the fused packed-prefill op.
+
+Quantized pools (int8 / fp8, ``models.quant``) take only rows already
+quantized to their dtype: the callers quantize new K/V first and scatter
+its scale rows into the fp32 scale pools, and the attention paths
+dequantize after the gather (plain) or in-tile (kernels).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import quant
 from repro_torch.models.layers import apply_rope, softcap
 
 NEG_INF = -1.0e30
@@ -48,6 +54,21 @@ def attention_scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
 
 
+def _scatter(pages, blk, slot, rows):
+    """pages[blk, slot] = rows, in place. A narrow (int8/fp8) pool takes
+    only rows already quantized to its dtype, copied byte for byte; a
+    float row given to it would be truncated, so it raises."""
+    if pages.dtype.itemsize == 1:
+        if rows.dtype != pages.dtype:
+            raise TypeError(
+                f"{rows.dtype} rows into a {pages.dtype} pool: quantize "
+                "them first (models.quant.quantize_kv)")
+        pages.view(torch.uint8)[blk, slot] = rows.view(torch.uint8)
+    else:
+        pages[blk, slot] = rows.to(pages.dtype)
+    return pages
+
+
 def update_paged_cache(pages, new, block_tables, pos):
     """Scatter one new KV row per sequence into its block-table page, in
     place. pages: (num_blocks, block_size, K, hd); new: (B, 1, K, hd); pos:
@@ -56,8 +77,7 @@ def update_paged_cache(pages, new, block_tables, pos):
     bs = pages.shape[1]
     pos = pos.long()
     blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
-    pages[blk, pos % bs] = new[:, 0].to(pages.dtype)
-    return pages
+    return _scatter(pages, blk, pos % bs, new[:, 0])
 
 
 def update_paged_cache_chunk(pages, new, block_tables, q_start, q_lens):
@@ -73,45 +93,81 @@ def update_paged_cache_chunk(pages, new, block_tables, q_start, q_lens):
     blk = torch.gather(block_tables.long(), 1, idx)
     valid = torch.arange(C, device=new.device)[None] < q_lens.long()[:, None]
     blk = torch.where(valid, blk, 0)
-    pages[blk.reshape(-1), (pos % bs).reshape(-1)] = new.reshape(
-        B * C, *new.shape[2:]).to(pages.dtype)
-    return pages
+    return _scatter(pages, blk.reshape(-1), (pos % bs).reshape(-1),
+                    new.reshape(B * C, *new.shape[2:]))
+
+
+def update_paged_cache_ragged(pages, new, block_tables, ctx_lens, starts,
+                              ends, row_seq):
+    """Scatter a packed (ragged) multi-sequence chunk of KV into pages, in
+    place. pages: (num_blocks, block_size, K, hd); new: (1, T, K, hd), the
+    chunks of up to S sequences back to back: sequence s owns flat rows
+    [starts[s], ends[s]) and row_seq maps each flat row to its owner. Flat
+    row t lands at absolute position ``ctx_lens[s] - (ends[s] - starts[s])
+    + (t - starts[s])`` in sequence s's block table; rows owned by nobody
+    go to the trash block 0, as in ``update_paged_cache_chunk``."""
+    bs = pages.shape[1]
+    T = new.shape[1]
+    nb = block_tables.shape[1]
+    t = torch.arange(T, device=new.device)
+    rs = row_seq.long()
+    st, en = starts.long(), ends.long()
+    q_start = (ctx_lens.long() - (en - st))[rs]
+    valid = (t >= st[rs]) & (t < en[rs])
+    pos = torch.where(valid, q_start + (t - st[rs]), 0)
+    idx = (pos // bs).clamp(0, nb - 1)
+    blk = torch.where(valid, block_tables.long()[rs, idx], 0)
+    return _scatter(pages, blk, pos % bs, new[0])
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
-                           window=None, cap=None, scale=None):
+                           window=None, cap=None, scale=None, k_scale=None,
+                           v_scale=None):
     """Decode attention via block tables. q: (B, 1, H, hd) -> (B, 1, H, hd)."""
     o = ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
                             block_tables, ctx_lens, window=window, cap=cap,
-                            scale=scale)
+                            scale=scale, k_scale=k_scale, v_scale=v_scale)
     return o[:, None].to(q.dtype)
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
-                          q_lens, *, window=None, cap=None, scale=None):
+                          q_lens, *, window=None, cap=None, scale=None,
+                          k_scale=None, v_scale=None):
     """Chunked-prefill attention via block tables: the C queries of one
     prompt chunk attend causally to the paged context (this chunk's KV
     already scattered in). q: (B, C, H, hd) -> (B, C, H, hd)."""
     o = ops.paged_prefill_attention(q.contiguous(), k_pages, v_pages,
                                     block_tables, ctx_lens, q_lens,
-                                    window=window, cap=cap, scale=scale)
+                                    window=window, cap=cap, scale=scale,
+                                    k_scale=k_scale, v_scale=v_scale)
     return o.to(q.dtype)
 
 
+def _gather_dequant(pages, scale, bt):
+    """Densify a pool through (B, nb) block tables -> (B, nb*bs, K, hd);
+    a quantized pool dequantizes right after the gather."""
+    B, K, hd = bt.shape[0], pages.shape[2], pages.shape[3]
+    g = quant.take_rows(pages, bt).reshape(B, -1, K, hd)
+    if scale is not None:
+        g = quant.dequantize_kv(g, scale[bt].reshape(B, -1, K, 1))
+    return g
+
+
 def paged_chunk_attention_xla(q, k_pages, v_pages, block_tables, ctx_lens,
-                              q_lens, *, window=None, cap=None, scale=None):
+                              q_lens, *, window=None, cap=None, scale=None,
+                              k_scale=None, v_scale=None):
     """Plain chunked-prefill path (the JAX package's XLA path, op for op):
-    densify the block-table gather, fp32 logits, softmax normalized in fp32
-    and cast to the value dtype, then p @ v. Padding rows (i >= q_lens)
-    emit garbage; their KV went to the trash block and the engine discards
-    their logits."""
+    densify the block-table gather (dequantizing a quantized pool), fp32
+    logits, softmax normalized in fp32 and cast to the value dtype, then
+    p @ v. Padding rows (i >= q_lens) emit garbage; their KV went to the
+    trash block and the engine discards their logits."""
     B, C, H, hd = q.shape
-    _, bs, K, _ = k_pages.shape
+    K = k_pages.shape[2]
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
     bt = block_tables.long()
-    k = k_pages[bt].reshape(B, -1, K, hd)
-    v = v_pages[bt].reshape(B, -1, K, hd)
+    k = _gather_dequant(k_pages, k_scale, bt)
+    v = _gather_dequant(v_pages, v_scale, bt)
     S = k.shape[1]
     qg = q.reshape(B, C, G, K, hd)
     logits = torch.einsum("bqgkh,bskh->bgkqs", qg.float(), k.float()) * scale
@@ -128,3 +184,71 @@ def paged_chunk_attention_xla(q, k_pages, v_pages, block_tables, ctx_lens,
     p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     o = torch.einsum("bgkqs,bskh->bqgkh", p, v)
     return o.reshape(B, C, H, hd).to(q.dtype)
+
+
+def ragged_chunk_attention_xla(q, k_pages, v_pages, block_tables, ctx_lens,
+                               starts, ends, row_seq, *, window=None,
+                               cap=None, scale=None, k_scale=None,
+                               v_scale=None):
+    """Plain packed (ragged) chunked-prefill path. q: (T, H, hd) flat
+    packed rows (layout as in ``update_paged_cache_ragged``). Gathers each
+    packed sequence's rows into the dense (S, T, H, hd) layout, runs
+    ``paged_chunk_attention_xla`` (the single-chunk path, S batch rows
+    instead of 1) and scatters the rows back flat. The gather and scatter
+    are exact copies, so each row matches the single-chunk path; rows
+    owned by no sequence come back zero."""
+    T = q.shape[0]
+    t = torch.arange(T, device=q.device)
+    st, en, rs = starts.long(), ends.long(), row_seq.long()
+    gidx = (st[:, None] + t[None]).clamp(0, T - 1)               # (S, T)
+    od = paged_chunk_attention_xla(
+        q[gidx], k_pages, v_pages, block_tables, ctx_lens, ends - starts,
+        window=window, cap=cap, scale=scale, k_scale=k_scale,
+        v_scale=v_scale)                                     # (S, T, H, hd)
+    o = od[rs, (t - st[rs]).clamp(0, T - 1)]                     # (T, H, hd)
+    valid = (t >= st[rs]) & (t < en[rs])
+    return torch.where(valid[:, None, None], o, 0).to(q.dtype)
+
+
+def ragged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                           starts, ends, row_seq, *, window=None, cap=None,
+                           scale=None, k_scale=None, v_scale=None):
+    """Packed (ragged) chunked-prefill attention via block tables: chunks
+    of up to S sequences ride one flat (1, T, H, hd) row batch, each row
+    attending causally to its owner's paged context (the chunk's KV
+    already scattered in). Returns (1, T, H, hd)."""
+    o = ops.ragged_paged_prefill_attention(
+        q[0].contiguous(), k_pages, v_pages, block_tables, ctx_lens, starts,
+        ends, row_seq, window=window, cap=cap, scale=scale, k_scale=k_scale,
+        v_scale=v_scale)
+    return o[None].to(q.dtype)
+
+
+def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
+                               block_tables, ctx_lens, starts, ends,
+                               row_seq, *, window=None, cap=None,
+                               scale=None, k_scale=None, v_scale=None):
+    """Scatter a packed chunk's KV into the pages and attend, as one fused
+    op (``ops.ragged_prefill_update_attend``). q: (1, T, H, hd); k_new /
+    v_new: (1, T, K, hd), same flat rows. Returns ``(o, k_pages,
+    v_pages)``, the pools updated in place.
+
+    Quantized pools (``k_scale``/``v_scale`` given): the chunk's K/V is
+    quantized here and its scale rows are scattered into the scale pools
+    before the fused op, which reads them for the dequant. Returns
+    ``(o, k_pages, v_pages, k_scale, v_scale)``."""
+    if k_scale is not None:
+        kvd = quant.kv_dtype_name(k_pages.dtype)
+        k_new, ksr = quant.quantize_kv(k_new, kvd)
+        v_new, vsr = quant.quantize_kv(v_new, kvd)
+        for pool, rows in ((k_scale, ksr), (v_scale, vsr)):
+            update_paged_cache_ragged(pool, rows, block_tables, ctx_lens,
+                                      starts, ends, row_seq)
+    o, kc, vc = ops.ragged_prefill_update_attend(
+        q[0].contiguous(), k_new[0].contiguous(), v_new[0].contiguous(),
+        k_pages, v_pages, block_tables, ctx_lens, starts, ends, row_seq,
+        window=window, cap=cap, scale=scale, k_scale=k_scale,
+        v_scale=v_scale)
+    if k_scale is not None:
+        return o[None].to(q.dtype), kc, vc, k_scale, v_scale
+    return o[None].to(q.dtype), kc, vc

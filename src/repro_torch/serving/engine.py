@@ -5,10 +5,12 @@ One ``InferenceEngine`` owns the model parameters, a runner, the page
 pools, a ``BlockManager`` and a ``Scheduler``. Every iteration is one
 budgeted step:
 
-    plan = scheduler.schedule()      # decodes (1 token each) + one chunk
+    plan = scheduler.schedule()      # decodes (1 token each) + chunks
     apply COW page copies
-    runner step: the chunk (if any), then the max_batch-wide decode batch,
-        then per-slot sampling over the decode logits + the chunk's logits
+    runner step: the chunk (if any; with prefill_pack S > 1, up to S
+        chunks packed into one flat row), then the max_batch-wide decode
+        batch, then per-slot sampling over the decode logits + the
+        chunks' logits
     append sampled tokens; retire on EOS / max_new; publish the content
         hashes of newly full blocks
 
@@ -16,10 +18,12 @@ Time is measured in engine steps; request arrivals are given in the same
 unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
 unless the caller asks for "cpu"); there is no fallback between the two.
 
-What this slice refuses, each with the ROADMAP item that brings it: a
-``kv_dtype`` other than bf16, ``prefill_pack > 1``, speculative decoding,
-swap space, a cross-replica ``shared_index``, the full sampling surface,
-and any mesh or tensor parallelism.
+KV pools are bf16, int8 or fp8 (``kv_dtype``; the narrow ones with fp32
+per-row scales, dequantized inside the attention kernels).
+
+What the port refuses, each with the ROADMAP item that brings it:
+speculative decoding, swap space, a cross-replica ``shared_index``, the
+full sampling surface, and any mesh or tensor parallelism.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import quant
 from repro_torch.models.api import init_model
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
@@ -45,15 +50,39 @@ __all__ = ["InferenceEngine", "Request", "SamplingParams"]
 LATENCY_RECORD_CAP = 4096
 
 
-def _refuse(kv_dtype, prefill_pack, swap_space_bytes, shared_index, mesh):
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
-    if prefill_pack != 1:
-        raise NotImplementedError(
-            f"prefill_pack={prefill_pack}: packed ragged prefill is not "
-            "ported yet (ROADMAP.md, Next item 1)")
+def pack_ragged(rows: list[np.ndarray], width: int,
+                max_seqs: int) -> tuple[np.ndarray, np.ndarray,
+                                        np.ndarray, np.ndarray]:
+    """Pack variable-length rows back to back into the flat ragged layout:
+    ``(tok (width,), seq (width,), starts (S,), ends (S,))``, row i owning
+    flat positions ``[starts[i], ends[i])`` and ``seq`` holding each flat
+    position's owner. Pad positions keep owner 0 but fall outside every
+    ``[start, end)``, so ownership masks reject them."""
+    if len(rows) > max_seqs or sum(len(r) for r in rows) > width:
+        raise ValueError(f"{len(rows)} rows of {sum(len(r) for r in rows)} "
+                         f"tokens do not fit {max_seqs} x {width}")
+    tok = np.zeros(width, np.int32)
+    seq = np.zeros(width, np.int32)
+    starts = np.zeros(max_seqs, np.int32)
+    ends = np.zeros(max_seqs, np.int32)
+    off = 0
+    for i, r in enumerate(rows):
+        n = len(r)
+        tok[off:off + n] = r
+        seq[off:off + n] = i
+        starts[i], ends[i] = off, off + n
+        off += n
+    return tok, seq, starts, ends
+
+
+def unpack_ragged(tok: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+                  n_rows: int) -> list[np.ndarray]:
+    """Inverse of :func:`pack_ragged` for the first ``n_rows`` rows."""
+    return [np.asarray(tok[starts[i]:ends[i]]).copy()
+            for i in range(n_rows)]
+
+
+def _refuse(swap_space_bytes, shared_index, mesh):
     if swap_space_bytes:
         raise NotImplementedError(
             "swap_space_bytes: the host swap tier is not ported yet "
@@ -79,7 +108,10 @@ class InferenceEngine:
                  draft_cfg: ModelConfig | None = None,
                  num_speculative_tokens: int = 0,
                  swap_space_bytes: int = 0, shared_index=None, mesh=None):
-        _refuse(kv_dtype, prefill_pack, swap_space_bytes, shared_index, mesh)
+        _refuse(swap_space_bytes, shared_index, mesh)
+        if kv_dtype not in quant.KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} not in {sorted(quant.KV_DTYPES)}")
         self.runner = make_runner(                  # raises if unsupported
             cfg, draft_cfg=draft_cfg,
             num_speculative_tokens=num_speculative_tokens)
@@ -97,26 +129,34 @@ class InferenceEngine:
         # fixed chunk width: a full decode batch plus a full chunk stay in
         # the budget, and no chunk is longer than max_len
         self.chunk_width = min(max_num_batched_tokens - max_batch, max_len)
+        # packed prefill: several prompts' chunks share one flat row per
+        # step, for runners that have a ragged prefill path
+        if not self.runner.supports_packed_prefill:
+            prefill_pack = 1
+        self.prefill_pack = max(1, prefill_pack)
+        self.kv_dtype = kv_dtype
         self.bm = BlockManager(num_blocks, block_size)
         self.sched = Scheduler(self.bm, max_batch, self.max_blocks_per_seq,
                                max_num_batched_tokens, self.chunk_width,
                                enable_prefix_caching=enable_prefix_caching,
                                max_context=self.max_blocks_per_seq
-                               * block_size)
+                               * block_size, prefill_pack=self.prefill_pack)
         self.max_batch = max_batch
         self.debug_invariants = debug_invariants
         self.params = (init_model(cfg, seed, self.device) if params is None
                        else params)
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
-                                            self.device)
-        cache_mib = num_blocks * block_bytes(cfg, block_size) / 2 ** 20
+                                            self.device, kv_dtype)
+        cache_mib = num_blocks * block_bytes(
+            cfg, block_size, kv_dtype=kv_dtype) / 2 ** 20
         self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
                       "tokens": 0, "prefill_tokens": 0,
                       "cache_hit_tokens": 0, "cow_copies": 0,
                       "requests": 0, "requests_done": 0,
                       "peak_block_utilization": 0.0, "peak_blocks_in_use": 0,
-                      "latency": {}, "kv_cache_mib": round(cache_mib, 3)}
+                      "latency": {}, "kv_cache_mib": round(cache_mib, 3),
+                      "kv_dtype": kv_dtype}
         self.step_count = 0           # virtual clock: one step() = one tick
         self.hist = {"ttft_seconds": Histogram(SECONDS_BUCKETS),
                      "e2e_seconds": Histogram(SECONDS_BUCKETS),
@@ -142,25 +182,39 @@ class InferenceEngine:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """The device half of a copy-on-write: pool row src -> dst in every
-        layer's k and v pools, in place."""
+        layer's pools (k, v and, when quantized, their scales), in place."""
         for pool in self.cache.values():
             pool[:, dst] = pool[:, src]
 
     def _build_arrays(self, plan: StepPlan) -> dict:
         B, C, nbmax = self.max_batch, self.chunk_width, self.max_blocks_per_seq
+        S = self.prefill_pack
         a = {"d_tok": np.zeros(B, np.int32),
              "d_pos": np.zeros(B, np.int32),
              "d_tables": np.zeros((B, nbmax), np.int32),
              "d_active": np.zeros(B, bool),
-             "c_tok": np.zeros((1, C), np.int32),
-             "c_start": np.zeros(1, np.int32),
-             "c_len": np.zeros(1, np.int32),
-             "c_table": np.full((1, nbmax), TRASH_BLOCK, np.int32)}
-        samp = {"temps": np.zeros(B + 1, np.float32),
-                "top_ks": np.zeros(B + 1, np.int32),
-                "seeds": np.zeros(B + 1, np.int64),
-                "rids": np.zeros(B + 1, np.int64),
-                "counters": np.zeros(B + 1, np.int64)}
+             "c_tok": np.zeros((1, C), np.int32)}
+        if S == 1:
+            a.update({"c_start": np.zeros(1, np.int32),
+                      "c_len": np.zeros(1, np.int32),
+                      "c_table": np.full((1, nbmax), TRASH_BLOCK, np.int32)})
+        else:
+            # flat ragged layout: chunk ci owns rows [c_starts[ci],
+            # c_ends[ci]) of the (1, C) token row; pad rows are owned by
+            # nobody, so their KV lands in the trash block and their
+            # logits are discarded
+            a.update({"c_pos": np.zeros((1, C), np.int32),
+                      "c_seq": np.zeros(C, np.int32),
+                      "c_starts": np.zeros(S, np.int32),
+                      "c_ends": np.zeros(S, np.int32),
+                      "c_ctx": np.zeros(S, np.int32),
+                      "c_tables": np.full((S, nbmax), TRASH_BLOCK,
+                                          np.int32)})
+        samp = {"temps": np.zeros(B + S, np.float32),
+                "top_ks": np.zeros(B + S, np.int32),
+                "seeds": np.zeros(B + S, np.int64),
+                "rids": np.zeros(B + S, np.int64),
+                "counters": np.zeros(B + S, np.int64)}
 
         def fill_samp(i, req):
             samp["temps"][i] = req.sampling.temperature
@@ -176,7 +230,7 @@ class InferenceEngine:
             row = self.bm.table(req.rid)
             a["d_tables"][slot, :len(row)] = row
             fill_samp(slot, req)
-        if plan.chunk is not None:
+        if S == 1 and plan.chunk is not None:
             slot, req, n = plan.chunk
             toks = req.prefill_tokens()
             a["c_tok"][0, :n] = toks[req.num_computed:req.num_computed + n]
@@ -185,6 +239,20 @@ class InferenceEngine:
             row = self.bm.table(req.rid)
             a["c_table"][0, :len(row)] = row
             fill_samp(B, req)
+        elif plan.chunks:
+            tok_rows, pos_rows = [], []
+            for ci, (slot, req, n) in enumerate(plan.chunks):
+                lo = req.num_computed
+                tok_rows.append(req.prefill_tokens()[lo:lo + n])
+                pos_rows.append(np.arange(lo, lo + n, dtype=np.int32))
+                a["c_ctx"][ci] = lo + n
+                row = self.bm.table(req.rid)
+                a["c_tables"][ci, :len(row)] = row
+                fill_samp(B + ci, req)
+            tok, seq, starts, ends = pack_ragged(tok_rows, C, S)
+            a["c_tok"][0] = tok
+            a["c_pos"][0] = pack_ragged(pos_rows, C, S)[0]
+            a["c_seq"], a["c_starts"], a["c_ends"] = seq, starts, ends
         out = {k: torch.from_numpy(v).to(self.device) for k, v in a.items()}
         out.update(samp)
         return out
@@ -261,12 +329,13 @@ class InferenceEngine:
         for slot, req in plan.decodes:
             req.num_computed += 1
             self._append_token(slot, req, int(nxt[slot]))
-        for slot, req, n in plan.chunks:
+        for ci, (slot, req, n) in enumerate(plan.chunks):
             req.num_computed += n
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
             if req.num_computed == req.context_len:
-                self._append_token(slot, req, int(nxt[self.max_batch]))
+                self._append_token(slot, req,
+                                   int(nxt[self.max_batch + ci]))
             else:
                 self.sched.note_progress(req)
         self.stats["steps"] += 1

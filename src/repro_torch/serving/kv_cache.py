@@ -3,11 +3,13 @@
 The device side is one pair of page pools ``{"k", "v"}`` shaped
 ``(num_layers, num_blocks, block_size, K, hd)``: every layer uses the same
 block ids, so one block grants one ``block_size``-token slice of KV
-capacity across the whole model. The host side is ``BlockManager``, a
-refcounted allocator with per-request block tables and a content-hash
-index for prefix caching; the same algorithm as the JAX package's, so the
-same operations give the same tables, refcounts and hashes (the port's
-tests drive both with one random walk).
+capacity across the whole model. Quantized pools (``kv_dtype`` "int8" or
+"fp8", ``models.quant``) add fp32 ``{"k_scale", "v_scale"}`` pools shaped
+``(num_layers, num_blocks, block_size, K, 1)``. The host side is
+``BlockManager``, a refcounted allocator with per-request block tables
+and a content-hash index for prefix caching; the same algorithm as the
+JAX package's, so the same operations give the same tables, refcounts and
+hashes (the port's tests drive both with one random walk).
 
 Block 0 is the *trash block*: idle decode slots and chunk padding rows
 write there, and nothing ever reads it.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import quant
 
 TRASH_BLOCK = 0
 
@@ -51,19 +54,34 @@ def chain_block_hashes(tokens, block_size: int) -> list[bytes]:
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device="cuda"):
-    """Zero bf16 page pools for every layer."""
+                     device="cuda", kv_dtype: str = "bf16"):
+    """Zero page pools for every layer in ``kv_dtype``; a quantized dtype
+    adds zero fp32 per-row scale pools."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    dtype = quant.KV_DTYPES[kv_dtype]
+    # zero bytes are zeros in every pool dtype (fp8 included)
+    cache = {name: torch.zeros(shape, dtype=torch.uint8,
+                               device=device).view(dtype)
+             if dtype.itemsize == 1 else
+             torch.zeros(shape, dtype=dtype, device=device)
+             for name in ("k", "v")}
+    if quant.is_quantized(kv_dtype):
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1] + (1,),
+                                      dtype=torch.float32, device=device)
+    return cache
 
 
-def block_bytes(cfg: ModelConfig, block_size: int,
-                dtype_bytes: int = 2) -> int:
-    """Device bytes one block id costs across every layer's k+v pools."""
-    return (2 * cfg.num_layers * block_size * cfg.num_kv_heads
-            * cfg.head_dim * dtype_bytes)
+def block_bytes(cfg: ModelConfig, block_size: int, dtype_bytes: int = 2,
+                kv_dtype: str = "bf16") -> int:
+    """Device bytes one block id costs across every layer's k+v pools; a
+    quantized ``kv_dtype`` narrows the elements and adds the fp32 per-row
+    scales (4 bytes per (token, kv head) row)."""
+    row_bytes = cfg.head_dim * dtype_bytes
+    if quant.is_quantized(kv_dtype):
+        row_bytes = cfg.head_dim * quant.kv_dtype_bytes(kv_dtype) + 4
+    return 2 * cfg.num_layers * block_size * cfg.num_kv_heads * row_bytes
 
 
 @dataclass

@@ -1,12 +1,13 @@
 """Model runners for the serving engine (port of ``repro.serving.runners``).
 
 A runner owns what is family-specific about serving one model: the device
-cache it needs and the budgeted step (one prefill chunk, the wide decode
-batch, per-slot sampling). The step has exactly two shapes: with and
-without the chunk. Decode always runs ``max_batch`` wide (idle slots are
-masked with ctx_len 0 and write into the trash block); the chunk always
-runs ``chunk_width`` wide. Sampling row B is the chunk's last-token
-logits.
+cache it needs and the budgeted step (the prefill chunk or the packed
+chunks, the wide decode batch, per-slot sampling). The step has exactly
+two shapes: with and without the chunk row. Decode always runs
+``max_batch`` wide (idle slots are masked with ctx_len 0 and write into
+the trash block); the chunk row always runs ``chunk_width`` wide, holding
+one chunk or, with ``prefill_pack`` S > 1, up to S packed chunks.
+Sampling rows B .. B + S - 1 are the chunks' last-token logits.
 
 This slice ports the dense paged transformer only; ``make_runner`` refuses
 every other family and speculative decoding, naming the ROADMAP item.
@@ -30,6 +31,8 @@ class ModelRunner:
 
     needs_blocks: bool = False
     supports_prefix_caching: bool = False
+    # can run multi-chunk (ragged packed-prefill) plans in one flat row
+    supports_packed_prefill: bool = False
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -38,13 +41,14 @@ class ModelRunner:
         """Derive what the step needs from the parameters, once."""
         raise NotImplementedError
 
-    def init_cache(self, num_blocks: int, block_size: int, device):
+    def init_cache(self, num_blocks: int, block_size: int, device,
+                   kv_dtype: str = "bf16"):
         raise NotImplementedError
 
     def step(self, params, cache, a, *, has_chunk: bool):
         """One budgeted step over the engine's array dict ``a`` (device
         tensors for the model, host arrays for sampling). Returns the
-        (B + 1,) sampled tokens on the host."""
+        (B + S,) sampled tokens on the host."""
         raise NotImplementedError
 
     @staticmethod
@@ -52,6 +56,16 @@ class ModelRunner:
         return {"tokens": a["c_tok"], "q_start": a["c_start"],
                 "q_lens": a["c_len"], "block_tables": a["c_table"],
                 "ctx_lens": a["c_start"] + a["c_len"]}
+
+    @staticmethod
+    def _ragged_batch(a):
+        """Packed multi-chunk prefill batch (``prefill_pack > 1``): one
+        flat (1, C) token row carrying several sequences' chunks, each
+        owning flat positions [starts[s], ends[s])."""
+        return {"tokens": a["c_tok"], "positions": a["c_pos"],
+                "starts": a["c_starts"], "ends": a["c_ends"],
+                "row_seq": a["c_seq"], "block_tables": a["c_tables"],
+                "ctx_lens": a["c_ctx"]}
 
     @staticmethod
     def _decode_batch(a):
@@ -63,7 +77,9 @@ class ModelRunner:
     @staticmethod
     def _sample(logits_d, logits_c, a):
         if logits_c is None:
-            logits_c = torch.zeros((1,) + logits_d.shape[1:],
+            # sampling rows B.. are sized for the engine's prefill_pack
+            n_extra = a["temps"].shape[0] - logits_d.shape[0]
+            logits_c = torch.zeros((n_extra,) + logits_d.shape[1:],
                                    dtype=logits_d.dtype,
                                    device=logits_d.device)
         logits = torch.cat([logits_d, logits_c], dim=0)
@@ -78,6 +94,7 @@ class TransformerRunner(ModelRunner):
 
     needs_blocks = True
     supports_prefix_caching = True
+    supports_packed_prefill = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
@@ -89,12 +106,16 @@ class TransformerRunner(ModelRunner):
         three times its bf16 bytes."""
         self.head = head_table(params["embed"], self.cfg).float()
 
-    def init_cache(self, num_blocks, block_size, device):
-        return init_paged_cache(self.cfg, num_blocks, block_size, device)
+    def init_cache(self, num_blocks, block_size, device, kv_dtype="bf16"):
+        return init_paged_cache(self.cfg, num_blocks, block_size, device,
+                                kv_dtype)
 
     def step(self, params, cache, a, *, has_chunk):
         logits_c = None
-        if has_chunk:
+        if has_chunk and "c_starts" in a:
+            logits_c, _ = transformer.prefill_chunk_ragged(
+                params, cache, self._ragged_batch(a), self.cfg, self.head)
+        elif has_chunk:
             logits_c, _ = transformer.prefill_chunk_paged(
                 params, cache, self._chunk_batch(a), self.cfg, self.head)
         logits_d, _ = transformer.decode_step_paged(

@@ -1,21 +1,25 @@
 """Token-budget continuous-batching scheduler (port of
-``repro.serving.scheduler`` with ``prefill_pack=1``).
+``repro.serving.scheduler``).
 
 Every engine step hands out up to ``max_num_batched_tokens`` of work in one
 :class:`StepPlan`: **1 token** for every decode-ready running request, and
-the leftover budget funds **one prefill chunk** (the request streaming its
-prompt in, or a freshly admitted one). Admission shares full cached blocks
-through the ``BlockManager`` prefix cache; a whole-prompt hit recomputes
-its last token behind a copy-on-write of the final shared block. When the
-pool runs dry the newest request is preempted and recomputed later
-(vLLM's recompute strategy), so greedy outputs are preemption-invariant.
+the leftover budget funds up to ``prefill_pack`` **prefill chunks** (the
+requests streaming their prompts in, or freshly admitted ones), which
+share that budget and one ``chunk_width`` of rows; with
+``prefill_pack > 1`` the engine runs them as one packed (ragged) batch.
+Admission shares full cached blocks through the ``BlockManager`` prefix
+cache; a whole-prompt hit recomputes its last token behind a copy-on-write
+of the final shared block. When the pool runs dry the newest request is
+preempted and recomputed later (vLLM's recompute strategy), so greedy
+outputs are preemption-invariant.
 
 Pure host logic: the same requests give the same plans as the JAX
 package's scheduler (the port's tests compare them step by step).
 
 Not ported yet: speculative lookahead, swap preemption, cross-replica
-prefix adoption, slot/encoder caches, packed multi-chunk plans and the
-full sampling surface (ROADMAP.md).
+prefix adoption, slot/encoder caches and the full sampling surface
+(ROADMAP.md). The JAX package's ``chunk_quantum`` is left out: the dense
+runner's quantum is 1, for which it changes no plan.
 """
 
 from __future__ import annotations
@@ -103,12 +107,15 @@ class Request:
 class StepPlan:
     """One step's worth of work, within the token budget."""
     decodes: list[tuple[int, Request]]            # slot -> 1 token each
-    chunks: list[tuple[int, Request, int]]        # at most one (slot, req, n)
+    # prefill chunks (slot, req, n) funded by the leftover budget; more
+    # than one only with prefill_pack > 1 (run as one packed batch)
+    chunks: list[tuple[int, Request, int]]
     copies: list[tuple[int, int]]                 # device page copies (COW)
     admitted: int = 0                             # waiting -> running joins
 
     @property
     def chunk(self) -> tuple[int, Request, int] | None:
+        """The single chunk of an unpacked (prefill_pack=1) plan."""
         return self.chunks[0] if self.chunks else None
 
     @property
@@ -122,12 +129,15 @@ class Scheduler:
     def __init__(self, bm: BlockManager, max_batch: int,
                  max_blocks_per_seq: int, max_num_batched_tokens: int,
                  chunk_width: int, *, enable_prefix_caching: bool = True,
-                 max_context: int | None = None):
+                 max_context: int | None = None, prefill_pack: int = 1):
         if max_num_batched_tokens <= max_batch:
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
                 f"exceed max_batch={max_batch} (a prefill chunk needs "
                 "leftover budget)")
+        if prefill_pack < 1:
+            raise ValueError(f"prefill_pack={prefill_pack} must be >= 1")
+        self.prefill_pack = prefill_pack
         self.bm = bm
         self.max_batch = max_batch
         self.max_blocks_per_seq = max_blocks_per_seq
@@ -175,8 +185,11 @@ class Scheduler:
 
     def schedule(self) -> StepPlan:
         """Decode capacity first (preempting the newest requests when the
-        pool runs dry), then spend the leftover budget on one prefill
-        chunk: the in-flight prefill, or a newly admitted request."""
+        pool runs dry), then spend the leftover budget on up to
+        ``prefill_pack`` prefill chunks: in-flight prefills first, then
+        newly admitted requests. All chunks of a step share one leftover
+        budget and one ``chunk_width``, so packing never starves decodes
+        harder than the single-chunk policy."""
         copies: list[tuple[int, int]] = []
         self._ensure_decode_capacity()
         decodes = [(s, r) for s, r in sorted(self.running.items())
@@ -186,21 +199,25 @@ class Scheduler:
         admitted = 0
         pres = [(s, r) for s, r in sorted(self.running.items())
                 if not r.decode_ready]
-        while (not pres and budget_left > 0 and self.waiting
-               and len(self.running) < self.max_batch):
+        while (len(pres) < self.prefill_pack and budget_left > 0
+               and self.waiting and len(self.running) < self.max_batch):
             slot, req = self._admit_one(copies)
             admitted += 1
             if not req.decode_ready:   # else: full cache hit minus one —
                 pres.append((slot, req))  # it joins the decode batch next
         chunks: list[tuple[int, Request, int]] = []
-        if pres and budget_left > 0:
-            slot, req = pres[0]
+        width_left = self.chunk_width
+        for slot, req in pres:
+            if budget_left <= 0 or width_left <= 0:
+                break
             remaining = req.context_len - req.num_computed
-            n = min(budget_left, self.chunk_width, remaining)
+            n = min(budget_left, width_left, remaining)
             if n > 0:
                 n = self._fit_chunk(req, n)
             if n > 0:
                 chunks.append((slot, req, n))
+                budget_left -= n
+                width_left -= n
         return StepPlan(decodes=decodes, chunks=chunks, copies=copies,
                         admitted=admitted)
 

@@ -187,7 +187,6 @@ def test_latency_records_stay_bounded(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"kv_dtype": "int8"}, {"prefill_pack": 4},
     {"num_speculative_tokens": 2}, {"swap_space_bytes": 1 << 20},
     {"shared_index": object()}, {"mesh": object()}])
 def test_engine_refuses_unported_options(setup, kw):
@@ -203,4 +202,10 @@ def test_serve_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("[profile]") == 4 and "busy share" in out
     assert "device=cpu" in out and "runner=TransformerRunner" in out
+    assert "[serve] sample output ids:" in out
+    serve.main(["--arch", "glm4_9b", "--smoke", "--device", "cpu",
+                "--requests", "4", "--max-new", "3", "--prompt-len", "20",
+                "--rate", "8", "--prefill-pack", "4", "--kv-dtype", "int8"])
+    out = capsys.readouterr().out
+    assert "kv_dtype=int8 prefill_pack=4" in out
     assert "[serve] sample output ids:" in out

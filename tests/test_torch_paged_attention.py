@@ -197,15 +197,25 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_options():
                                     torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         temb_k.gather(kp[0, 0], torch.zeros(3, dtype=torch.int32))
-    for kw in ({"pages_per_compute_block": 2}, {"k_scale": kp},
-               {"block_mask": bt}, {"return_lse": True}):
+    for kw in ({"pages_per_compute_block": 2}, {"block_mask": bt},
+               {"return_lse": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpa.paged_attention(q, kp, vp, bt, ctx, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpa.paged_prefill_attention(q[:, None], kp, vp, bt, ctx,
                                     torch.ones(2, dtype=torch.int32),
                                     pages_per_compute_block=2)
-    assert tpa.paged_attention.launches == 0
+    # a quantized pool's scale pools must be fp32 (N, bs, K, 1): a wrong
+    # shape, a wrong dtype or a missing one is refused before any launch
+    k8, v8 = kp.to(torch.int8), vp.to(torch.int8)
+    good = torch.ones(kp.shape[:3] + (1,))
+    for ks in (good[..., 0], good.double(), None):
+        with pytest.raises(ValueError, match="k_scale"):
+            tpa.paged_attention(q, k8, v8, bt, ctx, k_scale=ks,
+                                v_scale=good)
+    with pytest.raises(ValueError, match="k_scale"):
+        tpa.paged_attention(q, kp, vp, bt, ctx, k_scale=good, v_scale=good)
+    assert not sum(tpa.paged_attention.launches.values())
     assert temb_k.gather.launches == 0
 
 
