@@ -13,8 +13,10 @@ Phases, each of which raises on failure:
      absolute (1e-2 relative above a magnitude of 1).
      a. decode (8 sequences up to 2048 tokens) and a 256-row prefill
         chunk: a 1-row chunk equals a decode step bit for bit; inactive
-        and padding rows are exact zeros; window + softcap at hd 128 and
-        16; the gather from the 151552 x 4096 embedding table.
+        and padding rows are exact zeros; decode and chunk at zamba2's
+        shared attention (H = K = 32, hd 80, bf16); window + softcap at hd
+        128 and 16; the gather from the 151552 x 4096 embedding table
+        and from mamba2_370m's and zamba2_2p7b's tables (bit for bit).
      b. the packed (ragged) kernel: T=512 flat rows, S=4 sequences with
         q_lens [200, 96, 150, 40] at ctx [2048, 96, 700, 1000] (one fresh
         prompt, 26 rows that no sequence owns), without and with the
@@ -23,6 +25,13 @@ Phases, each of which raises on failure:
         bytes after the fused write equal the separate scatter; the fused
         output equals the kernel run after that scatter, bit for bit;
         unowned rows are exact zeros.
+     c. the SSD scan at mamba2_370m's (nh 32, hp 64, N 128) and
+        zamba2_2p7b's (nh 80, hp 64, N 64) widths, 256-row chunks, one and
+        two sequences of one and two chunks, plus the smoke widths and a
+        grouped case: y rows within 1e-2 of their norm, h_last within
+        1e-3 of max(1, |plain|); one launch over 512 rows equals two
+        launches of 256 with the state carried, and rows with dt = 0
+        leave h_last and the earlier rows' y unchanged, bit for bit.
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -36,14 +45,22 @@ Phases, each of which raises on failure:
      step carries >= 2 chunks, prefix hits, int8 pools. Then four shorter
      runs of the first 8 requests (4 new tokens) cover the other pool and
      pack pairs: (4, bf16), (4, fp8), (1, int8), (1, fp8).
+  5. SSM and hybrid serving at full width and depth (random weights from
+     seed 0, max_batch 8, a 264-token budget: 256-token chunks, the SSD
+     chunk size): mamba2_370m (48 layers) with 8 prompts of 512 tokens
+     (32 new tokens each), then 8 of 300-500 tokens (16 new: a quantized
+     256-token chunk and a final exempt one); zamba2_2p7b (54 mamba
+     layers, the shared attention block every 6) with 8 of 512 tokens (16
+     new). The ssd kernel launches once per mamba layer and chunk.
      Before every serving run each kernel's launch count is zeroed; after
      it the run's kernels must have launched. Every kernel variant in the
      summary launched on one of these full-width runs.
-  5. card vs CPU: the same engine at glm4 smoke size on both, same
-     weights and requests, at (prefill_pack, kv_dtype) = (1, bf16),
-     (4, bf16), (4, int8) and (1, fp8): greedy tokens must agree, except
-     after a first difference whose top-2 logit margin is below the bf16
-     tolerance. On the card, pack 4 and pack 1 give the same bf16 tokens.
+  6. card vs CPU: the same engine at smoke size on both, same weights and
+     requests: glm4 at (prefill_pack, kv_dtype) = (1, bf16), (4, bf16),
+     (4, int8) and (1, fp8), mamba2 and zamba2 with quantized chunks (and
+     zamba2 preempting): greedy tokens must agree, except after a first
+     difference whose top-2 logit margin is below the bf16 tolerance. On
+     the card, pack 4 and pack 1 give the same bf16 tokens.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -68,12 +85,18 @@ DEV = "cuda"                     # every phase runs on the card
 KV_DTYPES = ("bf16", "int8", "fp8")
 DECODE_SRC = "src/repro_torch/csrc/paged_attention.cu"
 RAGGED_SRC = "src/repro_torch/csrc/ragged_paged_attention.cu"
+SSD_SRC = "src/repro_torch/csrc/ssd.cu"
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:203",
             "paged_prefill_attention":
                 "src/repro/kernels/paged_attention.py:417",
             "ragged_paged_prefill_attention":
                 "src/repro/kernels/paged_attention.py:682",
-            "gather": "src/repro/kernels/embedding.py:23"}
+            "gather": "src/repro/kernels/embedding.py:23",
+            "ssd": "src/repro/kernels/ssd.py:80"}
+# the ssd kernel's final state against the plain scan: 1e-3 absolute
+# (tests/test_kernels.py's tolerance) where the state is below 1 in
+# magnitude, 1e-3 relative above
+SSD_H_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -271,6 +294,52 @@ def check_paged(torch, timer, gen, rows):
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(b_chk, 4.0 * keys * H * hd))))
 
+    # zamba2_2p7b's shared attention: H = K = 32 (G = 1), hd = 80, bf16
+    # pools (the hybrid runner keeps bf16), decode and a 256-row chunk
+    H8, K8, hd8 = 32, 32, 80
+    ctx8 = [1024, 700, 300, 1, 0, 512, 999, 64]
+    nb8 = 1024 // bs
+    q, kp, vp, bt, ctxt = paged_case(torch, gen, len(ctx8), H8, K8, hd8, bs,
+                                     nb8, ctx8)
+    o_k = pa.paged_attention(q, kp, vp, bt, ctxt)
+    e, rel = check_close("paged_attention hd=80 G=1 vs plain", o_k,
+                         ref.paged_attention_ref(q, kp, vp, bt, ctxt))
+    check(bool((o_k[4] == 0).all()), "paged_attention hd=80: ctx=0 row "
+          "not zero")
+    row = rows["paged_attention"]
+    b_dec = (2 * q.numel() * 2 + 2 * sum(ctx8) * kv_row_bytes("bf16", K8, hd8)
+             + bt.numel() * 4 + len(ctx8) * 4)
+    hd80 = bound_ms(b_dec, 4.0 * sum(ctx8) * H8 * hd8)
+    row.update(hd80_ms=timer(lambda: pa.paged_attention(q, kp, vp, bt, ctxt)),
+               hd80_plain_ms=timer(lambda: ref.paged_attention_ref(
+                   q, kp, vp, bt, ctxt)),
+               hd80_bound_ms=hd80[0], hd80_bound_by=hd80[1],
+               hd80_max_abs_err=e, hd80_max_row_rel_err=rel,
+               hd80_shape=f"B={len(ctx8)} H={H8} K={K8} hd={hd8} bs={bs} "
+                          f"ctx={ctx8}")
+    C8, qlen8, c8 = 256, 256, 768
+    q, kp, vp, bt, ctxt = paged_case(torch, gen, 1, H8, K8, hd8, bs, nb8,
+                                     [c8], C=C8)
+    ql = torch.tensor([qlen8], dtype=torch.int32, device=DEV)
+    o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql)
+    e, rel = check_close("paged_prefill_attention hd=80 G=1 vs plain", o_k,
+                         paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql))
+    keys8 = sum(c8 - qlen8 + i + 1 for i in range(qlen8))
+    b_chk = (2 * q.numel() * 2 + 2 * c8 * kv_row_bytes("bf16", K8, hd8)
+             + bt.numel() * 4 + 8)
+    hd80 = bound_ms(b_chk, 4.0 * keys8 * H8 * hd8)
+    rows["paged_prefill_attention"].update(
+        hd80_ms=timer(lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
+                                                         ql)),
+        hd80_plain_ms=timer(lambda: paged_chunk_attention_xla(
+            q, kp, vp, bt, ctxt, ql)),
+        hd80_bound_ms=hd80[0], hd80_bound_by=hd80[1], hd80_max_abs_err=e,
+        hd80_max_row_rel_err=rel,
+        hd80_shape=f"B=1 C={C8} q_len={qlen8} ctx={c8} H={H8} K={K8} "
+                   f"hd={hd8}")
+    print(f"[kernels] decode and chunk at hd=80, G=1 (zamba2_2p7b): within "
+          f"{TOL}", flush=True)
+
     # window + softcap, multi-sequence chunks with an empty one, at the
     # full head dim and the smoke head dim
     for (Hs, Ks, hds) in ((H, K, hd), (4, 2, 16)):
@@ -420,6 +489,20 @@ def check_gather(torch, timer, gen, rows):
           and torch.equal(emb.gather(table, ids8),
                           emb.gather_plain(table, ids8)),
           "gather != table[ids]")
+    # the same two id shapes at the SSM and hybrid models' tables
+    from repro_torch.config import get_config
+    for arch in ("mamba2_370m", "zamba2_2p7b"):
+        c = get_config(arch)
+        Va, da = c.padded_vocab_size, c.d_model
+        t = torch.randn((Va, da), generator=gen, device=DEV).bfloat16()
+        for shape in ((1, 256), (8, 1)):
+            i = torch.randint(0, Va, shape, generator=gen, device=DEV,
+                              dtype=torch.int32)
+            check(torch.equal(emb.gather(t, i), emb.gather_plain(t, i)),
+                  f"gather != table[ids] at {arch} ({Va}x{da}), ids {shape}")
+        del t
+    print("[kernels] gather == table[ids] (bit for bit) at glm4_9b, "
+          "mamba2_370m and zamba2_2p7b widths", flush=True)
     flat = ids.reshape(-1)
     rows["gather"] = dict(
         kernel="gather", source="src/repro_torch/csrc/embedding.cu",
@@ -433,6 +516,125 @@ def check_gather(torch, timer, gen, rows):
                    bound_ms(2 * 256 * d * 2 + 256 * 4, 0.0))))
 
 
+def ssd_inputs(torch, gen, b, S, nh, hp, G, N):
+    """Inputs drawn as tests/test_kernels.py's SSD cases draw them: x, B,
+    C ~ N(0, 1) in bf16, dt ~ U(0.001, 0.1), A ~ -U(0.5, 4), h0 ~ N(0,
+    0.5^2) fp32."""
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEV)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).bfloat16()
+
+    return (bf(b, S, nh, hp), u((b, S, nh), 0.001, 0.1), -u((nh,), 0.5, 4.0),
+            bf(b, S, G, N), bf(b, S, G, N),
+            0.5 * torch.randn((b, nh, hp, N), generator=gen, device=DEV))
+
+
+def ssd_bound(b, S, nh, hp, G, N, Q):
+    """Each input read once, each output written once; the operations of
+    the causal chunked scan (C.B and scores.xdt over the row pairs j <= i
+    of each chunk, the state read-out and update), at the bf16 rate."""
+    nbytes = (2 * b * S * nh * hp * 2 + b * S * nh * 4 + nh * 4
+              + 2 * b * S * G * N * 2 + 2 * b * nh * hp * N * 4)
+    nc = S // Q
+    flops = b * nh * nc * (Q * (Q + 1) * (N + hp) + 4 * Q * N * hp)
+    return bound_ms(nbytes, flops), flops
+
+
+def check_ssd_close(name, y_k, h_k, y_p, h_p) -> tuple[float, float, float]:
+    """y: every (row, head) within TOL relative to its norm; h_last within
+    SSD_H_TOL of max(1, |plain|). Returns (y abs err, y row rel err,
+    h abs err)."""
+    ey, ry = err(y_k, y_p), row_err(y_k, y_p)
+    eh = err(h_k, h_p)
+    scaled = float(((h_k - h_p).abs() / h_p.abs().clamp(min=1.0)).max())
+    check(ry <= TOL and scaled <= SSD_H_TOL,
+          f"{name}: y max row relative err {ry} (limit {TOL}), h_last max "
+          f"err {eh} ({scaled} scaled to max(1, |plain|); limit "
+          f"{SSD_H_TOL})")
+    return ey, ry, eh
+
+
+def check_ssd(torch, timer, gen, rows):
+    """The SSD scan kernel against ssd_chunked at both models' widths,
+    and its two bitwise invariants (phase 2c)."""
+    from repro_torch.kernels import ssd as ssd_k
+    from repro_torch.models.ssm import ssd_chunked
+
+    Q = 256
+    widths = {"mamba2_370m": (32, 64, 1, 128), "zamba2_2p7b": (80, 64, 1, 64)}
+    for arch, (nh, hp, G, N) in widths.items():
+        for b, S in ((1, Q), (2, 2 * Q)):
+            x, dt, A, B, C, h0 = ssd_inputs(torch, gen, b, S, nh, hp, G, N)
+            y_k, h_k = ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)
+            y_p, h_p = ssd_chunked(x, dt, A, B, C, Q, h0=h0)
+            e = check_ssd_close(f"ssd {arch} b={b} S={S}", y_k, h_k, y_p, h_p)
+            if arch == "mamba2_370m" and b == 1:
+                main = (x, dt, A, B, C, h0, e)
+    # the smoke widths and a grouped case (G = 2), without h0
+    for (b, S, nh, hp, G, N, q) in ((2, 16, 4, 16, 1, 16, 8),
+                                    (2, 96, 4, 32, 2, 16, 16)):
+        x, dt, A, B, C, _ = ssd_inputs(torch, gen, b, S, nh, hp, G, N)
+        check_ssd_close(f"ssd b={b} S={S} nh={nh} hp={hp} G={G} N={N} Q={q}",
+                        *ssd_k.ssd(x, dt, A, B, C, chunk=q),
+                        *ssd_chunked(x, dt, A, B, C, q))
+
+    # (a) one launch over 2Q rows == two launches of Q, h0 carried
+    nh, hp, G, N = widths["mamba2_370m"]
+    x, dt, A, B, C, h0 = ssd_inputs(torch, gen, 1, 2 * Q, nh, hp, G, N)
+    y2, h2 = ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)
+    halves = [t[:, :Q].contiguous() for t in (x, dt, B, C)]
+    ya, ha = ssd_k.ssd(halves[0], halves[1], A, halves[2], halves[3],
+                       chunk=Q, h0=h0)
+    rest = [t[:, Q:].contiguous() for t in (x, dt, B, C)]
+    yb, hb = ssd_k.ssd(rest[0], rest[1], A, rest[2], rest[3], chunk=Q, h0=ha)
+    check(torch.equal(y2, torch.cat([ya, yb], dim=1)) and torch.equal(h2, hb),
+          "ssd: one launch over 2Q rows != two launches of Q, bit for bit")
+    # (b) rows with dt = 0 past row n: whatever they hold, h_last and the
+    # first n rows' y are unchanged; a whole chunk of them is the identity
+    n = 100
+    x, dt, A, B, C, h0 = ssd_inputs(torch, gen, 1, Q, nh, hp, G, N)
+    dt[:, n:] = 0.0
+    y1, h1 = ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)
+    x2, _, _, B2, C2, _ = ssd_inputs(torch, gen, 1, Q, nh, hp, G, N)
+    for t, t2 in ((x, x2), (B, B2), (C, C2)):
+        t2[:, :n] = t[:, :n]
+    y2, h2 = ssd_k.ssd(x2, dt, A, B2, C2, chunk=Q, h0=h0)
+    check(torch.equal(h1, h2) and torch.equal(y1[:, :n], y2[:, :n]),
+          "ssd: dt = 0 rows changed h_last or earlier rows' y")
+    zero_chunk = [torch.cat([t, t2], dim=1) for t, t2 in ((x, x2), (B, B2),
+                                                           (C, C2))]
+    dt_z = torch.cat([dt, torch.zeros_like(dt)], dim=1)
+    y3, h3 = ssd_k.ssd(zero_chunk[0], dt_z, A, zero_chunk[1], zero_chunk[2],
+                       chunk=Q, h0=h0)
+    check(torch.equal(h3, h1) and torch.equal(y3[:, :Q], y1),
+          "ssd: a chunk of dt = 0 rows is not the identity on the state")
+    print("[kernels] ssd: 2Q in one launch == two launches of Q, dt = 0 "
+          "rows leave h_last and earlier y unchanged (bit for bit)",
+          flush=True)
+
+    x, dt, A, B, C, h0, (ey, ry, eh) = main
+    b, S = x.shape[:2]
+    (bnd, by), flops = ssd_bound(b, S, nh, hp, G, N, Q)
+    zb = widths["zamba2_2p7b"]
+    xz, dtz, Az, Bz, Cz, h0z = ssd_inputs(torch, gen, 1, Q, *zb)
+    rows["ssd"] = dict(
+        kernel="ssd", source=SSD_SRC, max_abs_err=ey, max_row_rel_err=ry,
+        h_last_max_abs_err=eh,
+        ms=timer(lambda: ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)),
+        plain_ms=timer(lambda: ssd_chunked(x, dt, A, B, C, Q, h0=h0)),
+        library_ms=None, bound_ms=bnd, bound_by=by,
+        fp32_cuda_core_ms=flops / 67e12 * 1e3,
+        zamba2_ms=timer(lambda: ssd_k.ssd(xz, dtz, Az, Bz, Cz, chunk=Q,
+                                          h0=h0z)),
+        zamba2_plain_ms=timer(lambda: ssd_chunked(xz, dtz, Az, Bz, Cz, Q,
+                                                  h0=h0z)),
+        zamba2_bound_ms=ssd_bound(1, Q, *zb, Q)[0][0],
+        shape=f"b={b} S={S} nh={nh} hp={hp} G={G} N={N} Q={Q} "
+              f"({flops / 1e9:.3f} GFLOP); zamba2 nh={zb[0]} N={zb[3]}")
+
+
 def check_kernels(torch, timer):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -440,6 +642,7 @@ def check_kernels(torch, timer):
     check_paged(torch, timer, gen, rows)
     check_ragged(torch, timer, gen, rows)
     check_gather(torch, timer, gen, rows)
+    check_ssd(torch, timer, gen, rows)
     for name, r in rows.items():
         extra = ""
         if "no_write_ms" in r:
@@ -453,6 +656,7 @@ def check_kernels(torch, timer):
               f"max_abs_err={r['max_abs_err']:.3g} "
               f"max_row_rel_err={r['max_row_rel_err']:.3g}{extra}",
               flush=True)
+        print(f"[kernels] {name}: {json.dumps(r)}", flush=True)
     return rows
 
 
@@ -482,7 +686,7 @@ def read_launches(counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: serve glm4_9b at full width and depth
+# phases 3-5: serve glm4_9b, mamba2_370m and zamba2_2p7b at full size
 # ---------------------------------------------------------------------------
 
 
@@ -509,9 +713,13 @@ def serve(torch, counters, eng, reqs, max_new, expect):
                     lg[:, :cfg.vocab_size]).all()))
         return sample(logits_d, logits_c, a)
 
+    chunks = []
+
     def counted_schedule():
         plan = schedule()
         widest[0] = max(widest[0], len(plan.chunks))
+        chunks.extend((r.num_computed, n, r.context_len)
+                      for _, r, n in plan.chunks)
         return plan
 
     eng.runner.step, eng.runner._sample = timed_step, checked_sample
@@ -528,6 +736,10 @@ def serve(torch, counters, eng, reqs, max_new, expect):
         check(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
               f"request {r.rid}: token out of range")
     check(all(finite), "non-finite logits")
+    q = eng.sched.chunk_quantum
+    check(all(lo % q == 0 and (n % q == 0 or lo + n == total)
+              for lo, n, total in chunks),
+          f"a non-final chunk is not a multiple of the quantum {q}")
     for name in expect:
         check(launches.get(name, 0) > 0,
               f"kernel {name} never launched on the main path")
@@ -551,6 +763,8 @@ def serve(torch, counters, eng, reqs, max_new, expect):
             "cache_hit_tokens": s["cache_hit_tokens"],
             "prefill_chunks": s["prefill_chunks"],
             "kv_cache_mib": s["kv_cache_mib"],
+            "slot_state_mib": s["slot_state_mib"],
+            "quantum_dropped_tokens": s["quantum_dropped_tokens"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": launches}
 
@@ -655,18 +869,147 @@ def serve_packed(torch, counters, card, params):
     return results
 
 
+def serve_ssm(torch, counters, card):
+    """Phase 5: mamba2_370m (SSMRunner) and zamba2_2p7b (HybridRunner)
+    at full width and depth, random bf16 weights from seed 0, max_batch 8,
+    a 264-token budget (256-token chunks, the SSD chunk size). mamba2
+    serves 8 requests of 512 tokens (32 new each), then 8 of 300-500
+    tokens (16 new each: a 256-token chunk, then a final exempt one);
+    zamba2 serves 8 of 512 tokens (16 new each). The ssd kernel launches
+    once per mamba layer and chunk."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.serving import InferenceEngine, Request
+
+    results = []
+    runs = (("mamba2_370m", "512", 32), ("mamba2_370m", "300-500", 16),
+            ("zamba2_2p7b", "512", 16))
+    kw = dict(device=DEV, max_batch=8, block_size=16, max_len=1024,
+              max_num_batched_tokens=8 + 256, seed=0)
+    eng = None
+    for arch, lens, max_new in runs:
+        cfg = get_config(arch)
+        if eng is None or eng.cfg != cfg:
+            eng = None
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            eng = InferenceEngine(cfg, **kw)
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t0
+            params = eng.params
+        else:               # same weights, fresh caches and counters
+            eng = InferenceEngine(cfg, params=params, **kw)
+        check(eng.chunk_width == 256 == eng.sched.chunk_quantum,
+              f"chunk width {eng.chunk_width}, quantum "
+              f"{eng.sched.chunk_quantum}")
+        rng = np.random.default_rng(0)
+        n_tok = ([512] * 8 if lens == "512"
+                 else rng.integers(300, 501, 8).tolist())
+        reqs = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new=max_new) for n in n_tok]
+        expect = ["ssd", "gather"]
+        if cfg.shared_attn_period:
+            expect += ["paged_attention", "paged_prefill_attention"]
+        res = serve(torch, counters, eng, reqs, max_new, expect)
+        n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
+        check(res["prefill_chunks"] == 2 * len(reqs),
+              f"{arch}: {res['prefill_chunks']} chunks, not 2 per prompt")
+        check(res["launches"]["ssd"] == n_mamba * res["prefill_chunks"],
+              f"{arch}: ssd launched {res['launches']['ssd']} times, not "
+              f"{n_mamba} layers x {res['prefill_chunks']} chunks")
+        res.update(arch=arch, prompt_tokens=lens, requests=len(reqs),
+                   params=cfg.param_count(), init_s=init_s,
+                   runner=type(eng.runner).__name__)
+        print(f"[serve-ssm] {card}: {arch} full width, {cfg.num_layers} "
+              f"layers ({res['params'] / 1e9:.2f} B params), "
+              f"{res['runner']}, prompts of {lens} tokens: {res['tok_s']} "
+              f"tok/s, decode step {res['decode_step_ms_mean']:.1f} ms, "
+              f"chunk step {res['chunk_step_ms_mean']:.1f} ms, TTFT median "
+              f"{res['ttft_s_median']:.3f} s, token gap median "
+              f"{1e3 * res['token_gap_s_median']:.1f} ms, slot state "
+              f"{res['slot_state_mib']} MiB, KV "
+              f"{res['kv_cache_mib'] - res['slot_state_mib']:.3f} MiB, peak "
+              f"{res['peak_mem_gib']:.2f} GiB, ssd launches "
+              f"{res['launches']['ssd']}: {json.dumps(res)}", flush=True)
+        results.append(res)
+    del eng, params
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phase 5: card vs CPU at smoke size
+# phase 6: card vs CPU at smoke size
 # ---------------------------------------------------------------------------
+
+
+def last_logits(torch, params, cfg, tokens, kv):
+    """fp32 logits after ``tokens`` on the CPU, by one monolithic chunk
+    from fresh state (block 0 is the trash block)."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.runners import make_runner
+
+    n = len(tokens)
+    nb = -(-n // 16)
+    cache = make_runner(cfg).init_cache(nb + 1, 16, 1, "cpu", kv)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    batch = {"tokens": i32([list(tokens)]), "q_start": i32([0]),
+             "q_lens": i32([n]), "block_tables": i32([list(range(1, nb + 1))]),
+             "ctx_lens": i32([n])}
+    with torch.no_grad():
+        lg, _ = transformer.prefill_chunk_paged(params, cache, batch, cfg)
+    return lg[0, :cfg.vocab_size]
+
+
+def compare_card_cpu(torch, cfg, params, prompts, arrivals, label, pack=1,
+                     kv="bf16", **kw):
+    """One smoke engine run on the card and one on the CPU, same weights
+    and requests: greedy tokens equal, or the first difference at a top-2
+    margin below the bf16 tolerance. Returns (card outputs, margins)."""
+    import numpy as np
+    from repro_torch.models.api import params_to
+    from repro_torch.serving import InferenceEngine, Request
+
+    outs = {}
+    for dev in (DEV, "cpu"):
+        eng = InferenceEngine(cfg, device=dev, params=params_to(params, dev),
+                              prefill_pack=pack, kv_dtype=kv,
+                              debug_invariants=True, **kw)
+        reqs = [Request(p.copy(), max_new=20) for p in prompts]
+        got = eng.run(reqs, arrival_steps=arrivals)
+        outs[dev] = [got[r.rid].tolist() for r in reqs]
+        if cfg.ssm is None or cfg.shared_attn_period:
+            check(eng.stats["preemptions"] >= 1,
+                  f"{dev} {label}: smoke run did not preempt")
+        if cfg.ssm is None:
+            check(eng.stats["cow_copies"] >= 1,
+                  f"{dev} {label}: smoke run did not copy-on-write")
+        else:
+            check(eng.stats["quantum_dropped_tokens"] > 0,
+                  f"{dev} {label}: no chunk was quantized")
+    margins = []
+    for p, a, b in zip(prompts, outs[DEV], outs["cpu"]):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = last_logits(torch, params, cfg,
+                         np.concatenate([p, np.asarray(b[:i], np.int32)]), kv)
+        top = torch.topk(lg, 2)
+        margin = float(top.values[0] - top.values[1])
+        margins.append(margin)
+        check(margin < TOL and {a[i], b[i]} == set(top.indices.tolist()),
+              f"{label}: card and CPU differ at step {i} with top-2 margin "
+              f"{margin}")
+    same = sum(a == b for a, b in zip(outs[DEV], outs["cpu"]))
+    print(f"[card-vs-cpu] {label}: {same}/{len(prompts)} requests "
+          f"token-identical; first-difference top-2 margins: {margins}",
+          flush=True)
+    return outs[DEV], {"identical": same, "margins": margins}
 
 
 def card_vs_cpu(torch):
     import numpy as np
     from repro_torch.config import get_config
-    from repro_torch.models import transformer
-    from repro_torch.models.api import init_model, params_to
-    from repro_torch.serving import InferenceEngine, Request
-    from repro_torch.serving.kv_cache import init_paged_cache
+    from repro_torch.models.api import init_model
 
     cfg = get_config("glm4_9b", smoke=True)
     params = init_model(cfg, seed=0, device="cpu")
@@ -678,54 +1021,29 @@ def card_vs_cpu(torch):
                                .astype(np.int32)]),
                rng.integers(0, cfg.vocab_size, 20).astype(np.int32)]
     kw = dict(max_batch=2, block_size=16, max_len=96, num_blocks=8,
-              max_num_batched_tokens=2 + 12, debug_invariants=True)
+              max_num_batched_tokens=2 + 12)
     outs, summary = {}, {}
     for pack, kv in ((1, "bf16"), (4, "bf16"), (4, "int8"), (1, "fp8")):
-        for dev in (DEV, "cpu"):
-            eng = InferenceEngine(cfg, device=dev,
-                                  params=params_to(params, dev),
-                                  prefill_pack=pack, kv_dtype=kv, **kw)
-            reqs = [Request(p.copy(), max_new=20) for p in prompts]
-            got = eng.run(reqs, arrival_steps=[0, 5, 9, 9])
-            outs[pack, kv, dev] = [got[r.rid].tolist() for r in reqs]
-            check(eng.stats["preemptions"] >= 1
-                  and eng.stats["cow_copies"] >= 1,
-                  f"{dev} ({pack}, {kv}): smoke run did not preempt and "
-                  "copy-on-write")
-        margins = []
-        for p, a, b in zip(prompts, outs[pack, kv, DEV],
-                           outs[pack, kv, "cpu"]):
-            if a == b:
-                continue
-            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            toks = np.concatenate([p, np.asarray(b[:i], np.int32)])
-            n = len(toks)
-            nb = -(-n // 16)
-            cache = init_paged_cache(cfg, nb + 1, 16, "cpu", kv)
-            i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
-            batch = {"tokens": i32([toks.tolist()]), "q_start": i32([0]),
-                     "q_lens": i32([n]),
-                     "block_tables": i32([list(range(1, nb + 1))]),
-                     "ctx_lens": i32([n])}
-            with torch.no_grad():
-                lg, _ = transformer.prefill_chunk_paged(params, cache, batch,
-                                                        cfg)
-            top = torch.topk(lg[0, :cfg.vocab_size], 2)
-            margin = float(top.values[0] - top.values[1])
-            margins.append(margin)
-            check(margin < TOL and {a[i], b[i]} == set(top.indices.tolist()),
-                  f"({pack}, {kv}): card and CPU differ at step {i} with "
-                  f"top-2 margin {margin}")
-        same = sum(a == b for a, b in zip(outs[pack, kv, DEV],
-                                          outs[pack, kv, "cpu"]))
-        summary[f"pack{pack}_{kv}"] = {"identical": same, "margins": margins}
-        print(f"[card-vs-cpu] glm4 smoke, prefill_pack {pack}, {kv} pools: "
-              f"{same}/{len(prompts)} requests token-identical; "
-              f"first-difference top-2 margins: {margins}", flush=True)
-    check(outs[4, "bf16", DEV] == outs[1, "bf16", DEV],
+        outs[pack, kv], summary[f"pack{pack}_{kv}"] = compare_card_cpu(
+            torch, cfg, params, prompts, [0, 5, 9, 9],
+            f"glm4 smoke, prefill_pack {pack}, {kv} pools", pack, kv, **kw)
+    check(outs[4, "bf16"] == outs[1, "bf16"],
           "on the card, prefill_pack 4 and 1 gave different bf16 tokens")
     print("[card-vs-cpu] on the card, prefill_pack 4 == prefill_pack 1 "
           "(bf16), token for token", flush=True)
+    # SSM and hybrid: quantized chunks (a 13-token budget over 8-token SSD
+    # chunks), staggered arrivals; zamba2 also preempts (7 blocks of 16)
+    for arch in ("mamba2_370m", "zamba2_2p7b"):
+        cfg = get_config(arch, smoke=True)
+        params = init_model(cfg, seed=0, device="cpu")
+        prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+                   for _ in range(4)]
+        kw = dict(max_batch=2, block_size=16, max_len=96,
+                  max_num_batched_tokens=2 + 13)
+        if cfg.shared_attn_period:
+            kw["num_blocks"] = 8
+        _, summary[arch] = compare_card_cpu(
+            torch, cfg, params, prompts, [0, 0, 3, 5], f"{arch} smoke", **kw)
     return summary
 
 
@@ -742,6 +1060,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import embedding as emb
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd as ssd_k
 
     # decode_logits must be a true fp32 product on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -764,11 +1083,12 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     counters = (pa.paged_attention, pa.paged_prefill_attention,
-                pa.ragged_paged_prefill_attention, emb.gather)
+                pa.ragged_paged_prefill_attention, emb.gather, ssd_k.ssd)
     res, params = serve_full(torch, counters, card)
     runs = [res] + serve_packed(torch, counters, card, params)
     del params
     torch.cuda.empty_cache()
+    runs += serve_ssm(torch, counters, card)
     card_vs_cpu(torch)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)

@@ -19,6 +19,23 @@ from typing import Any
 # Layer kinds used by block patterns.
 ATTN = "attn"            # full global attention block
 LOCAL_ATTN = "local"     # sliding-window attention block
+MAMBA = "mamba"          # Mamba2 (SSD) block
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int            # N (ssm_state)
+    head_dim: int = 64        # P
+    expand: int = 2           # d_inner = expand * d_model
+    conv_kernel: int = 4
+    chunk_size: int = 256
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -49,9 +66,9 @@ class ModelConfig:
     post_block_norm: bool = False
     tie_embeddings: bool = False
     embedding_scale: bool = False
-    # --- mixture / ssm (not ported yet: see ROADMAP queue 1) -----------------
+    # --- mixture / ssm (mixture of experts not ported yet: ROADMAP queue 1) --
     moe: Any = None
-    ssm: Any = None
+    ssm: SSMConfig | None = None
     # --- encoder-decoder ----------------------------------------------------
     encoder_layers: int = 0
     encoder_seq_len: int = 0
@@ -82,13 +99,29 @@ class ModelConfig:
         return (pat * reps)[: self.num_layers]
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention decoder
-        (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head) of dense,
+        SSM and hybrid decoders, counted as the JAX package counts."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mats = 2 if self.mlp_activation == "gelu_mlp" else 3
-        return n + self.num_layers * (attn + mats * d * self.d_ff + 2 * d)
+        mlp = mats * d * self.d_ff
+        for kind in self.layer_kinds():
+            if kind in (ATTN, LOCAL_ATTN):
+                n += attn + mlp + 2 * d
+            elif kind == MAMBA:
+                n += self._mamba_params() + d
+        if self.shared_attn_period:
+            n += attn + mlp + 2 * d
+        return n
+
+    def _mamba_params(self) -> int:
+        s = self.ssm
+        d, di = self.d_model, s.d_inner(self.d_model)
+        nh, N = s.n_heads(self.d_model), s.state_dim
+        in_proj = d * (2 * di + 2 * s.n_groups * N + nh)
+        conv = s.conv_kernel * (di + 2 * s.n_groups * N)
+        return in_proj + conv + nh + nh + di * d + di  # A, D, out_proj, norm
 
 
 ARCHS: tuple[str, ...] = (
@@ -119,7 +152,7 @@ _ALIASES = {
 }
 
 # The architectures whose configs the port carries so far.
-PORTED_ARCHS: tuple[str, ...] = ("glm4_9b",)
+PORTED_ARCHS: tuple[str, ...] = ("glm4_9b", "mamba2_370m", "zamba2_2p7b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

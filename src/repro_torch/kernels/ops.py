@@ -6,9 +6,10 @@ is what the JAX package's ops run off the TPU (``repro.kernels.ops``):
 ``ref.paged_attention_ref`` for decode, ``paged_chunk_attention_xla`` for
 chunked prefill, ``ragged_chunk_attention_xla`` for packed prefill (after
 ``update_paged_cache_ragged`` for the fused write), ``table[ids]`` for the
-gather. There is no switch between the two other than where the tensors
-live. ``k_scale``/``v_scale`` mark int8/fp8 pools, dequantized in-tile by
-the kernels and after the gather by the plain versions.
+gather, ``models.ssm.ssd_chunked`` for the SSD scan. There is no switch
+between the two other than where the tensors live. ``k_scale``/``v_scale``
+mark int8/fp8 pools, dequantized in-tile by the kernels and after the
+gather by the plain versions.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from repro_torch.kernels import embedding as emb
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as ssd_k
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -89,3 +91,16 @@ def embedding_gather(table, ids):
     if table.is_cuda:
         return emb.gather(table, ids)
     return emb.gather_plain(table, ids)
+
+
+def ssd(x, dt, A, B, C, *, chunk, h0=None):
+    """Chunked SSD scan: x (b, S, nh, hp), dt (b, S, nh) fp32, A (nh,),
+    B, C (b, S, G, N), h0 (b, nh, hp, N) fp32 or None. Returns (y, h_last).
+    The kernel reads dense rows, so CUDA operands are made contiguous
+    first (B and C arrive as slices of the conv output)."""
+    if x.is_cuda:
+        x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+        return ssd_k.ssd(x, dt, A, B, C, chunk=chunk,
+                         h0=None if h0 is None else h0.contiguous())
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, chunk=chunk, h0=h0)

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles (port of ``repro.kernels.ref``): naive, exact,
-densifying. ``paged_attention_ref`` is also the plain decode path the port
-runs on the CPU, as the JAX package's ``ops.paged_attention`` does off the
-TPU. Same op order as the JAX oracles: fp32 logits, masked softmax with
+densifying, and the step-by-step SSD recurrence ``ssd_ref``.
+``paged_attention_ref`` is also the plain decode path the port runs on
+the CPU, as the JAX package's ``ops.paged_attention`` does off the TPU.
+Same op order as the JAX oracles: fp32 logits, masked softmax with
 the all-masked guard, normalize in fp32, cast to the value dtype, then
 multiply by V (``docs/kernels.md`` §The rounding convention). Quantized
 pools (``k_scale``/``v_scale``: fp32 (num_blocks, block_size, K, 1)
@@ -175,3 +176,26 @@ def ragged_paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
     o = torch.einsum("tgkf,fkh->tgkh", p.float(),
                      v.reshape(S * E, K, hd).float())
     return o.reshape(T, H, hd).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, B, C, h0=None):
+    """Exact SSD recurrence, one step at a time.
+
+    x: (b, S, nh, hp); dt: (b, S, nh); A: (nh,); B, C: (b, S, G, N).
+    Returns (y (b, S, nh, hp) in x's dtype, h_last (b, nh, hp, N) fp32).
+    """
+    b, S, nh, hp = x.shape
+    N = B.shape[3]
+    rep = nh // B.shape[2]
+    x32, dt32 = x.float(), dt.float()
+    Bh = B.repeat_interleave(rep, dim=2).float()          # (b,S,nh,N)
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    h = (torch.zeros((b, nh, hp, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dt32[:, t] * A)                   # (b,nh)
+        h = h * dec[..., None, None] + torch.einsum(
+            "bh,bhs,bhp->bhps", dt32[:, t], Bh[:, t], x32[:, t])
+        ys.append(torch.einsum("bhs,bhps->bhp", Ch[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -18,7 +18,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.config import get_config
+from repro_torch.config import PORTED_ARCHS, get_config
 
 
 def poisson_arrival_steps(n: int, rate: float, rng) -> list[int]:
@@ -97,7 +97,8 @@ def run_engine(cfg, args):
     s = eng.stats
     print(f"[serve] device={eng.device} arch={cfg.name} "
           f"kv_dtype={s['kv_dtype']} prefill_pack={eng.prefill_pack} "
-          f"kv_cache_mib={s['kv_cache_mib']}")
+          f"kv_cache_mib={s['kv_cache_mib']} "
+          f"slot_state_mib={s['slot_state_mib']}")
     print(f"[serve] runner={type(eng.runner).__name__} {len(reqs)} requests "
           f"(poisson rate={args.rate}/step, arrivals={arrivals}), "
           f"{s['tokens']} tokens in {s['wall_s']:.2f}s "
@@ -116,7 +117,8 @@ def run_engine(cfg, args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="glm4_9b")
+    ap.add_argument("--arch", default="glm4_9b",
+                    choices=PORTED_ARCHS)
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="smoke-size config (default; --no-smoke for full)")

@@ -5,9 +5,10 @@ package's parameter tree.
 the JAX package's distributions (``repro.models.modules.dense_init`` and
 the ``init_*`` functions): truncated normal on [-2, 2] scaled by
 ``1/sqrt(fan_in)``, ``wo`` by ``1/sqrt(H*hd)``, the embedding table by
-0.02, norm scales at 1. The numbers differ from ``jax.random``'s; tests
-that compare the two packages convert the JAX tree with
-``params_from_jax`` instead.
+0.02, the mamba conv weights by 0.5, norm scales and ``D`` at 1,
+``dt_bias`` at 0, ``A_log = log(linspace(1, 16, nh))``. The numbers
+differ from ``jax.random``'s; tests that compare the two packages convert
+the JAX tree with ``params_from_jax`` instead.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MAMBA, ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -32,8 +33,9 @@ def _trunc_normal(shape, scale, gen, device):
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random parameters for a dense decoder, drawn on ``device`` in fp32
-    and stored in ``cfg.dtype``."""
+    """Random parameters for a dense, SSM or hybrid decoder, drawn on
+    ``device`` in fp32 and stored in ``cfg.dtype`` (every leaf, as the
+    serving engines cast the whole tree)."""
     dt = _DTYPES[cfg.dtype]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -58,13 +60,38 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
         def mlp():
             return {"w_gate": dense((d, f)), "w_in": dense((d, f)),
                     "w_out": dense((f, d))}
-    layers = [{"norm": norm(),
-               "attn": {"wq": dense((d, H, hd)), "wk": dense((d, K, hd)),
-                        "wv": dense((d, K, hd)),
-                        "wo": dense((H, hd, d), 1.0 / math.sqrt(H * hd))},
-               "norm2": norm(),
-               "mlp": mlp()} for _ in range(cfg.num_layers)]
-    return {"embed": embed, "layers": layers, "final_norm": norm()}
+    def attn_block():
+        return {"norm": norm(),
+                "attn": {"wq": dense((d, H, hd)), "wk": dense((d, K, hd)),
+                         "wv": dense((d, K, hd)),
+                         "wo": dense((H, hd, d), 1.0 / math.sqrt(H * hd))},
+                "norm2": norm(),
+                "mlp": mlp()}
+
+    def mamba_block():
+        s = cfg.ssm
+        di, nh = s.d_inner(d), s.n_heads(d)
+        gn = s.n_groups * s.state_dim
+
+        def const(x):
+            return x.to(dtype=dt, device=device)
+
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32))
+        return {"norm": norm(), "mamba": {
+            "wz": dense((d, di)), "wx": dense((d, di)),
+            "wbc": dense((d, 2 * gn)), "wdt": dense((d, nh)),
+            "conv_x": dense((s.conv_kernel, di), 0.5),
+            "conv_bc": dense((s.conv_kernel, 2 * gn), 0.5),
+            "dt_bias": const(torch.zeros(nh)), "A_log": const(a_log),
+            "D": const(torch.ones(nh)), "norm_scale": const(torch.ones(di)),
+            "w_out": dense((di, d))}}
+
+    layers = [mamba_block() if kind == MAMBA else attn_block()
+              for kind in cfg.layer_kinds()]
+    params = {"embed": embed, "layers": layers, "final_norm": norm()}
+    if cfg.shared_attn_period:
+        params["shared"] = attn_block()
+    return params
 
 
 def _to_torch(a, device):
@@ -77,23 +104,30 @@ def _to_torch(a, device):
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """Convert the JAX package's parameter tree (numpy arrays, as from
-    ``repro.models.api.init_model`` cast to bf16) into the port's layout:
-    the stacked ``blocks/sub0`` leaves are split per layer; einsum layouts
-    are kept as they are. Dense single-kind decoders only."""
-    if set(tree["blocks"]) != {"sub0"}:
+    ``repro.models.api.init_model`` cast to bf16) into the port's layout.
+    The JAX package stacks layers by period: ``blocks/sub{i}`` holds kind
+    ``i`` of every period along a leading NP axis, so layer ``p * P + i``
+    is ``sub{i}[p]`` (P kinds per period). The leaves are split per layer
+    in that order; the hybrid's unstacked ``shared`` block is carried as
+    it is; einsum layouts are kept. Several stacks only for SSM models."""
+    P = len(tree["blocks"])
+    if P != 1 and cfg.ssm is None:
         raise NotImplementedError(
             f"blocks {sorted(tree['blocks'])}: only single-kind dense stacks "
             "are ported (ROADMAP.md queue 1 item 3)")
 
-    def conv(t, layer=None):
+    def conv(t, index=None):
         if isinstance(t, dict):
-            return {k: conv(v, layer) for k, v in t.items()}
-        return _to_torch(t if layer is None else np.asarray(t)[layer], device)
+            return {k: conv(v, index) for k, v in t.items()}
+        return _to_torch(t if index is None else np.asarray(t)[index], device)
 
-    stack = tree["blocks"]["sub0"]
-    return {"embed": conv(tree["embed"]),
-            "layers": [conv(stack, i) for i in range(cfg.num_layers)],
-            "final_norm": conv(tree["final_norm"])}
+    params = {"embed": conv(tree["embed"]),
+              "layers": [conv(tree["blocks"][f"sub{layer % P}"], layer // P)
+                         for layer in range(cfg.num_layers)],
+              "final_norm": conv(tree["final_norm"])}
+    if "shared" in tree:
+        params["shared"] = conv(tree["shared"])
+    return params
 
 
 def params_to(params, device):

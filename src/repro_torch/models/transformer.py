@@ -1,26 +1,40 @@
-"""Dense decoder serving forward (port of the paged serving trio of
+"""Decoder serving forward (port of the paged serving trio of
 ``repro.models.transformer``): ``decode_step_paged``,
-``prefill_chunk_paged`` and ``prefill_chunk_ragged``.
+``prefill_chunk_paged`` and ``prefill_chunk_ragged``, for dense GQA
+decoders, pure Mamba2 models and zamba2's hybrid (Mamba2 layers with one
+shared attention + MLP block applied after every ``shared_attn_period``
+layers).
 
 A Python loop over layers replaces ``lax.scan``. Parameters are a dict:
-``{"embed": {"table", "head"}, "layers": [per-layer dict, ...],
-"final_norm": {"scale"}}``, where each per-layer dict is one slice of the
-JAX package's stacked ``blocks/sub0`` tree (``norm``, ``attn/{wq,wk,wv,
-wo}``, ``norm2``, ``mlp/{w_gate,w_in,w_out}``). The KV cache is
-``{"k", "v"}`` page pools shaped ``(num_layers, num_blocks, block_size, K,
-hd)``, plus fp32 ``{"k_scale", "v_scale"}`` pools ``(..., K, 1)`` when the
-pools are int8 / fp8. Every step writes its new KV rows into it in place
-(the JAX package donates the pools instead) and returns it; into a
-quantized pool the rows are quantized first, their scale rows scattered
-beside them, and the attention dequantizes.
+``{"embed": {"table"[, "head"]}, "layers": [per-layer dict, ...],
+"final_norm": {"scale"}[, "shared": {...}]}``, where each per-layer dict is
+one slice of the JAX package's stacked ``blocks/sub{i}`` trees: ``norm``,
+``attn/{wq,wk,wv,wo}``, ``norm2``, ``mlp/{w_gate,w_in,w_out}`` for an
+attention layer, ``norm``, ``mamba/{...}`` for a mamba layer; ``shared``
+is the hybrid's one unstacked attention block (``norm``, ``attn``,
+``norm2``, ``mlp``).
+
+The cache is a dict. Attention KV lives in ``{"k", "v"}`` page pools
+shaped ``(n_attn, num_blocks, block_size, K, hd)``, one entry per
+attention application in layer order (every layer of a dense model, one
+per period of a hybrid), plus fp32 ``{"k_scale", "v_scale"}`` pools
+``(..., K, 1)`` when the pools are int8 / fp8. Mamba state lives in
+``{"conv", "ssm"}``: ``(n_mamba, rows, K-1, d_inner + 2 G N)`` in the
+activation dtype and ``(n_mamba, rows, nh, hp, N)`` fp32, one row per
+decode slot (the serving ``SlotStateCache``'s device half; a chunk gets
+its slot's row). Every step writes its new KV rows and states into the
+cache in place (the JAX package donates the buffers instead) and returns
+it; into a quantized pool the rows are quantized first, their scale rows
+scattered beside them, and the attention dequantizes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import LOCAL_ATTN, ModelConfig
+from repro_torch.config import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import quant
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_scale, out_proj,
                                           paged_chunk_attention,
                                           paged_decode_attention, project_kv,
@@ -36,18 +50,63 @@ def _mlp_part(lp, x, cfg: ModelConfig):
     return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
 
 
-def _layers(params, cache, cfg: ModelConfig, x, attend):
-    """Run every layer: ``attend(lp, h, pools, window)`` returns the
+PAGE_POOLS = ("k", "v", "k_scale", "v_scale")
+
+
+def period_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
+    """(kinds within one period, number of periods): the JAX package's
+    layer stacking. A hybrid's period is ``shared_attn_period`` layers and
+    one application of the shared block."""
+    if cfg.shared_attn_period:
+        P = cfg.shared_attn_period
+        kinds = cfg.layer_kinds()[:P]
+    else:
+        kinds = cfg.block_pattern
+        P = len(kinds)
+    if cfg.num_layers % P:
+        raise ValueError(f"{cfg.num_layers} layers are not a whole number "
+                         f"of {P}-layer periods")
+    return tuple(kinds), cfg.num_layers // P
+
+
+def _layers(params, cache, cfg: ModelConfig, x, attend, mamba=None):
+    """Run every layer in order. An attention application (a dense layer,
+    or the hybrid's shared block after every ``shared_attn_period``
+    layers) calls ``attend(ap, h, pools, window)``, which returns the
     attention output for normed input ``h`` after writing its KV into
-    ``pools``, the layer's slice of every cache pool."""
-    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
-        window = cfg.sliding_window if kind == LOCAL_ATTN else None
-        h = apply_norm(lp["norm"], x, cfg)
-        y = attend(lp["attn"], h, {n: p[i] for n, p in cache.items()},
+    ``pools``, the application's slice of every page pool. A mamba layer
+    calls ``mamba(mp, h, m)``, which returns the block output for normed
+    input ``h`` after updating mamba layer ``m``'s state in the cache."""
+    period = cfg.shared_attn_period
+    n_attn = n_mamba = 0
+
+    def attention(bp, x, window):
+        nonlocal n_attn
+        pools = {n: cache[n][n_attn] for n in PAGE_POOLS if n in cache}
+        n_attn += 1
+        y = attend(bp["attn"], apply_norm(bp["norm"], x, cfg), pools,
                    window)
-        x = x + out_proj(lp["attn"], y, x.dtype)
-        x = _mlp_part(lp, x, cfg)
+        x = x + out_proj(bp["attn"], y, x.dtype)
+        return _mlp_part(bp, x, cfg)
+
+    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        if kind == MAMBA:
+            x = x + mamba(lp["mamba"], apply_norm(lp["norm"], x, cfg),
+                          n_mamba)
+            n_mamba += 1
+        else:
+            x = attention(lp, x, cfg.sliding_window if kind == LOCAL_ATTN
+                          else None)
+        if period and (i + 1) % period == 0:
+            x = attention(params["shared"], x, None)
     return apply_norm(params["final_norm"], x, cfg)
+
+
+def _rope(cfg: ModelConfig, positions):
+    """Rope tables, or None for an attention-free model."""
+    if not cfg.num_heads:
+        return None
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _store_kv(pools, k, v, update, *args):
@@ -73,12 +132,15 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
     batch: token (B, 1), pos (B,) write position, block_tables (B, nb),
     ctx_lens (B,) visible tokens incl. this one (0 masks an idle slot).
     ``head`` overrides the logits table (an fp32 copy, see
-    ``decode_logits``). Returns (logits (B, V_pad) fp32, cache).
+    ``decode_logits``). Mamba layers run every slot (cache rows = B); the
+    new state is written back for active slots only, so an idle slot
+    (ctx_len 0) keeps its state. Returns (logits (B, V_pad) fp32, cache).
     """
     pos = batch["pos"]
     x = embed(params["embed"]["table"], batch["token"], cfg)
-    cos_sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, pos[:, None])
     bt, ctx_lens = batch["block_tables"], batch["ctx_lens"]
+    active = ctx_lens > 0
 
     def attend(ap, h, pools, window):
         q = project_q(ap, h, cfg, cos_sin)
@@ -89,7 +151,16 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
                                       cap=cfg.attn_logit_softcap,
                                       scale=attention_scale(cfg), **scales)
 
-    x = _layers(params, cache, cfg, x, attend)
+    def mamba(mp, h, m):
+        conv, ssm = cache["conv"][m], cache["ssm"][m]
+        y, (tail, hs) = ssm_mod.mamba_decode(mp, h, cfg, (conv, ssm))
+        # write back active rows only: the where reads the old state
+        # before the copy overwrites it
+        conv.copy_(torch.where(active[:, None, None], tail, conv))
+        ssm.copy_(torch.where(active[:, None, None, None], hs, ssm))
+        return y
+
+    x = _layers(params, cache, cfg, x, attend, mamba)
     head = head_table(params["embed"], cfg) if head is None else head
     return decode_logits(x, head, cfg), cache
 
@@ -99,7 +170,10 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
 
     batch: tokens (B, C) the chunk's token slice (right-padded), q_start
     (B,) absolute position of column 0, q_lens (B,) valid columns,
-    block_tables (B, nb), ctx_lens (B,) = q_start + q_lens.
+    block_tables (B, nb), ctx_lens (B,) = q_start + q_lens. The cache's
+    mamba state has one row per chunk row (the runner passes a view of the
+    chunk's slot row), read as the previous chunk's state and overwritten
+    with the new one.
     Returns (logits (B, V_pad) fp32 at each row's last valid token, cache).
     """
     tokens = batch["tokens"]
@@ -108,7 +182,7 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
     q_start, q_lens = batch["q_start"], batch["q_lens"]
     positions = q_start[:, None] + torch.arange(C, dtype=q_start.dtype,
                                                 device=tokens.device)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, positions)
     bt, ctx_lens = batch["block_tables"], batch["ctx_lens"]
 
     def attend(ap, h, pools, window):
@@ -121,7 +195,14 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
                                      cap=cfg.attn_logit_softcap,
                                      scale=attention_scale(cfg), **scales)
 
-    x = _layers(params, cache, cfg, x, attend)
+    def mamba(mp, h, m):
+        conv, ssm = cache["conv"][m], cache["ssm"][m]
+        y, (tail, hs) = ssm_mod.mamba_chunk(mp, h, cfg, (conv, ssm), q_lens)
+        conv.copy_(tail)
+        ssm.copy_(hs)
+        return y
+
+    x = _layers(params, cache, cfg, x, attend, mamba)
     last = (q_lens.long() - 1).clamp(0, C - 1)
     x_last = x[torch.arange(B, device=x.device), last][:, None]   # (B,1,d)
     head = head_table(params["embed"], cfg) if head is None else head
@@ -139,12 +220,17 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
     ctx_lens (S,) visible tokens including each chunk. Row-wise work
     (embedding, norms, projections, MLP) runs once over the flat row; the
     KV store and the attention are one fused op per layer.
+    Attention-only: SSM and hybrid models carry per-sequence chunk state,
+    which the flat layout does not, and are refused.
     Returns (logits (S, V_pad) fp32 at each sequence's last row, cache).
     """
+    if cfg.ssm is not None or cfg.shared_attn_period:
+        raise ValueError(f"{cfg.name}: packed prefill is attention-only "
+                         "(SSM blocks need per-row chunk state)")
     tokens = batch["tokens"]
     T = tokens.shape[1]
     x = embed(params["embed"]["table"], tokens, cfg)
-    cos_sin = rope_cos_sin(batch["positions"], cfg.head_dim, cfg.rope_theta)
+    cos_sin = _rope(cfg, batch["positions"])
     seqs = (batch["block_tables"], batch["ctx_lens"], batch["starts"],
             batch["ends"], batch["row_seq"])
 

@@ -1,9 +1,10 @@
 """Continuous-batching inference engine (port of
-``repro.serving.engine`` for the dense paged transformer).
+``repro.serving.engine`` for dense, SSM and hybrid decoders).
 
-One ``InferenceEngine`` owns the model parameters, a runner, the page
-pools, a ``BlockManager`` and a ``Scheduler``. Every iteration is one
-budgeted step:
+One ``InferenceEngine`` owns the model parameters, a runner, the device
+cache, the host caches the runner needs (a ``BlockManager`` for paged KV,
+a ``SlotStateCache`` for Mamba state) and a ``Scheduler``. Every
+iteration is one budgeted step:
 
     plan = scheduler.schedule()      # decodes (1 token each) + chunks
     apply COW page copies
@@ -19,7 +20,8 @@ unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
 unless the caller asks for "cpu"); there is no fallback between the two.
 
 KV pools are bf16, int8 or fp8 (``kv_dtype``; the narrow ones with fp32
-per-row scales, dequantized inside the attention kernels).
+per-row scales, dequantized inside the attention kernels); SSM and hybrid
+runners keep bf16 pools and fp32 Mamba state.
 
 What the port refuses, each with the ROADMAP item that brings it:
 speculative decoding, swap space, a cross-replica ``shared_index``, the
@@ -37,6 +39,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.api import init_model
+from repro_torch.models.transformer import PAGE_POOLS
+from repro_torch.serving.cache import SlotStateCache, slot_state_bytes
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
@@ -135,10 +139,20 @@ class InferenceEngine:
             prefill_pack = 1
         self.prefill_pack = max(1, prefill_pack)
         self.kv_dtype = kv_dtype
-        self.bm = BlockManager(num_blocks, block_size)
+        # host caches: blocks for paged KV, slots for Mamba state
+        self.bm = (BlockManager(num_blocks, block_size)
+                   if self.runner.needs_blocks else None)
+        self.slot_cache = (SlotStateCache(max_batch)
+                           if self.runner.needs_slots else None)
+        # prefix caching needs KV that is a pure function of the token
+        # prefix: only the paged transformer qualifies
+        enable_prefix_caching = (enable_prefix_caching
+                                 and self.runner.supports_prefix_caching)
         self.sched = Scheduler(self.bm, max_batch, self.max_blocks_per_seq,
                                max_num_batched_tokens, self.chunk_width,
                                enable_prefix_caching=enable_prefix_caching,
+                               chunk_quantum=self.runner.chunk_quantum,
+                               slot_cache=self.slot_cache,
                                max_context=self.max_blocks_per_seq
                                * block_size, prefill_pack=self.prefill_pack)
         self.max_batch = max_batch
@@ -147,15 +161,21 @@ class InferenceEngine:
                        else params)
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
-                                            self.device, kv_dtype)
-        cache_mib = num_blocks * block_bytes(
-            cfg, block_size, kv_dtype=kv_dtype) / 2 ** 20
+                                            max_batch, self.device, kv_dtype)
+        kv_mib = (num_blocks * block_bytes(cfg, block_size, kv_dtype=kv_dtype)
+                  / 2 ** 20 if self.runner.needs_blocks else 0.0)
+        slot_mib = (max_batch * slot_state_bytes(cfg) / 2 ** 20
+                    if self.runner.needs_slots else 0.0)
         self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
                       "tokens": 0, "prefill_tokens": 0,
+                      "quantum_dropped_tokens": 0,
                       "cache_hit_tokens": 0, "cow_copies": 0,
                       "requests": 0, "requests_done": 0,
                       "peak_block_utilization": 0.0, "peak_blocks_in_use": 0,
-                      "latency": {}, "kv_cache_mib": round(cache_mib, 3),
+                      "latency": {},
+                      # the JAX package's total: page pools + slot state
+                      "kv_cache_mib": round(kv_mib + slot_mib, 3),
+                      "slot_state_mib": round(slot_mib, 3),
                       "kv_dtype": kv_dtype}
         self.step_count = 0           # virtual clock: one step() = one tick
         self.hist = {"ttft_seconds": Histogram(SECONDS_BUCKETS),
@@ -183,8 +203,10 @@ class InferenceEngine:
     def _copy_block(self, src: int, dst: int) -> None:
         """The device half of a copy-on-write: pool row src -> dst in every
         layer's pools (k, v and, when quantized, their scales), in place."""
-        for pool in self.cache.values():
-            pool[:, dst] = pool[:, src]
+        for name in PAGE_POOLS:
+            if name in self.cache:
+                pool = self.cache[name]
+                pool[:, dst] = pool[:, src]
 
     def _build_arrays(self, plan: StepPlan) -> dict:
         B, C, nbmax = self.max_batch, self.chunk_width, self.max_blocks_per_seq
@@ -194,6 +216,9 @@ class InferenceEngine:
              "d_tables": np.zeros((B, nbmax), np.int32),
              "d_active": np.zeros(B, bool),
              "c_tok": np.zeros((1, C), np.int32)}
+        # host values: the chunk's slot-state row, and whether the chunk
+        # starts its sequence (its state row then starts from zeros)
+        host = {"c_slot": 0, "c_fresh": False}
         if S == 1:
             a.update({"c_start": np.zeros(1, np.int32),
                       "c_len": np.zeros(1, np.int32),
@@ -227,8 +252,9 @@ class InferenceEngine:
             a["d_active"][slot] = True
             a["d_tok"][slot] = req.out[-1]
             a["d_pos"][slot] = req.context_len - 1  # write position of out[-1]
-            row = self.bm.table(req.rid)
-            a["d_tables"][slot, :len(row)] = row
+            if self.bm is not None:
+                row = self.bm.table(req.rid)
+                a["d_tables"][slot, :len(row)] = row
             fill_samp(slot, req)
         if S == 1 and plan.chunk is not None:
             slot, req, n = plan.chunk
@@ -236,8 +262,10 @@ class InferenceEngine:
             a["c_tok"][0, :n] = toks[req.num_computed:req.num_computed + n]
             a["c_start"][0] = req.num_computed
             a["c_len"][0] = n
-            row = self.bm.table(req.rid)
-            a["c_table"][0, :len(row)] = row
+            host.update(c_slot=slot, c_fresh=req.num_computed == 0)
+            if self.bm is not None:
+                row = self.bm.table(req.rid)
+                a["c_table"][0, :len(row)] = row
             fill_samp(B, req)
         elif plan.chunks:
             tok_rows, pos_rows = [], []
@@ -255,6 +283,7 @@ class InferenceEngine:
             a["c_seq"], a["c_starts"], a["c_ends"] = seq, starts, ends
         out = {k: torch.from_numpy(v).to(self.device) for k, v in a.items()}
         out.update(samp)
+        out.update(host)
         return out
 
     # -- host-side step ----------------------------------------------------
@@ -307,11 +336,14 @@ class InferenceEngine:
         plan = self.sched.schedule()
         self.stats["preemptions"] = self.sched.n_preemptions
         self.stats["cache_hit_tokens"] = self.sched.cache_hit_tokens
-        st = self.bm.stats()
-        self.stats["peak_block_utilization"] = max(
-            self.stats["peak_block_utilization"], st.utilization)
-        self.stats["peak_blocks_in_use"] = max(
-            self.stats["peak_blocks_in_use"], st.blocks_in_use)
+        self.stats["quantum_dropped_tokens"] = \
+            self.sched.quantum_dropped_tokens
+        if self.bm is not None:
+            st = self.bm.stats()
+            self.stats["peak_block_utilization"] = max(
+                self.stats["peak_block_utilization"], st.utilization)
+            self.stats["peak_blocks_in_use"] = max(
+                self.stats["peak_blocks_in_use"], st.blocks_in_use)
         if self.debug_invariants:
             self._check_invariants(plan)
         for src, dst in plan.copies:
@@ -340,12 +372,18 @@ class InferenceEngine:
                 self.sched.note_progress(req)
         self.stats["steps"] += 1
         self.step_count += 1
-        if self.debug_invariants:
+        if self.debug_invariants and self.bm is not None:
             self.bm.check()
         return True
 
     def _check_invariants(self, plan: StepPlan) -> None:
+        if self.slot_cache is not None:
+            self.slot_cache.check()
+            for slot, req in self.sched.running.items():
+                assert self.slot_cache.slot(req.rid) == slot, (req.rid, slot)
         assert plan.scheduled_tokens <= self.max_num_batched_tokens
+        if self.bm is None:
+            return
         self.bm.check()
         bs = self.block_size
         for slot, req in self.sched.running.items():
@@ -390,9 +428,11 @@ class InferenceEngine:
                 self.step_count = pending[0][0]      # idle: jump the clock
                 continue
             if not self.step():
+                state = (self.bm.stats() if self.bm is not None
+                         else self.slot_cache.stats())
                 raise RuntimeError(
                     "engine stuck: scheduler made no progress with work "
-                    f"pending — {self.bm.stats()}")
+                    f"pending — {state}")
         dt = time.time() - t0
         self.stats["wall_s"] = round(dt, 3)
         self.stats["tok_s"] = round((self.stats["tokens"] - tok0)

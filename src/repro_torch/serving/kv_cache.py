@@ -1,11 +1,14 @@
 """Block-table KV-cache management (port of ``repro.serving.kv_cache``).
 
 The device side is one pair of page pools ``{"k", "v"}`` shaped
-``(num_layers, num_blocks, block_size, K, hd)``: every layer uses the same
-block ids, so one block grants one ``block_size``-token slice of KV
-capacity across the whole model. Quantized pools (``kv_dtype`` "int8" or
-"fp8", ``models.quant``) add fp32 ``{"k_scale", "v_scale"}`` pools shaped
-``(num_layers, num_blocks, block_size, K, 1)``. The host side is
+``(n_attn, num_blocks, block_size, K, hd)``, one entry per attention
+application (every layer of a dense model; one per period of zamba2's
+hybrid, whose mamba layers keep slot state instead): every application
+uses the same block ids, so one block grants one ``block_size``-token
+slice of KV capacity across the whole model. Quantized pools
+(``kv_dtype`` "int8" or "fp8", ``models.quant``) add fp32 ``{"k_scale",
+"v_scale"}`` pools shaped ``(n_attn, num_blocks, block_size, K, 1)``. The
+host side is
 ``BlockManager``, a refcounted allocator with per-request block tables
 and a content-hash index for prefix caching; the same algorithm as the
 JAX package's, so the same operations give the same tables, refcounts and
@@ -26,8 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MAMBA, ModelConfig
 from repro_torch.models import quant
+from repro_torch.models.transformer import period_structure
 
 TRASH_BLOCK = 0
 
@@ -53,12 +57,33 @@ def chain_block_hashes(tokens, block_size: int) -> list[bytes]:
     return extend_chain_hashes([], tokens, block_size)
 
 
+def attn_layer_stacks(cfg: ModelConfig) -> list[str]:
+    """Names of the JAX package's layer stacks that hold attention KV."""
+    kinds, _ = period_structure(cfg)
+    out = [f"sub{i}" for i, k in enumerate(kinds) if k != MAMBA]
+    if cfg.shared_attn_period:
+        out.append("shared")
+    return out
+
+
+def mamba_layer_stacks(cfg: ModelConfig) -> list[str]:
+    """Names of the JAX package's layer stacks holding per-slot SSM state."""
+    kinds, _ = period_structure(cfg)
+    return [f"sub{i}" for i, k in enumerate(kinds) if k == MAMBA]
+
+
+def n_attn_applications(cfg: ModelConfig) -> int:
+    """Attention applications per forward pass: periods x attention
+    stacks, the leading axis of the page pools."""
+    return period_structure(cfg)[1] * len(attn_layer_stacks(cfg))
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda", kv_dtype: str = "bf16"):
-    """Zero page pools for every layer in ``kv_dtype``; a quantized dtype
-    adds zero fp32 per-row scale pools."""
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    """Zero page pools for every attention application in ``kv_dtype``; a
+    quantized dtype adds zero fp32 per-row scale pools."""
+    shape = (n_attn_applications(cfg), num_blocks, block_size,
+             cfg.num_kv_heads, cfg.head_dim)
     dtype = quant.KV_DTYPES[kv_dtype]
     # zero bytes are zeros in every pool dtype (fp8 included)
     cache = {name: torch.zeros(shape, dtype=torch.uint8,
@@ -75,13 +100,14 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def block_bytes(cfg: ModelConfig, block_size: int, dtype_bytes: int = 2,
                 kv_dtype: str = "bf16") -> int:
-    """Device bytes one block id costs across every layer's k+v pools; a
-    quantized ``kv_dtype`` narrows the elements and adds the fp32 per-row
-    scales (4 bytes per (token, kv head) row)."""
+    """Device bytes one block id costs across every attention application's
+    k+v pools; a quantized ``kv_dtype`` narrows the elements and adds the
+    fp32 per-row scales (4 bytes per (token, kv head) row)."""
     row_bytes = cfg.head_dim * dtype_bytes
     if quant.is_quantized(kv_dtype):
         row_bytes = cfg.head_dim * quant.kv_dtype_bytes(kv_dtype) + 4
-    return 2 * cfg.num_layers * block_size * cfg.num_kv_heads * row_bytes
+    return (2 * n_attn_applications(cfg) * block_size * cfg.num_kv_heads
+            * row_bytes)
 
 
 @dataclass

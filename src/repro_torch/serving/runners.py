@@ -9,40 +9,61 @@ the trash block); the chunk row always runs ``chunk_width`` wide, holding
 one chunk or, with ``prefill_pack`` S > 1, up to S packed chunks.
 Sampling rows B .. B + S - 1 are the chunks' last-token logits.
 
-This slice ports the dense paged transformer only; ``make_runner`` refuses
-every other family and speculative decoding, naming the ROADMAP item.
+Runners:
+
+* :class:`TransformerRunner`: dense decoders, everything paged KV.
+* :class:`SSMRunner`: pure Mamba2, slot state only (no blocks, no
+  horizon).
+* :class:`HybridRunner`: zamba2, slot state for the mamba layers and paged
+  KV for the shared attention block, one block table per sequence.
+
+Invariants the slot-state runners keep: a chunk that starts a
+(re)computed sequence reads zeroed slot state, never a previous
+occupant's; a chunk's new state goes back to its own slot only; an idle
+decode slot keeps its state (decode writes back active rows only).
+
+``make_runner`` refuses the other families and speculative decoding,
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MAMBA, ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.embedding import head_table
+from repro_torch.serving.cache import init_slot_state
 from repro_torch.serving.kv_cache import init_paged_cache
 from repro_torch.serving.sampling import sample_tokens
 
-__all__ = ["ModelRunner", "TransformerRunner", "make_runner"]
+__all__ = ["ModelRunner", "TransformerRunner", "SSMRunner", "HybridRunner",
+           "make_runner"]
 
 
 class ModelRunner:
     """Family-agnostic interface the engine programs against."""
 
-    needs_blocks: bool = False
+    needs_blocks: bool = False        # paged KV pools + block tables
+    needs_slots: bool = False         # constant-size per-slot SSM state
     supports_prefix_caching: bool = False
     # can run multi-chunk (ragged packed-prefill) plans in one flat row
     supports_packed_prefill: bool = False
+    chunk_quantum: int = 1            # chunk lengths must be multiples
+                                      # (except a prompt's final chunk)
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self.head = None
 
     def bind(self, params):
-        """Derive what the step needs from the parameters, once."""
-        raise NotImplementedError
+        """Keep one fp32 copy of the logits table: ``decode_logits`` is a
+        true fp32 product, and casting the table on every step would move
+        three times its bf16 bytes."""
+        self.head = head_table(params["embed"], self.cfg).float()
 
-    def init_cache(self, num_blocks: int, block_size: int, device,
-                   kv_dtype: str = "bf16"):
+    def init_cache(self, num_blocks: int, block_size: int, max_batch: int,
+                   device, kv_dtype: str = "bf16"):
         raise NotImplementedError
 
     def step(self, params, cache, a, *, has_chunk: bool):
@@ -96,17 +117,8 @@ class TransformerRunner(ModelRunner):
     supports_prefix_caching = True
     supports_packed_prefill = True
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
-        self.head = None
-
-    def bind(self, params):
-        """Keep one fp32 copy of the logits table: ``decode_logits`` is a
-        true fp32 product, and casting the table on every step would move
-        three times its bf16 bytes."""
-        self.head = head_table(params["embed"], self.cfg).float()
-
-    def init_cache(self, num_blocks, block_size, device, kv_dtype="bf16"):
+    def init_cache(self, num_blocks, block_size, max_batch, device,
+                   kv_dtype="bf16"):
         return init_paged_cache(self.cfg, num_blocks, block_size, device,
                                 kv_dtype)
 
@@ -123,14 +135,66 @@ class TransformerRunner(ModelRunner):
         return self._sample(logits_d, logits_c, a)
 
 
+class SSMRunner(ModelRunner):
+    """Pure Mamba2: constant-size slot state, no blocks, no horizon.
+    Prefix caching is off: a cached block id cannot stand in for the
+    recurrent state that produced it. Packed prefill is off: the flat
+    layout carries no per-sequence chunk state."""
+
+    needs_slots = True
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        # serving chunk boundaries land on SSD chunk boundaries, so chunked
+        # prefill is bit-identical to a monolithic one
+        self.chunk_quantum = cfg.ssm.chunk_size
+
+    def init_cache(self, num_blocks, block_size, max_batch, device,
+                   kv_dtype="bf16"):
+        if kv_dtype != "bf16":
+            raise ValueError(
+                f"kv_dtype={kv_dtype}: SSM/hybrid runners keep bf16 pools "
+                "(slot state has no quantized form)")
+        cache = (init_paged_cache(self.cfg, num_blocks, block_size, device)
+                 if self.needs_blocks else {})
+        cache.update(init_slot_state(self.cfg, max_batch, device))
+        return cache
+
+    def step(self, params, cache, a, *, has_chunk):
+        logits_c = None
+        if has_chunk:
+            # the chunk reads and writes its own slot's state row, through
+            # views into the cache; the first chunk after (re)admission
+            # starts from zeros, never from a previous occupant's state
+            slot = a["c_slot"]
+            chunk_cache = dict(cache)
+            for key in ("conv", "ssm"):
+                chunk_cache[key] = cache[key][:, slot:slot + 1]
+                if a["c_fresh"]:
+                    chunk_cache[key].zero_()
+            logits_c, _ = transformer.prefill_chunk_paged(
+                params, chunk_cache, self._chunk_batch(a), self.cfg,
+                self.head)
+        # every slot is computed; idle slots (ctx_len 0) keep their state
+        logits_d, _ = transformer.decode_step_paged(
+            params, cache, self._decode_batch(a), self.cfg, self.head)
+        return self._sample(logits_d, logits_c, a)
+
+
+class HybridRunner(SSMRunner):
+    """zamba2: mamba layers carry slot state, the shared attention block
+    reads and writes paged KV through one block table per sequence. A
+    preempted request recomputes from zeroed slot state."""
+
+    needs_blocks = True
+
+
 def _unported(cfg: ModelConfig) -> str | None:
     """Why ``cfg`` cannot be served by this slice, or None."""
     if cfg.encoder_layers:
         return "encoder-decoder models (ROADMAP.md queue 1 item 10)"
     if cfg.moe is not None:
         return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
-    if cfg.ssm is not None or cfg.shared_attn_period:
-        return "SSM and hybrid models (ROADMAP.md queue 1 item 9)"
     if cfg.frontend is not None or cfg.rope_sections is not None:
         return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
     if cfg.qk_norm or cfg.post_block_norm or cfg.embedding_scale:
@@ -142,7 +206,7 @@ def _unported(cfg: ModelConfig) -> str | None:
 def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
                 num_speculative_tokens: int = 0) -> ModelRunner:
     """Family dispatch; raises NotImplementedError naming the missing slice
-    for everything but the dense paged transformer."""
+    for everything but dense, SSM and hybrid decoders."""
     if draft_cfg is not None or num_speculative_tokens:
         raise NotImplementedError(
             "speculative decoding is not ported yet (ROADMAP.md queue 1 "
@@ -150,4 +214,9 @@ def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
     why = _unported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    if cfg.ssm is not None:
+        if cfg.shared_attn_period or any(k != MAMBA
+                                         for k in cfg.block_pattern):
+            return HybridRunner(cfg)
+        return SSMRunner(cfg)
     return TransformerRunner(cfg)

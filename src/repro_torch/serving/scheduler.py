@@ -11,15 +11,20 @@ Admission shares full cached blocks through the ``BlockManager`` prefix
 cache; a whole-prompt hit recomputes its last token behind a copy-on-write
 of the final shared block. When the pool runs dry the newest request is
 preempted and recomputed later (vLLM's recompute strategy), so greedy
-outputs are preemption-invariant.
+outputs are preemption-invariant. Runners with slot state (SSM, hybrid)
+get a ``slot_cache`` bound at admission and freed on preemption and
+retirement; a pure SSM runner has no block manager at all (``bm=None``):
+no block horizon, no preemption pressure, no prefix cache, admission
+limited by slots only. ``chunk_quantum`` rounds non-final chunks down to
+a multiple (SSM runners: the SSD chunk size, so chunked prefill groups
+the scan as a monolithic one does).
 
 Pure host logic: the same requests give the same plans as the JAX
 package's scheduler (the port's tests compare them step by step).
 
 Not ported yet: speculative lookahead, swap preemption, cross-replica
-prefix adoption, slot/encoder caches and the full sampling surface
-(ROADMAP.md). The JAX package's ``chunk_quantum`` is left out: the dense
-runner's quantum is 1, for which it changes no plan.
+prefix adoption, the encoder cache and the full sampling surface
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -124,17 +129,28 @@ class StepPlan:
 
 
 class Scheduler:
-    """Token-budget scheduler over a paged KV cache."""
+    """Token-budget scheduler over a paged KV cache (``bm``), slot state
+    (``slot_cache``), or both.
 
-    def __init__(self, bm: BlockManager, max_batch: int,
+    ``chunk_quantum`` quantizes non-final prefill chunks down to a
+    multiple. Rounding only ever drops tokens from the *last* chunk of a
+    step (earlier chunks' remainders roll into the next chunk's budget);
+    the dropped count is kept in ``quantum_dropped_tokens``."""
+
+    def __init__(self, bm: BlockManager | None, max_batch: int,
                  max_blocks_per_seq: int, max_num_batched_tokens: int,
                  chunk_width: int, *, enable_prefix_caching: bool = True,
+                 chunk_quantum: int = 1, slot_cache=None,
                  max_context: int | None = None, prefill_pack: int = 1):
         if max_num_batched_tokens <= max_batch:
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
                 f"exceed max_batch={max_batch} (a prefill chunk needs "
                 "leftover budget)")
+        if chunk_width < chunk_quantum:
+            raise ValueError(
+                f"chunk_width={chunk_width} below chunk_quantum="
+                f"{chunk_quantum}: no non-final chunk could ever run")
         if prefill_pack < 1:
             raise ValueError(f"prefill_pack={prefill_pack} must be >= 1")
         self.prefill_pack = prefill_pack
@@ -143,14 +159,18 @@ class Scheduler:
         self.max_blocks_per_seq = max_blocks_per_seq
         self.max_num_batched_tokens = max_num_batched_tokens
         self.chunk_width = chunk_width
-        self.max_context = (max_context if max_context is not None
-                            else max_blocks_per_seq * bm.block_size)
-        self.enable_prefix_caching = enable_prefix_caching
+        self.chunk_quantum = chunk_quantum
+        self.slot_cache = slot_cache
+        if max_context is None and bm is not None:
+            max_context = max_blocks_per_seq * bm.block_size
+        self.max_context = max_context           # None: no horizon (slots)
+        self.enable_prefix_caching = enable_prefix_caching and bm is not None
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}      # slot -> request
         self._join_order: list[int] = []           # slots, oldest first
         self.n_preemptions = 0
         self.cache_hit_tokens = 0
+        self.quantum_dropped_tokens = 0
 
     # -- queries ----------------------------------------------------------
 
@@ -165,12 +185,15 @@ class Scheduler:
 
     def validate(self, req: Request) -> None:
         """Reject at submission what this slice cannot serve: a horizon
-        past the block-table capacity, or the full sampling surface."""
+        past the block-table capacity, or the full sampling surface.
+        Slot state is constant-size: without blocks there is no horizon."""
         if req.sampling.needs_pipeline:
             raise NotImplementedError(
                 f"request {req.rid}: top-p / min-p / penalties / logprobs / "
                 "stop sequences are not ported yet (ROADMAP.md queue 1 "
                 "item 5)")
+        if self.bm is None:
+            return
         horizon = len(req.prompt) + req.max_new
         if horizon > self.max_context:
             raise ValueError(
@@ -207,23 +230,40 @@ class Scheduler:
                 pres.append((slot, req))  # it joins the decode batch next
         chunks: list[tuple[int, Request, int]] = []
         width_left = self.chunk_width
+        pending_q_loss = 0
         for slot, req in pres:
             if budget_left <= 0 or width_left <= 0:
                 break
             remaining = req.context_len - req.num_computed
-            n = min(budget_left, width_left, remaining)
+            want = min(budget_left, width_left, remaining)
+            n = self._quantize(want, remaining)
+            # a remainder below one quantum rolls into the next chunk's
+            # budget; the step's last chunk has no next one, so its
+            # remainder is counted, not silently lost
+            pending_q_loss = want - n
             if n > 0:
-                n = self._fit_chunk(req, n)
+                n = self._quantize(self._fit_chunk(req, n), remaining)
             if n > 0:
                 chunks.append((slot, req, n))
                 budget_left -= n
                 width_left -= n
+        self.quantum_dropped_tokens += pending_q_loss
         return StepPlan(decodes=decodes, chunks=chunks, copies=copies,
                         admitted=admitted)
 
+    def _quantize(self, n: int, remaining: int) -> int:
+        """Round a non-final chunk down to the chunk quantum. A prompt's
+        final chunk is exempt: SSD padding is an exact identity step."""
+        if self.chunk_quantum > 1 and n < remaining:
+            return n // self.chunk_quantum * self.chunk_quantum
+        return n
+
     def _ensure_decode_capacity(self) -> None:
         """Every decode-ready request must own blocks for context_len + 1;
-        preempt the newest requests until the survivors fit."""
+        preempt the newest requests until the survivors fit. Slot state
+        is constant-size: without blocks decode never runs out."""
+        if self.bm is None:
+            return
         for slot in list(self._join_order):             # oldest first
             req = self.running.get(slot)
             if req is None or not req.decode_ready:
@@ -244,6 +284,8 @@ class Scheduler:
     def _fit_chunk(self, req: Request, n: int) -> int:
         """Reserve blocks for the next ``n`` prefill tokens, shrinking the
         chunk to what the pool can cover. Admission never preempts."""
+        if self.bm is None:
+            return n                     # slot state: nothing to reserve
         avail = (len(self.bm.table(req.rid)) + self.bm.num_free) \
             * self.bm.block_size - req.num_computed
         n = min(n, avail)
@@ -260,8 +302,11 @@ class Scheduler:
     def _admit_one(self, copies: list[tuple[int, int]]) -> \
             tuple[int, Request]:
         """FCFS admission with prefix-cache sharing: the new table starts
-        as the matched cached blocks; fresh blocks arrive chunk by chunk."""
+        as the matched cached blocks; fresh blocks arrive chunk by chunk.
+        The request's slot-state row (if any) is bound to its slot."""
         req = self.waiting.popleft()
+        if self.bm is None:
+            return self._bind_slot(req)
         bs = self.bm.block_size
         total = req.context_len
         hits: list[int] = []
@@ -298,9 +343,14 @@ class Scheduler:
                 # index first; it re-registers after the write
                 self.bm.deregister(src)
                 req.n_published = cow_idx
+        return self._bind_slot(req)
+
+    def _bind_slot(self, req: Request) -> tuple[int, Request]:
         slot = self.free_slots()[0]
         self.running[slot] = req
         self._join_order.append(slot)
+        if self.slot_cache is not None:
+            self.slot_cache.allocate(req.rid, slot)
         return slot, req
 
     # -- progress / bookkeeping -------------------------------------------
@@ -326,12 +376,18 @@ class Scheduler:
                 return slot
         return None
 
+    def _release(self, req: Request) -> None:
+        if self.bm is not None:
+            self.bm.free(req.rid)
+        if self.slot_cache is not None:
+            self.slot_cache.free(req.rid)
+
     def _preempt(self, slot: int) -> Request:
-        """Evict one running request: blocks freed hash-retained, the
-        prompt + generated tokens replay on re-admission."""
+        """Evict one running request: blocks freed hash-retained, its slot
+        released, the prompt + generated tokens replay on re-admission."""
         req = self.running.pop(slot)
         self._join_order.remove(slot)
-        self.bm.free(req.rid)
+        self._release(req)
         req.num_computed = 0
         req.n_published = 0
         req.n_preempted += 1
@@ -342,5 +398,5 @@ class Scheduler:
     def retire(self, slot: int) -> Request:
         req = self.running.pop(slot)
         self._join_order.remove(slot)
-        self.bm.free(req.rid)
+        self._release(req)
         return req

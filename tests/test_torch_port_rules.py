@@ -49,14 +49,33 @@ def test_no_source_imports_repro():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_glm4_config_equals_reference_field_for_field(smoke):
-    ours = get_config("glm4_9b", smoke=smoke)
-    ref = jax_get_config("glm4_9b", smoke=smoke)
+# the glm4_9b cases keep their first ids
+CONFIG_CASES = [("glm4_9b", False), ("glm4_9b", True),
+                ("mamba2_370m", False), ("mamba2_370m", True),
+                ("zamba2_2p7b", False), ("zamba2_2p7b", True)]
+
+
+@pytest.mark.parametrize(
+    "arch,smoke", CONFIG_CASES,
+    ids=["False", "True"] + [f"{a}-{s}" for a, s in CONFIG_CASES[2:]])
+def test_glm4_config_equals_reference_field_for_field(arch, smoke):
+    """Every ported arch's config, field for field (the SSM sub-config
+    too: same dataclass fields and values in both packages)."""
+    ours = get_config(arch, smoke=smoke)
+    ref = jax_get_config(arch, smoke=smoke)
     names = [f.name for f in dataclasses.fields(ModelConfig)]
     assert names == [f.name for f in dataclasses.fields(type(ref))]
     for name in names:
-        assert getattr(ours, name) == getattr(ref, name), name
+        a, b = getattr(ours, name), getattr(ref, name)
+        if dataclasses.is_dataclass(b):
+            assert [f.name for f in dataclasses.fields(a)] == \
+                [f.name for f in dataclasses.fields(b)], name
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert ours.ssm.d_inner(ours.d_model) == \
+                ref.ssm.d_inner(ref.d_model)
+            assert ours.ssm.n_heads(ours.d_model) == \
+                ref.ssm.n_heads(ref.d_model)
+        assert a == b, name
     assert ours.padded_vocab_size == ref.padded_vocab_size
     assert ours.layer_kinds() == ref.layer_kinds()
     assert ours.param_count() == ref.param_count()
