@@ -32,6 +32,17 @@ Phases, each of which raises on failure:
         1e-3 of max(1, |plain|); one launch over 512 rows equals two
         launches of 256 with the state carried, and rows with dt = 0
         leave h_last and the earlier rows' y unchanged, bit for bit.
+     d. the flash attention forward at glm4_9b's training shape (B=2,
+        S=2048, H=32, K=2, hd=128, causal), with window 512 and cap 50,
+        256 rows at q_offset 1792, non-causal 200 rows, and hd 16: o rows
+        within 1e-2 of dense_attention's, lse within 1e-3 of the plain
+        logsumexp, FlashAttention's dq/dk/dv within 1e-2 of each
+        gradient's max against autograd through dense_attention, and two
+        launches bit-equal.
+     e. the sampled-softmax loss at glm4_9b's 151552 x 4096 bf16 head,
+        n = 8192 sampled ids, T = 4096 and 4095, no cap and cap 30,
+        accidental hits planted: within 1e-4 relative of the plain loss,
+        two launches bit-equal.
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -61,6 +72,20 @@ Phases, each of which raises on failure:
      zamba2 preempting): greedy tokens must agree, except after a first
      difference whose top-2 logit margin is below the bf16 tolerance. On
      the card, pack 4 and pack 1 give the same bf16 tokens.
+  7. training: glm4_9b at full width with 8 of its 40 layers (seeded fp32
+     masters, bf16 working params, AdamW with fp32 slots, remat full),
+     6 steps of B=2 x S=2048 from ShardedSource(seed=0) through
+     launch.train.train: every loss finite, the last below the first,
+     every parameter leaf with a finite non-zero gradient on step 1, the
+     flash kernel launched 2 x layers x steps times and the gather once
+     per step; per-step ms, tokens/s and peak memory; then one more step
+     under torch.profiler (device time by kernel, busy share).
+  8. training card vs CPU at smoke size: the same fp32 masters and three
+     batches, 2 microbatches, remat full, SGD: losses within 1e-2, grad
+     norms within 1e-2 relative, masters within 1e-2 of the largest
+     update.
+  Every kernel must have launched on a serving or training path, except
+  sampled_softmax_loss, which no model path of either package calls.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -71,6 +96,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -86,17 +112,27 @@ KV_DTYPES = ("bf16", "int8", "fp8")
 DECODE_SRC = "src/repro_torch/csrc/paged_attention.cu"
 RAGGED_SRC = "src/repro_torch/csrc/ragged_paged_attention.cu"
 SSD_SRC = "src/repro_torch/csrc/ssd.cu"
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+SAMPLED_SRC = "src/repro_torch/csrc/sampled_softmax.cu"
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:203",
             "paged_prefill_attention":
                 "src/repro/kernels/paged_attention.py:417",
             "ragged_paged_prefill_attention":
                 "src/repro/kernels/paged_attention.py:682",
             "gather": "src/repro/kernels/embedding.py:23",
-            "ssd": "src/repro/kernels/ssd.py:80"}
+            "ssd": "src/repro/kernels/ssd.py:80",
+            "flash_attention": "src/repro/kernels/flash_attention.py:202",
+            "sampled_softmax_loss":
+                "src/repro/kernels/sampled_softmax.py:47"}
 # the ssd kernel's final state against the plain scan: 1e-3 absolute
 # (tests/test_kernels.py's tolerance) where the state is below 1 in
 # magnitude, 1e-3 relative above
 SSD_H_TOL = 1e-3
+# the flash kernel's lse against the plain logsumexp of the masked logits
+LSE_TOL = 1e-3
+# sampled-softmax loss, kernel against plain: both sum exact bf16 products
+# in fp32, in other orders
+SAMPLED_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -635,6 +671,154 @@ def check_ssd(torch, timer, gen, rows):
               f"({flops / 1e9:.3f} GFLOP); zamba2 nh={zb[0]} N={zb[3]}")
 
 
+def causal_pairs(Sq, Skv, causal, window, q_offset) -> int:
+    """(query row, key) pairs the mask lets through."""
+    if not causal:
+        return Sq * Skv
+    n = 0
+    for i in range(Sq):
+        hi = min(Skv, q_offset + i + 1)
+        lo = 0 if window is None else max(0, q_offset + i - window + 1)
+        n += max(0, hi - lo)
+    return n
+
+
+# name, B, Sq, Skv, H, K, hd, causal, window, cap, q_offset: glm4_9b's
+# attention at chip_smoke's training shape (B=2, S=2048) and its variants
+FLASH_CASES = [
+    ("glm4 causal", 2, 2048, 2048, 32, 2, 128, True, None, None, 0),
+    ("glm4 window 512 cap 50", 2, 2048, 2048, 32, 2, 128, True, 512, 50.0, 0),
+    ("glm4 Sq 256 at q_offset 1792", 2, 256, 2048, 32, 2, 128, True, None,
+     None, 1792),
+    ("glm4 non-causal Sq 200", 2, 200, 2048, 32, 2, 128, False, None, None,
+     0),
+    ("hd 16 window 64 cap 30", 2, 300, 300, 4, 2, 16, True, 64, 30.0, 0)]
+# glm4_9b's head (V, d), the sampled ids n and the rows T of phase 2e
+SAMPLED_SHAPE = (151552, 4096, 8192, 4096)
+
+
+def check_flash(torch, timer, gen, rows):
+    """The flash forward kernel against dense_attention (o) and the plain
+    logsumexp (lse); FlashAttention's gradients against autograd through
+    dense_attention; two launches give the same bits (phase 2d)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import dense_attention
+
+    for (name, B, Sq, Skv, H, K, hd, causal, window, cap, off) in FLASH_CASES:
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).bfloat16()
+        k = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
+        v = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
+        opts = dict(causal=causal, window=window, cap=cap, q_offset=off)
+        o_k, lse_k = fa.flash_attention(q, k, v, **opts)
+        o_2, lse_2 = fa.flash_attention(q, k, v, **opts)
+        check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
+              f"flash {name}: two launches differ")
+        e, rel = check_close(f"flash {name} vs dense_attention", o_k,
+                             dense_attention(q, k, v, **opts))
+        o_p, lse_p = ref.flash_attention_fwd_plain(q, k, v, **opts)
+        e_lse = err(lse_k, lse_p)
+        check(e_lse <= LSE_TOL, f"flash {name}: lse max abs err {e_lse} "
+              f"(limit {LSE_TOL})")
+        # gradients: the kernel forward + plain backward against autograd
+        # through dense_attention (bf16 probabilities), each within TOL of
+        # that gradient's largest magnitude
+        do = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).bfloat16()
+        grads = []
+        for attend in (lambda *a: fa.FlashAttention.apply(
+                           *a, causal, window, cap, None, off),
+                       lambda *a: dense_attention(*a, **opts)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            attend(*leaves).backward(do)
+            grads.append([t.grad for t in leaves])
+            del leaves
+        g_err = []
+        for gname, a, b in zip("qkv", *grads):
+            big = float(b.float().abs().max())
+            g_err.append(err(a, b) / big)
+            check(g_err[-1] <= TOL, f"flash {name}: d{gname} max abs err "
+                  f"{err(a, b)} (limit {TOL} x max |d{gname}| {big})")
+        del grads
+        print(f"[kernels] flash {name}: o max row rel err {rel:.3g}, lse "
+              f"max abs err {e_lse:.3g}, dq/dk/dv err / max {g_err}, two "
+              "launches bit-equal", flush=True)
+        if name != "glm4 causal":
+            continue
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = causal_pairs(Sq, Skv, causal, window, off)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            + 4 * lse_k.numel()
+        bwd_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_b = fa.FlashAttention.apply(*bwd_leaves, causal, window, cap, None,
+                                      off)
+        rows["flash_attention"] = dict(
+            kernel="flash_attention", source=FLASH_SRC, max_abs_err=e,
+            max_row_rel_err=rel, lse_max_abs_err=e_lse,
+            grad_err_over_max=g_err,
+            ms=timer(lambda: fa.flash_attention(q, k, v, **opts)),
+            plain_ms=timer(lambda: ref.flash_attention_fwd_plain(
+                q, k, v, **opts)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bwd_plain_ms=timer(lambda: torch.autograd.grad(
+                o_b, bwd_leaves, do, retain_graph=True), iters=5),
+            shape=f"B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} causal "
+                  f"({pairs} row-key pairs per batch row)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(nbytes, 4.0 * B * H * hd * pairs))))
+        del bwd_leaves, o_b
+
+
+def check_sampled_softmax(torch, timer, gen, rows):
+    """The sampled-softmax kernel against its plain version at glm4's
+    head (151552 x 4096 bf16), n = 8192 sampled ids, T = 4096 and 4095,
+    no cap and cap 30, accidental hits planted (phase 2e)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sampled_softmax as ss
+
+    V, d, n, T0 = SAMPLED_SHAPE
+    table = (torch.randn((V, d), generator=gen, device=DEV)
+             * d ** -0.5).bfloat16()
+    sids = torch.randperm(V, generator=gen, device=DEV)[:n].to(torch.int32)
+    x_all = torch.randn((T0, d), generator=gen, device=DEV).bfloat16()
+    lab_all = torch.randint(0, V, (T0,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    lab_all[:8] = sids[:8]                     # accidental hits
+    for T in (T0, T0 - 1):
+        x, labels = x_all[:T], lab_all[:T]
+        for cap in (None, 30.0):
+            name = f"sampled_softmax_loss T={T} cap={cap}"
+            l_k = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
+            l_2 = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
+            check(same_bytes(l_k.reshape(1), l_2.reshape(1)),
+                  f"{name}: two launches differ")
+            l_p = ref.sampled_softmax_loss_ref(x, table, labels, sids,
+                                               cap=cap)
+            rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+            check(rel <= SAMPLED_TOL, f"{name}: kernel {float(l_k)} plain "
+                  f"{float(l_p)}, relative err {rel} (limit {SAMPLED_TOL})")
+            print(f"[kernels] {name}: loss {float(l_k):.6f} plain "
+                  f"{float(l_p):.6f} rel err {rel:.3g}, two launches "
+                  "bit-equal", flush=True)
+            if T == T0 and cap is None:
+                main = (x, labels, abs(float(l_k) - float(l_p)), rel)
+    x, labels, e, rel = main
+    T = x.shape[0]
+    nbytes = 2 * (T * d + T * d + n * d) + 4 * (T + n) + 4
+    rows["sampled_softmax_loss"] = dict(
+        kernel="sampled_softmax_loss", source=SAMPLED_SRC, max_abs_err=e,
+        max_row_rel_err=rel,
+        ms=timer(lambda: ss.sampled_softmax_loss(x, table, labels, sids)),
+        plain_ms=timer(lambda: ref.sampled_softmax_loss_ref(
+            x, table, labels, sids)),
+        library_ms=None,
+        shape=f"T={T} d={d} n={n}, table {V}x{d} bf16 (gathers included; "
+              "loss relative error in max_row_rel_err)",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(nbytes, 2.0 * T * n * d + 2.0 * T * d))))
+
+
 def check_kernels(torch, timer):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -643,6 +827,8 @@ def check_kernels(torch, timer):
     check_ragged(torch, timer, gen, rows)
     check_gather(torch, timer, gen, rows)
     check_ssd(torch, timer, gen, rows)
+    check_flash(torch, timer, gen, rows)
+    check_sampled_softmax(torch, timer, gen, rows)
     for name, r in rows.items():
         extra = ""
         if "no_write_ms" in r:
@@ -1047,6 +1233,188 @@ def card_vs_cpu(torch):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: training
+# ---------------------------------------------------------------------------
+
+# Phase 7's optimizer: AdamW with fp32 slots, the JAX driver's learning
+# rate (1e-3) with a 2-step warmup and cosine decay over the 6 steps
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LAYERS = 6, 2, 2048, 8
+
+
+def train_full(torch, counters, card):
+    """Phase 7: glm4_9b at full width, 8 of its 40 layers (the fp32
+    masters and AdamW slots of 40 do not fit one card), seeded random
+    init, remat full, B=2 x S=2048 from ShardedSource(seed=0), through
+    ``launch.train.train``. Every loss finite and the last below the
+    first; on step 1 every parameter leaf has a finite, non-zero gradient;
+    the flash kernel launched 2 x layers x steps times (forward and remat
+    recompute) and the gather once per step (the embedding)."""
+    import dataclasses
+    from repro_torch.config import OptimizerConfig, ParallelConfig, get_config
+    from repro_torch.launch.train import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = dataclasses.replace(get_config("glm4_9b"), num_layers=TRAIN_LAYERS)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    pcfg = ParallelConfig(remat="full", microbatches=1)
+    steps, grads_seen = [], []
+
+    def grad_hook(grads):
+        if grads_seen:
+            return
+        leaves = tree_leaves(grads)
+        grads_seen.append(len(leaves))
+        for i, g in enumerate(leaves):
+            check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                  f"train: parameter leaf {i} {tuple(g.shape)} has a "
+                  "non-finite or all-zero gradient on step 1")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    t0 = time.monotonic()
+    params, state, losses = train(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, pcfg=pcfg,
+        ocfg=ocfg, device=DEV, seed=0, log_every=1,
+        on_step=lambda s, m, sec: steps.append(
+            dict(step=s, loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                 ms=1e3 * sec, tok_s=TRAIN_B * TRAIN_S / sec)),
+        grad_hook=grad_hook)
+    wall = time.monotonic() - t0
+    launches = read_launches(counters)
+    check(all(map(math.isfinite, losses)), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: last loss {losses[-1]} is not "
+          f"below the first {losses[0]}")
+    check(grads_seen == [3 + 9 * TRAIN_LAYERS],
+          f"train: gradient leaves {grads_seen}")
+    want = {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "gather": TRAIN_STEPS}
+    for name, n in want.items():
+        check(launches.get(name) == n, f"train: {name} launched "
+              f"{launches.get(name)} times, not {n}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = profile_train_step(torch, cfg, pcfg, ocfg, params, state)
+    del params, state
+    later = steps[1:]
+    res = dict(arch="glm4_9b", layers=TRAIN_LAYERS, params=cfg.param_count(),
+               batch=TRAIN_B, seq=TRAIN_S, remat="full", optimizer="adamw",
+               losses=losses, steps=steps, wall_s=wall,
+               step_ms_mean=sum(x["ms"] for x in later) / len(later),
+               tok_s_mean=sum(x["tok_s"] for x in later) / len(later),
+               peak_mem_gib=peak, launches=launches, profile=profile)
+    print(f"[train] {card}: glm4_9b full width, {TRAIN_LAYERS} layers "
+          f"({res['params'] / 1e9:.2f} B params), B={TRAIN_B} S={TRAIN_S}, "
+          f"remat full, AdamW: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"step {res['step_ms_mean']:.1f} ms ({res['tok_s_mean']:.0f} "
+          f"tok/s) over steps 2-{TRAIN_STEPS}, peak "
+          f"{res['peak_mem_gib']:.2f} GiB, launches {launches}: "
+          f"{json.dumps(res)}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_train_step(torch, cfg, pcfg, ocfg, params, state, top=15):
+    """One more training step (batch index TRAIN_STEPS) under
+    torch.profiler, after the timed run: device time by kernel and the
+    device's busy share of the step's wall time (kernel times summed).
+    Returns {"wall_ms", "device_ms", "top": [[name, ms, calls], ...]}."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import ShardedSource
+    from repro_torch.spmd.steps import make_train_step
+
+    step = make_train_step(cfg, pcfg, ocfg)
+    batch = {k: torch.from_numpy(np.array(v)).to(DEV) for k, v in
+             ShardedSource(cfg, TRAIN_S, seed=0).batch(
+                 TRAIN_STEPS, TRAIN_B).items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, _, m = step(params, state, TRAIN_STEPS, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"wall_ms": 1e3 * wall, "device_ms": total,
+           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                   for e in events[:top]]}
+    print(f"[train-profile] one step: device {total:.1f} ms over "
+          f"{1e3 * wall:.1f} ms wall (profiled), busy share "
+          f"{total / (1e3 * wall):.3f}", flush=True)
+    for name, ms, n in out["top"]:
+        print(f"[train-profile] {ms:9.2f} ms {100 * ms / total:5.1f}% "
+              f"{n:6d}x {name}", flush=True)
+    return out
+
+
+def train_card_vs_cpu(torch):
+    """Phase 8: glm4 smoke on the card and on the CPU from the same fp32
+    masters, the same three batches, two microbatches, remat full, SGD.
+    The card attends through the flash kernel and the plain backward, the
+    CPU through dense_attention under autograd. Losses within TOL per
+    step, grad norms within TOL relative, each fp32 master within TOL of
+    the largest master update."""
+    import numpy as np
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    get_config)
+    from repro_torch.data.pipeline import ShardedSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import init_model
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.spmd.steps import make_train_step
+
+    cfg = get_config("glm4_9b", smoke=True)
+    ocfg = OptimizerConfig(name="sgd", lr=0.1, warmup_steps=0,
+                           schedule="constant")
+    pcfg = ParallelConfig(remat="full", microbatches=2)
+    init = init_model(cfg, seed=0, device="cpu", dtype=torch.float32)
+    src = ShardedSource(cfg, 32, seed=0)
+    batches = [src.batch(i, 4) for i in range(3)]
+    runs = {}
+    for dev in (DEV, "cpu"):
+        state = opt.init_train_state(ocfg, opt.tree_map(
+            lambda t: t.to(dev, copy=True), init))     # updated in place
+        params = opt.working_params(state)
+        step = make_train_step(cfg, pcfg, ocfg)
+        launches = fa.flash_attention.launches
+        metrics = []
+        for s, b in enumerate(batches):
+            params, state, m = step(params, state, s, {
+                k: torch.from_numpy(np.array(v)).to(dev)
+                for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        if dev != "cpu":
+            check(fa.flash_attention.launches - launches
+                  == 3 * 2 * 2 * cfg.num_layers,
+                  "train card-vs-cpu: the flash kernel did not run every "
+                  "layer of every microbatch twice on the card "
+                  f"({fa.flash_attention.launches - launches} launches)")
+        runs[dev] = (metrics, [t.cpu() for t in opt.tree_leaves(
+            state["master"])])
+    (m_card, w_card), (m_cpu, w_cpu) = runs[DEV], runs["cpu"]
+    w0 = opt.tree_leaves(init)
+    for a, b in zip(m_card, m_cpu):
+        check(abs(a["loss"] - b["loss"]) <= TOL
+              and abs(a["grad_norm"] - b["grad_norm"]) <= TOL * b["grad_norm"],
+              f"train card-vs-cpu: card {a}, cpu {b}")
+    upd = max(float((b - c).abs().max()) for b, c in zip(w_cpu, w0))
+    diff = max(float((a - b).abs().max()) for a, b in zip(w_card, w_cpu))
+    check(upd > 0, "train card-vs-cpu: the masters did not move")
+    check(diff <= TOL * upd, f"train card-vs-cpu: masters differ by "
+          f"{diff}, {diff / upd} of the largest update {upd}")
+    print(f"[train-card-vs-cpu] glm4 smoke, 3 SGD steps, 2 microbatches: "
+          f"losses card {[m['loss'] for m in m_card]} cpu "
+          f"{[m['loss'] for m in m_cpu]}; grad norms card "
+          f"{[m['grad_norm'] for m in m_card]} cpu "
+          f"{[m['grad_norm'] for m in m_cpu]}; masters within "
+          f"{diff / upd:.3g} of the largest update", flush=True)
+    return {"masters_err_over_update": diff / upd}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1059,7 +1427,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels import embedding as emb
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampled_softmax as ss
     from repro_torch.kernels import ssd as ssd_k
 
     # decode_logits must be a true fp32 product on the card
@@ -1083,18 +1453,26 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     counters = (pa.paged_attention, pa.paged_prefill_attention,
-                pa.ragged_paged_prefill_attention, emb.gather, ssd_k.ssd)
+                pa.ragged_paged_prefill_attention, emb.gather, ssd_k.ssd,
+                fa.flash_attention, ss.sampled_softmax_loss)
     res, params = serve_full(torch, counters, card)
     runs = [res] + serve_packed(torch, counters, card, params)
     del params
     torch.cuda.empty_cache()
     runs += serve_ssm(torch, counters, card)
     card_vs_cpu(torch)
+    runs.append(train_full(torch, counters, card))
+    train_card_vs_cpu(torch)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on a serving path")
+        # sampled_softmax_loss is on no model path, in this package or in
+        # the JAX package (the models' sampled softmax is plain tensor
+        # code): phase 2e launches it and holds it against its plain version
+        if name != "sampled_softmax_loss":
+            check(n > 0, f"kernel {name} never launched on a serving or "
+                  "training path")
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=REPLACES[r["kernel"]], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

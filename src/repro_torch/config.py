@@ -124,6 +124,50 @@ class ModelConfig:
         return in_proj + conv + nh + nh + di * d + di  # A, D, out_proj, norm
 
 
+# ---------------------------------------------------------------------------
+# Shapes, parallelism and the optimizer (the training slice)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's parallel configuration, field for field. The port
+    runs on one device, where ``zero1`` shards nothing and is a no-op; the
+    trainer refuses ``fsdp``, ``seq_shard_activations`` and
+    ``remat="dots"`` by name (ROADMAP.md queue 1 item 13)."""
+    fsdp: bool = False            # shard params over "data" too
+    zero1: bool = True            # shard optimizer state over "data"
+    remat: str = "full"           # none | dots | full
+    microbatches: int = 1         # gradient accumulation
+    seq_shard_activations: bool = False  # sequence-parallel saved activations
+    expert_ff_2d: bool = False    # serving: shard expert d_ff over (data,model)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    schedule: str = "cosine"       # constant | cosine | linear
+    total_steps: int = 10_000
+    compression: str = "none"      # none | int8_ef (refused by the trainer)
+    slot_dtype: str = "float32"    # "bfloat16" halves moment memory
+                                   # (masters stay fp32; math in fp32)
+
+
 ARCHS: tuple[str, ...] = (
     "glm4_9b",
     "starcoder2_3b",

@@ -3,7 +3,10 @@
 Port of ``repro.kernels.embedding.gather`` (a Pallas TPU kernel driven by
 scalar-prefetched ids). The kernel is ``csrc/embedding.cu``; the plain
 version is ``gather_plain`` (``table[ids]``), which ``kernels.ops`` runs
-for CPU tensors.
+for CPU tensors. ``Gather`` puts the kernel under autograd: its backward is
+the plain gradient of ``table[ids]``, a scatter-add of the row gradients
+into zeros of the table's shape (the JAX package has no backward kernel
+for the gather either; XLA differentiates it).
 """
 
 from __future__ import annotations
@@ -59,3 +62,25 @@ def gather(table, ids):
 
 
 gather.launches = 0
+
+
+class Gather(torch.autograd.Function):
+    """``table[ids]`` through the CUDA kernel, with the table's gradient.
+    The kernel writes into a fresh tensor that autograd knows nothing of,
+    so without this an embedding table on the card would get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return gather(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        d = ctx.table_shape[1]
+        g = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
+        g.index_put_((ids.reshape(-1).long(),), grad.reshape(-1, d),
+                     accumulate=True)
+        return g, None

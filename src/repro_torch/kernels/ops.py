@@ -6,7 +6,10 @@ is what the JAX package's ops run off the TPU (``repro.kernels.ops``):
 ``ref.paged_attention_ref`` for decode, ``paged_chunk_attention_xla`` for
 chunked prefill, ``ragged_chunk_attention_xla`` for packed prefill (after
 ``update_paged_cache_ragged`` for the fused write), ``table[ids]`` for the
-gather, ``models.ssm.ssd_chunked`` for the SSD scan. There is no switch
+gather, ``models.ssm.ssd_chunked`` for the SSD scan,
+``models.attention.dense_attention`` for flash attention (up to
+``DENSE_ATTN_MAX_KV`` keys, as off the TPU), ``ref.sampled_softmax_loss_ref``
+for the sampled-softmax loss. There is no switch
 between the two other than where the tensors live. ``k_scale``/``v_scale``
 mark int8/fp8 pools, dequantized in-tile by the kernels and after the
 gather by the plain versions.
@@ -15,9 +18,35 @@ gather by the plain versions.
 from __future__ import annotations
 
 from repro_torch.kernels import embedding as emb
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import sampled_softmax as ss
 from repro_torch.kernels import ssd as ssd_k
+
+# The JAX package's plain path runs dense attention, one (Sq, Skv) logit
+# block per head, up to this many keys, and streaming forms beyond it.
+DENSE_ATTN_MAX_KV = 8192
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
+                    scale=None, q_offset=0):
+    """Full-sequence attention, q (B, Sq, H, hd), k/v (B, Skv, K, hd),
+    differentiable. On the card: the flash kernel forward under
+    ``FlashAttention`` (plain recompute backward). On the CPU:
+    ``dense_attention`` under autograd."""
+    if q.is_cuda:
+        return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal, window, cap,
+                                       scale, q_offset)
+    if k.shape[1] > DENSE_ATTN_MAX_KV:
+        raise NotImplementedError(
+            f"{k.shape[1]} keys: the plain path beyond {DENSE_ATTN_MAX_KV} "
+            "keys (block_causal_attention / chunked_attention) is not "
+            "ported (ROADMAP.md queue 1 item 13)")
+    from repro_torch.models.attention import dense_attention
+    return dense_attention(q, k, v, causal=causal, window=window, cap=cap,
+                           scale=scale, q_offset=q_offset)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -88,9 +117,20 @@ def ragged_prefill_update_attend(q, k_new, v_new, k_pages, v_pages,
 
 
 def embedding_gather(table, ids):
+    """``table[ids]``, differentiable in the table."""
     if table.is_cuda:
-        return emb.gather(table, ids)
+        return emb.Gather.apply(table, ids)
     return emb.gather_plain(table, ids)
+
+
+def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
+    """Mean sampled-softmax loss, x (T, d), table (V, d), labels (T,),
+    sampled_ids (n,). Forward only on the card, as the Pallas kernel."""
+    if x.is_cuda:
+        return ss.sampled_softmax_loss(x, table, labels, sampled_ids,
+                                       cap=cap)
+    return ref.sampled_softmax_loss_ref(x, table, labels, sampled_ids,
+                                        cap=cap)
 
 
 def ssd(x, dt, A, B, C, *, chunk, h0=None):

@@ -22,27 +22,40 @@ def _softcap(logits, cap):
     return logits if cap is None else cap * torch.tanh(logits / cap)
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, cap=None, scale=None,
-                  q_offset=0):
-    """Naive full-materialization attention. q: (B,Sq,H,hd); k/v: (B,Skv,K,hd)."""
+def causal_mask(Sq, Skv, window, q_offset, device):
+    """(Sq, Skv) bool: query row i, at absolute position q_offset + i, sees
+    keys at or before its position (and only the last ``window`` of
+    them with a window)."""
+    d = (q_offset + torch.arange(Sq, device=device))[:, None] \
+        - torch.arange(Skv, device=device)[None, :]
+    ok = d >= 0
+    if window is not None:
+        ok &= d < window
+    return ok
+
+
+def _masked_logits(q, k, causal, window, cap, scale, q_offset):
+    """fp32 logits (B, Sq, G, K, Skv), g-major (head h -> kv head h % K):
+    scaled, softcapped, masked to NEG_INF."""
     B, Sq, H, hd = q.shape
     _, Skv, K, _ = k.shape
-    G = H // K
     scale = hd ** -0.5 if scale is None else scale
-    qg = q.reshape(B, Sq, G, K, hd).float()      # g-major: head h -> kv h % K
+    qg = q.reshape(B, Sq, H // K, K, hd).float()
     logits = torch.einsum("bqgkh,bskh->bqgks", qg, k.float()) * scale
     logits = _softcap(logits, cap)
     if causal:
-        qp = q_offset + torch.arange(Sq, device=q.device)
-        kp = torch.arange(Skv, device=q.device)
-        d = qp[:, None] - kp[None, :]
-        ok = d >= 0
-        if window is not None:
-            ok &= d < window
+        ok = causal_mask(Sq, Skv, window, q_offset, q.device)
         logits = torch.where(ok[None, :, None, None, :], logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    return logits
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, cap=None, scale=None,
+                  q_offset=0):
+    """Naive full-materialization attention. q: (B,Sq,H,hd); k/v: (B,Skv,K,hd)."""
+    p = torch.softmax(_masked_logits(q, k, causal, window, cap, scale,
+                                     q_offset), dim=-1)
     o = torch.einsum("bqgks,bskh->bqgkh", p, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
 
 
 def _gather_pages(pages, scale, block_tables):
@@ -199,3 +212,84 @@ def ssd_ref(x, dt, A, B, C, h0=None):
             "bh,bhs,bhp->bhps", dt32[:, t], Bh[:, t], x32[:, t])
         ys.append(torch.einsum("bhs,bhps->bhp", Ch[:, t], h))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal=True, window=None, cap=None,
+                              scale=None, q_offset=0):
+    """Plain version of the flash kernel's forward: returns (o in q's
+    dtype, lse (B, Sq, H) fp32). fp32 logits, softcap, masked to NEG_INF,
+    lse = logsumexp of the masked logits, o = exp(logits - lse) @ v in
+    fp32 (``repro.kernels.flash_attention._fwd_kernel`` untiled)."""
+    logits = _masked_logits(q, k, causal, window, cap, scale, q_offset)
+    lse = torch.logsumexp(logits, dim=-1)                 # (B, Sq, G, K)
+    p = torch.exp(logits - lse[..., None])
+    o = torch.einsum("bqgks,bskh->bqgkh", p, v.float())
+    return o.reshape(q.shape).to(q.dtype), lse.reshape(q.shape[:3])
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
+                              window=None, cap=None, scale=None, q_offset=0,
+                              block_q=None):
+    """Gradients (dq, dk, dv) of the flash forward from its residuals: a
+    line-for-line port of ``repro.kernels.flash_attention._bwd_ref``, run
+    over blocks of ``block_q`` query rows so that each fp32 (B, block_q, G,
+    K, Skv) intermediate stays near 256 MB (one block at small shapes,
+    which is ``_bwd_ref`` exactly). dk and dv sum over the blocks in fp32,
+    which changes only the order of their sums."""
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    if block_q is None:
+        block_q = max(1, (64 << 20) // max(1, B * H * Skv))
+    k32, v32 = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for lo in range(0, Sq, block_q):
+        hi = min(Sq, lo + block_q)
+        n = hi - lo
+        q32 = q[:, lo:hi].float().reshape(B, n, G, K, hd)
+        do32 = do[:, lo:hi].float().reshape(B, n, G, K, hd)
+        o32 = o[:, lo:hi].float().reshape(B, n, G, K, hd)
+        lse_g = lse[:, lo:hi].reshape(B, n, G, K)
+        u = torch.einsum("bqgkh,bskh->bqgks", q32, k32) * scale
+        if cap is not None:
+            z = cap * torch.tanh(u / cap)
+            dz_du = 1.0 - torch.square(z / cap)
+        else:
+            z, dz_du = u, None
+        if causal:
+            ok = causal_mask(n, Skv, window, q_offset + lo, q.device)
+            z = torch.where(ok[None, :, None, None, :], z, NEG_INF)
+        p = torch.exp(z - lse_g[..., None])
+        dv += torch.einsum("bqgks,bqgkh->bskh", p, do32)
+        dp = torch.einsum("bqgkh,bskh->bqgks", do32, v32)
+        delta = torch.sum(do32 * o32, dim=-1)                # (B,n,G,K)
+        ds = p * (dp - delta[..., None])
+        if dz_du is not None:
+            ds = ds * dz_du
+        ds = ds * scale
+        dqs.append(torch.einsum("bqgks,bskh->bqgkh", ds, k32))
+        dk += torch.einsum("bqgks,bqgkh->bskh", ds, q32)
+    dq = torch.cat(dqs, dim=1).reshape(B, Sq, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def sampled_softmax_loss_ref(x, table, labels, sampled_ids, *, cap=None):
+    """Sampled softmax (paper §4.2/§6.4): per-token loss over the true
+    class and a shared set of sampled false classes, accidental hits
+    (sampled id == label) masked out; mean over the T tokens, fp32.
+    x: (T, d); table: (V, d); labels: (T,); sampled_ids: (n,)."""
+    x32 = x.float()
+    w_true = table[labels.long()].float()                 # (T, d)
+    w_samp = table[sampled_ids.long()].float()            # (n, d)
+    logit_true = torch.sum(x32 * w_true, dim=-1)          # (T,)
+    logit_samp = x32 @ w_samp.T                           # (T, n)
+    logit_true = _softcap(logit_true, cap)
+    logit_samp = _softcap(logit_samp, cap)
+    hit = sampled_ids.long()[None, :] == labels.long()[:, None]
+    logit_samp = torch.where(hit, NEG_INF, logit_samp)
+    allz = torch.cat([logit_true[:, None], logit_samp], dim=1)
+    lse = torch.logsumexp(allz, dim=1)
+    return torch.mean(lse - logit_true)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import MAMBA, ModelConfig
+from repro_torch.models import transformer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -32,11 +33,12 @@ def _trunc_normal(shape, scale, gen, device):
     return x.clamp_(-2.0, 2.0).mul_(scale)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     """Random parameters for a dense, SSM or hybrid decoder, drawn on
-    ``device`` in fp32 and stored in ``cfg.dtype`` (every leaf, as the
-    serving engines cast the whole tree)."""
-    dt = _DTYPES[cfg.dtype]
+    ``device`` in fp32 and stored in ``dtype``: ``cfg.dtype`` by default
+    (every leaf, as the serving engines cast the whole tree), or
+    ``torch.float32`` for the training masters (the draw itself)."""
+    dt = _DTYPES[cfg.dtype] if dtype is None else dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, H, K, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -94,6 +96,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return params
 
 
+def loss_fn(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
+    """Training loss and metrics (dense decoders; see
+    ``transformer.forward_loss``)."""
+    return transformer.forward_loss(params, batch, cfg, pcfg, sampled_ids)
+
+
 def _to_torch(a, device):
     a = np.array(a)                         # a writable, contiguous copy
     if a.dtype.name == "bfloat16":          # ml_dtypes bf16: reinterpret bits
@@ -104,7 +112,9 @@ def _to_torch(a, device):
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """Convert the JAX package's parameter tree (numpy arrays, as from
-    ``repro.models.api.init_model`` cast to bf16) into the port's layout.
+    ``repro.models.api.init_model``: fp32 masters, or cast to bf16) into
+    the port's layout, each leaf keeping its dtype. An optimizer slot tree
+    mirrors the parameters and converts the same way.
     The JAX package stacks layers by period: ``blocks/sub{i}`` holds kind
     ``i`` of every period along a leading NP axis, so layer ``p * P + i``
     is ``sub{i}[p]`` (P kinds per period). The leaves are split per layer

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import causal_mask
 from repro_torch.models import quant
 from repro_torch.models.layers import apply_rope, softcap
 
@@ -52,6 +53,38 @@ def out_proj(params, y, x_dtype):
 
 def attention_scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
+
+
+def dense_attention(q, k, v, *, causal=True, window=None, cap=None,
+                    scale=None, q_offset=0):
+    """Full-sequence GQA attention, the JAX package's plain path (port of
+    ``repro.models.attention.dense_attention``). q (B, Sq, H, hd), k/v (B,
+    Skv, K, hd); g-major heads (q head h reads kv head h % K). The
+    rounding convention: fp32 logits from the inputs' exact products,
+    softcap, mask, fp32 softmax, probabilities cast to v's dtype, then p v
+    in v's dtype. Query row i sits at absolute position q_offset + i."""
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, G, K, hd)
+    logits = torch.einsum("bqgkh,bskh->bgkqs", qg.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    if causal:
+        logits = torch.where(causal_mask(Sq, Skv, window, q_offset, q.device),
+                             logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    o = torch.einsum("bgkqs,bskh->bqgkh", p, v)
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def sharded_attention(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
+                      cap=None, scale=None):
+    """Full-sequence attention (train / prefill), one-device form of the
+    JAX package's ``sharded_attention``: with no "model" axis there is no
+    sequence-parallel fallback, only ``ops.flash_attention``."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               cap=cap, scale=scale)
 
 
 def _scatter(pages, blk, slot, rows):

@@ -1,9 +1,9 @@
-"""Decoder serving forward (port of the paged serving trio of
-``repro.models.transformer``): ``decode_step_paged``,
-``prefill_chunk_paged`` and ``prefill_chunk_ragged``, for dense GQA
-decoders, pure Mamba2 models and zamba2's hybrid (Mamba2 layers with one
-shared attention + MLP block applied after every ``shared_attn_period``
-layers).
+"""Decoder forward passes (port of ``repro.models.transformer``): the
+paged serving trio ``decode_step_paged``, ``prefill_chunk_paged`` and
+``prefill_chunk_ragged``, for dense GQA decoders, pure Mamba2 models and
+zamba2's hybrid (Mamba2 layers with one shared attention + MLP block
+applied after every ``shared_attn_period`` layers), and the training loss
+``forward_loss`` for dense decoders.
 
 A Python loop over layers replaces ``lax.scan``. Parameters are a dict:
 ``{"embed": {"table"[, "head"]}, "layers": [per-layer dict, ...],
@@ -30,7 +30,10 @@ scattered beside them, and the attention dequantizes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import quant
@@ -40,9 +43,11 @@ from repro_torch.models.attention import (attention_scale, out_proj,
                                           paged_decode_attention, project_kv,
                                           project_q,
                                           ragged_chunk_update_attend,
+                                          sharded_attention,
                                           update_paged_cache,
                                           update_paged_cache_chunk)
-from repro_torch.models.embedding import decode_logits, embed, head_table
+from repro_torch.models.embedding import (decode_logits, embed, head_table,
+                                          lm_loss, sampled_softmax_loss)
 from repro_torch.models.layers import apply_mlp, apply_norm, rope_cos_sin
 
 
@@ -51,6 +56,22 @@ def _mlp_part(lp, x, cfg: ModelConfig):
 
 
 PAGE_POOLS = ("k", "v", "k_scale", "v_scale")
+MOE_AUX_COEF = 0.01
+
+
+def unported(cfg: ModelConfig) -> str | None:
+    """Which features of ``cfg`` no forward here runs (plural, naming the
+    ROADMAP item), or None."""
+    if cfg.encoder_layers:
+        return "encoder-decoder models (ROADMAP.md queue 1 item 10)"
+    if cfg.moe is not None:
+        return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
+    if cfg.frontend is not None or cfg.rope_sections is not None:
+        return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
+    if cfg.qk_norm or cfg.post_block_norm or cfg.embedding_scale:
+        return ("qk-norm, post-block norms and embedding scale "
+                "(ROADMAP.md queue 1 item 3)")
+    return None
 
 
 def period_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -247,3 +268,71 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
     last = (batch["ends"].long() - 1).clamp(0, T - 1)             # (S,)
     head = head_table(params["embed"], cfg) if head is None else head
     return decode_logits(x[0, last][:, None], head, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _attn_full(lp, x, cfg: ModelConfig, cos_sin, kind: str):
+    """Full-sequence causal self attention of one layer (train mode)."""
+    window = cfg.sliding_window if kind == LOCAL_ATTN else None
+    h = apply_norm(lp["norm"], x, cfg)
+    q = project_q(lp["attn"], h, cfg, cos_sin)
+    k, v = project_kv(lp["attn"], h, cfg, cos_sin)
+    y = sharded_attention(q, k, v, cfg, causal=True, window=window,
+                          cap=cfg.attn_logit_softcap,
+                          scale=attention_scale(cfg))
+    return x + out_proj(lp["attn"], y, x.dtype)
+
+
+def check_trainable(cfg: ModelConfig, pcfg) -> None:
+    """Raise, naming ROADMAP, for a model or remat mode this training
+    forward does not run: dense decoders with remat "full" or "none"
+    only (the ssd kernel has no backward, here or in the JAX package)."""
+    why = unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    if cfg.ssm is not None or cfg.shared_attn_period:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM and hybrid training needs an ssd backward "
+            "(ROADMAP.md queue 1 item 13)")
+    if pcfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={pcfg.remat!r}: only 'full' and 'none' are ported "
+            "(ROADMAP.md queue 1 item 13)")
+
+
+def _train_layer(lp, kind, cfg, cos_sin, x):
+    return _mlp_part(lp, _attn_full(lp, x, cfg, cos_sin, kind), cfg)
+
+
+def forward_loss(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
+    """Training loss of a dense decoder. batch: tokens (B, S), labels (B,
+    S) [, positions (B, S)]. Returns (loss, {"ce", "aux"}); aux is 0 (no
+    mixture of experts here). ``pcfg.remat == "full"`` recomputes each
+    layer in the backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint`` of the period body); ``"none"`` keeps every
+    activation. Other models and modes raise (``check_trainable``)."""
+    check_trainable(cfg, pcfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    x = embed(params["embed"]["table"], tokens, cfg)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    cos_sin = _rope(cfg, positions)
+    for lp, kind in zip(params["layers"], cfg.layer_kinds()):
+        layer = functools.partial(_train_layer, lp, kind, cfg, cos_sin)
+        x = (checkpoint(layer, x, use_reentrant=False)
+             if pcfg.remat == "full" else layer(x))
+    x = apply_norm(params["final_norm"], x, cfg)
+    ht = head_table(params["embed"], cfg)
+    if sampled_ids is not None:
+        ce = sampled_softmax_loss(x, ht, labels, sampled_ids, cfg)
+    else:
+        ce = lm_loss(x, ht, labels, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}

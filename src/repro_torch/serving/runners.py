@@ -189,20 +189,6 @@ class HybridRunner(SSMRunner):
     needs_blocks = True
 
 
-def _unported(cfg: ModelConfig) -> str | None:
-    """Why ``cfg`` cannot be served by this slice, or None."""
-    if cfg.encoder_layers:
-        return "encoder-decoder models (ROADMAP.md queue 1 item 10)"
-    if cfg.moe is not None:
-        return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
-    if cfg.frontend is not None or cfg.rope_sections is not None:
-        return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
-    if cfg.qk_norm or cfg.post_block_norm or cfg.embedding_scale:
-        return ("qk-norm, post-block norms and embedding scale "
-                "(ROADMAP.md queue 1 item 3)")
-    return None
-
-
 def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
                 num_speculative_tokens: int = 0) -> ModelRunner:
     """Family dispatch; raises NotImplementedError naming the missing slice
@@ -211,7 +197,7 @@ def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
         raise NotImplementedError(
             "speculative decoding is not ported yet (ROADMAP.md queue 1 "
             "item 8)")
-    why = _unported(cfg)
+    why = transformer.unported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
     if cfg.ssm is not None:

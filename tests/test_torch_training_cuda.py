@@ -1,0 +1,127 @@
+"""The training slice's kernels on the card: the flash forward and the
+sampled-softmax loss against their plain versions, and a training step on
+the card against the same step on the CPU. Every test skips without a
+CUDA card. The file imports neither jax nor the JAX package, so on a
+machine with a card and without jax it runs alone:
+
+  PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_training_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.config import OptimizerConfig, ParallelConfig, get_config
+from repro_torch.data.pipeline import ShardedSource
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sampled_softmax as tss
+from repro_torch.models import attention as tatt
+from repro_torch.models.api import init_model
+from repro_torch.optim import optimizers as topt
+from repro_torch.spmd import steps as tsteps
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+FLASH_CASES = [  # B, Sq, Skv, H, K, hd, causal, window, cap, q_offset
+    (2, 200, 200, 4, 2, 16, True, None, 50.0, 0),
+    (1, 130, 300, 8, 2, 128, True, 64, None, 170),
+    (2, 70, 150, 4, 4, 128, False, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_vs_plain(case):
+    """The kernel against dense_attention (each row within 1e-2 of its
+    norm) and the plain lse (1e-3 absolute); FlashAttention's gradients
+    within 1e-2 of each gradient's max (bf16 probabilities on the plain
+    side); two launches equal bit for bit. Sq and Skv not multiples of
+    the 64-row tiles."""
+    _need_card()
+    B, Sq, Skv, H, K, hd, causal, window, cap, off = case
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q, k, v, do = (torch.randn(s, generator=g, device="cuda").bfloat16()
+                   for s in ((B, Sq, H, hd), (B, Skv, K, hd),
+                             (B, Skv, K, hd), (B, Sq, H, hd)))
+    opts = dict(causal=causal, window=window, cap=cap, q_offset=off)
+    o, lse = tfa.flash_attention(q, k, v, **opts)
+    o2, lse2 = tfa.flash_attention(q, k, v, **opts)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    d = tatt.dense_attention(q, k, v, **opts).float()
+    rel = (o.float() - d).norm(dim=-1) / d.norm(dim=-1)
+    assert float(rel.max()) <= 1e-2
+    _, plse = tref.flash_attention_fwd_plain(q, k, v, **opts)
+    assert float((lse - plse).abs().max()) <= 1e-3
+    grads = []
+    for fn in (lambda *a: tfa.FlashAttention.apply(*a, causal, window, cap,
+                                                   None, off),
+               lambda *a: tatt.dense_attention(*a, **opts)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves).backward(do)
+        grads.append([t.grad.float() for t in leaves])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("T,cap", [(300, None), (129, 30.0)])
+def test_sampled_softmax_kernel_vs_plain(T, cap):
+    """The kernel against its plain version (1e-4 relative: both sum
+    exact bf16 products in fp32), accidental hits planted, T not a
+    multiple of the 64-row tile; two launches equal bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    V, d, n = 5000, 256, 200
+    table = (torch.randn((V, d), generator=g, device="cuda")
+             / d ** 0.5).bfloat16()
+    x = torch.randn((T, d), generator=g, device="cuda").bfloat16()
+    lab = torch.randint(0, V, (T,), generator=g, device="cuda")
+    sids = torch.randperm(V, generator=g, device="cuda")[:n]
+    lab[:5] = sids[:5]
+    a = tss.sampled_softmax_loss(x, table, lab, sids, cap=cap)
+    b = tss.sampled_softmax_loss(x, table, lab, sids, cap=cap)
+    assert torch.equal(a, b)
+    want = tref.sampled_softmax_loss_ref(x, table, lab, sids, cap=cap)
+    assert abs(float(a) - float(want)) <= 1e-4 * abs(float(want))
+
+
+def test_train_step_card_vs_cpu():
+    """Two training steps of glm4 smoke on the card (flash kernel, the
+    gather kernel under autograd) and on the CPU from the same fp32
+    masters: losses within 1e-2, grad norms within 1e-2 relative, every
+    leaf's gradient finite and non-zero on the card."""
+    _need_card()
+    cfg = get_config("glm4_9b", smoke=True)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    pcfg = ParallelConfig(remat="full", microbatches=2)
+    init = init_model(cfg, 0, "cpu", torch.float32)
+    src = ShardedSource(cfg, 32, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = topt.init_train_state(ocfg, topt.tree_map(
+            lambda t: t.to(dev, copy=True), init))
+        params = topt.working_params(state)
+        step = tsteps.make_train_step(cfg, pcfg, ocfg)
+        hooked, ms = [], []
+        launches = tfa.flash_attention.launches
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in src.batch(i, 4).items()}
+            params, state, m = step(
+                params, state, i, batch,
+                grad_hook=lambda gr: hooked.append(
+                    [bool(torch.isfinite(x).all() and (x != 0).any())
+                     for x in topt.tree_leaves(gr)]))
+            ms.append({k: float(v) for k, v in m.items()})
+        if dev == "cuda":
+            assert all(hooked[0])
+            assert tfa.flash_attention.launches - launches == \
+                2 * 2 * 2 * cfg.num_layers
+        out[dev] = ms
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-2
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-2 * b["grad_norm"]
