@@ -4,12 +4,17 @@
 // (_gather_kernel): out[t] = table[ids[t]] for a (V, d) table and T ids.
 //
 // What bounds it on this card: it does no arithmetic; it reads T rows and
-// writes T rows, so it is bound by bytes (3.35 TB/s), and at serving sizes
-// (a few hundred rows of 8 KB) by launch latency.
+// writes T rows, so it is bound by bytes (3.35 TB/s): 2 MB each way for
+// 256 rows of glm4_9b's 8 KB, under a microsecond. At serving sizes (8 to
+// 256 rows) what it actually waits on is latency: the id's round trip to
+// memory, then the row's.
 //
-// What this design does about it: one thread block per id copies its row
-// with 16-byte vector loads and stores, neighbouring threads on
-// neighbouring addresses (d = 4096 bf16 -> 512 uint4, one per thread).
+// What this design does about it: each warp copies one 2 KB segment of a
+// row (a 4096-wide bf16 row is four segments), so a 256-row chunk keeps
+// 1024 warps on all SMs instead of 256 on a few. The warp reads its id
+// once (one broadcast load), then each lane issues all four of its
+// 16-byte loads (non-coherent, not kept in L1: a row is read once) before
+// any store, so a segment costs one memory round trip after the id's.
 // Only the touched rows move, as with the TPU kernel's scalar-prefetched
 // ids. Ids are clamped into [0, V) (the model clamps them before the call
 // already), so a bad id can never read outside the table.
@@ -19,15 +24,38 @@
 
 namespace {
 
-__global__ void gather_rows_kernel(const uint4* __restrict__ table,
-                                   const int* __restrict__ ids,
-                                   uint4* __restrict__ out, int row_vecs,
-                                   int V) {
-  const int t = blockIdx.x;
-  const int id = min(max(ids[t], 0), V - 1);
+constexpr int WARPS = 4;    // segments per block
+constexpr int VPL = 4;      // 16-byte vectors per lane: 2 KB per segment
+constexpr int SEG = 32 * VPL;
+
+__device__ __forceinline__ uint4 ld_once(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// warp w copies segment w % nseg of row w / nseg
+__global__ void __launch_bounds__(WARPS * 32)
+gather_rows_kernel(const uint4* __restrict__ table,
+                   const int* __restrict__ ids, uint4* __restrict__ out,
+                   int T, int row_vecs, int nseg, int V) {
+  const int w = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int t = w / nseg;
+  if (t >= T) return;
+  const int c0 = (w - t * nseg) * SEG + lane;
+  const int id = min(max(__ldg(ids + t), 0), V - 1);
   const uint4* src = table + (size_t)id * row_vecs;
   uint4* dst = out + (size_t)t * row_vecs;
-  for (int i = threadIdx.x; i < row_vecs; i += blockDim.x) dst[i] = src[i];
+  uint4 buf[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j)
+    if (c0 + 32 * j < row_vecs) buf[j] = ld_once(src + c0 + 32 * j);
+#pragma unroll
+  for (int j = 0; j < VPL; ++j)
+    if (c0 + 32 * j < row_vecs) dst[c0 + 32 * j] = buf[j];
 }
 
 }  // namespace
@@ -39,12 +67,12 @@ extern "C" {
 int embedding_gather(const void* table, const void* ids, void* out, int T,
                      int V, int row_bytes, void* stream) {
   if (T == 0) return static_cast<int>(cudaGetLastError());
-  const int row_vecs = row_bytes / 16;
-  int threads = row_vecs < 512 ? row_vecs : 512;
-  threads = (threads + 31) / 32 * 32;
-  gather_rows_kernel<<<T, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int row_vecs = row_bytes / 16, nseg = (row_vecs + SEG - 1) / SEG;
+  const long long warps = (long long)T * nseg;
+  gather_rows_kernel<<<(unsigned)((warps + WARPS - 1) / WARPS), WARPS * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(table), static_cast<const int*>(ids),
-      static_cast<uint4*>(out), row_vecs, V);
+      static_cast<uint4*>(out), T, row_vecs, nseg, V);
   return static_cast<int>(cudaGetLastError());
 }
 

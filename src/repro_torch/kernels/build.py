@@ -12,6 +12,7 @@ host may have no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -83,15 +84,30 @@ def build_all() -> dict[str, Path]:
     return libs
 
 
-def load(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu`` (built if needed)."""
+def load(stem: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built if needed).
+    ``signatures`` ({function: (argtypes, restype)}) are set once, when the
+    library is first loaded."""
     lib = _loaded.get(stem)
     if lib is None:
         lib = ctypes.CDLL(str(build_all()[stem]))
+        for name, (argtypes, restype) in (signatures or {}).items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _loaded[stem] = lib
     return lib
 
 
 def current_stream(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current CUDA stream on ``t``'s device, as a handle (read
+    without building a ``torch.cuda.Stream``, which costs microseconds per
+    launch on the host)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t):
+    """A context making ``t``'s card the current one (kernels launch on the
+    current card), entered only when it is not already."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -23,21 +23,20 @@ def gather_plain(table, ids):
     return table[ids.long()]
 
 
+_SIG = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        ctypes.c_int)
+
+
 def _lib():
-    lib = build.load("embedding")
-    lib.embedding_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    lib.embedding_gather.restype = ctypes.c_int
-    return lib
+    return build.load("embedding", {"embedding_gather": _SIG})
 
 
 def gather(table, ids):
     """CUDA gather ``table[ids]``. table: (V, d) contiguous on the card,
     rows a multiple of 16 bytes; ids: int32 of any shape on the same card.
-    Returns (*ids.shape, d) in table.dtype. Ids are clamped into [0, V)."""
-    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
-        raise ValueError("gather: table and ids must be on the same CUDA "
-                         f"device (got {table.device}, {ids.device})")
+    Returns (*ids.shape, d) in table.dtype. Ids are clamped into [0, V).
+    Raises ValueError on what the kernel does not take: shapes and types
+    first, then devices."""
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"gather: table must be 2-D contiguous, got "
                          f"{tuple(table.shape)}")
@@ -48,17 +47,20 @@ def gather(table, ids):
     if row_bytes % 16 or table.data_ptr() % 16:
         raise ValueError("gather: table rows must be 16-byte multiples at a "
                          f"16-byte aligned address (row bytes {row_bytes})")
-    flat = ids.reshape(-1).contiguous()
-    out = torch.empty((flat.shape[0], d), dtype=table.dtype,
-                      device=table.device)
-    with torch.cuda.device(table.device):
+    if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
+        raise ValueError("gather: table and ids must be on the same CUDA "
+                         f"device (got {table.device}, {ids.device})")
+    flat = ids if ids.dim() == 1 and ids.is_contiguous() \
+        else ids.reshape(-1).contiguous()
+    out = table.new_empty((flat.shape[0], d))
+    with build.on_device(table):
         rc = _lib().embedding_gather(
             table.data_ptr(), flat.data_ptr(), out.data_ptr(),
             flat.shape[0], V, row_bytes, build.current_stream(table))
     if rc != 0:
         raise RuntimeError(f"embedding_gather launch failed: cudaError {rc}")
     gather.launches += 1
-    return out.reshape(*ids.shape, d)
+    return out if flat is ids else out.reshape(*ids.shape, d)
 
 
 gather.launches = 0

@@ -3,36 +3,48 @@ autograd function that training runs.
 
 Port of ``repro.kernels.flash_attention.flash_attention`` (a Pallas TPU
 forward kernel under a ``jax.custom_vjp`` whose backward ``_bwd_ref`` is
-plain jnp). The kernel is ``csrc/flash_attention.cu``; its plain version
-is ``ref.flash_attention_fwd_plain`` (the same (o, lse)). ``FlashAttention``
+plain jnp). The kernels are in ``csrc/flash_attention.cu``, one route per
+head dim: ``"wgmma"`` for hd 128 (TMA loads into a ring of tiles and
+Hopper's warpgroup products; the training path) and ``"mma"`` for hd 16
+(``mma.sync`` tiles; the smoke configs). Their plain version is
+``ref.flash_attention_fwd_plain`` (the same (o, lse)). ``FlashAttention``
 runs the kernel forward, saves ``(q, k, v, o, lse)`` as ``_vjp_fwd`` does,
 and its backward is ``ref.flash_attention_bwd_plain``, the port of
-``_bwd_ref``: the JAX package has no backward kernel either. The kernel
+``_bwd_ref``: the JAX package has no backward kernel either. Each kernel
 has one fixed summation order, so remat's recompute of a layer gives the
 forward's bits.
 
-``flash_attention.launches`` counts the kernel's launches.
+``flash_attention.launches`` counts the launches by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 128)
+ROUTES = {16: "mma", 128: "wgmma"}     # head dim -> kernel
+HEAD_DIMS = tuple(ROUTES)
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = ([_VP] * 5 + [_INT] * 5 + [_F, _F] + [_INT] * 3 + [_VP], _INT)
 
 
 def _lib():
-    lib = build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_VP] * 5 + [_INT] * 6 + [_F, _F] \
-        + [_INT] * 3 + [_VP]
-    lib.flash_attention_fwd.restype = _INT
-    return lib
+    return build.load("flash_attention", {
+        f"flash_attention_fwd_{r}": _SIG for r in ROUTES.values()})
+
+
+def route(hd: int) -> str:
+    """The kernel that takes head dim ``hd``: "wgmma" (128) or "mma"
+    (16). Raises ValueError naming the head dims for any other."""
+    if hd not in ROUTES:
+        raise ValueError(f"flash_attention: the kernel takes head dims "
+                         f"{HEAD_DIMS} (128 -> wgmma, 16 -> mma), got {hd}")
+    return ROUTES[hd]
 
 
 def _check(q, k, v, window, q_offset):
@@ -47,12 +59,12 @@ def _check(q, k, v, window, q_offset):
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (same B and hd, K "
                          "dividing H)")
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention: k/v hold no keys")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel takes bf16 q, k, v, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head dims "
-                         f"{HEAD_DIMS}, got {hd}")
+    route(hd)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
@@ -71,30 +83,31 @@ def _check(q, k, v, window, q_offset):
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
                     scale=None, q_offset=0):
     """CUDA flash forward. q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16
-    contiguous on one card, hd 16 or 128; query row i sits at absolute
-    position ``q_offset + i``. Returns (o (B, Sq, H, hd) bf16, lse (B, Sq,
-    H) fp32)."""
+    contiguous on one card, hd 128 (route "wgmma") or 16 (route "mma"),
+    Skv >= 1; query row i sits at absolute position ``q_offset + i``.
+    Returns (o (B, Sq, H, hd) bf16, lse (B, Sq, H) fp32)."""
     _check(q, k, v, window, q_offset)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    r = route(hd)
     scale = hd ** -0.5 if scale is None else scale
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _lib().flash_attention_fwd(
+    with build.on_device(q):
+        rc = getattr(_lib(), f"flash_attention_fwd_{r}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, K, hd, float(scale),
+            lse.data_ptr(), B, Sq, Skv, H, K, float(scale),
             0.0 if cap is None else float(cap), int(causal),
             0 if window is None else int(window), int(q_offset),
             build.current_stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
-                           f"{rc}")
-    flash_attention.launches += 1
+        why = "no tensor maps" if rc == -1 else f"cudaError {rc}"
+        raise RuntimeError(f"flash_attention_fwd_{r} launch failed: {why}")
+    flash_attention.launches[r] += 1
     return o, lse
 
 
-flash_attention.launches = 0
+flash_attention.launches = Counter()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -155,11 +155,43 @@ def test_kernel_wrapper_refuses_before_launch():
     any launch (CPU tensors here, so the device check comes last)."""
     q = torch.zeros((1, 8, 4, 128), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
-    before = tfa.flash_attention.launches
+    before = dict(tfa.flash_attention.launches)
     with pytest.raises(ValueError, match="bf16"):
         tfa.flash_attention(q.float(), kv, kv)
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q[..., :64], kv[..., :64], kv[..., :64])
+    with pytest.raises(ValueError, match="no keys"):
+        tfa.flash_attention(q, kv[:, :0], kv[:, :0])
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, kv, kv)
-    assert tfa.flash_attention.launches == before
+    assert dict(tfa.flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("hd,route", [(128, "wgmma"), (16, "mma")])
+def test_kernel_routes_by_head_dim(hd, route):
+    """hd 128 goes to the Hopper kernel (TMA + wgmma), hd 16 to the
+    mma.sync kernel; a CPU tensor of either head dim is refused before the
+    launch, and neither route's counter moves."""
+    assert tfa.route(hd) == route
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
+    before = dict(tfa.flash_attention.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.FlashAttention.apply(q, kv, kv, True, None, None, None, 0)
+    assert dict(tfa.flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("hd", [8, 32, 64, 80, 96, 256])
+def test_kernel_refuses_other_head_dims_by_name(hd):
+    """Every head dim but 16 and 128 is refused by name (no route takes
+    it, and nothing falls back), before either route's counter moves."""
+    with pytest.raises(ValueError, match=r"head dims \(16, 128\)"):
+        tfa.route(hd)
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
+    before = dict(tfa.flash_attention.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q, kv, kv)
+    assert dict(tfa.flash_attention.launches) == before

@@ -1,8 +1,9 @@
-"""The training slice's kernels on the card: the flash forward and the
-sampled-softmax loss against their plain versions, and a training step on
-the card against the same step on the CPU. Every test skips without a
-CUDA card. The file imports neither jax nor the JAX package, so on a
-machine with a card and without jax it runs alone:
+"""The training slice's kernels on the card: the flash forward (both
+routes), the gather and the sampled-softmax loss against their plain
+versions, and a training step on the card against the same step on the
+CPU. Every test skips without a CUDA card. The file imports neither jax
+nor the JAX package, so on a machine with a card and without jax it runs
+alone:
 
   PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_training_cuda.py
 """
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.config import OptimizerConfig, ParallelConfig, get_config
 from repro_torch.data.pipeline import ShardedSource
+from repro_torch.kernels import embedding as temb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sampled_softmax as tss
@@ -30,6 +32,12 @@ FLASH_CASES = [  # B, Sq, Skv, H, K, hd, causal, window, cap, q_offset
     (2, 200, 200, 4, 2, 16, True, None, 50.0, 0),
     (1, 130, 300, 8, 2, 128, True, 64, None, 170),
     (2, 70, 150, 4, 4, 128, False, None, None, 0),
+    # the edges of the hd-128 route's 128-row and 128-key tiles
+    (2, 129, 129, 4, 2, 128, True, None, None, 0),
+    (1, 255, 255, 8, 2, 128, True, None, None, 0),
+    (2, 96, 130, 4, 2, 128, False, None, None, 0),
+    (1, 148, 2048, 4, 2, 128, True, None, None, 1900),
+    (1, 600, 600, 4, 2, 128, True, 100, 50.0, 0),
 ]
 
 
@@ -39,7 +47,7 @@ def test_flash_kernel_vs_plain(case):
     norm) and the plain lse (1e-3 absolute); FlashAttention's gradients
     within 1e-2 of each gradient's max (bf16 probabilities on the plain
     side); two launches equal bit for bit. Sq and Skv not multiples of
-    the 64-row tiles."""
+    the 64- and 128-row tiles; each head dim's route launched twice."""
     _need_card()
     B, Sq, Skv, H, K, hd, causal, window, cap, off = case
     g = torch.Generator(device="cuda")
@@ -48,9 +56,12 @@ def test_flash_kernel_vs_plain(case):
                    for s in ((B, Sq, H, hd), (B, Skv, K, hd),
                              (B, Skv, K, hd), (B, Sq, H, hd)))
     opts = dict(causal=causal, window=window, cap=cap, q_offset=off)
+    before = dict(tfa.flash_attention.launches)
     o, lse = tfa.flash_attention(q, k, v, **opts)
     o2, lse2 = tfa.flash_attention(q, k, v, **opts)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    route = tfa.route(hd)
+    assert tfa.flash_attention.launches[route] == before.get(route, 0) + 2
     d = tatt.dense_attention(q, k, v, **opts).float()
     rel = (o.float() - d).norm(dim=-1) / d.norm(dim=-1)
     assert float(rel.max()) <= 1e-2
@@ -65,6 +76,35 @@ def test_flash_kernel_vs_plain(case):
         grads.append([t.grad.float() for t in leaves])
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("T", [1, 8, 256, 4096])
+def test_gather_kernel_vs_plain(T):
+    """The gather kernel equals table[ids] bit for bit at glm4_9b's table
+    width (4096 bf16), ids 0 and V - 1 and out-of-range ids among them
+    (clamped into [0, V), so held against table[clamp(ids)]); Gather's
+    gradient equals the gradient of table[ids] (a scatter-add over
+    repeated ids)."""
+    _need_card()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(T)
+    V, d = 5000, 4096
+    table = torch.randn((V, d), generator=g, device="cuda").bfloat16()
+    ids = torch.randint(0, V, (T,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    edge = torch.tensor([0, V - 1, -1, V, -(2 ** 31), 2 ** 31 - 1],
+                        dtype=torch.int32, device="cuda")
+    ids[:min(T, 6)] = edge[:min(T, 6)]
+    before = temb.gather.launches
+    out = temb.gather(table, ids)
+    assert temb.gather.launches == before + 1
+    assert torch.equal(out, table[ids.clamp(0, V - 1).long()])
+    ok = ids.clamp(0, V - 1)
+    grad = torch.randn((T, d), generator=g, device="cuda").bfloat16()
+    leaves = [table.clone().requires_grad_() for _ in range(2)]
+    temb.Gather.apply(leaves[0], ok).backward(grad)
+    leaves[1][ok.long()].backward(grad)
+    assert torch.equal(leaves[0].grad, leaves[1].grad)
 
 
 @pytest.mark.parametrize("T,cap", [(300, None), (129, 30.0)])
@@ -107,7 +147,7 @@ def test_train_step_card_vs_cpu():
         params = topt.working_params(state)
         step = tsteps.make_train_step(cfg, pcfg, ocfg)
         hooked, ms = [], []
-        launches = tfa.flash_attention.launches
+        launches = sum(tfa.flash_attention.launches.values())
         for i in range(2):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in src.batch(i, 4).items()}
@@ -119,8 +159,8 @@ def test_train_step_card_vs_cpu():
             ms.append({k: float(v) for k, v in m.items()})
         if dev == "cuda":
             assert all(hooked[0])
-            assert tfa.flash_attention.launches - launches == \
-                2 * 2 * 2 * cfg.num_layers
+            assert sum(tfa.flash_attention.launches.values()) - launches \
+                == 2 * 2 * 2 * cfg.num_layers
         out[dev] = ms
     for a, b in zip(out["cuda"], out["cpu"]):
         assert abs(a["loss"] - b["loss"]) <= 1e-2
