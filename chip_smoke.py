@@ -18,7 +18,8 @@ Phases, each of which raises on failure:
         128 and 16; the gather from the 151552 x 4096 embedding table
         and from mamba2_370m's and zamba2_2p7b's tables (bit for bit; at
         glm4's table 1, 8, 256 and 4096 ids, ids 0 and V - 1 and
-        out-of-range ids, which the kernel clamps); its times at 8, 256
+        out-of-range ids, which count from the end when negative and are
+        then clamped, as jnp indexes); its times at 8, 256
         and 4096 ids beside index_select's, by events and from the
         profiler, and the event time of a one-element launch (the floor).
      b. the packed (ragged) kernel: T=512 flat rows, S=4 sequences with
@@ -214,6 +215,10 @@ class Timer:
         """Device time per call of ``fn`` from a torch.profiler trace: the
         kernels it launches, summed, each call after the same L2 flush;
         the flush's own kernels are left out."""
+        return sum(self.kernels(fn, iters).values())
+
+    def kernels(self, fn, iters: int = 10) -> dict:
+        """``device``'s time per call by kernel name, in ms."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
 
@@ -231,7 +236,7 @@ class Timer:
         fn()
         flush = traced(lambda: None)
         got = traced(fn)
-        return sum(t for k, t in got.items() if k not in flush) / iters / 1e3
+        return {k: t / iters / 1e3 for k, t in got.items() if k not in flush}
 
 
 def card_line() -> str:
@@ -307,6 +312,16 @@ def same_bytes(a, b) -> bool:
     return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+def timed(timer, kernel, plain, prefix="") -> dict:
+    """Event and profiler device times of a kernel and its plain version:
+    {prefix}ms, {prefix}device_ms, {prefix}plain_ms,
+    {prefix}plain_device_ms."""
+    return {f"{prefix}ms": timer(kernel),
+            f"{prefix}device_ms": timer.device(kernel),
+            f"{prefix}plain_ms": timer(plain),
+            f"{prefix}plain_device_ms": timer.device(plain)}
+
+
 def check_paged(torch, timer, gen, rows):
     """Decode and chunk kernels over every pool dtype (phase 2a)."""
     from repro_torch.kernels import paged_attention as pa
@@ -333,14 +348,23 @@ def check_paged(torch, timer, gen, rows):
                                          ctxt, ones, **sc)
         check(torch.equal(o_c[:, 0], o_k), f"[{kv}] chunk(C=1) != decode "
               "bitwise")
+        check(same_bytes(o_k, pa.paged_attention(q, kp, vp, bt, ctxt, **sc)),
+              f"paged_attention[{kv}]: two launches differ")
         b_dec = (2 * q.numel() * 2 + 2 * S * kv_row_bytes(kv, K, hd)
                  + bt.numel() * 4 + B * 4)
+        if kv == "bf16":
+            split = timer.kernels(lambda: pa.paged_attention(q, kp, vp, bt,
+                                                             ctxt))
+            print("[kernels] paged_attention device ms by kernel: " + ", ".join(
+                f"{k.split('<')[0].split()[-1]} {v:.4f}"
+                for k, v in split.items()), flush=True)
         rows[variant("paged_attention", kv)] = dict(
             kernel="paged_attention", source=DECODE_SRC,
             max_abs_err=e, max_row_rel_err=rel,
-            ms=timer(lambda: pa.paged_attention(q, kp, vp, bt, ctxt, **sc)),
-            plain_ms=timer(lambda: ref.paged_attention_ref(
-                q, kp, vp, bt, ctxt, **sc)),
+            **timed(timer, lambda: pa.paged_attention(q, kp, vp, bt, ctxt,
+                                                      **sc),
+                    lambda: ref.paged_attention_ref(q, kp, vp, bt, ctxt,
+                                                    **sc)),
             library_ms=None,
             shape=f"B={B} H={H} K={K} hd={hd} bs={bs} ctx={ctx}",
             **dict(zip(("bound_ms", "bound_by"),
@@ -361,15 +385,18 @@ def check_paged(torch, timer, gen, rows):
                              o_k[:, :qlen], o_p[:, :qlen])
         check(bool((o_k[:, qlen:] == 0).all()),
               f"[{kv}] chunk padding rows not zero")
+        check(same_bytes(o_k, pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
+                                                         ql, **sc)),
+              f"paged_prefill_attention[{kv}]: two launches differ")
         b_chk = (2 * q.numel() * 2 + 2 * ctx1 * kv_row_bytes(kv, K, hd)
                  + bt.numel() * 4 + 8)
         rows[variant("paged_prefill_attention", kv)] = dict(
             kernel="paged_prefill_attention", source=DECODE_SRC,
             max_abs_err=e, max_row_rel_err=rel,
-            ms=timer(lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
-                                                        ql, **sc)),
-            plain_ms=timer(lambda: paged_chunk_attention_xla(
-                q, kp, vp, bt, ctxt, ql, **sc)),
+            **timed(timer, lambda: pa.paged_prefill_attention(
+                        q, kp, vp, bt, ctxt, ql, **sc),
+                    lambda: paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql,
+                                                      **sc)),
             library_ms=None,
             shape=f"B=1 C={C} q_len={qlen} ctx={ctx1} H={H} K={K} hd={hd}",
             **dict(zip(("bound_ms", "bound_by"),
@@ -391,9 +418,9 @@ def check_paged(torch, timer, gen, rows):
     b_dec = (2 * q.numel() * 2 + 2 * sum(ctx8) * kv_row_bytes("bf16", K8, hd8)
              + bt.numel() * 4 + len(ctx8) * 4)
     hd80 = bound_ms(b_dec, 4.0 * sum(ctx8) * H8 * hd8)
-    row.update(hd80_ms=timer(lambda: pa.paged_attention(q, kp, vp, bt, ctxt)),
-               hd80_plain_ms=timer(lambda: ref.paged_attention_ref(
-                   q, kp, vp, bt, ctxt)),
+    row.update(**timed(timer, lambda: pa.paged_attention(q, kp, vp, bt, ctxt),
+                       lambda: ref.paged_attention_ref(q, kp, vp, bt, ctxt),
+                       "hd80_"),
                hd80_bound_ms=hd80[0], hd80_bound_by=hd80[1],
                hd80_max_abs_err=e, hd80_max_row_rel_err=rel,
                hd80_shape=f"B={len(ctx8)} H={H8} K={K8} hd={hd8} bs={bs} "
@@ -410,10 +437,10 @@ def check_paged(torch, timer, gen, rows):
              + bt.numel() * 4 + 8)
     hd80 = bound_ms(b_chk, 4.0 * keys8 * H8 * hd8)
     rows["paged_prefill_attention"].update(
-        hd80_ms=timer(lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
-                                                         ql)),
-        hd80_plain_ms=timer(lambda: paged_chunk_attention_xla(
-            q, kp, vp, bt, ctxt, ql)),
+        **timed(timer, lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
+                                                          ql),
+                lambda: paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql),
+                "hd80_"),
         hd80_bound_ms=hd80[0], hd80_bound_by=hd80[1], hd80_max_abs_err=e,
         hd80_max_row_rel_err=rel,
         hd80_shape=f"B=1 C={C8} q_len={qlen8} ctx={c8} H={H8} K={K8} "
@@ -448,77 +475,243 @@ def check_paged(torch, timer, gen, rows):
               f"within {TOL} over {'/'.join(KV_DTYPES)} pools", flush=True)
 
 
-def check_ragged(torch, timer, gen, rows):
-    """The packed kernel, without and with the fused write (phase 2b)."""
-    import numpy as np
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models.attention import (ragged_chunk_attention_xla,
-                                              update_paged_cache_ragged)
-    from repro_torch.models.quant import quantize_kv
-    from repro_torch.serving.engine import pack_ragged
+# contexts of the bitwise decode == chunk(C=1) cases: the edges of the
+# kernel's 64-key steps and 256-key segments (csrc/paged_attention.cuh's
+# kStep and kSeg), four segments and three keys, one key, an inactive slot
+EDGE_CTX = [63, 65, 255, 257, 1027, 64, 1, 0]
+# (H, K, hd): glm4_9b, zamba2_2p7b's shared attention, their smoke heads
+HEAD_SHAPES = [(32, 2, 128), (32, 32, 80), (4, 2, 16)]
+EDGE_OPTS = [{}, {"window": 50, "cap": 30.0}]
+EDGE_CHUNK = 70           # rows of the chunk ending at max(EDGE_CTX)
 
-    H, K, hd, bs, T = 32, 2, 128, 16, 512
-    q_lens, ctx = [200, 96, 150, 40], [2048, 96, 700, 1000]
-    S, nb = len(q_lens), 2048 // bs
+
+def check_paged_edges(torch, gen):
+    """Phase 2a's bitwise cases, at every head shape, block sizes 8 and 32,
+    every pool, without and with window 50 + cap 30: decode ==
+    chunk(C=1) at EDGE_CTX; a chunk of EDGE_CHUNK rows ending at 1027
+    keys equals one decode step per row; two launches equal; ctx = 0 rows
+    exact zeros; both within TOL of the plain decode."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    n, worst = 0, 0.0
+    for H, K, hd in HEAD_SHAPES:
+        for bs in (8, 32):
+            B, nb = len(EDGE_CTX), -(-max(EDGE_CTX) // bs)
+            q, kp16, vp16, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs,
+                                                 nb, EDGE_CTX)
+            ones = torch.ones(B, dtype=torch.int32, device=DEV)
+            # the chunk: sequence 4's table (1027 keys), rows at positions
+            # 957..1026; as decode steps, row i sees ctx 958 + i
+            C, end = EDGE_CHUNK, max(EDGE_CTX)
+            qc = torch.randn((1, C, H, hd), generator=gen,
+                             device=DEV).bfloat16()
+            btc = bt[4:5].contiguous()
+            ctxc = torch.tensor([end], dtype=torch.int32, device=DEV)
+            qlc = torch.tensor([C], dtype=torch.int32, device=DEV)
+            bt_rows = btc.expand(C, nb).contiguous()
+            ctx_rows = torch.arange(end - C + 1, end + 1, dtype=torch.int32,
+                                    device=DEV)
+            for kv in KV_DTYPES:
+                kp, vp, sc = pools_in(kv, kp16, vp16)
+                for opts in EDGE_OPTS:
+                    name = (f"edges H={H} K={K} hd={hd} bs={bs} [{kv}] "
+                            f"{opts or 'no window/cap'}")
+                    o_d = pa.paged_attention(q, kp, vp, bt, ctxt, **opts,
+                                             **sc)
+                    o_c = pa.paged_prefill_attention(
+                        q[:, None].contiguous(), kp, vp, bt, ctxt, ones,
+                        **opts, **sc)
+                    check(torch.equal(o_c[:, 0], o_d),
+                          f"{name}: chunk(C=1) != decode")
+                    check(same_bytes(o_d, pa.paged_attention(
+                        q, kp, vp, bt, ctxt, **opts, **sc)),
+                          f"{name}: two decode launches differ")
+                    check(bool((o_d[EDGE_CTX.index(0)] == 0).all()),
+                          f"{name}: ctx=0 row not zero")
+                    worst = max(worst, check_close(
+                        f"{name} decode vs plain", o_d,
+                        ref.paged_attention_ref(q, kp, vp, bt, ctxt, **opts,
+                                                **sc))[1])
+                    o_ch = pa.paged_prefill_attention(qc, kp, vp, btc, ctxc,
+                                                      qlc, **opts, **sc)
+                    o_rows = pa.paged_attention(qc[0], kp, vp, bt_rows,
+                                                ctx_rows, **opts, **sc)
+                    check(torch.equal(o_ch[0], o_rows),
+                          f"{name}: a {C}-row chunk != its rows as decode "
+                          "steps")
+                    n += 1
+    print(f"[kernels] paged edges: decode == chunk(C=1) at ctx {EDGE_CTX} "
+          f"and a {EDGE_CHUNK}-row chunk == its rows as decode steps, bit "
+          f"for bit, two launches equal, ctx=0 rows zero, over {n} cases "
+          f"(heads {HEAD_SHAPES}, bs 8/32, {'/'.join(KV_DTYPES)}, "
+          f"{EDGE_OPTS}); decode within {worst:.3g} of plain (row relative)",
+          flush=True)
+
+
+def mma_zero_rows_probe(torch, gen, warps=4096) -> dict:
+    """mma.sync m16n8k16 with zero A rows on random bf16 B and random fp32
+    C (an eighth of it +0.0 or -0.0): the zero rows' results against C,
+    bit for bit. A skipped, fully masked step relies on them being
+    equal."""
+    import ctypes
+    from repro_torch.kernels import build
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    probe = build.load("paged_attention").paged_mma_zero_rows_probe
+    probe.argtypes, probe.restype = [vp] * 4 + [i, vp], i
+
+    def words(n):
+        x = torch.randn(2 * n, generator=gen, device=DEV).bfloat16()
+        return x.view(torch.int32)
+
+    a, b = words(warps * 128), words(warps * 64)
+    c = torch.randn(warps * 128, generator=gen, device=DEV)
+    pick = torch.randint(0, 16, c.shape, generator=gen, device=DEV)
+    c[pick == 0] = 0.0
+    c[pick == 1] = -0.0
+    out = torch.empty_like(c)
+    rc = probe(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+               warps, build.current_stream(c))
+    check(rc == 0, f"mma zero-rows probe launch failed: cudaError {rc}")
+    torch.cuda.synchronize()
+    zero_rows = (torch.arange(c.numel(), device=DEV) // 32) % 4 < 2
+    cz, oz = c[zero_rows], out[zero_rows]
+    same = cz.view(torch.int32) == oz.view(torch.int32)
+    neg0 = cz.view(torch.int32) == torch.tensor(-0.0).view(torch.int32)
+    res = {"values": int(cz.numel()), "bit_equal": int(same.sum()),
+           "differ_nonzero_c": int((~same & (cz != 0)).sum()),
+           "neg_zero_c": int(neg0.sum()),
+           "neg_zero_kept": int((same & neg0).sum()),
+           "other_rows_finite": bool(torch.isfinite(out[~zero_rows]).all())}
+    print(f"[kernels] mma.sync zero A rows: {res}", flush=True)
+    check(res["differ_nonzero_c"] == 0 and res["other_rows_finite"],
+          "mma.sync with zero A rows changed a non-zero C value")
+    return res
+
+
+def ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, ctx):
+    """Random packed inputs: q (T, H, hd), bf16 pools, tables, the packing
+    of ``q_lens`` into T rows (pack_ragged), new K/V rows (T, K, hd)."""
+    import numpy as np
+    from repro_torch.serving.engine import pack_ragged
+    S, nb = len(q_lens), -(-max(ctx) // bs)
     q, kp16, vp16, bt, ctxt = paged_case(torch, gen, S, H, K, hd, bs, nb,
                                          ctx, C=T)
-    q = q[0].contiguous()                                   # (T, H, hd)
     _, seq, st, en = (torch.from_numpy(a).to(DEV) for a in pack_ragged(
         [np.zeros(n) for n in q_lens], T, S))
     pad = torch.ones(T, dtype=torch.bool, device=DEV)
     for a, b in zip(st.tolist(), en.tolist()):
         pad[a:b] = False
     check(int(pad.sum()) == T - sum(q_lens), "packing")
-    own = ~pad
     kn16 = torch.randn((T, K, hd), generator=gen, device=DEV).bfloat16()
     vn16 = torch.randn((T, K, hd), generator=gen, device=DEV).bfloat16()
-    seqs = (bt, ctxt, st, en)
+    return dict(q=q[0].contiguous(), kp16=kp16, vp16=vp16,
+                seqs=(bt, ctxt, st, en), seq=seq, pad=pad, kn16=kn16,
+                vn16=vn16)
+
+
+def ragged_checks(torch, inp, kv, name) -> dict:
+    """The packed kernel over one pool dtype, bit for bit: a 1-sequence
+    launch equals the chunk kernel, each packed sequence its unpacked
+    launch, pool bytes after the fused write the separate scatter, the
+    fused output the kernel after that scatter, two launches each other;
+    unowned rows exact zeros; within TOL of plain without and with the
+    write. Returns the tensors the timings reuse and the errors."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import (ragged_chunk_attention_xla,
+                                              update_paged_cache_ragged)
+    from repro_torch.models.quant import quantize_kv
+
+    q, seqs, seq, pad = inp["q"], inp["seqs"], inp["seq"], inp["pad"]
+    bt, ctxt, st, en = seqs
+    own = ~pad
+    zero1 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    kp, vp, sc = pools_in(kv, inp["kp16"], inp["vp16"])
+    o_k = pa.ragged_paged_prefill_attention(q, kp, vp, *seqs, **sc)
+    check(same_bytes(o_k, pa.ragged_paged_prefill_attention(q, kp, vp, *seqs,
+                                                            **sc)),
+          f"{name}: two launches differ")
+    o_p = ragged_chunk_attention_xla(q, kp, vp, *seqs, seq, **sc)
+    e_n, rel_n = check_close(f"{name} vs plain", o_k[own], o_p[own])
+    check(bool((o_k[pad] == 0).all()), f"{name}: unowned rows not zero")
+    # one sequence alone == the chunk kernel; packed == unpacked
+    for s, (a, b) in enumerate(zip(st.tolist(), en.tolist())):
+        one = torch.zeros_like(q)
+        one[:b - a] = q[a:b]
+        tab, cx = bt[s:s + 1].contiguous(), ctxt[s:s + 1].contiguous()
+        ql = (en - st)[s:s + 1].contiguous()
+        o_c = pa.paged_prefill_attention(one[None], kp, vp, tab, cx, ql,
+                                         **sc)[0]
+        o_1 = pa.ragged_paged_prefill_attention(one, kp, vp, tab, cx,
+                                                zero1, ql, **sc)
+        check(torch.equal(o_1, o_c), f"{name}: S=1 != chunk kernel "
+              f"(sequence {s})")
+        check(torch.equal(o_k[a:b], o_c[:b - a]),
+              f"{name}: packed != unpacked (sequence {s})")
+    # the fused write: new rows quantized first, their scale rows in the
+    # scale pools before the launch
+    kn, vn, nsc = inp["kn16"], inp["vn16"], {}
+    if kv != "bf16":
+        kn, ksr = quantize_kv(inp["kn16"], kv)
+        vn, vsr = quantize_kv(inp["vn16"], kv)
+        nsc = {n: update_paged_cache_ragged(sc[n].clone(), r[None], *seqs,
+                                            seq)
+               for n, r in (("k_scale", ksr), ("v_scale", vsr))}
+    k1, v1 = kp.clone(), vp.clone()
+    o_w, _, _ = pa.ragged_paged_prefill_attention(
+        q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)
+    k2 = update_paged_cache_ragged(kp.clone(), kn[None], *seqs, seq)
+    v2 = update_paged_cache_ragged(vp.clone(), vn[None], *seqs, seq)
+    check(same_bytes(k1[1:], k2[1:]) and same_bytes(v1[1:], v2[1:]),
+          f"{name}: pool bytes after the fused write != the scatter")
+    check(not same_bytes(k1, kp), f"{name}: the fused write wrote nothing")
+    check(torch.equal(o_w, pa.ragged_paged_prefill_attention(
+        q, k2, v2, *seqs, **nsc)), f"{name}: fused != scatter + kernel")
+    e, rel = check_close(f"{name} fused vs plain", o_w[own],
+                         ragged_chunk_attention_xla(q, k2, v2, *seqs, seq,
+                                                    **nsc)[own])
+    return dict(kp=kp, vp=vp, sc=sc, k1=k1, v1=v1, k2=k2, v2=v2, kn=kn,
+                vn=vn, nsc=nsc, e=e, rel=rel, e_n=e_n, rel_n=rel_n)
+
+
+# the small packed cases of phase 2b at the other head shapes: a 70-row
+# chunk ending at 1027 keys, a decode-like row, a chunk across a segment
+# edge, a fresh prompt; 19 rows no sequence owns
+RAGGED_SMALL = (160, [70, 1, 50, 20], [1027, 65, 257, 20])
+
+
+def check_ragged(torch, timer, gen, rows):
+    """The packed kernel, without and with the fused write (phase 2b)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import (ragged_chunk_attention_xla,
+                                              update_paged_cache_ragged)
+
+    T, q_lens, ctx = RAGGED_SMALL
+    for H, K, hd in HEAD_SHAPES[1:]:
+        for bs in (8, 32):
+            inp = ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, ctx)
+            for kv in KV_DTYPES:
+                ragged_checks(torch, inp, kv, f"ragged H={H} K={K} hd={hd} "
+                              f"bs={bs} [{kv}]")
+    print(f"[kernels] ragged at heads {HEAD_SHAPES[1:]}, bs 8/32, T={T} "
+          f"q_lens={q_lens} ctx={ctx}: S=1 == chunk kernel, packed == "
+          "unpacked, fused write == scatter (bit for bit) over "
+          f"{'/'.join(KV_DTYPES)}", flush=True)
+
+    H, K, hd, bs, T = 32, 2, 128, 16, 512
+    q_lens, ctx = [200, 96, 150, 40], [2048, 96, 700, 1000]
+    S = len(q_lens)
+    inp = ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, ctx)
+    q, seqs, seq = inp["q"], inp["seqs"], inp["seq"]
+    bt = seqs[0]
     pairs = sum(n * (c - n) + n * (n + 1) // 2 for n, c in zip(q_lens, ctx))
     flops = 4.0 * pairs * H * hd
-    zero1 = torch.zeros(1, dtype=torch.int32, device=DEV)
     for kv in KV_DTYPES:
         name = f"ragged_paged_prefill_attention[{kv}]"
-        kp, vp, sc = pools_in(kv, kp16, vp16)
-        o_k = pa.ragged_paged_prefill_attention(q, kp, vp, *seqs, **sc)
-        o_p = ragged_chunk_attention_xla(q, kp, vp, *seqs, seq, **sc)
-        e_n, rel_n = check_close(f"{name} vs plain", o_k[own], o_p[own])
-        check(bool((o_k[pad] == 0).all()), f"{name}: unowned rows not zero")
-        # one sequence alone == the chunk kernel; packed == unpacked
-        for s, (a, b) in enumerate(zip(st.tolist(), en.tolist())):
-            one = torch.zeros_like(q)
-            one[:b - a] = q[a:b]
-            tab, cx = bt[s:s + 1].contiguous(), ctxt[s:s + 1].contiguous()
-            ql = (en - st)[s:s + 1].contiguous()
-            o_c = pa.paged_prefill_attention(one[None], kp, vp, tab, cx, ql,
-                                             **sc)[0]
-            o_1 = pa.ragged_paged_prefill_attention(one, kp, vp, tab, cx,
-                                                    zero1, ql, **sc)
-            check(torch.equal(o_1, o_c), f"{name}: S=1 != chunk kernel "
-                  f"(sequence {s})")
-            check(torch.equal(o_k[a:b], o_c[:b - a]),
-                  f"{name}: packed != unpacked (sequence {s})")
-        # the fused write: new rows quantized first, their scale rows in
-        # the scale pools before the launch
-        kn, vn, nsc = kn16, vn16, {}
-        if kv != "bf16":
-            kn, ksr = quantize_kv(kn16, kv)
-            vn, vsr = quantize_kv(vn16, kv)
-            nsc = {n: update_paged_cache_ragged(sc[n].clone(), r[None],
-                                                *seqs, seq)
-                   for n, r in (("k_scale", ksr), ("v_scale", vsr))}
-        k1, v1 = kp.clone(), vp.clone()
-        o_w, _, _ = pa.ragged_paged_prefill_attention(
-            q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)
-        k2 = update_paged_cache_ragged(kp.clone(), kn[None], *seqs, seq)
-        v2 = update_paged_cache_ragged(vp.clone(), vn[None], *seqs, seq)
-        check(same_bytes(k1[1:], k2[1:]) and same_bytes(v1[1:], v2[1:]),
-              f"{name}: pool bytes after the fused write != the scatter")
-        check(not same_bytes(k1, kp), f"{name}: the fused write wrote nothing")
-        check(torch.equal(o_w, pa.ragged_paged_prefill_attention(
-            q, k2, v2, *seqs, **nsc)), f"{name}: fused != scatter + kernel")
-        e, rel = check_close(f"{name} fused vs plain", o_w[own],
-                             ragged_chunk_attention_xla(q, k2, v2, *seqs,
-                                                        seq, **nsc)[own])
+        r = ragged_checks(torch, inp, kv, name)
+        kp, vp, sc, k1, v1, k2, v2 = (r[k] for k in ("kp", "vp", "sc", "k1",
+                                                      "v1", "k2", "v2"))
+        kn, vn, nsc = r["kn"], r["vn"], r["nsc"]
 
         def plain_fused():
             update_paged_cache_ragged(k2, kn[None], *seqs, seq)
@@ -536,17 +729,17 @@ def check_ragged(torch, timer, gen, rows):
         nw_bound = bound_ms(b_read, flops)
         rows[variant("ragged_paged_prefill_attention", kv)] = dict(
             kernel="ragged_paged_prefill_attention", source=RAGGED_SRC,
-            max_abs_err=e, max_row_rel_err=rel,
-            ms=timer(lambda: pa.ragged_paged_prefill_attention(
-                q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)),
-            plain_ms=timer(plain_fused),
+            max_abs_err=r["e"], max_row_rel_err=r["rel"],
+            **timed(timer, lambda: pa.ragged_paged_prefill_attention(
+                        q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc),
+                    plain_fused),
             library_ms=None,
-            no_write_ms=timer(lambda: pa.ragged_paged_prefill_attention(
-                q, kp, vp, *seqs, **sc)),
-            no_write_plain_ms=timer(lambda: ragged_chunk_attention_xla(
-                q, kp, vp, *seqs, seq, **sc)),
-            no_write_bound_ms=nw_bound[0], no_write_max_abs_err=e_n,
-            no_write_max_row_rel_err=rel_n,
+            **timed(timer, lambda: pa.ragged_paged_prefill_attention(
+                        q, kp, vp, *seqs, **sc),
+                    lambda: ragged_chunk_attention_xla(q, kp, vp, *seqs, seq,
+                                                       **sc), "no_write_"),
+            no_write_bound_ms=nw_bound[0], no_write_max_abs_err=r["e_n"],
+            no_write_max_row_rel_err=r["rel_n"],
             shape=f"T={T} S={S} q_lens={q_lens} ctx={ctx} H={H} K={K} "
                   f"hd={hd} bs={bs}; fused KV write ({pairs} row-key pairs)",
             **dict(zip(("bound_ms", "bound_by"),
@@ -562,8 +755,9 @@ GATHER_IDS = (8, 256, 4096)
 
 def check_gather(torch, timer, gen, rows):
     """The gather against table[ids], bit for bit: the full glm4 table at
-    1, 8, 256 and 4096 ids, ids 0 and V - 1, out-of-range ids (clamped
-    into [0, V), so held against table[clamp(ids)]); 256- and 8-id rows at
+    1, 8, 256 and 4096 ids, ids 0 and V - 1, out-of-range ids (jnp's rule:
+    a negative id counts from the end, then the row is clamped into [0,
+    V)); 256- and 8-id rows at
     mamba2_370m's and zamba2_2p7b's tables. Times at 8, 256 and 4096 ids
     beside index_select, by events and from the profiler, and the event
     time of a one-element elementwise launch as the floor (phase 2a)."""
@@ -574,13 +768,15 @@ def check_gather(torch, timer, gen, rows):
     ids = {n: torch.randint(0, V, (n,), generator=gen, device=DEV,
                             dtype=torch.int32) for n in (1,) + GATHER_IDS}
     edge = torch.tensor([0, V - 1, -1, V, V + 7, -(2 ** 31), 2 ** 31 - 1,
-                         V - 1, 0], dtype=torch.int32, device=DEV)
+                         -V, -V - 1, V - 1, 0], dtype=torch.int32,
+                        device=DEV)
     cases = [(f"{n} ids", i) for n, i in ids.items()] + [
         ("ids (1, 256)", ids[256].reshape(1, 256)),
         ("ids (8, 1)", ids[8].reshape(8, 1)),
         ("ids 0, V - 1 and out of range", edge)]
     for name, i in cases:
-        want = emb.gather_plain(table, i.clamp(0, V - 1))
+        # jnp's rule: a negative id counts from the end, then clamped
+        want = table[torch.where(i < 0, i + V, i).clamp(0, V - 1).long()]
         check(torch.equal(emb.gather(table, i), want),
               f"gather != table[ids] at glm4 ({V}x{d}), {name}")
     # the same two id shapes at the SSM and hybrid models' tables
@@ -967,6 +1163,8 @@ def check_kernels(torch, timer):
     gen.manual_seed(0)
     rows = {}
     check_paged(torch, timer, gen, rows)
+    check_paged_edges(torch, gen)
+    mma_zero_rows_probe(torch, gen)
     check_ragged(torch, timer, gen, rows)
     check_gather(torch, timer, gen, rows)
     check_ssd(torch, timer, gen, rows)
@@ -1596,8 +1794,13 @@ def main() -> int:
           f"({build.build_dir()})", flush=True)
     log = build.build_dir() / "build.log"
     if log.exists():
+        fn = ""                       # the entry function ptxas reports on
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {fn}: {line.strip()}")
+            elif line.startswith("=="):
                 print(f"[build] {line.strip()}")
 
     timer = Timer(torch)
@@ -1631,7 +1834,8 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items() if k in SUMMARY_EXTRAS
-                       or k.startswith(("no_write", "device_ms",
+                       or k.startswith(("no_write", "device_ms", "hd80_",
+                                        "plain_device_ms",
                                         "library_device_ms"))})
                for name, r in rows.items()]
     print(card)

@@ -16,8 +16,9 @@
 // 16-byte loads (non-coherent, not kept in L1: a row is read once) before
 // any store, so a segment costs one memory round trip after the id's.
 // Only the touched rows move, as with the TPU kernel's scalar-prefetched
-// ids. Ids are clamped into [0, V) (the model clamps them before the call
-// already), so a bad id can never read outside the table.
+// ids. Ids follow jnp's indexing rule, as the reference table[ids] does
+// off the TPU: a negative id counts from the end (id + V), then the row is
+// clamped into [0, V), so a bad id can never read outside the table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +47,8 @@ gather_rows_kernel(const uint4* __restrict__ table,
   const int t = w / nseg;
   if (t >= T) return;
   const int c0 = (w - t * nseg) * SEG + lane;
-  const int id = min(max(__ldg(ids + t), 0), V - 1);
+  int id = __ldg(ids + t);
+  id = min(max(id < 0 ? id + V : id, 0), V - 1);
   const uint4* src = table + (size_t)id * row_vecs;
   uint4* dst = out + (size_t)t * row_vecs;
   uint4 buf[VPL];

@@ -60,16 +60,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"  // mma_bf16, pack_bf16
+
 namespace {
 
 constexpr float NEG_INF = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---------------------------------------------------------------------------
 // route "mma": hd 16
@@ -89,20 +86,7 @@ __device__ __forceinline__ uint32_t pack_halves(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// d += a (16x16, row major) * b (16x8, column major); bf16 in, fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of m16n8k16 (lane = 4 * g + t): an A register holds row
-// g or g + 8 at columns 2t, 2t + 1 (+ 8); a B register holds rows (k) 2t,
-// 2t + 1 (+ 8) of column g; the accumulator holds rows g and g + 8 at
-// columns 2t, 2t + 1.
+// m16n8k16 fragments as mma.cuh lays them out.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,

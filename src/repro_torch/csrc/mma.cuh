@@ -1,0 +1,31 @@
+// The bf16 tensor-core product shared by the flash kernel's hd-16 route and
+// the paged-attention kernels: mma.sync m16n8k16, bf16 in, fp32 sums.
+//
+// Fragment layout (lane = 4 * g + t): an A register holds row g or g + 8
+// at columns 2t, 2t + 1 (+ 8); a B register holds rows (k) 2t, 2t + 1
+// (+ 8) of column g; the accumulator holds rows g and g + 8 at columns
+// 2t, 2t + 1. Each output element depends only on its own A row, its B
+// column and its C value, so a row's bits do not depend on the other rows
+// of the tile.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+// d += a (16x16, row major) * b (16x8, column major); bf16 in, fp32 sum.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, `lo` in the low half: the
+// order of an A or B fragment's two values.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}

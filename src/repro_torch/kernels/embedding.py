@@ -6,7 +6,10 @@ version is ``gather_plain`` (``table[ids]``), which ``kernels.ops`` runs
 for CPU tensors. ``Gather`` puts the kernel under autograd: its backward is
 the plain gradient of ``table[ids]``, a scatter-add of the row gradients
 into zeros of the table's shape (the JAX package has no backward kernel
-for the gather either; XLA differentiates it).
+for the gather either; XLA differentiates it). Ids follow jnp's rule in
+all three (``table_rows``): a negative id counts from the end, then the
+row is clamped; the gradient of an id still out of range is dropped, as
+jax.grad drops it.
 """
 
 from __future__ import annotations
@@ -18,9 +21,27 @@ import torch
 from repro_torch.kernels import build
 
 
+def table_rows(ids, V):
+    """The JAX package's index rule for ``table[ids]`` (jnp indexing): a
+    negative id counts from the end (id + V), then the row is clamped into
+    [0, V - 1]. Returns (rows, inside): int64 rows, and whether the
+    wrapped id was in range, which is where the gradient of ``table[ids]``
+    lands (jax.grad drops the others)."""
+    ids = ids.long()
+    wrapped = torch.where(ids < 0, ids + V, ids)
+    return wrapped.clamp(0, V - 1), (wrapped >= 0) & (wrapped < V)
+
+
 def gather_plain(table, ids):
-    """table: (V, d); ids: integer of any shape -> (*ids.shape, d)."""
-    return table[ids.long()]
+    """table: (V, d); ids: integer of any shape -> (*ids.shape, d), rows
+    chosen by ``table_rows``. Differentiable in the table as jax.grad of
+    ``table[ids]``: an id out of range after the wrap reads its clamped
+    row but adds nothing to the gradient."""
+    rows, inside = table_rows(ids, table.shape[0])
+    out = table[rows]
+    if not table.requires_grad:
+        return out
+    return torch.where(inside[..., None], out, out.detach())
 
 
 _SIG = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -34,7 +55,8 @@ def _lib():
 def gather(table, ids):
     """CUDA gather ``table[ids]``. table: (V, d) contiguous on the card,
     rows a multiple of 16 bytes; ids: int32 of any shape on the same card.
-    Returns (*ids.shape, d) in table.dtype. Ids are clamped into [0, V).
+    Returns (*ids.shape, d) in table.dtype. Rows follow ``table_rows``
+    (a negative id counts from the end, then clamped into [0, V)).
     Raises ValueError on what the kernel does not take: shapes and types
     first, then devices."""
     if table.dim() != 2 or not table.is_contiguous():
@@ -81,8 +103,11 @@ class Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
-        d = ctx.table_shape[1]
+        V, d = ctx.table_shape
+        rows, inside = table_rows(ids.reshape(-1), V)
+        # the rows the forward read; an id out of range after the wrap
+        # adds zeros there (jax.grad of table[ids] drops it)
+        grad = torch.where(inside[:, None], grad.reshape(-1, d), 0.0)
         g = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
-        g.index_put_((ids.reshape(-1).long(),), grad.reshape(-1, d),
-                     accumulate=True)
+        g.index_put_((rows,), grad, accumulate=True)
         return g, None

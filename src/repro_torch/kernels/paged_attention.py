@@ -5,11 +5,13 @@ hand-written CUDA kernels, ported from the Pallas TPU kernels
 
 The wrappers launch ``csrc/paged_attention.cu`` (decode, chunk) and
 ``csrc/ragged_paged_attention.cu`` (packed, optionally with the fused KV
-write), one templated kernel (``csrc/paged_attention.cuh``) that follows
-the Pallas schedule: one program per (sequence, kv head) walking the block
-table in order with an fp32 online softmax, the masked-row guard, and a
-divide by the running sum at the end. The plain versions of the same
-functions are ``kernels.ref.paged_attention_ref`` (decode),
+write), one templated kernel (``csrc/paged_attention.cuh``) on the tensor
+cores: 64-key steps at absolute positions with an fp32 online softmax and
+the masked-row guard, partial states per 256-key segment merged in
+segment order, and a divide by the running sum at the end. Decode runs
+the segments in parallel blocks and merges them in a second launch,
+through an fp32 scratch tensor the wrapper allocates. The plain versions
+of the same functions are ``kernels.ref.paged_attention_ref`` (decode),
 ``models.attention.paged_chunk_attention_xla`` (chunk) and
 ``models.attention.ragged_chunk_attention_xla`` (packed; with
 ``update_paged_cache_ragged`` before it for the fused write). They follow
@@ -51,11 +53,11 @@ def refuse_unported(pages_per_compute_block, block_mask, return_lse):
     if block_mask is not None or return_lse:
         raise NotImplementedError(
             "block_mask / return_lse partials are not ported yet "
-            "(ROADMAP.md, Next item 2)")
+            "(ROADMAP.md queue 2 items 1-3)")
     if pages_per_compute_block not in (None, 1):
         raise NotImplementedError(
             f"pages_per_compute_block={pages_per_compute_block}: P > 1 is "
-            "not ported yet (ROADMAP.md, Next item 2)")
+            "not ported yet (ROADMAP.md queue 2 items 1-3)")
 
 
 def _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, n_seqs,
@@ -123,8 +125,11 @@ def _lib(stem):
     lib = build.load(stem)
     knobs = [_INT, _F, _F, _INT, _VP]      # pool_type, scale, cap, window,
     if stem == "paged_attention":           # stream
-        lib.paged_decode.argtypes = [_VP] * 8 + [_INT] * 6 + knobs
+        lib.paged_decode.argtypes = [_VP] * 9 + [ctypes.c_longlong] \
+            + [_INT] * 6 + knobs
         lib.paged_decode.restype = _INT
+        lib.paged_decode_scratch_floats.argtypes = [_INT] * 6
+        lib.paged_decode_scratch_floats.restype = ctypes.c_longlong
         lib.paged_prefill.argtypes = [_VP] * 9 + [_INT] * 7 + knobs
         lib.paged_prefill.restype = _INT
     else:
@@ -159,14 +164,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, B,
                   ctx_lens=ctx_lens)
     _, bs, K, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    lib = _lib("paged_attention")
     out = torch.empty_like(q)
+    # the segments' partial states (csrc/paged_attention.cu says the size)
+    part = torch.empty(lib.paged_decode_scratch_floats(B, H, K, hd, bs, nb),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _lib("paged_attention").paged_decode(
+        rc = lib.paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            ctx_lens.data_ptr(), out.data_ptr(), B, H, K, hd, bs,
-            block_tables.shape[1], *_knobs(pool, hd, window, cap, scale),
-            build.current_stream(q))
+            ctx_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            part.numel(), B, H, K, hd, bs, nb,
+            *_knobs(pool, hd, window, cap, scale), build.current_stream(q))
     _raise_on(rc, "paged_decode")
     paged_attention.launches[pool] += 1
     return out

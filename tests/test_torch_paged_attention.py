@@ -199,9 +199,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_options():
         temb_k.gather(kp[0, 0], torch.zeros(3, dtype=torch.int32))
     for kw in ({"pages_per_compute_block": 2}, {"block_mask": bt},
                {"return_lse": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue 2 items 1-3"):
             tpa.paged_attention(q, kp, vp, bt, ctx, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 2 items 1-3"):
         tpa.paged_prefill_attention(q[:, None], kp, vp, bt, ctx,
                                     torch.ones(2, dtype=torch.int32),
                                     pages_per_compute_block=2)
@@ -225,6 +227,16 @@ CUDA_CASES = [
     (2, 6, 2, 128, 8, 5, 20, 12, None),
     (1, 8, 1, 128, 8, 4, 20, None, None),
 ]
+
+
+# decode == chunk(C=1) at the kernel's step (64 keys) and segment (256
+# keys) edges, four segments and three keys, one key, an inactive slot;
+# (H, K, hd, block_size, window, cap), each over bf16/int8/fp8 pools
+EDGE_CTX = [63, 65, 255, 257, 1027, 64, 1, 0]
+CUDA_EDGE_CASES = [(H, K, hd, bs, w, cap)
+                   for H, K, hd in ((32, 2, 128), (32, 32, 80), (4, 2, 16))
+                   for bs in (8, 32)
+                   for w, cap in ((None, None), (50, 30.0))]
 
 
 def _assert_rows_close(a, b, tol=1e-2):
@@ -266,6 +278,37 @@ def test_cuda_kernels_vs_plain(case):
     ids = torch.from_numpy(rng.integers(0, 50, (4, 3))).to(torch.int32) \
         .to(dev)
     assert torch.equal(temb_k.gather(table, ids), table[ids.long()])
+
+
+@pytest.mark.parametrize("case", CUDA_EDGE_CASES)
+def test_cuda_decode_equals_chunk_at_step_and_segment_edges(case):
+    """On the card, at contexts on both sides of the kernel's 64-key steps
+    and 256-key segments: decode == chunk(C=1) bit for bit over every
+    pool dtype, ctx=0 rows exact zeros, decode within 1e-2 of plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.models.quant import quantize_kv
+    H, K, hd, bs, window, cap = case
+    rng = np.random.default_rng(30 + CUDA_EDGE_CASES.index(case))
+    B, nb = len(EDGE_CTX), -(-max(EDGE_CTX) // bs)
+    q, kp, vp, bt, _ = (torch.from_numpy(a).cuda() for a in
+                        _paged_case(rng, B, H, K, hd, bs, nb))
+    ctx = torch.tensor(EDGE_CTX, dtype=torch.int32, device="cuda")
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    ones = torch.ones(B, dtype=torch.int32, device="cuda")
+    for kv in ("bf16", "int8", "fp8"):
+        kw = dict(window=window, cap=cap)
+        k, v = kp, vp
+        if kv != "bf16":
+            (k, ks), (v, vs) = quantize_kv(kp, kv), quantize_kv(vp, kv)
+            kw.update(k_scale=ks, v_scale=vs)
+        o_d = tpa.paged_attention(q, k, v, bt, ctx, **kw)
+        o_c = tpa.paged_prefill_attention(q[:, None].contiguous(), k, v, bt,
+                                          ctx, ones, **kw)
+        assert torch.equal(o_c[:, 0], o_d), kv
+        assert (o_d[EDGE_CTX.index(0)] == 0).all(), kv
+        _assert_rows_close(o_d, tref.paged_attention_ref(q, k, v, bt, ctx,
+                                                         **kw))
 
 
 @pytest.mark.parametrize("case", PAGED_CASES)

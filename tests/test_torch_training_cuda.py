@@ -81,10 +81,11 @@ def test_flash_kernel_vs_plain(case):
 @pytest.mark.parametrize("T", [1, 8, 256, 4096])
 def test_gather_kernel_vs_plain(T):
     """The gather kernel equals table[ids] bit for bit at glm4_9b's table
-    width (4096 bf16), ids 0 and V - 1 and out-of-range ids among them
-    (clamped into [0, V), so held against table[clamp(ids)]); Gather's
-    gradient equals the gradient of table[ids] (a scatter-add over
-    repeated ids)."""
+    width (4096 bf16), ids 0 and V - 1 and out-of-range ids among them,
+    under jnp's rule (a negative id counts from the end, then the row is
+    clamped into [0, V)); Gather's gradient equals the plain path's, the
+    gradient of table[ids] with out-of-range ids dropped (a scatter-add
+    over repeated ids)."""
     _need_card()
     g = torch.Generator(device="cuda")
     g.manual_seed(T)
@@ -92,18 +93,18 @@ def test_gather_kernel_vs_plain(T):
     table = torch.randn((V, d), generator=g, device="cuda").bfloat16()
     ids = torch.randint(0, V, (T,), generator=g, device="cuda",
                         dtype=torch.int32)
-    edge = torch.tensor([0, V - 1, -1, V, -(2 ** 31), 2 ** 31 - 1],
-                        dtype=torch.int32, device="cuda")
-    ids[:min(T, 6)] = edge[:min(T, 6)]
+    edge = torch.tensor([0, V - 1, -1, V, -(2 ** 31), 2 ** 31 - 1, -V,
+                         -V - 1], dtype=torch.int32, device="cuda")
+    ids[:min(T, 8)] = edge[:min(T, 8)]
     before = temb.gather.launches
     out = temb.gather(table, ids)
     assert temb.gather.launches == before + 1
-    assert torch.equal(out, table[ids.clamp(0, V - 1).long()])
-    ok = ids.clamp(0, V - 1)
+    wrapped = torch.where(ids < 0, ids + V, ids)
+    assert torch.equal(out, table[wrapped.clamp(0, V - 1).long()])
     grad = torch.randn((T, d), generator=g, device="cuda").bfloat16()
     leaves = [table.clone().requires_grad_() for _ in range(2)]
-    temb.Gather.apply(leaves[0], ok).backward(grad)
-    leaves[1][ok.long()].backward(grad)
+    temb.Gather.apply(leaves[0], ids).backward(grad)
+    temb.gather_plain(leaves[1], ids).backward(grad)
     assert torch.equal(leaves[0].grad, leaves[1].grad)
 
 
