@@ -36,7 +36,9 @@ Phases, each of which raises on failure:
         grouped case: y rows within 1e-2 of their norm, h_last within
         1e-3 of max(1, |plain|); one launch over 512 rows equals two
         launches of 256 with the state carried, and rows with dt = 0
-        leave h_last and the earlier rows' y unchanged, bit for bit.
+        leave h_last and the earlier rows' y unchanged, bit for bit. Its
+        two launches (C B^T, then the scan) timed by events, by the
+        profiler (their sum and each) and as a span on the device.
      d. the flash attention forward at glm4_9b's training shape (B=2,
         S=2048, H=32, K=2, hd=128, causal), with window 512 and cap 50,
         256 rows at q_offset 1792, non-causal 200 rows, hd 16 (the mma
@@ -143,7 +145,7 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:203",
 SSD_H_TOL = 1e-3
 # keys of a kernel's row that its summary carries besides the contract's
 SUMMARY_EXTRAS = ("kernel_route", "tflops", "floor_ms", "ms_8", "ms_4096",
-                  "library_ms_8", "library_ms_4096")
+                  "library_ms_8", "library_ms_4096", "span_ms")
 # the flash kernel's lse against the plain logsumexp of the masked logits
 LSE_TOL = 1e-3
 # sampled-softmax loss, kernel against plain: both sum exact bf16 products
@@ -209,6 +211,26 @@ class Timer:
             end.record()
             torch.cuda.synchronize()
             total += start.elapsed_time(end)
+        return total / iters
+
+    def span(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        """Device time per call from its first kernel's start to its last
+        one's end, gaps included: CUDA events around the call, enqueued
+        behind a ~1 ms sleep kernel so that the host's enqueue time is off
+        the clock (it is not for __call__); the L2 flushed before each."""
+        torch = self.torch
+        total = 0.0
+        for i in range(warmup + iters):
+            self.scratch.zero_()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                total += start.elapsed_time(end)
         return total / iters
 
     def device(self, fn, iters: int = 10) -> float:
@@ -924,17 +946,23 @@ def check_ssd(torch, timer, gen, rows):
     (bnd, by), flops = ssd_bound(b, S, nh, hp, G, N, Q)
     zb = widths["zamba2_2p7b"]
     xz, dtz, Az, Bz, Cz, h0z = ssd_inputs(torch, gen, 1, Q, *zb)
+
+    def kernel():
+        return ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)
+
+    def kernel_z():
+        return ssd_k.ssd(xz, dtz, Az, Bz, Cz, chunk=Q, h0=h0z)
+
     rows["ssd"] = dict(
         kernel="ssd", source=SSD_SRC, max_abs_err=ey, max_row_rel_err=ry,
-        h_last_max_abs_err=eh,
-        ms=timer(lambda: ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)),
-        plain_ms=timer(lambda: ssd_chunked(x, dt, A, B, C, Q, h0=h0)),
-        library_ms=None, bound_ms=bnd, bound_by=by,
+        h_last_max_abs_err=eh, library_ms=None, bound_ms=bnd, bound_by=by,
         fp32_cuda_core_ms=flops / 67e12 * 1e3,
-        zamba2_ms=timer(lambda: ssd_k.ssd(xz, dtz, Az, Bz, Cz, chunk=Q,
-                                          h0=h0z)),
-        zamba2_plain_ms=timer(lambda: ssd_chunked(xz, dtz, Az, Bz, Cz, Q,
-                                                  h0=h0z)),
+        **timed(timer, kernel, lambda: ssd_chunked(x, dt, A, B, C, Q, h0=h0)),
+        **timed(timer, kernel_z,
+                lambda: ssd_chunked(xz, dtz, Az, Bz, Cz, Q, h0=h0z),
+                prefix="zamba2_"),
+        span_ms=timer.span(kernel), zamba2_span_ms=timer.span(kernel_z),
+        device_ms_by_kernel=timer.kernels(kernel),
         zamba2_bound_ms=ssd_bound(1, Q, *zb, Q)[0][0],
         shape=f"b={b} S={S} nh={nh} hp={hp} G={G} N={N} Q={Q} "
               f"({flops / 1e9:.3f} GFLOP); zamba2 nh={zb[0]} N={zb[3]}")
@@ -1147,11 +1175,9 @@ def check_sampled_softmax(torch, timer, gen, rows):
     nbytes = 2 * (T * d + T * d + n * d) + 4 * (T + n) + 4
     rows["sampled_softmax_loss"] = dict(
         kernel="sampled_softmax_loss", source=SAMPLED_SRC, max_abs_err=e,
-        max_row_rel_err=rel,
-        ms=timer(lambda: ss.sampled_softmax_loss(x, table, labels, sids)),
-        plain_ms=timer(lambda: ref.sampled_softmax_loss_ref(
-            x, table, labels, sids)),
-        library_ms=None,
+        max_row_rel_err=rel, library_ms=None,
+        **timed(timer, lambda: ss.sampled_softmax_loss(x, table, labels, sids),
+                lambda: ref.sampled_softmax_loss_ref(x, table, labels, sids)),
         shape=f"T={T} d={d} n={n}, table {V}x{d} bf16 (gathers included; "
               "loss relative error in max_row_rel_err)",
         **dict(zip(("bound_ms", "bound_by"),
@@ -1835,6 +1861,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items() if k in SUMMARY_EXTRAS
                        or k.startswith(("no_write", "device_ms", "hd80_",
+                                        "zamba2_",
                                         "plain_device_ms",
                                         "library_device_ms"))})
                for name, r in rows.items()]

@@ -136,10 +136,11 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
 def ssd(x, dt, A, B, C, *, chunk, h0=None):
     """Chunked SSD scan: x (b, S, nh, hp), dt (b, S, nh) fp32, A (nh,),
     B, C (b, S, G, N), h0 (b, nh, hp, N) fp32 or None. Returns (y, h_last).
-    The kernel reads dense rows, so CUDA operands are made contiguous
-    first (B and C arrive as slices of the conv output)."""
+    B and C go to the kernel as they come, slices of the conv output (it
+    takes their row strides); the other CUDA operands are made contiguous
+    (they already are on the model path)."""
     if x.is_cuda:
-        x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+        x, dt, A = (t.contiguous() for t in (x, dt, A))
         return ssd_k.ssd(x, dt, A, B, C, chunk=chunk,
                          h0=None if h0 is None else h0.contiguous())
     from repro_torch.models.ssm import ssd_chunked

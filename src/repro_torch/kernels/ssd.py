@@ -2,14 +2,19 @@
 
 Port of ``repro.kernels.ssd.ssd`` (a Pallas TPU kernel with the chunk axis
 as a sequential grid dimension and the state in VMEM scratch). The kernel
-is ``csrc/ssd.cu``; its plain version is ``models.ssm.ssd_chunked``, which
+is ``csrc/ssd.cu`` (mma.sync tensor-core products, two launches per
+chunk); its plain version is ``models.ssm.ssd_chunked``, which
 ``kernels.ops.ssd`` runs for CPU tensors. The two agree to the fp32
-summation order (y in bf16 to 1e-2 of each row's norm), not bit for bit.
-Inside the kernel every sum has one fixed order, so a launch over 2Q rows
-equals two launches of Q with the state carried, and dt = 0 rows leave
-the state and the other rows' y unchanged, bit for bit.
+summation order and the kernel's bf16 hi + lo operand parts (y in bf16 to
+1e-2 of each row's norm, h_last to 1e-3), not bit for bit. Inside the
+kernel every sum has one fixed order, so a launch over 2Q rows equals two
+launches of Q with the state carried, and dt = 0 rows leave the state and
+the other rows' y unchanged, bit for bit.
 
-``ssd.launches`` counts the kernel's launches.
+B and C may be strided views (slices of the conv output): the kernel takes
+their batch and row strides; each group's N values must be dense.
+
+``ssd.launches`` counts the calls that launch the kernel.
 """
 
 from __future__ import annotations
@@ -21,19 +26,32 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CHUNK = 256
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+MAX_STATE = 256
+_VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib():
-    lib = build.load("ssd")
-    lib.ssd_scan.argtypes = [_VP] * 8 + [_INT] * 7 + [_VP]
-    lib.ssd_scan.restype = _INT
-    return lib
+    return build.load("ssd", {"ssd_scan": (
+        [_VP] * 5 + [_LL] * 4 + [_VP] * 5 + [_INT] * 7 + [_VP], _INT)})
+
+
+def _check_bc_layout(name, t, N):
+    """B and C: each group's N values dense, batch and row strides 16-byte
+    multiples (where the dimension has more than one entry)."""
+    b, S, G, _ = t.shape
+    if t.stride(3) != 1 or (G > 1 and t.stride(2) != N):
+        raise ValueError(f"{name} must have dense (G, N) rows: strides "
+                         f"{t.stride()}")
+    for dim, size in ((0, b), (1, S)):
+        if size > 1 and t.stride(dim) % 8:
+            raise ValueError(f"{name}'s batch and row strides must be "
+                             f"multiples of 8 elements (16 bytes), got "
+                             f"{t.stride()}")
 
 
 def _check(x, dt, A, B, C, chunk, h0):
     """Raise ValueError on anything the kernel does not take: shapes and
-    dtypes first, then devices, contiguity and alignment."""
+    dtypes first, then layouts, devices and alignment."""
     if x.dim() != 4 or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (b, S, nh, hp), got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -54,12 +72,15 @@ def _check(x, dt, A, B, C, chunk, h0):
                            or h0.dtype != torch.float32):
         raise ValueError(f"h0 must be float32 {(b, nh, hp, N)}, got "
                          f"{h0.dtype} {tuple(h0.shape)}")
-    if hp % 16 or N % 8 or G < 1 or nh % G:
+    if hp % 16 or N % 8 or N > MAX_STATE or G < 1 or nh % G:
         raise ValueError(f"head_dim {hp} must be a multiple of 16, state "
-                         f"{N} of 8, and groups {G} must divide heads {nh}")
+                         f"{N} a multiple of 8 up to {MAX_STATE}, and "
+                         f"groups {G} must divide heads {nh}")
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"chunk {chunk} must be in [1, {MAX_CHUNK}] and "
                          f"divide S={S}")
+    _check_bc_layout("B", B, N)
+    _check_bc_layout("C", C, N)
     tensors = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "h0": h0}
     for name, t in tensors.items():
         if t is None:
@@ -67,7 +88,7 @@ def _check(x, dt, A, B, C, chunk, h0):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} must be on {x.device} (a CUDA "
                              f"device), got {t.device}")
-        if not t.is_contiguous():
+        if name not in ("B", "C") and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if B.data_ptr() % 16 or C.data_ptr() % 16:
         raise ValueError("B and C must be 16-byte aligned (the kernel reads "
@@ -77,18 +98,23 @@ def _check(x, dt, A, B, C, chunk, h0):
 
 def ssd(x, dt, A, B, C, *, chunk, h0=None):
     """CUDA SSD scan. x (b, S, nh, hp) bf16; dt (b, S, nh) fp32; A (nh,)
-    fp32; B, C (b, S, G, N) bf16; h0 (b, nh, hp, N) fp32 or None (zeros);
-    S a multiple of ``chunk``. Returns (y (b, S, nh, hp) bf16, h_last (b,
-    nh, hp, N) fp32)."""
+    fp32; B, C (b, S, G, N) bf16, strided as ``_check_bc_layout`` allows;
+    h0 (b, nh, hp, N) fp32 or None (zeros); S a multiple of ``chunk``.
+    Returns (y (b, S, nh, hp) bf16, h_last (b, nh, hp, N) fp32)."""
     b, S, nh, hp, G, N = _check(x, dt, A, B, C, chunk, h0)
+    dev = x.device
     y = torch.empty_like(x)
-    h_last = torch.empty((b, nh, hp, N), dtype=torch.float32,
-                         device=x.device)
-    with torch.cuda.device(x.device):
+    h_last = torch.empty((b, nh, hp, N), dtype=torch.float32, device=dev)
+    qt = -(-chunk // 64) * 64
+    cb = torch.empty((b, G, qt, qt), dtype=torch.float32, device=dev)
+    h_tmp = torch.empty_like(h_last) if S > chunk else None
+    with build.on_device(x):
         rc = _lib().ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), b, S, nh, hp, G, N, chunk,
+            C.data_ptr(), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), None if h_tmp is None else h_tmp.data_ptr(),
+            cb.data_ptr(), b, S, nh, hp, G, N, chunk,
             build.current_stream(x))
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")

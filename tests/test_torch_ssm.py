@@ -12,6 +12,9 @@ package at smoke size on the CPU.
   mamba2 and zamba2 against the JAX package's, states and KV included.
 * ``SlotStateCache`` driven by one random walk beside the JAX one; the
   slot-state layout and bytes; the kernel wrapper's refusals.
+* The CUDA kernel's operand rounding, emulated on the CPU at mamba2's
+  widths over 8 chunks, against the JAX oracle ``ssd_ref``. (The kernel
+  itself is held on the card by ``test_torch_ssm_cuda.py``.)
 
 Tolerances: fp32 paths 1e-4 (the two frameworks sum in other orders;
 measured below 4e-6); bf16 block outputs 5e-2 of the output's largest
@@ -432,33 +435,98 @@ def test_ssd_wrapper_refuses_cpu_and_malformed_inputs():
         ssd_k.ssd(x, dt, A, B, C, chunk=16, h0=h0[..., :8])
     with pytest.raises(ValueError, match="multiple of 16"):
         ssd_k.ssd(x[..., :8], dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="up to 256"):
+        ssd_k.ssd(x, dt, A, *(t.repeat(1, 1, 1, 17) for t in (B, C)),
+                  chunk=16)
+    # B and C may be strided: slices of a wider row, as the conv output's
+    # are; a group's N values must be dense and the row stride a multiple
+    # of 8 elements (16 bytes)
+    wide = torch.cat([B, C, B], dim=-1)                 # rows of 48
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_k.ssd(x, dt, A, wide[..., :16], wide[..., 16:32], chunk=16)
+    odd = torch.cat([B, C, B[..., :4]], dim=-1)         # rows of 36
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_k.ssd(x, dt, A, odd[..., :16], odd[..., 16:32], chunk=16)
+    with pytest.raises(ValueError, match="dense"):
+        ssd_k.ssd(x, dt, A, wide[..., ::3], C, chunk=16)
     assert ssd_k.ssd.launches == 0
 
 
-def test_cuda_ssd_kernel_vs_plain():
-    """Kernel vs plain on the card at the smoke widths and a grouped case:
-    y within 1e-2 of each row's norm, h_last within 1e-3; two launches of
-    Q with the state carried == one launch of 2Q, bit for bit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for case in SSD_CASES:
-        b, S, nh, hp, G, N, Q = case
-        x, dt, A, B, C, h0 = (torch.from_numpy(a).cuda() for a in
-                              _ssd_inputs(np.random.default_rng(1), b, S, nh,
-                                          hp, G, N))
-        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
-        y_k, h_k = ssd_k.ssd(x, dt, A, B, C, chunk=Q, h0=h0)
-        y_p, h_p = tssm.ssd_chunked(x, dt, A, B, C, Q, h0=h0)
-        a, r = y_k.float().flatten(0, -2), y_p.float().flatten(0, -2)
-        rel = torch.nan_to_num((a - r).norm(dim=-1) / r.norm(dim=-1), nan=0.0)
-        assert float(rel.max()) <= 1e-2
-        torch.testing.assert_close(h_k, h_p, atol=1e-3, rtol=1e-3)
-        ya, ha = ssd_k.ssd(x[:, :Q].contiguous(), dt[:, :Q].contiguous(), A,
-                           B[:, :Q].contiguous(), C[:, :Q].contiguous(),
-                           chunk=Q, h0=h0)
-        if S == 2 * Q:
-            yb, hb = ssd_k.ssd(x[:, Q:].contiguous(), dt[:, Q:].contiguous(),
-                               A, B[:, Q:].contiguous(),
-                               C[:, Q:].contiguous(), chunk=Q, h0=ha)
-            assert torch.equal(torch.cat([ya, yb], dim=1), y_k)
-            assert torch.equal(hb, h_k)
+def _bf16_parts(v):
+    """fp32 v as the kernel's two bf16 operand parts: hi = v truncated to
+    bf16 (its top 16 bits), lo = v - hi truncated too."""
+    def trunc(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+    hi = trunc(v)
+    return hi, trunc(v - hi)
+
+
+def _ssd_kernel_arithmetic(x, dt, A, B, C, Q, h0):
+    """``csrc/ssd.cu``'s arithmetic in fp32 torch on the CPU: exact bf16
+    products summed in fp32; the fp32 operand of each product with x or C
+    (P, the state, W) split into bf16 hi + lo parts; dt and the decays
+    folded into P and W; the decay mask a select. Off the diagonal 16-key
+    step, exp(cs_i - cs_j) = exp(cs_i - cs_m) exp(cs_m - cs_j) with m the
+    last key of j's step, as the kernel factors it. x, B, C bf16-valued
+    fp32. Returns (y as bf16, h_last)."""
+    b, S, nh, hp = x.shape
+    rep = nh // B.shape[2]
+    i = torch.arange(Q)[:, None]
+    j = torch.arange(Q)[None, :]
+    diag = (i // 16 == j // 16) & (j <= i)
+    below = i // 16 > j // 16
+    m = torch.clamp(torch.arange(Q) | 15, max=Q - 1)   # j's step's last key
+    h, ys = h0, []
+    for c0 in range(0, S, Q):
+        xc, dtc = x[:, c0:c0 + Q], dt[:, c0:c0 + Q]
+        Bh = B[:, c0:c0 + Q].repeat_interleave(rep, dim=2)
+        Ch = C[:, c0:c0 + Q].repeat_interleave(rep, dim=2)
+        cs = torch.cumsum(dtc * A, dim=1).permute(0, 2, 1)   # (b, nh, Q)
+        dth = dtc.permute(0, 2, 1)
+        cb = torch.einsum("bihn,bjhn->bhij", Ch, Bh)
+        e_diag = torch.exp(torch.where(diag, cs[..., :, None]
+                                       - cs[..., None, :], 0.0))
+        r_row = torch.exp(torch.where(below, cs[..., :, None]
+                                      - cs[..., None, m], 0.0))
+        e_key = dth * torch.exp(cs[..., m] - cs)
+        P = torch.where(diag, cb * e_diag * dth[..., None, :],
+                        torch.where(below, cb * r_row * e_key[..., None, :],
+                                    0.0))
+        y = sum(torch.einsum("bihn,bhpn->bihp", Ch, part)
+                for part in _bf16_parts(h))
+        y = torch.exp(cs).permute(0, 2, 1)[..., None] * y
+        y = y + sum(torch.einsum("bhij,bjhp->bihp", part, xc)
+                    for part in _bf16_parts(P))
+        W = (dth * torch.exp(cs[..., -1:] - cs)).permute(0, 2, 1)[..., None] \
+            * Bh
+        h = torch.exp(cs[..., -1])[..., None, None] * h + sum(
+            torch.einsum("bjhp,bjhn->bhpn", xc, part)
+            for part in _bf16_parts(W))
+        ys.append(y)
+    return torch.cat(ys, dim=1).bfloat16(), h
+
+
+def test_ssd_kernel_arithmetic_vs_reference_over_chunks():
+    """The CUDA kernel's operand rounding (bf16 hi + lo parts of P, the
+    state and W by truncation, fp32 sums), emulated on the CPU at mamba2_370m's widths
+    (nh 32, hp 64, N 128, G 1) over 8 chunks of 256 rows with h0 carried,
+    against the JAX step-by-step oracle ``ssd_ref``: every y row within
+    1e-2 of its norm, h_last within 1e-3 of max(1, |ref|), the kernel's
+    tolerances on the card. A rounding that drifts over many chunks
+    fails here without a card."""
+    b, S, nh, hp, G, N, Q = 1, 8 * 256, 32, 64, 1, 128, 256
+    x, dt, A, B, C, h0 = _ssd_inputs(np.random.default_rng(11), b, S, nh,
+                                     hp, G, N)
+    x, B, C = (np.asarray(torch.from_numpy(a).bfloat16().float())
+               for a in (x, B, C))
+    y_r, h_r = jref.ssd_ref(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                            h0=jnp.asarray(h0))
+    y_r, h_r = (torch.from_numpy(np.array(a)) for a in (y_r, h_r))
+    y_e, h_e = _ssd_kernel_arithmetic(
+        *(torch.from_numpy(a) for a in (x, dt, A, B, C)), Q,
+        torch.from_numpy(h0))
+    a, r = y_e.float().flatten(0, -2), y_r.flatten(0, -2)
+    rel = torch.nan_to_num((a - r).norm(dim=-1) / r.norm(dim=-1), nan=0.0)
+    assert float(rel.max()) <= 1e-2
+    assert float(((h_e - h_r).abs() / h_r.abs().clamp(min=1.0)).max()) \
+        <= 1e-3
