@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure:
   1. card: name and power limit (nvidia-smi); build the CUDA kernels from
-     src/repro_torch/csrc with nvcc, all sources in parallel.
+     src/repro_torch/csrc with nvcc, all sources in parallel; print
+     ptxas' registers, spills and notes, and fail if it serialized
+     sampled_softmax.cu's wgmma pipeline (C7512/C7518/C7520).
   2. kernels vs plain versions on the card, at glm4_9b's widths (H=32,
      K=2, hd=128, 16-token pages), over bf16, int8 and fp8 pools (the
      narrow ones with fp32 per-row scales, dequantized in-tile): each
@@ -52,9 +54,13 @@ Phases, each of which raises on failure:
         TFLOP/s), the hd-16 route's time, and the hd-128 route at one key
         tile per block, non-causal S=2048 and causal S=8192.
      e. the sampled-softmax loss at glm4_9b's 151552 x 4096 bf16 head,
-        n = 8192 sampled ids, T = 4096 and 4095, no cap and cap 30,
-        accidental hits planted: within 1e-4 relative of the plain loss,
-        two launches bit-equal.
+        n = 8192 sampled ids, T = 4096 and 4095, no cap and cap 30; the
+        GEMM launch's tile edges there (n = 8000 and 64, T = 100) and
+        zamba2_2p7b's 32000 x 2560 head; accidental hits planted: within
+        1e-4 relative of the plain loss, two launches bit-equal. Its
+        device time by launch (the two gathers, the GEMM launch and its
+        TFLOP/s, row loss, mean) and torch.mm's time for the same bf16
+        product (gemm_ms, a yardstick the port never calls).
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -112,6 +118,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -145,12 +152,16 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:203",
 SSD_H_TOL = 1e-3
 # keys of a kernel's row that its summary carries besides the contract's
 SUMMARY_EXTRAS = ("kernel_route", "tflops", "floor_ms", "ms_8", "ms_4096",
-                  "library_ms_8", "library_ms_4096", "span_ms")
+                  "library_ms_8", "library_ms_4096", "span_ms", "gemm_ms",
+                  "gemm_device_ms")
 # the flash kernel's lse against the plain logsumexp of the masked logits
 LSE_TOL = 1e-3
 # sampled-softmax loss, kernel against plain: both sum exact bf16 products
 # in fp32, in other orders
 SAMPLED_TOL = 1e-4
+# ptxas' notes that it serialized a kernel's wgmma.mma_async instructions
+# (a silent 25-50% slowdown)
+WGMMA_SERIALIZED = ("C7512", "C7518", "C7520")
 
 
 def fail(msg: str) -> None:
@@ -1137,51 +1148,107 @@ def flash_scaling(torch, timer, gen) -> list:
     return out
 
 
+def sampled_inputs(torch, gen, V, d, n, T):
+    """A (V, d) bf16 table scaled by d^-0.5, n distinct sampled ids, x
+    (T, d) bf16 and labels (T,), the first 8 labels set to sampled ids
+    (accidental hits)."""
+    table = (torch.randn((V, d), generator=gen, device=DEV)
+             * d ** -0.5).bfloat16()
+    sids = torch.randperm(V, generator=gen, device=DEV)[:n].to(torch.int32)
+    x = torch.randn((T, d), generator=gen, device=DEV).bfloat16()
+    labels = torch.randint(0, V, (T,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    labels[:8] = sids[:8]
+    return table, sids, x, labels
+
+
+def check_sampled_case(torch, name, x, table, labels, sids, cap):
+    """One phase 2e case: kernel within SAMPLED_TOL relative of the plain
+    loss, two launches bit-equal. Returns (abs err, relative err)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sampled_softmax as ss
+    l_k = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
+    l_2 = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
+    check(same_bytes(l_k.reshape(1), l_2.reshape(1)),
+          f"{name}: two launches differ")
+    l_p = ref.sampled_softmax_loss_ref(x, table, labels, sids, cap=cap)
+    e = abs(float(l_k) - float(l_p))
+    rel = e / abs(float(l_p))
+    check(rel <= SAMPLED_TOL, f"{name}: kernel {float(l_k)} plain "
+          f"{float(l_p)}, relative err {rel} (limit {SAMPLED_TOL})")
+    print(f"[kernels] {name}: loss {float(l_k):.6f} plain {float(l_p):.6f} "
+          f"rel err {rel:.3g}, two launches bit-equal", flush=True)
+    return e, rel
+
+
+# phase 2e's cases besides the main shape's four: the edges of the GEMM
+# launch's 128-row and 256-column tiles at glm4's head (the main table,
+# the first n sampled ids, the first T rows), and zamba2_2p7b's head
+# (32000 x 2560: 40 steps of 64 over d); name, n, T, cap, (V, d) or None
+SAMPLED_EDGES = [("n not a multiple of 256", 8000, 4096, None, None),
+                 ("n below one column tile", 64, 4096, 30.0, None),
+                 ("T below one row tile", 8192, 100, None, None),
+                 ("zamba2's head, d=2560", 8192, 4096, 30.0, (32000, 2560))]
+
+
 def check_sampled_softmax(torch, timer, gen, rows):
     """The sampled-softmax kernel against its plain version at glm4's
     head (151552 x 4096 bf16), n = 8192 sampled ids, T = 4096 and 4095,
-    no cap and cap 30, accidental hits planted (phase 2e)."""
+    no cap and cap 30, then SAMPLED_EDGES, accidental hits planted
+    (phase 2e); its per-launch device times and cuBLAS's bf16 product of
+    the same shape (gemm_ms, a yardstick the port never calls)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sampled_softmax as ss
 
     V, d, n, T0 = SAMPLED_SHAPE
-    table = (torch.randn((V, d), generator=gen, device=DEV)
-             * d ** -0.5).bfloat16()
-    sids = torch.randperm(V, generator=gen, device=DEV)[:n].to(torch.int32)
-    x_all = torch.randn((T0, d), generator=gen, device=DEV).bfloat16()
-    lab_all = torch.randint(0, V, (T0,), generator=gen, device=DEV,
-                            dtype=torch.int32)
-    lab_all[:8] = sids[:8]                     # accidental hits
+    table, sids, x_all, lab_all = sampled_inputs(torch, gen, V, d, n, T0)
     for T in (T0, T0 - 1):
-        x, labels = x_all[:T], lab_all[:T]
         for cap in (None, 30.0):
-            name = f"sampled_softmax_loss T={T} cap={cap}"
-            l_k = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
-            l_2 = ss.sampled_softmax_loss(x, table, labels, sids, cap=cap)
-            check(same_bytes(l_k.reshape(1), l_2.reshape(1)),
-                  f"{name}: two launches differ")
-            l_p = ref.sampled_softmax_loss_ref(x, table, labels, sids,
-                                               cap=cap)
-            rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
-            check(rel <= SAMPLED_TOL, f"{name}: kernel {float(l_k)} plain "
-                  f"{float(l_p)}, relative err {rel} (limit {SAMPLED_TOL})")
-            print(f"[kernels] {name}: loss {float(l_k):.6f} plain "
-                  f"{float(l_p):.6f} rel err {rel:.3g}, two launches "
-                  "bit-equal", flush=True)
+            e, rel = check_sampled_case(
+                torch, f"sampled_softmax_loss T={T} cap={cap}", x_all[:T],
+                table, lab_all[:T], sids, cap)
             if T == T0 and cap is None:
-                main = (x, labels, abs(float(l_k) - float(l_p)), rel)
-    x, labels, e, rel = main
-    T = x.shape[0]
+                main = (e, rel)
+    for name, n_e, T, cap, head in SAMPLED_EDGES:
+        if head is None:
+            args = (x_all[:T], table, lab_all[:T], sids[:n_e])
+        else:
+            t_e, s_e, x_e, l_e = sampled_inputs(torch, gen, *head, n_e, T)
+            args = (x_e, t_e, l_e, s_e)
+        check_sampled_case(torch, f"sampled_softmax_loss {name}: "
+                           f"T={T} n={n_e} cap={cap}", *args, cap)
+    e, rel = main
+    x, labels, T = x_all, lab_all, T0
     nbytes = 2 * (T * d + T * d + n * d) + 4 * (T + n) + 4
+    flops = 2.0 * T * n * d
+
+    def kernel():
+        return ss.sampled_softmax_loss(x, table, labels, sids)
+
+    w_samp = table[sids.long()]
+    by_kernel = timer.kernels(kernel)
+    gemm = [v for k, v in by_kernel.items() if "sampled_lse_kernel" in k]
+    check(len(gemm) == 1, f"sampled_softmax_loss: no single GEMM launch "
+          f"in the profile: {sorted(by_kernel)}")
     rows["sampled_softmax_loss"] = dict(
         kernel="sampled_softmax_loss", source=SAMPLED_SRC, max_abs_err=e,
         max_row_rel_err=rel, library_ms=None,
-        **timed(timer, lambda: ss.sampled_softmax_loss(x, table, labels, sids),
+        **timed(timer, kernel,
                 lambda: ref.sampled_softmax_loss_ref(x, table, labels, sids)),
+        device_ms_by_kernel=by_kernel, tflops=flops / (gemm[0] * 1e9),
+        gemm_ms=timer(lambda: torch.mm(x, w_samp.t())),
+        gemm_device_ms=timer.device(lambda: torch.mm(x, w_samp.t())),
         shape=f"T={T} d={d} n={n}, table {V}x{d} bf16 (gathers included; "
-              "loss relative error in max_row_rel_err)",
+              "loss relative error in max_row_rel_err; tflops: the GEMM "
+              "launch alone)",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(nbytes, 2.0 * T * n * d + 2.0 * T * d))))
+                   bound_ms(nbytes, flops + 2.0 * T * d))))
+    r = rows["sampled_softmax_loss"]
+    print(f"[kernels] sampled_softmax_loss device ms by kernel: "
+          f"{json.dumps(by_kernel)}; GEMM launch {r['tflops']:.1f} TFLOP/s; "
+          f"torch.mm of the same shape (cuBLAS, yardstick): events "
+          f"{r['gemm_ms']:.5f} ms, device {r['gemm_device_ms']:.5f} ms",
+          flush=True)
 
 
 def check_kernels(torch, timer):
@@ -1791,6 +1858,26 @@ def train_card_vs_cpu(torch):
     return {"masters_err_over_update": diff / upd}
 
 
+def build_report(log: str) -> None:
+    """ptxas' registers and spills per kernel, and every warning or C75xx
+    note, as [build] lines. Fails if ptxas serialized sampled_softmax.cu's
+    wgmma pipeline (WGMMA_SERIALIZED)."""
+    src = fn = ""            # the source and entry function ptxas reports on
+    for line in log.splitlines():
+        if line.startswith("=="):
+            src = line.strip("= ")
+            print(f"[build] {line.strip()}")
+        elif "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            print(f"[build] {fn}: {line.strip()}")
+        elif "warning" in line or re.search(r"C75\d\d", line):
+            print(f"[build] {src}: {line.strip()}")
+            check(src != "sampled_softmax.cu" or not any(
+                c in line for c in WGMMA_SERIALIZED),
+                f"ptxas serialized {src}'s wgmma pipeline: {line.strip()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1820,14 +1907,7 @@ def main() -> int:
           f"({build.build_dir()})", flush=True)
     log = build.build_dir() / "build.log"
     if log.exists():
-        fn = ""                       # the entry function ptxas reports on
-        for line in log.read_text().splitlines():
-            if "Function properties for" in line:
-                fn = line.split("for", 1)[1].strip()
-            elif "registers" in line or "spill" in line:
-                print(f"[build] {fn}: {line.strip()}")
-            elif line.startswith("=="):
-                print(f"[build] {line.strip()}")
+        build_report(log.read_text())
 
     timer = Timer(torch)
     rows = check_kernels(torch, timer)

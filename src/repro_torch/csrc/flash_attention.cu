@@ -60,7 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"  // mma_bf16, pack_bf16
+#include "hopper.cuh"  // mbarriers, wgmma descriptors and fences, ex2
+#include "mma.cuh"     // mma_bf16, pack_bf16
 
 namespace {
 
@@ -270,50 +271,6 @@ constexpr int SM_V = SM_K + STAGES * TILE_BYTES;
 constexpr int SM_BAR = SM_V + STAGES * TILE_BYTES;
 constexpr int SM_BYTES = SM_BAR + 8 * (1 + 4 * STAGES) + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. A wait of more
-// than 2^34 cycles (seconds) can only be a fault in the ring's protocol:
-// it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
@@ -341,25 +298,6 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
-// wgmma shared-memory descriptor, 128B swizzle; lbo and sbo in bytes.
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving reads of an accumulator across a wait.
 __device__ __forceinline__ void pin(float (&d)[64]) {
 #pragma unroll
@@ -419,20 +357,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
 __device__ __forceinline__ void pin(uint32_t (&r)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to zero
-// (they are far below what a bf16 probability or an fp32 sum can hold).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Named barrier 1 + wg: the 128 threads of warpgroup wg (barrier 0 is
-// __syncthreads).
-__device__ __forceinline__ void wg_bar_sync(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 
 // The online softmax of one tile of scores, in place: sc becomes the
@@ -719,28 +643,6 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
 #undef ACC64
 #undef ACC64_STR
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A (B, S, N, 128) bf16 tensor seen as (128, N, S, B), boxes of 64 values x
 // 1 head x `rows` rows, 128B-swizzled; rows past S read as zeros and are
 // not written.
@@ -793,7 +695,7 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                               int causal, int window, int q_offset,
                               void* stream) {
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
-  hop::EncodeTiled fn = hop::encode_tiled();
+  EncodeTiled fn = encode_tiled();
   CUtensorMap qm, km, vm, om;
   if (fn == nullptr || !hop::encode(fn, &qm, q, B, Sq, H, hop::BQ) ||
       !hop::encode(fn, &km, k, B, Skv, K, hop::BKV) ||

@@ -10,21 +10,54 @@ calls either, in this package or in the JAX package: the models' sampled
 softmax (``models.embedding.sampled_softmax_loss``) is plain tensor code.
 
 ``sampled_softmax_loss.launches`` counts the kernel's launches (one per
-call, which runs its three passes).
+call, which runs its three passes). ``plan`` is the launch plan of its
+GEMM launch, a pure function of (T, n, the SM count).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import embedding as emb
 
-TILE = 64                       # rows per block and columns per tile
+ROWS, COLS, STEP = 128, 256, 64   # block rows, column tile, d per step
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the GEMM launch splits T rows and n sampled columns: row_tiles
+    blocks of 128 rows for each of nsplit ranges of `per` 256-column tiles
+    (the last range may hold fewer)."""
+    row_tiles: int
+    n_tiles: int
+    per: int
+    nsplit: int
+
+    def ranges(self) -> list[tuple[int, int]]:
+        """Each range's column tiles [first, end), in the order its
+        partials merge."""
+        return [(s * self.per, min(self.n_tiles, (s + 1) * self.per))
+                for s in range(self.nsplit)]
+
+    def blocks(self) -> list[tuple[int, int]]:
+        """(row tile, range) of each block in launch order: row tiles are
+        the grid's fast axis, so the blocks resident together share a
+        range and walk its tiles in step."""
+        return [(rt, s) for s in range(self.nsplit)
+                for rt in range(self.row_tiles)]
+
+
+def plan(T: int, n: int, sms: int) -> Plan:
+    """Split the column tiles into ranges until there is about one block
+    per SM (no second wave: row_tiles x nsplit <= max(sms, row_tiles))."""
+    row_tiles, n_tiles = -(-T // ROWS), -(-n // COLS)
+    per = -(-n_tiles // min(n_tiles, max(1, sms // row_tiles)))
+    return Plan(row_tiles, n_tiles, per, -(-n_tiles // per))
 
 
 def _lib():
@@ -40,18 +73,18 @@ def _check(x, table, labels, sampled_ids):
                          f"expected, got {tuple(x.shape)}, "
                          f"{tuple(table.shape)}")
     T, d = x.shape
-    if labels.shape != (T,) or sampled_ids.dim() != 1 \
+    if T < 1 or labels.shape != (T,) or sampled_ids.dim() != 1 \
             or sampled_ids.shape[0] < 1:
-        raise ValueError(f"sampled_softmax_loss: labels ({T},) and "
-                         f"sampled_ids (n,) expected, got "
-                         f"{tuple(labels.shape)}, "
+        raise ValueError(f"sampled_softmax_loss: T >= 1 rows, labels "
+                         f"({T},) and sampled_ids (n,) with n >= 1 "
+                         f"expected, got {tuple(labels.shape)}, "
                          f"{tuple(sampled_ids.shape)}")
     if x.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
         raise ValueError(f"sampled_softmax_loss: the kernel takes bf16 x "
                          f"and table, got {x.dtype}, {table.dtype}")
-    if d % TILE:
+    if d % STEP:
         raise ValueError(f"sampled_softmax_loss: d must be a multiple of "
-                         f"{TILE}, got {d}")
+                         f"{STEP}, got {d}")
     for name, t in (("x", x), ("table", table), ("labels", labels),
                     ("sampled_ids", sampled_ids)):
         if not t.is_cuda or t.device != x.device:
@@ -65,7 +98,8 @@ def _check(x, table, labels, sampled_ids):
 def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
     """CUDA sampled-softmax loss. x (T, d) bf16, d a multiple of 64; table
     (V, d) bf16; labels (T,), sampled_ids (n,) integer ids into the table.
-    Returns the mean loss over T, an fp32 scalar tensor."""
+    Returns the mean loss over T, an fp32 scalar tensor. Two calls on the
+    same inputs and card return the same bits."""
     _check(x, table, labels, sampled_ids)
     T, d = x.shape
     n = sampled_ids.shape[0]
@@ -73,14 +107,11 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
     sids = sampled_ids.to(torch.int32).contiguous()
     w_true = emb.gather(table, labels)                     # (T, d)
     w_samp = emb.gather(table, sids)                       # (n, d)
-    # split the sampled columns until there are about two blocks per SM
-    n_tiles, row_tiles = -(-n // TILE), -(-T // TILE)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per = -(-n_tiles // min(n_tiles, math.ceil(2 * sms / row_tiles)))
-    nsplit = -(-n_tiles // per)
+    p = plan(T, n, sms)
     f32 = dict(dtype=torch.float32, device=x.device)
-    m_part = torch.empty((T, nsplit), **f32)
-    l_part = torch.empty((T, nsplit), **f32)
+    m_part = torch.empty((T, p.nsplit), **f32)
+    l_part = torch.empty((T, p.nsplit), **f32)
     row_loss = torch.empty((T,), **f32)
     out = torch.empty((1,), **f32)
     with torch.cuda.device(x.device):
@@ -88,10 +119,12 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
             x.data_ptr(), w_true.data_ptr(), labels.data_ptr(),
             w_samp.data_ptr(), sids.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr(), row_loss.data_ptr(), out.data_ptr(), T, d, n,
-            per, nsplit, 0.0 if cap is None else float(cap),
+            p.per, p.nsplit, 0.0 if cap is None else float(cap),
             build.current_stream(x))
     if rc != 0:
-        raise RuntimeError(f"sampled_softmax_loss launch failed: cudaError "
+        raise RuntimeError("sampled_softmax_loss: the tensor maps could not "
+                           "be built" if rc == -1 else
+                           f"sampled_softmax_loss launch failed: cudaError "
                            f"{rc}")
     sampled_softmax_loss.launches += 1
     return out[0]

@@ -149,3 +149,27 @@ def test_kernel_wrapper_refuses_before_launch():
     with pytest.raises(ValueError, match="CUDA"):
         tss.sampled_softmax_loss(x, table, lab, sids)
     assert tss.sampled_softmax_loss.launches == before
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [1, 64, 200, 8000, 8192])
+@pytest.mark.parametrize("T", [1, 100, 4095, 4096])
+def test_launch_plan(T, n, sms):
+    """The GEMM launch's plan: every 256-column tile in exactly one range,
+    the ranges ascending (the order the row's partials merge in) and none
+    empty, every (row tile, range) block once with row tiles fastest, no
+    second wave of blocks, and the same plan on a repeat call."""
+    p = tss.plan(T, n, sms)
+    assert p == tss.plan(T, n, sms)
+    assert p.row_tiles == -(-T // 128) and p.n_tiles == -(-n // 256)
+    ranges = p.ranges()
+    assert len(ranges) == p.nsplit >= 1
+    assert [t for lo, hi in ranges for t in range(lo, hi)] == \
+        list(range(p.n_tiles))
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(ranges, ranges[1:]))
+    assert p.blocks() == [(rt, s) for s in range(p.nsplit)
+                          for rt in range(p.row_tiles)]
+    assert p.row_tiles * p.nsplit <= max(sms, p.row_tiles)
+    if (T, n, sms) == (4096, 8192, 132):          # glm4's head on an H100
+        assert (p.row_tiles, p.nsplit, p.per) == (32, 4, 8)

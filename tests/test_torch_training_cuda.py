@@ -108,21 +108,28 @@ def test_gather_kernel_vs_plain(T):
     assert torch.equal(leaves[0].grad, leaves[1].grad)
 
 
-@pytest.mark.parametrize("T,cap", [(300, None), (129, 30.0)])
-def test_sampled_softmax_kernel_vs_plain(T, cap):
+@pytest.mark.parametrize("T,n,d,cap", [
+    (300, 200, 256, None), (129, 200, 256, 30.0),
+    # the GEMM launch's tile edges: n not a multiple of 256 and above one
+    # range, n below one 256-column tile, T below one 128-row tile; d of
+    # one and of three 64-value steps
+    (4096, 8000, 64, None), (257, 64, 192, 30.0), (100, 8192, 64, None),
+    (1, 3, 192, 30.0)])
+def test_sampled_softmax_kernel_vs_plain(T, n, d, cap):
     """The kernel against its plain version (1e-4 relative: both sum
-    exact bf16 products in fp32), accidental hits planted, T not a
-    multiple of the 64-row tile; two launches equal bit for bit."""
+    exact bf16 products in fp32), accidental hits planted, T and n off
+    the kernel's tiles; two launches equal bit for bit."""
     _need_card()
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    V, d, n = 5000, 256, 200
+    V = max(5000, 2 * n)
     table = (torch.randn((V, d), generator=g, device="cuda")
              / d ** 0.5).bfloat16()
     x = torch.randn((T, d), generator=g, device="cuda").bfloat16()
     lab = torch.randint(0, V, (T,), generator=g, device="cuda")
     sids = torch.randperm(V, generator=g, device="cuda")[:n]
-    lab[:5] = sids[:5]
+    k = min(5, T, n)
+    lab[:k] = sids[:k]
     a = tss.sampled_softmax_loss(x, table, lab, sids, cap=cap)
     b = tss.sampled_softmax_loss(x, table, lab, sids, cap=cap)
     assert torch.equal(a, b)
