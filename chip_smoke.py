@@ -38,9 +38,12 @@ Phases, each of which raises on failure:
         grouped case: y rows within 1e-2 of their norm, h_last within
         1e-3 of max(1, |plain|); one launch over 512 rows equals two
         launches of 256 with the state carried, and rows with dt = 0
-        leave h_last and the earlier rows' y unchanged, bit for bit. Its
-        two launches (C B^T, then the scan) timed by events, by the
-        profiler (their sum and each) and as a span on the device.
+        leave h_last and the earlier rows' y unchanged, bit for bit, eager
+        and under CUDA-graph replay (the replay equal to the eager
+        launch); the one-launch graph's edges by type show whether the
+        capture kept the programmatic dependent launch. Its two launches
+        (C B^T, then the scan) timed by events, by the profiler (their
+        sum and each) and as a span on the device.
      d. the flash attention forward at glm4_9b's training shape (B=2,
         S=2048, H=32, K=2, hd=128, causal), with window 512 and cap 50,
         256 rows at q_offset 1792, non-causal 200 rows, hd 16 (the mma
@@ -66,7 +69,20 @@ Phases, each of which raises on failure:
   3. serving: glm4_9b at full width and depth (40 layers, random weights
      from a seed) through repro_torch.serving.InferenceEngine: 8 requests
      of 512 tokens sharing a 256-token prefix, 32 new tokens each, 256-
-     token chunks, bf16 pools.
+     token chunks, bf16 pools. Phases 3-6 run the engine's default on the
+     card, its two step shapes as CUDA graphs; phase 3, phase 4's first
+     run and every phase 5 run are repeated eager (cuda_graphs=False, the
+     same weights and requests) and their greedy tokens must be
+     byte-identical. A graph engine captures both shapes before its run
+     (engine.capture_graphs, as at a server's start-up; the time is
+     printed apart). Each run prints tok/s, TTFT, token gap, the mean
+     wall time of decode and chunk steps (each shape's first step left
+     out), the body's device span per step by CUDA events around the
+     replay (or the eager body), the busy share by those events (their
+     sum over the run's wall time; for eager, whose events also span the
+     host's launch gaps, the graph run's device time over the eager
+     wall), peak memory, the graph pool's memory and the decode step's
+     bytes floor (weights and the fp32 head at HBM rate).
   4. packed serving over int8 pools: the same model and weights,
      prefill_pack 4, max_batch 8, a 520-token step budget (512-row chunk
      row), 16 requests at step 0 with prompts of 96-480 tokens (seed 0),
@@ -81,9 +97,13 @@ Phases, each of which raises on failure:
      256-token chunk and a final exempt one); zamba2_2p7b (54 mamba
      layers, the shared attention block every 6) with 8 of 512 tokens (16
      new). The ssd kernel launches once per mamba layer and chunk.
+     The chunk graph's edges by type (full, programmatic) are printed.
      Before every serving run each kernel's launch count is zeroed; after
-     it the run's kernels must have launched. Every kernel variant in the
-     summary launched on one of these full-width runs.
+     it the run's kernels must have launched, replay-aware: the counters'
+     own launches (a graph's warm-up and capture) plus, per step shape,
+     replays x the launches its capture recorded; on graphs each kernel
+     must be in a replayed graph. Every kernel variant in the summary
+     launched on one of these full-width graph runs.
   6. card vs CPU: the same engine at smoke size on both, same weights and
      requests: glm4 at (prefill_pack, kv_dtype) = (1, bf16), (4, bf16),
      (4, int8) and (1, fp8), mamba2 and zamba2 with quantized chunks (and
@@ -929,6 +949,22 @@ def check_ssd(torch, timer, gen, rows):
     yb, hb = ssd_k.ssd(rest[0], rest[1], A, rest[2], rest[3], chunk=Q, h0=ha)
     check(torch.equal(y2, torch.cat([ya, yb], dim=1)) and torch.equal(h2, hb),
           "ssd: one launch over 2Q rows != two launches of Q, bit for bit")
+    # ... and under CUDA-graph replay, where the capture turns the scan's
+    # programmatic dependent launch into a graph edge
+    (y2r, h2r), g_one = graph_replay(torch, lambda: ssd_k.ssd(
+        x, dt, A, B, C, chunk=Q, h0=h0))
+
+    def two_launches():
+        ya, ha = ssd_k.ssd(*halves[:2], A, *halves[2:], chunk=Q, h0=h0)
+        yb, hb = ssd_k.ssd(*rest[:2], A, *rest[2:], chunk=Q, h0=ha)
+        return torch.cat([ya, yb], dim=1), hb
+
+    (yabr, hbr), _ = graph_replay(torch, two_launches)
+    check(torch.equal(y2r, y2) and torch.equal(h2r, h2)
+          and torch.equal(yabr, y2) and torch.equal(hbr, h2),
+          "ssd under graph replay: 2Q in one launch, two launches of Q and "
+          "the eager launches differ, bit for bit")
+    edges = graph_edge_types(g_one)
     # (b) rows with dt = 0 past row n: whatever they hold, h_last and the
     # first n rows' y are unchanged; a whole chunk of them is the identity
     n = 100
@@ -941,6 +977,14 @@ def check_ssd(torch, timer, gen, rows):
     y2, h2 = ssd_k.ssd(x2, dt, A, B2, C2, chunk=Q, h0=h0)
     check(torch.equal(h1, h2) and torch.equal(y1[:, :n], y2[:, :n]),
           "ssd: dt = 0 rows changed h_last or earlier rows' y")
+    (y1r, h1r), _ = graph_replay(torch, lambda: ssd_k.ssd(
+        x, dt, A, B, C, chunk=Q, h0=h0))
+    (y2r, h2r), _ = graph_replay(torch, lambda: ssd_k.ssd(
+        x2, dt, A, B2, C2, chunk=Q, h0=h0))
+    check(torch.equal(y1r, y1) and torch.equal(h1r, h1)
+          and torch.equal(h2r, h1) and torch.equal(y2r[:, :n], y1[:, :n]),
+          "ssd under graph replay: dt = 0 rows changed h_last or earlier "
+          "rows' y, or the replay differs from the eager launch")
     zero_chunk = [torch.cat([t, t2], dim=1) for t, t2 in ((x, x2), (B, B2),
                                                            (C, C2))]
     dt_z = torch.cat([dt, torch.zeros_like(dt)], dim=1)
@@ -949,8 +993,9 @@ def check_ssd(torch, timer, gen, rows):
     check(torch.equal(h3, h1) and torch.equal(y3[:, :Q], y1),
           "ssd: a chunk of dt = 0 rows is not the identity on the state")
     print("[kernels] ssd: 2Q in one launch == two launches of Q, dt = 0 "
-          "rows leave h_last and earlier y unchanged (bit for bit)",
-          flush=True)
+          "rows leave h_last and earlier y unchanged (bit for bit), eager "
+          "and under CUDA-graph replay (== eager); the one-launch graph's "
+          f"edges by type (0 full, 1 programmatic): {edges}", flush=True)
 
     x, dt, A, B, C, h0, (ey, ry, eh) = main
     b, S = x.shape[:2]
@@ -977,6 +1022,24 @@ def check_ssd(torch, timer, gen, rows):
         zamba2_bound_ms=ssd_bound(1, Q, *zb, Q)[0][0],
         shape=f"b={b} S={S} nh={nh} hp={hp} G={G} N={N} Q={Q} "
               f"({flops / 1e9:.3f} GFLOP); zamba2 nh={zb[0]} N={zb[3]}")
+
+
+def graph_replay(torch, fn):
+    """``fn``'s outputs from a CUDA graph of it: one eager warm-up call on
+    a side stream, the capture (kept for ``graph_edge_types``), one
+    replay. Returns (outputs, graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = fn()
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    return out, g
 
 
 def causal_pairs(Sq, Skv, causal, window, q_offset) -> int:
@@ -1293,6 +1356,12 @@ def reset_launches(counters) -> None:
             fn.launches = 0
 
 
+def summary_name(kernel: str, key: str) -> str:
+    """Summary name of a (wrapper, variant) launch key; variant "" for a
+    wrapper that keeps one count."""
+    return variant(kernel, key) if key else kernel
+
+
 def read_launches(counters) -> dict:
     """{summary name: launches since the last reset}."""
     out = {}
@@ -1305,33 +1374,75 @@ def read_launches(counters) -> dict:
     return out
 
 
+def run_launches(counters, eng) -> tuple[dict, dict]:
+    """A serving run's launches, replay-aware: the counters' own since the
+    last reset (eager steps, or a graph's warm-up and capture) plus, per
+    graph, replays x the launches its capture recorded. Returns (total,
+    the replays' part) by summary name."""
+    total = read_launches(counters)
+    replayed = {}
+    if eng.graphs is not None:
+        for (kernel, key), n in eng.graphs.run_launches().items():
+            name = summary_name(kernel, key)
+            replayed[name] = n
+            total[name] = total.get(name, 0) + n
+    return total, replayed
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: serve glm4_9b, mamba2_370m and zamba2_2p7b at full size
 # ---------------------------------------------------------------------------
 
 
+def weight_bytes(eng) -> int:
+    """Bytes one decode step must read at least: every parameter once and
+    the runner's fp32 copy of the logits table."""
+    n = sum(t.numel() * t.element_size() for t in leaves(eng.params))
+    return n + eng.runner.head.numel() * eng.runner.head.element_size()
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
 def serve(torch, counters, eng, reqs, max_new, expect):
     """One instrumented ``eng.run``: launch counts zeroed before and read
-    after (the kernels named in ``expect`` must have launched), per-step
-    wall times, finite logits, tokens in range, the most chunks any step
-    carried. Returns the run's measurements."""
+    after, replay-aware (the kernels named in ``expect`` must have
+    launched, and on a graph engine launched in replays); per step its
+    shape, its wall time and the device span of its body (CUDA events
+    around the replay, or around the eager body); finite logits (read
+    from the body's outputs after the run); tokens in range; the most
+    chunks any step carried. Returns (the run's measurements, its
+    tokens)."""
     cfg = eng.cfg
-    step_s, finite, widest = [], [], [0]
-    run_step, sample = eng.runner.step, eng.runner._sample
+    steps, finite, widest, last = [], [], [0], [None]
+    run_step, forward = eng.step, eng._forward
     schedule = eng.sched.schedule
 
-    def timed_step(*a, **kw):
-        t = time.monotonic()
-        out = run_step(*a, **kw)
-        step_s.append((kw["has_chunk"], time.monotonic() - t))
-        return out
+    def timed_forward(has_chunk):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, toks = forward(has_chunk)
+        end.record()
+        finite.append(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+        last[0] = (has_chunk, start, end)
+        return logits, toks
 
-    def checked_sample(logits_d, logits_c, a):
-        for lg in (logits_d, logits_c):
-            if lg is not None:
-                finite.append(bool(torch.isfinite(
-                    lg[:, :cfg.vocab_size]).all()))
-        return sample(logits_d, logits_c, a)
+    def timed_step():
+        last[0] = None
+        t = time.monotonic()
+        out = run_step()
+        if last[0] is not None:
+            steps.append((*last[0], time.monotonic() - t))
+        return out
 
     chunks = []
 
@@ -1342,12 +1453,18 @@ def serve(torch, counters, eng, reqs, max_new, expect):
                       for _, r, n in plan.chunks)
         return plan
 
-    eng.runner.step, eng.runner._sample = timed_step, checked_sample
+    eng.step, eng._forward = timed_step, timed_forward
     eng.sched.schedule = counted_schedule
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
+    t = time.monotonic()
+    eng.capture_graphs()           # a server's start-up, outside the run
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t
     outs = eng.run(reqs)
-    launches = read_launches(counters)
+    torch.cuda.synchronize()
+    launches, replayed = run_launches(counters, eng)
     s = eng.stats
     for r in reqs:
         o = outs[r.rid]
@@ -1355,74 +1472,156 @@ def serve(torch, counters, eng, reqs, max_new, expect):
               f"{max_new}")
         check(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
               f"request {r.rid}: token out of range")
-    check(all(finite), "non-finite logits")
+    check(bool(torch.stack(finite).all()), "non-finite logits")
     q = eng.sched.chunk_quantum
     check(all(lo % q == 0 and (n % q == 0 or lo + n == total)
               for lo, n, total in chunks),
           f"a non-final chunk is not a multiple of the quantum {q}")
+    graphs = eng.graphs is not None
     for name in expect:
         check(launches.get(name, 0) > 0,
               f"kernel {name} never launched on the main path")
-    chunk_s = [t for c, t in step_s if c]
-    dec_s = [t for c, t in step_s if not c]
+        check(not graphs or replayed.get(name, 0) > 0,
+              f"kernel {name} is in no replayed graph")
+    if graphs:
+        check(s["graph_captures"] <= 2 and
+              sum(s["graph_replays"].values()) == s["steps"],
+              f"graphs: {s['graph_captures']} captures, replays "
+              f"{s['graph_replays']} over {s['steps']} steps")
+    # the means leave each shape's first step out (eager: lazy set-up)
+    by_shape = {True: [], False: []}
+    for has_chunk, start, end, wall in steps:
+        by_shape[has_chunk].append((wall, start.elapsed_time(end)))
+    first = [w[0] for w in by_shape.values() if w]
+    rest = {k: v[1:] for k, v in by_shape.items()}
+
+    def mean(xs):
+        return sum(xs) / max(len(xs), 1)
+
+    device_ms = sum(start.elapsed_time(end) for _, start, end, _ in steps)
     lat = [s["latency"][r.rid] for r in reqs]
     ttft = [x["first_token_wall"] - x["arrival_wall"] for x in lat]
     gap = [(x["done_wall"] - x["first_token_wall"]) / max(max_new - 1, 1)
            for x in lat]
-    return {"kv_dtype": s["kv_dtype"], "prefill_pack": eng.prefill_pack,
-            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
-            "token_gap_s_median": statistics.median(gap),
-            "token_gap_s_max": max(gap),
-            "tok_s": s["tok_s"], "wall_s": s["wall_s"], "steps": s["steps"],
-            "tokens": s["tokens"], "first_step_s": step_s[0][1],
-            "chunk_step_ms_mean": 1e3 * sum(chunk_s[1:]) / max(
-                len(chunk_s) - 1, 1),
-            "decode_step_ms_mean": 1e3 * sum(dec_s) / max(len(dec_s), 1),
-            "chunk_steps": len(chunk_s), "decode_steps": len(dec_s),
-            "most_chunks_in_a_step": widest[0],
-            "cache_hit_tokens": s["cache_hit_tokens"],
-            "prefill_chunks": s["prefill_chunks"],
-            "kv_cache_mib": s["kv_cache_mib"],
-            "slot_state_mib": s["slot_state_mib"],
-            "quantum_dropped_tokens": s["quantum_dropped_tokens"],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches}
+    res = {"cuda_graphs": graphs, "kv_dtype": s["kv_dtype"],
+           "prefill_pack": eng.prefill_pack,
+           "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+           "token_gap_s_median": statistics.median(gap),
+           "token_gap_s_max": max(gap),
+           "tok_s": s["tok_s"], "wall_s": s["wall_s"], "steps": s["steps"],
+           "tokens": s["tokens"],
+           "capture_s": capture_s,
+           "first_step_s": [w for w, _ in first],
+           "chunk_step_ms_mean": 1e3 * mean([w for w, _ in rest[True]]),
+           "decode_step_ms_mean": 1e3 * mean([w for w, _ in rest[False]]),
+           "chunk_body_device_ms_mean": mean([d for _, d in rest[True]]),
+           "decode_body_device_ms_mean": mean([d for _, d in rest[False]]),
+           "body_device_ms": device_ms,
+           "busy_share_events": device_ms / max(1e3 * s["wall_s"], 1e-9),
+           "chunk_steps": len(by_shape[True]),
+           "decode_steps": len(by_shape[False]),
+           "most_chunks_in_a_step": widest[0],
+           "cache_hit_tokens": s["cache_hit_tokens"],
+           "prefill_chunks": s["prefill_chunks"],
+           "kv_cache_mib": s["kv_cache_mib"],
+           "slot_state_mib": s["slot_state_mib"],
+           "quantum_dropped_tokens": s["quantum_dropped_tokens"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "graph_captures": s["graph_captures"],
+           "graph_replays": dict(s["graph_replays"]),
+           "graph_pool_mib": (eng.graphs.pool_bytes() / 2 ** 20 if graphs
+                              else 0.0),
+           "decode_floor_ms": 1e3 * weight_bytes(eng) / HBM_BYTES_PER_S,
+           "launches": launches, "replayed_launches": replayed}
+    return res, {r.rid: outs[r.rid].tolist() for r in reqs}
+
+
+def serve_ab(torch, counters, card, label, make_engine, make_reqs, max_new,
+             expect):
+    """Phases 3-5's A/B: the same requests through a graph engine (the
+    card's default) and an eager one (``cuda_graphs=False``), same
+    weights; greedy tokens byte-identical. Returns (graph run, eager
+    run)."""
+    runs = {}
+    toks = {}
+    for graphs in (True, False):
+        eng = make_engine(graphs)
+        check((eng.graphs is not None) == graphs,
+              f"{label}: cuda_graphs={graphs} not honoured")
+        runs[graphs], toks[graphs] = serve(torch, counters, eng,
+                                           make_reqs(), max_new, expect)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, e = runs[True], runs[False]
+    check(list(toks[True].values()) == list(toks[False].values()),
+          f"{label}: graph and eager greedy tokens differ")
+    # the same kernels run in both: the graphs' device time over the eager
+    # run's wall is the eager run's busy share (its events span the host's
+    # launch gaps too)
+    e["busy_share_from_graph_device_ms"] = g["body_device_ms"] / max(
+        1e3 * e["wall_s"], 1e-9)
+    print(f"[serve-ab] {card}: {label}: tokens byte-identical; graphs "
+          f"{g['tok_s']} tok/s vs eager {e['tok_s']}; decode step "
+          f"{g['decode_step_ms_mean']:.2f} vs {e['decode_step_ms_mean']:.2f}"
+          f" ms (body on the device {g['decode_body_device_ms_mean']:.2f} vs "
+          f"{e['decode_body_device_ms_mean']:.2f}; bytes floor "
+          f"{g['decode_floor_ms']:.2f}); chunk step "
+          f"{g['chunk_step_ms_mean']:.2f} vs {e['chunk_step_ms_mean']:.2f} "
+          f"ms; busy share by events {g['busy_share_events']:.3f} vs "
+          f"{e['busy_share_from_graph_device_ms']:.3f} (the graphs' "
+          f"device ms over the eager wall); TTFT median "
+          f"{g['ttft_s_median']:.3f} vs {e['ttft_s_median']:.3f} s; token "
+          f"gap median {1e3 * g['token_gap_s_median']:.2f} vs "
+          f"{1e3 * e['token_gap_s_median']:.2f} ms; peak "
+          f"{g['peak_mem_gib']:.2f} vs {e['peak_mem_gib']:.2f} GiB; graph "
+          f"pool {g['graph_pool_mib']:.1f} MiB, both captures "
+          f"{g['capture_s']:.2f} s", flush=True)
+    return g, e
 
 
 def serve_full(torch, counters, card):
-    """Phase 3: bf16 pools, one chunk per step. Returns (measurements,
-    the engine's parameters, kept for phase 4)."""
+    """Phase 3: bf16 pools, one chunk per step, on graphs, then the same
+    run eager (A/B). Returns (the graph run's measurements with the eager
+    run's under "eager", the parameters, kept for phase 4)."""
     import numpy as np
     from repro_torch.config import get_config
+    from repro_torch.models.api import init_model
     from repro_torch.serving import InferenceEngine, Request
 
     cfg = get_config("glm4_9b")
     t0 = time.monotonic()
-    eng = InferenceEngine(cfg, device=DEV, max_batch=8, block_size=16,
-                          max_len=1024, max_num_batched_tokens=8 + 256,
-                          seed=0)
+    params = init_model(cfg, 0, DEV)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    check(eng.chunk_width == 256, f"chunk width {eng.chunk_width}")
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
-    reqs = [Request(np.concatenate(
-        [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)]),
-        max_new=32) for _ in range(8)]
-    res = serve(torch, counters, eng, reqs, 32,
-                ("paged_attention", "paged_prefill_attention", "gather"))
-    check(res["cache_hit_tokens"] > 0, "no prefix-cache hits")
-    check(res["prefill_chunks"] > len(reqs), "no prompt took two chunks")
-    res.update(params=cfg.param_count(), init_s=init_s)
+    prompts = [np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)])
+        for _ in range(8)]
+
+    def make_engine(graphs):
+        eng = InferenceEngine(cfg, device=DEV, params=params, max_batch=8,
+                              block_size=16, max_len=1024,
+                              max_num_batched_tokens=8 + 256, seed=0,
+                              cuda_graphs=graphs)
+        check(eng.chunk_width == 256, f"chunk width {eng.chunk_width}")
+        return eng
+
+    res, eager = serve_ab(
+        torch, counters, card, "glm4_9b bf16 pack 1", make_engine,
+        lambda: [Request(p.copy(), max_new=32) for p in prompts], 32,
+        ("paged_attention", "paged_prefill_attention", "gather"))
+    for r in (res, eager):
+        check(r["cache_hit_tokens"] > 0, "no prefix-cache hits")
+        check(r["prefill_chunks"] > len(prompts), "no prompt took two chunks")
+    res.update(params=cfg.param_count(), init_s=init_s, eager=eager)
     print(f"[serve] {card}: glm4_9b full width, 40 layers "
-          f"({res['params'] / 1e9:.2f} B params), bf16 pools: "
+          f"({res['params'] / 1e9:.2f} B params), bf16 pools, CUDA graphs: "
           f"{res['tok_s']} tok/s, decode step "
-          f"{res['decode_step_ms_mean']:.1f} ms, chunk step "
-          f"{res['chunk_step_ms_mean']:.1f} ms: {json.dumps(res)}",
+          f"{res['decode_step_ms_mean']:.2f} ms, chunk step "
+          f"{res['chunk_step_ms_mean']:.2f} ms: {json.dumps(res)}",
           flush=True)
-    params = eng.params
-    del eng
-    torch.cuda.empty_cache()
     return res, params
 
 
@@ -1445,48 +1644,89 @@ def packed_requests(cfg, n, max_new):
 
 
 def serve_packed(torch, counters, card, params):
-    """Phase 4: int8 pools with prefill_pack 4 (16 requests), then the
-    other pool/pack pairs at full width (8 requests, 4 new tokens)."""
+    """Phase 4: int8 pools with prefill_pack 4 (16 requests; on graphs,
+    then eager, A/B), then the other pool/pack pairs at full width (8
+    requests, 4 new tokens), on graphs."""
     from repro_torch.config import get_config
+    from repro_torch.models.quant import KV_DTYPES
     from repro_torch.serving import InferenceEngine
 
     cfg = get_config("glm4_9b")
     runs = [(4, "int8", 16, 16), (4, "bf16", 8, 4), (4, "fp8", 8, 4),
             (1, "int8", 8, 4), (1, "fp8", 8, 4)]
     results = []
-    for pack, kv, n, max_new in runs:
-        eng = InferenceEngine(cfg, device=DEV, params=params, max_batch=8,
-                              block_size=16, max_len=1024,
-                              max_num_batched_tokens=8 + 512, seed=0,
-                              prefill_pack=pack, kv_dtype=kv)
-        check(eng.chunk_width == 512 and eng.prefill_pack == pack,
-              f"chunk width {eng.chunk_width}, pack {eng.prefill_pack}")
-        from repro_torch.models.quant import KV_DTYPES
-        check(eng.cache["k"].dtype == KV_DTYPES[kv],
-              f"pools are {eng.cache['k'].dtype}, not {kv}")
+    for i, (pack, kv, n, max_new) in enumerate(runs):
+        def make_engine(graphs, pack=pack, kv=kv):
+            eng = InferenceEngine(cfg, device=DEV, params=params,
+                                  max_batch=8, block_size=16, max_len=1024,
+                                  max_num_batched_tokens=8 + 512, seed=0,
+                                  prefill_pack=pack, kv_dtype=kv,
+                                  cuda_graphs=graphs)
+            check(eng.chunk_width == 512 and eng.prefill_pack == pack,
+                  f"chunk width {eng.chunk_width}, pack {eng.prefill_pack}")
+            check(eng.cache["k"].dtype == KV_DTYPES[kv],
+                  f"pools are {eng.cache['k'].dtype}, not {kv}")
+            return eng
+
+        def make_reqs(n=n, max_new=max_new):
+            return packed_requests(cfg, n, max_new)
+
         prefill = ("ragged_paged_prefill_attention" if pack > 1
                    else "paged_prefill_attention")
-        res = serve(torch, counters, eng, packed_requests(cfg, n, max_new),
-                    max_new, (variant(prefill, kv),
-                              variant("paged_attention", kv), "gather"))
+        expect = (variant(prefill, kv), variant("paged_attention", kv),
+                  "gather")
+        if i == 0:
+            res, eager = serve_ab(
+                torch, counters, card, f"glm4_9b {kv} pack {pack}",
+                make_engine, make_reqs, max_new, expect)
+            res["eager"] = eager
+        else:
+            eng = make_engine(True)
+            res, _ = serve(torch, counters, eng, make_reqs(), max_new,
+                           expect)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
         check(res["cache_hit_tokens"] > 0, f"({pack}, {kv}): no prefix hits")
         if pack > 1:
             check(res["most_chunks_in_a_step"] >= 2,
                   f"({pack}, {kv}): no step carried two chunks")
         res["requests"] = n
         print(f"[serve-packed] {card}: glm4_9b full width, prefill_pack "
-              f"{pack}, {kv} pools, {n} requests: {res['tok_s']} tok/s, "
-              f"decode step {res['decode_step_ms_mean']:.1f} ms, chunk step "
-              f"{res['chunk_step_ms_mean']:.1f} ms, TTFT median "
+              f"{pack}, {kv} pools, {n} requests, CUDA graphs: "
+              f"{res['tok_s']} tok/s, decode step "
+              f"{res['decode_step_ms_mean']:.2f} ms, chunk step "
+              f"{res['chunk_step_ms_mean']:.2f} ms, TTFT median "
               f"{res['ttft_s_median']:.3f} s max {res['ttft_s_max']:.3f} s, "
-              f"token gap median {1e3 * res['token_gap_s_median']:.1f} ms "
-              f"max {1e3 * res['token_gap_s_max']:.1f} ms, peak "
+              f"token gap median {1e3 * res['token_gap_s_median']:.2f} ms "
+              f"max {1e3 * res['token_gap_s_max']:.2f} ms, peak "
               f"{res['peak_mem_gib']:.2f} GiB: {json.dumps(res)}",
               flush=True)
         results.append(res)
-        del eng
-        torch.cuda.empty_cache()
     return results
+
+
+def graph_edge_types(graph) -> dict:
+    """{dependency type: edges} of a captured CUDA graph, read with
+    libcuda's cuGraphGetEdges_v2 (type 0: full dependency, 1:
+    programmatic, as a programmatic dependent launch is captured).
+    ``graph`` must have been made with keep_graph=True."""
+    import ctypes
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    cap = 1 << 16
+    frm, to = (ctypes.c_void_p * cap)(), (ctypes.c_void_p * cap)()
+    data = (ctypes.c_ubyte * (8 * cap))()       # CUgraphEdgeData: 8 bytes
+    n = ctypes.c_size_t(cap)
+    rc = fn(graph.raw_cuda_graph(), frm, to, data, ctypes.byref(n))
+    check(rc == 0 and n.value < cap, f"cuGraphGetEdges_v2: error {rc}, "
+          f"{n.value} edges")
+    types = {}
+    for i in range(n.value):
+        t = data[8 * i + 2]                    # from_port, to_port, type
+        types[t] = types.get(t, 0) + 1
+    return types
 
 
 def serve_ssm(torch, counters, card):
@@ -1495,10 +1735,13 @@ def serve_ssm(torch, counters, card):
     a 264-token budget (256-token chunks, the SSD chunk size). mamba2
     serves 8 requests of 512 tokens (32 new each), then 8 of 300-500
     tokens (16 new each: a 256-token chunk, then a final exempt one);
-    zamba2 serves 8 of 512 tokens (16 new each). The ssd kernel launches
-    once per mamba layer and chunk."""
+    zamba2 serves 8 of 512 tokens (16 new each). Each run on graphs, then
+    eager (A/B). The ssd kernel launches once per mamba layer and chunk;
+    the chunk graph's edges by type say whether its capture kept the
+    scan's programmatic dependent launches."""
     import numpy as np
     from repro_torch.config import get_config
+    from repro_torch.models.api import init_model
     from repro_torch.serving import InferenceEngine, Request
 
     results = []
@@ -1506,53 +1749,84 @@ def serve_ssm(torch, counters, card):
             ("zamba2_2p7b", "512", 16))
     kw = dict(device=DEV, max_batch=8, block_size=16, max_len=1024,
               max_num_batched_tokens=8 + 256, seed=0)
-    eng = None
+    params = params_cfg = None
     for arch, lens, max_new in runs:
         cfg = get_config(arch)
-        if eng is None or eng.cfg != cfg:
-            eng = None
+        if params_cfg != cfg:
+            params = None
+            gc.collect()
             torch.cuda.empty_cache()
             t0 = time.monotonic()
-            eng = InferenceEngine(cfg, **kw)
+            params, params_cfg = init_model(cfg, 0, DEV), cfg
             torch.cuda.synchronize()
             init_s = time.monotonic() - t0
-            params = eng.params
-        else:               # same weights, fresh caches and counters
-            eng = InferenceEngine(cfg, params=params, **kw)
-        check(eng.chunk_width == 256 == eng.sched.chunk_quantum,
-              f"chunk width {eng.chunk_width}, quantum "
-              f"{eng.sched.chunk_quantum}")
+        seen = {}
+
+        def make_engine(graphs, cfg=cfg, seen=seen):
+            eng = InferenceEngine(cfg, params=params, cuda_graphs=graphs,
+                                  **kw)
+            check(eng.chunk_width == 256 == eng.sched.chunk_quantum,
+                  f"chunk width {eng.chunk_width}, quantum "
+                  f"{eng.sched.chunk_quantum}")
+            seen["runner"] = type(eng.runner).__name__
+            if graphs:
+                capture = eng.graphs.capture
+
+                def inspected(has_chunk):
+                    capture(has_chunk)
+                    if has_chunk:
+                        seen["edges"] = graph_edge_types(
+                            eng.graphs.graphs[True])
+                eng.graphs.capture = inspected
+            return eng
+
         rng = np.random.default_rng(0)
         n_tok = ([512] * 8 if lens == "512"
                  else rng.integers(300, 501, 8).tolist())
-        reqs = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                        max_new=max_new) for n in n_tok]
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in n_tok]
         expect = ["ssd", "gather"]
         if cfg.shared_attn_period:
             expect += ["paged_attention", "paged_prefill_attention"]
-        res = serve(torch, counters, eng, reqs, max_new, expect)
+        res, eager = serve_ab(
+            torch, counters, card, f"{arch} prompts of {lens} tokens",
+            make_engine,
+            lambda: [Request(p.copy(), max_new=max_new) for p in prompts],
+            max_new, expect)
         n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
-        check(res["prefill_chunks"] == 2 * len(reqs),
-              f"{arch}: {res['prefill_chunks']} chunks, not 2 per prompt")
-        check(res["launches"]["ssd"] == n_mamba * res["prefill_chunks"],
-              f"{arch}: ssd launched {res['launches']['ssd']} times, not "
-              f"{n_mamba} layers x {res['prefill_chunks']} chunks")
-        res.update(arch=arch, prompt_tokens=lens, requests=len(reqs),
+        for r in (res, eager):
+            check(r["prefill_chunks"] == 2 * len(prompts),
+                  f"{arch}: {r['prefill_chunks']} chunks, not 2 per prompt")
+        check(eager["launches"]["ssd"] == n_mamba * eager["prefill_chunks"],
+              f"{arch} eager: ssd launched {eager['launches']['ssd']} "
+              f"times, not {n_mamba} layers x {eager['prefill_chunks']} "
+              "chunks")
+        check(res["replayed_launches"]["ssd"]
+              == n_mamba * res["prefill_chunks"],
+              f"{arch}: ssd replayed {res['replayed_launches']['ssd']} "
+              f"times, not {n_mamba} layers x {res['prefill_chunks']} chunks")
+        res.update(arch=arch, prompt_tokens=lens, requests=len(prompts),
                    params=cfg.param_count(), init_s=init_s,
-                   runner=type(eng.runner).__name__)
+                   runner=seen["runner"], eager=eager,
+                   chunk_graph_edges_by_type=seen["edges"])
         print(f"[serve-ssm] {card}: {arch} full width, {cfg.num_layers} "
               f"layers ({res['params'] / 1e9:.2f} B params), "
-              f"{res['runner']}, prompts of {lens} tokens: {res['tok_s']} "
-              f"tok/s, decode step {res['decode_step_ms_mean']:.1f} ms, "
-              f"chunk step {res['chunk_step_ms_mean']:.1f} ms, TTFT median "
+              f"{res['runner']}, prompts of {lens} tokens, CUDA graphs: "
+              f"{res['tok_s']} tok/s, decode step "
+              f"{res['decode_step_ms_mean']:.2f} ms, chunk step "
+              f"{res['chunk_step_ms_mean']:.2f} ms, TTFT median "
               f"{res['ttft_s_median']:.3f} s, token gap median "
-              f"{1e3 * res['token_gap_s_median']:.1f} ms, slot state "
+              f"{1e3 * res['token_gap_s_median']:.2f} ms, slot state "
               f"{res['slot_state_mib']} MiB, KV "
               f"{res['kv_cache_mib'] - res['slot_state_mib']:.3f} MiB, peak "
               f"{res['peak_mem_gib']:.2f} GiB, ssd launches "
-              f"{res['launches']['ssd']}: {json.dumps(res)}", flush=True)
+              f"{res['launches']['ssd']} ({res['replayed_launches']['ssd']} "
+              f"in replays); chunk graph edges by type (0 full, 1 "
+              f"programmatic) {seen['edges']}: {json.dumps(res)}",
+              flush=True)
         results.append(res)
-    del eng, params
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return results
 
@@ -1889,11 +2163,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels import embedding as emb
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import sampled_softmax as ss
-    from repro_torch.kernels import ssd as ssd_k
+    from repro_torch.serving.graphs import KERNELS
 
     # decode_logits must be a true fp32 product on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1913,9 +2183,7 @@ def main() -> int:
     rows = check_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
-    counters = (pa.paged_attention, pa.paged_prefill_attention,
-                pa.ragged_paged_prefill_attention, emb.gather, ssd_k.ssd,
-                fa.flash_attention, ss.sampled_softmax_loss)
+    counters = KERNELS            # every kernel wrapper and its counter
     res, params = serve_full(torch, counters, card)
     runs = [res] + serve_packed(torch, counters, card, params)
     del params

@@ -8,8 +8,9 @@ async front-end, fleets or meshes, which later slices bring).
       --prefill-pack 4 --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
 
-The default device is the card ("cuda"); ``--device cpu`` runs the plain
-PyTorch paths instead of the CUDA kernels.
+The default device is the card ("cuda"), where the engine runs its step
+as CUDA graphs; ``--device cpu`` runs the plain PyTorch paths instead of
+the CUDA kernels, eagerly.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ def run_engine(cfg, args):
     if eng.device.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()            # compile before, not inside, the run
+        eng.capture_graphs()         # and capture the step graphs
     rng = np.random.default_rng(args.seed)
     reqs = make_requests(cfg, args, rng)
     arrivals = poisson_arrival_steps(len(reqs), args.rate, rng)
@@ -110,7 +112,9 @@ def run_engine(cfg, args):
           f"cow_copies={s['cow_copies']} "
           f"peak_block_util={s['peak_block_utilization']:.2f} "
           f"cache_hit_rate={eng.cache_hit_rate:.3f} "
-          f"ttft_p95={eng.hist['ttft_steps'].percentile(95):.0f}steps")
+          f"ttft_p95={eng.hist['ttft_steps'].percentile(95):.0f}steps "
+          f"graph_captures={s['graph_captures']} "
+          f"graph_replays={s['graph_replays']}")
     print("[serve] sample output ids:", outs[reqs[0].rid][:8].tolist())
     return outs
 

@@ -8,12 +8,21 @@ iteration is one budgeted step:
 
     plan = scheduler.schedule()      # decodes (1 token each) + chunks
     apply COW page copies
-    runner step: the chunk (if any; with prefill_pack S > 1, up to S
+    fill the step inputs: fixed-shape device buffers, written through one
+        pinned host staging area and uploaded in one copy
+    runner step body: the chunk (if any; with prefill_pack S > 1, up to S
         chunks packed into one flat row), then the max_batch-wide decode
-        batch, then per-slot sampling over the decode logits + the
-        chunks' logits
-    append sampled tokens; retire on EOS / max_new; publish the content
-        hashes of newly full blocks
+        batch, then the greedy tokens over the decode logits + the
+        chunks' logits; rows with a temperature are drawn after it
+    one device-to-host copy of the tokens; append them; retire on EOS /
+        max_new; publish the content hashes of newly full blocks
+
+On a card the step body runs as one of two CUDA graphs per engine, one
+per step shape (with and without the chunk row), each captured at its
+shape's first step (``serving.graphs``), as the JAX engine runs one of
+its two jitted executables. ``cuda_graphs=False`` runs the same body
+eagerly on the card (for A/B runs and tests); the CPU always runs it
+eagerly.
 
 Time is measured in engine steps; request arrivals are given in the same
 unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
@@ -30,6 +39,7 @@ full sampling surface, and any mesh or tensor parallelism.
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 
@@ -41,8 +51,10 @@ from repro_torch.models import quant
 from repro_torch.models.api import init_model
 from repro_torch.models.transformer import PAGE_POOLS
 from repro_torch.serving.cache import SlotStateCache, slot_state_bytes
+from repro_torch.serving.graphs import CompiledSteps
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
+from repro_torch.serving.sampling import draw_rows
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
                                            StepPlan)
 from repro_torch.serving.stats import Histogram, SECONDS_BUCKETS, STEP_BUCKETS
@@ -86,6 +98,80 @@ def unpack_ragged(tok: np.ndarray, starts: np.ndarray, ends: np.ndarray,
             for i in range(n_rows)]
 
 
+def step_input_shapes(B: int, C: int, nb: int, S: int) -> dict:
+    """{name: (shape, dtype)} of one engine's step inputs: max_batch B,
+    chunk width C, block-table width nb, prefill_pack S."""
+    i32 = torch.int32
+    shapes = {"d_tok": ((B,), i32), "d_pos": ((B,), i32),
+              "d_tables": ((B, nb), i32), "d_active": ((B,), torch.bool),
+              "c_tok": ((1, C), i32)}
+    if S == 1:
+        shapes.update({"c_start": ((1,), i32), "c_len": ((1,), i32),
+                       "c_table": ((1, nb), i32), "c_slot": ((1,), i32)})
+    else:
+        # flat ragged layout: chunk ci owns rows [c_starts[ci], c_ends[ci])
+        # of the (1, C) token row; pad rows are owned by nobody, so their
+        # KV lands in the trash block and their logits are discarded
+        shapes.update({"c_pos": ((1, C), i32), "c_seq": ((C,), i32),
+                       "c_starts": ((S,), i32), "c_ends": ((S,), i32),
+                       "c_ctx": ((S,), i32), "c_tables": ((S, nb), i32)})
+    return shapes
+
+
+class StepInputs:
+    """A step's inputs in fixed-shape buffers, allocated once: one host
+    staging area (pinned for a card) and one device buffer of the same
+    bytes, each input a view of both (``host``: numpy arrays, ``dev``:
+    tensors). ``reset`` sets every input to its default, the caller writes
+    the host views, ``upload`` copies the whole area to the device in one
+    transfer on the current stream. The device tensors keep their
+    addresses for the engine's life, as a captured graph needs."""
+
+    def __init__(self, shapes: dict, device):
+        self.device = torch.device(device)
+        offsets, total = {}, 0
+        for name, (shape, dtype) in shapes.items():
+            offsets[name] = total
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            total += -(-nbytes // 16) * 16        # 16-byte aligned views
+        pin = self.device.type == "cuda"
+        self.host_bytes = torch.zeros(total, dtype=torch.uint8,
+                                      pin_memory=pin)
+        self.dev_bytes = torch.zeros(total, dtype=torch.uint8,
+                                     device=self.device)
+        host_np = self.host_bytes.numpy()
+        self.host, self.dev = {}, {}
+        for name, (shape, dtype) in shapes.items():
+            lo = offsets[name]
+            hi = lo + int(np.prod(shape)) * dtype.itemsize
+            np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+            self.host[name] = host_np[lo:hi].view(np_dtype).reshape(shape)
+            self.dev[name] = self.dev_bytes[lo:hi].view(dtype).view(shape)
+
+    def reset(self) -> None:
+        """Every input to its default: zeros, block tables the trash
+        block (a decode slot inactive, no chunk)."""
+        self.host_bytes.zero_()
+        for name in ("d_tables", "c_table", "c_tables"):
+            if name in self.host:
+                self.host[name][...] = TRASH_BLOCK
+
+    def null_step(self) -> None:
+        """Inputs that change no state but the trash block's, uploaded:
+        no decode slot active, an empty chunk that does not start its
+        sequence (so a slot-state chunk keeps its row as it is)."""
+        self.reset()
+        if "c_start" in self.host:
+            self.host["c_start"][0] = 1
+        self.upload()
+
+    def upload(self) -> None:
+        """Host staging -> device buffer, asynchronously on the current
+        stream (the engine synchronizes at the end of every step, before
+        the host writes the staging area again)."""
+        self.dev_bytes.copy_(self.host_bytes, non_blocking=True)
+
+
 def _refuse(swap_space_bytes, shared_index, mesh):
     if swap_space_bytes:
         raise NotImplementedError(
@@ -111,7 +197,8 @@ class InferenceEngine:
                  prefill_pack: int = 1, kv_dtype: str = "bf16",
                  draft_cfg: ModelConfig | None = None,
                  num_speculative_tokens: int = 0,
-                 swap_space_bytes: int = 0, shared_index=None, mesh=None):
+                 swap_space_bytes: int = 0, shared_index=None, mesh=None,
+                 cuda_graphs: bool | None = None):
         _refuse(swap_space_bytes, shared_index, mesh)
         if kv_dtype not in quant.KV_DTYPES:
             raise ValueError(
@@ -121,6 +208,12 @@ class InferenceEngine:
             num_speculative_tokens=num_speculative_tokens)
         self.cfg = cfg
         self.device = torch.device(device)
+        on_card = self.device.type == "cuda"
+        if cuda_graphs is None:
+            cuda_graphs = on_card
+        if cuda_graphs and not on_card:
+            raise ValueError(f"cuda_graphs=True on {self.device}: CUDA "
+                             "graphs need a CUDA device")
         self.block_size = block_size
         self.max_len = max_len
         self.max_blocks_per_seq = -(-max_len // block_size)
@@ -162,6 +255,17 @@ class InferenceEngine:
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
                                             max_batch, self.device, kv_dtype)
+        self.inputs = StepInputs(step_input_shapes(
+            max_batch, self.chunk_width, self.max_blocks_per_seq,
+            self.prefill_pack), self.device)
+        self._tokens_host = torch.zeros(max_batch + self.prefill_pack,
+                                        dtype=torch.int32, pin_memory=on_card)
+        # the runner's step body on the step inputs: runner_body(has_chunk=)
+        # -> (logits (B + S, V_pad) fp32, greedy tokens (B + S,) int32)
+        self.runner_body = functools.partial(
+            self.runner.step, self.params, self.cache, self.inputs.dev)
+        self.graphs = (CompiledSteps(self.runner_body, self.inputs.null_step,
+                                     self.device) if cuda_graphs else None)
         kv_mib = (num_blocks * block_bytes(cfg, block_size, kv_dtype=kv_dtype)
                   / 2 ** 20 if self.runner.needs_blocks else 0.0)
         slot_mib = (max_batch * slot_state_bytes(cfg) / 2 ** 20
@@ -176,7 +280,9 @@ class InferenceEngine:
                       # the JAX package's total: page pools + slot state
                       "kv_cache_mib": round(kv_mib + slot_mib, 3),
                       "slot_state_mib": round(slot_mib, 3),
-                      "kv_dtype": kv_dtype}
+                      "kv_dtype": kv_dtype,
+                      "graph_captures": 0,
+                      "graph_replays": {"chunk": 0, "decode": 0}}
         self.step_count = 0           # virtual clock: one step() = one tick
         self.hist = {"ttft_seconds": Histogram(SECONDS_BUCKETS),
                      "e2e_seconds": Histogram(SECONDS_BUCKETS),
@@ -209,32 +315,12 @@ class InferenceEngine:
                 pool[:, dst] = pool[:, src]
 
     def _build_arrays(self, plan: StepPlan) -> dict:
-        B, C, nbmax = self.max_batch, self.chunk_width, self.max_blocks_per_seq
-        S = self.prefill_pack
-        a = {"d_tok": np.zeros(B, np.int32),
-             "d_pos": np.zeros(B, np.int32),
-             "d_tables": np.zeros((B, nbmax), np.int32),
-             "d_active": np.zeros(B, bool),
-             "c_tok": np.zeros((1, C), np.int32)}
-        # host values: the chunk's slot-state row, and whether the chunk
-        # starts its sequence (its state row then starts from zeros)
-        host = {"c_slot": 0, "c_fresh": False}
-        if S == 1:
-            a.update({"c_start": np.zeros(1, np.int32),
-                      "c_len": np.zeros(1, np.int32),
-                      "c_table": np.full((1, nbmax), TRASH_BLOCK, np.int32)})
-        else:
-            # flat ragged layout: chunk ci owns rows [c_starts[ci],
-            # c_ends[ci]) of the (1, C) token row; pad rows are owned by
-            # nobody, so their KV lands in the trash block and their
-            # logits are discarded
-            a.update({"c_pos": np.zeros((1, C), np.int32),
-                      "c_seq": np.zeros(C, np.int32),
-                      "c_starts": np.zeros(S, np.int32),
-                      "c_ends": np.zeros(S, np.int32),
-                      "c_ctx": np.zeros(S, np.int32),
-                      "c_tables": np.full((S, nbmax), TRASH_BLOCK,
-                                          np.int32)})
+        """Fill the step inputs (``self.inputs``) for ``plan`` and upload
+        them. Returns the host sampling arrays, rows 0..B-1 the decode
+        slots and B.. the chunks."""
+        B, S = self.max_batch, self.prefill_pack
+        self.inputs.reset()
+        a = self.inputs.host
         samp = {"temps": np.zeros(B + S, np.float32),
                 "top_ks": np.zeros(B + S, np.int32),
                 "seeds": np.zeros(B + S, np.int64),
@@ -260,9 +346,9 @@ class InferenceEngine:
             slot, req, n = plan.chunk
             toks = req.prefill_tokens()
             a["c_tok"][0, :n] = toks[req.num_computed:req.num_computed + n]
-            a["c_start"][0] = req.num_computed
+            a["c_start"][0] = req.num_computed     # 0: the chunk is fresh
             a["c_len"][0] = n
-            host.update(c_slot=slot, c_fresh=req.num_computed == 0)
+            a["c_slot"][0] = slot
             if self.bm is not None:
                 row = self.bm.table(req.rid)
                 a["c_table"][0, :len(row)] = row
@@ -277,14 +363,47 @@ class InferenceEngine:
                 row = self.bm.table(req.rid)
                 a["c_tables"][ci, :len(row)] = row
                 fill_samp(B + ci, req)
+            C = self.chunk_width
             tok, seq, starts, ends = pack_ragged(tok_rows, C, S)
             a["c_tok"][0] = tok
             a["c_pos"][0] = pack_ragged(pos_rows, C, S)[0]
-            a["c_seq"], a["c_starts"], a["c_ends"] = seq, starts, ends
-        out = {k: torch.from_numpy(v).to(self.device) for k, v in a.items()}
-        out.update(samp)
-        out.update(host)
-        return out
+            a["c_seq"][...], a["c_starts"][...], a["c_ends"][...] = \
+                seq, starts, ends
+        self.inputs.upload()
+        return samp
+
+    def capture_graphs(self, shapes=(True, False)) -> None:
+        """Capture the step graphs of ``shapes`` (has_chunk values) that
+        have none yet: a server's start-up, instead of each shape's first
+        step. Nothing to do without graphs."""
+        for has_chunk in shapes:
+            if self.graphs is not None and has_chunk not in self.graphs:
+                self.graphs.capture(has_chunk)
+                self.stats["graph_captures"] += 1
+
+    def _forward(self, has_chunk: bool):
+        """The step body on the filled inputs: a replay of the shape's
+        graph, or the eager body without graphs."""
+        if self.graphs is None:
+            return self.runner_body(has_chunk=has_chunk)
+        self.stats["graph_replays"]["chunk" if has_chunk else "decode"] += 1
+        return self.graphs.replay(has_chunk)
+
+    def _run_step(self, plan: StepPlan) -> np.ndarray:
+        """One step of ``plan`` on the device: inputs, the body (captured
+        first if its shape has no graph yet), the temperature rows, one
+        device-to-host copy of the (B + S,) tokens."""
+        has_chunk = bool(plan.chunks)
+        self.capture_graphs((has_chunk,))
+        samp = self._build_arrays(plan)
+        logits, toks = self._forward(has_chunk)
+        if (samp["temps"] > 0).any():
+            draw_rows(logits, toks, samp["temps"], samp["top_ks"],
+                      samp["seeds"], samp["rids"], samp["counters"])
+        self._tokens_host.copy_(toks, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._tokens_host.numpy()
 
     # -- host-side step ----------------------------------------------------
 
@@ -355,9 +474,7 @@ class InferenceEngine:
             if plan.admitted:
                 self.step_count += 1
             return plan.admitted > 0
-        nxt = self.runner.step(self.params, self.cache,
-                               self._build_arrays(plan),
-                               has_chunk=plan.chunk is not None)
+        nxt = self._run_step(plan)
         for slot, req in plan.decodes:
             req.num_computed += 1
             self._append_token(slot, req, int(nxt[slot]))

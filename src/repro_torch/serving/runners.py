@@ -1,13 +1,18 @@
 """Model runners for the serving engine (port of ``repro.serving.runners``).
 
 A runner owns what is family-specific about serving one model: the device
-cache it needs and the budgeted step (the prefill chunk or the packed
-chunks, the wide decode batch, per-slot sampling). The step has exactly
-two shapes: with and without the chunk row. Decode always runs
+cache it needs and the budgeted step body (the prefill chunk or the packed
+chunks, then the wide decode batch, then the greedy tokens). The step has
+exactly two shapes: with and without the chunk row. Decode always runs
 ``max_batch`` wide (idle slots are masked with ctx_len 0 and write into
 the trash block); the chunk row always runs ``chunk_width`` wide, holding
-one chunk or, with ``prefill_pack`` S > 1, up to S packed chunks.
-Sampling rows B .. B + S - 1 are the chunks' last-token logits.
+one chunk or, with ``prefill_pack`` S > 1, up to S packed chunks. Logit
+and token rows B .. B + S - 1 are the chunks' last-token rows.
+
+The body reads only device tensors at fixed shapes and never the host,
+so the engine can capture it as a CUDA graph (``serving.graphs``). Rows
+with a temperature are drawn after it (``sampling.draw_rows``), from its
+logits.
 
 Runners:
 
@@ -20,7 +25,9 @@ Runners:
 Invariants the slot-state runners keep: a chunk that starts a
 (re)computed sequence reads zeroed slot state, never a previous
 occupant's; a chunk's new state goes back to its own slot only; an idle
-decode slot keeps its state (decode writes back active rows only).
+decode slot keeps its state (decode writes back active rows only). The
+chunk's slot and freshness are device values (``c_slot``, ``c_start ==
+0``), as in the JAX package's runner.
 
 ``make_runner`` refuses the other families and speculative decoding,
 naming the ROADMAP item.
@@ -35,7 +42,6 @@ from repro_torch.models import transformer
 from repro_torch.models.embedding import head_table
 from repro_torch.serving.cache import init_slot_state
 from repro_torch.serving.kv_cache import init_paged_cache
-from repro_torch.serving.sampling import sample_tokens
 
 __all__ = ["ModelRunner", "TransformerRunner", "SSMRunner", "HybridRunner",
            "make_runner"]
@@ -67,9 +73,9 @@ class ModelRunner:
         raise NotImplementedError
 
     def step(self, params, cache, a, *, has_chunk: bool):
-        """One budgeted step over the engine's array dict ``a`` (device
-        tensors for the model, host arrays for sampling). Returns the
-        (B + S,) sampled tokens on the host."""
+        """The budgeted step body over the engine's step inputs ``a``
+        (device tensors at fixed shapes). Returns (logits (B + S, V_pad)
+        fp32, greedy tokens (B + S,) int32), both on the device."""
         raise NotImplementedError
 
     @staticmethod
@@ -96,17 +102,15 @@ class ModelRunner:
                 "ctx_lens": ctx_lens.to(torch.int32)}
 
     @staticmethod
-    def _sample(logits_d, logits_c, a):
+    def _outputs(logits_d, logits_c, a):
+        """(logits (B + S, V_pad), greedy tokens (B + S,) int32); an absent
+        chunk's rows are zeros."""
         if logits_c is None:
-            # sampling rows B.. are sized for the engine's prefill_pack
-            n_extra = a["temps"].shape[0] - logits_d.shape[0]
-            logits_c = torch.zeros((n_extra,) + logits_d.shape[1:],
-                                   dtype=logits_d.dtype,
-                                   device=logits_d.device)
+            # rows B.. are sized for the engine's prefill_pack
+            n_extra = a["c_starts"].shape[0] if "c_starts" in a else 1
+            logits_c = logits_d.new_zeros((n_extra,) + logits_d.shape[1:])
         logits = torch.cat([logits_d, logits_c], dim=0)
-        toks = sample_tokens(logits, a["temps"], a["top_ks"], a["seeds"],
-                             a["rids"], a["counters"])
-        return toks.cpu().numpy()
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 class TransformerRunner(ModelRunner):
@@ -132,7 +136,7 @@ class TransformerRunner(ModelRunner):
                 params, cache, self._chunk_batch(a), self.cfg, self.head)
         logits_d, _ = transformer.decode_step_paged(
             params, cache, self._decode_batch(a), self.cfg, self.head)
-        return self._sample(logits_d, logits_c, a)
+        return self._outputs(logits_d, logits_c, a)
 
 
 class SSMRunner(ModelRunner):
@@ -163,22 +167,26 @@ class SSMRunner(ModelRunner):
     def step(self, params, cache, a, *, has_chunk):
         logits_c = None
         if has_chunk:
-            # the chunk reads and writes its own slot's state row, through
-            # views into the cache; the first chunk after (re)admission
-            # starts from zeros, never from a previous occupant's state
-            slot = a["c_slot"]
+            # the chunk's slot-state rows, gathered by the device index
+            # c_slot; the first chunk after (re)admission (c_start == 0)
+            # starts from zeros, never from a previous occupant's state;
+            # the new state goes back to that slot only
+            slot = a["c_slot"].long()
+            fresh = (a["c_start"] == 0).reshape(())
             chunk_cache = dict(cache)
             for key in ("conv", "ssm"):
-                chunk_cache[key] = cache[key][:, slot:slot + 1]
-                if a["c_fresh"]:
-                    chunk_cache[key].zero_()
+                st = cache[key].index_select(1, slot)
+                chunk_cache[key] = torch.where(fresh, torch.zeros_like(st),
+                                               st)
             logits_c, _ = transformer.prefill_chunk_paged(
                 params, chunk_cache, self._chunk_batch(a), self.cfg,
                 self.head)
+            for key in ("conv", "ssm"):
+                cache[key].index_copy_(1, slot, chunk_cache[key])
         # every slot is computed; idle slots (ctx_len 0) keep their state
         logits_d, _ = transformer.decode_step_paged(
             params, cache, self._decode_batch(a), self.cfg, self.head)
-        return self._sample(logits_d, logits_c, a)
+        return self._outputs(logits_d, logits_c, a)
 
 
 class HybridRunner(SSMRunner):

@@ -57,6 +57,15 @@ def sample_tokens(logits, temps, top_ks, seeds, rids, counters):
     host sequences (top_k 0 disables truncation). Returns (B,) int32 on
     logits' device."""
     out = torch.argmax(logits, dim=-1).to(torch.int32)
+    draw_rows(logits, out, temps, top_ks, seeds, rids, counters)
+    return out
+
+
+def draw_rows(logits, out, temps, top_ks, seeds, rids, counters):
+    """Overwrite ``out[i]`` (the greedy tokens) with a draw for every row
+    whose temperature is above 0; greedy rows are left as they are. This
+    is host work (a generator seeded per row), so the serving engine runs
+    it after its compiled step, on the step's logits."""
     for i in np.flatnonzero(np.asarray(temps) > 0.0):
         lg = prep_logits(logits[i].float(), float(temps[i]), int(top_ks[i]))
         gen = torch.Generator(device=logits.device)
@@ -65,4 +74,3 @@ def sample_tokens(logits, temps, top_ks, seeds, rids, counters):
                        dtype=torch.float32)
         u = u.clamp(min=torch.finfo(torch.float32).tiny)
         out[i] = torch.argmax(lg - torch.log(-torch.log(u)))
-    return out
