@@ -124,6 +124,31 @@ Phases, each of which raises on failure:
      batches, 2 microbatches, remat full, SGD: losses within 1e-2, grad
      norms within 1e-2 relative, masters within 1e-2 of the largest
      update.
+  9. the sampling surface at glm4_9b's full width and depth (phase 3's
+     weights, CUDA graphs; run between phases 4 and 5, while they are on
+     the card): a. jax's threefry bits for 64 (seed, rid, counter, tag)
+     keys over 151552 words equal on the card and the CPU, the Gumbel
+     noise within 2 ulp of max(1, |g|), the first words printed; the
+     in-graph draw's device time over (9, 151552) rows (plain, full, an
+     argmax). b. a
+     greedy + temperature/top-k batch alone (greedy and plain graphs) and
+     beside one logprobs request (full graphs): byte-identical tokens;
+     eight mixed requests (greedy; t 0.8 top-k 50; top-p 0.9 min-p 0.05;
+     repetition/presence/frequency penalties; logprobs 5; a stop sequence
+     from the first run's greedy output; min_new over an EOS; top-k +
+     top-p + logprobs 3) on graphs and eager: tokens and logprobs
+     byte-identical, the stop retires its request where the greedy stream
+     completes it. Per (shape, mode): step ms, replay device ms, capture
+     s and the graph pool. c. speculative decoding, k = 2: a self-draft
+     sharing the weights, a fresh glm4_9b draft of 4 layers, the
+     self-draft at t = 0.8; greedy runs equal the plain greedy graph run
+     (near-tie rule on the card's logits; whether bitwise is printed);
+     mean_accept_len, tok/s, spec step ms, peak GiB. Phase 2a times the
+     chunk kernel at the verify shape (B=8, C=3, ctx up to 2048) against
+     its plain version ("verify_" keys of its summary row, with its
+     launches inside phase 9c's verify passes, counted around the verify
+     call and replay-aware: ``verify_launches``, the replays' part
+     ``verify_replayed_launches``).
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
 
@@ -454,6 +479,42 @@ def check_paged(torch, timer, gen, rows):
             shape=f"B=1 C={C} q_len={qlen} ctx={ctx1} H={H} K={K} hd={hd}",
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(b_chk, 4.0 * keys * H * hd))))
+
+    # the speculative verify pass at glm4's widths: the chunk kernel over
+    # the whole decode batch, k + 1 = 3 rows a sequence, contexts up to
+    # 2048 (one slot inactive), bf16 pools
+    ctxv = [2048, 1536, 1024, 777, 2000, 3, 0, 300]
+    Bv, Cv = len(ctxv), 3
+    q, kp, vp, bt, ctxt = paged_case(torch, gen, Bv, H, K, hd, bs, nb, ctxv,
+                                     C=Cv)
+    ql = torch.tensor([Cv if c else 0 for c in ctxv], dtype=torch.int32,
+                      device=DEV)
+    o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql)
+    o_p = paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql)
+    # the plain version averages every value of an empty (ctx 0) row,
+    # which the engine discards; the kernel writes zeros there
+    act = [i for i, c in enumerate(ctxv) if c]
+    e, rel = check_close("paged_prefill_attention verify shape vs plain",
+                         o_k[act], o_p[act])
+    check(bool((o_k[6] == 0).all()), "verify shape: inactive row not zero")
+    keys_v = sum(c - Cv + i + 1 for c in ctxv if c for i in range(Cv))
+    b_v = (2 * q.numel() * 2 + 2 * sum(ctxv) * kv_row_bytes("bf16", K, hd)
+           + bt.numel() * 4 + 2 * Bv * 4)
+    vb = bound_ms(b_v, 4.0 * keys_v * H * hd)
+    rows["paged_prefill_attention"].update(
+        **timed(timer, lambda: pa.paged_prefill_attention(q, kp, vp, bt, ctxt,
+                                                          ql),
+                lambda: paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql),
+                "verify_"),
+        verify_bound_ms=vb[0], verify_bound_by=vb[1], verify_max_abs_err=e,
+        verify_max_row_rel_err=rel,
+        verify_shape=f"B={Bv} C={Cv} ctx={ctxv} H={H} K={K} hd={hd}")
+    r = rows["paged_prefill_attention"]
+    print(f"[kernels] chunk kernel at the verify shape (B={Bv}, C={Cv}): "
+          f"device {r['verify_device_ms']:.5f} ms (events "
+          f"{r['verify_ms']:.5f}), plain device "
+          f"{r['verify_plain_device_ms']:.5f}, bound {vb[0]:.5f} "
+          f"({vb[1]}), max abs err {e:.3g}", flush=True)
 
     # zamba2_2p7b's shared attention: H = K = 32 (G = 1), hd = 80, bf16
     # pools (the hybrid runner keeps bf16), decode and a 256-row chunk
@@ -1412,29 +1473,40 @@ def leaves(tree):
         yield tree
 
 
-def serve(torch, counters, eng, reqs, max_new, expect):
+def request_mode(sp) -> str:
+    """The sampling mode a step with this request alone runs in."""
+    if sp.needs_pipeline:
+        return "full"
+    return "plain" if sp.temperature > 0 else "greedy"
+
+
+def serve(torch, counters, eng, reqs, max_new, expect, modes=("greedy",),
+          exact_len=True):
     """One instrumented ``eng.run``: launch counts zeroed before and read
     after, replay-aware (the kernels named in ``expect`` must have
     launched, and on a graph engine launched in replays); per step its
-    shape, its wall time and the device span of its body (CUDA events
-    around the replay, or around the eager body); finite logits (read
-    from the body's outputs after the run); tokens in range; the most
-    chunks any step carried. Returns (the run's measurements, its
-    tokens)."""
+    shape and sampling mode, its wall time and the device span of its
+    body (CUDA events around the replay, or around the eager body); finite
+    logits (read from the body's outputs after the run); tokens in range
+    (every request ``max_new`` of them unless ``exact_len`` is off: stop
+    sequences and EOS retire early); the most chunks any step carried.
+    The graphs of ``modes`` are captured before the run, as at a server's
+    start-up, each timed. Returns (the run's measurements, its tokens)."""
     cfg = eng.cfg
     steps, finite, widest, last = [], [], [0], [None]
     run_step, forward = eng.step, eng._forward
     schedule = eng.sched.schedule
 
-    def timed_forward(has_chunk):
+    def timed_forward(has_chunk, mode="greedy"):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        logits, toks = forward(has_chunk)
+        out = forward(has_chunk, mode)
         end.record()
+        logits = out["logits"]
         finite.append(torch.isfinite(logits[:, :cfg.vocab_size]).all())
-        last[0] = (has_chunk, start, end)
-        return logits, toks
+        last[0] = (has_chunk, mode, start, end)
+        return out
 
     def timed_step():
         last[0] = None
@@ -1458,18 +1530,23 @@ def serve(torch, counters, eng, reqs, max_new, expect):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
-    t = time.monotonic()
-    eng.capture_graphs()           # a server's start-up, outside the run
-    torch.cuda.synchronize()
-    capture_s = time.monotonic() - t
+    capture_by_mode, pool_by_mode = {}, {}
+    for mode in modes:             # a server's start-up, outside the run
+        t = time.monotonic()
+        eng.capture_graphs(mode=mode)
+        torch.cuda.synchronize()
+        capture_by_mode[mode] = time.monotonic() - t
+        if eng.graphs is not None:
+            pool_by_mode[mode] = eng.graphs.pool_bytes() / 2 ** 20
+    capture_s = sum(capture_by_mode.values())
     outs = eng.run(reqs)
     torch.cuda.synchronize()
     launches, replayed = run_launches(counters, eng)
     s = eng.stats
     for r in reqs:
         o = outs[r.rid]
-        check(len(o) == max_new, f"request {r.rid}: {len(o)} tokens, not "
-              f"{max_new}")
+        check(len(o) == max_new or (not exact_len and 1 <= len(o) <= max_new),
+              f"request {r.rid}: {len(o)} tokens, not {max_new}")
         check(bool(((o >= 0) & (o < cfg.vocab_size)).all()),
               f"request {r.rid}: token out of range")
     check(bool(torch.stack(finite).all()), "non-finite logits")
@@ -1484,21 +1561,39 @@ def serve(torch, counters, eng, reqs, max_new, expect):
         check(not graphs or replayed.get(name, 0) > 0,
               f"kernel {name} is in no replayed graph")
     if graphs:
-        check(s["graph_captures"] <= 2 and
-              sum(s["graph_replays"].values()) == s["steps"],
-              f"graphs: {s['graph_captures']} captures, replays "
+        # one graph per (shape, mode) captured; steps replay only the
+        # modes that the requests need (greedy runs: the greedy pair)
+        used = {m for _, m in eng.graphs.graphs}
+        need = {request_mode(r.sampling) for r in reqs}
+        replayed_modes = {m for (_, m), n in eng.graphs.replays.items() if n}
+        check(s["graph_captures"] == len(eng.graphs.graphs)
+              <= 2 * len(used) and used <= set(modes) | need
+              and replayed_modes <= need
+              and sum(s["graph_replays"].values()) == s["steps"],
+              f"graphs: {s['graph_captures']} captures of modes "
+              f"{sorted(used)} (requests need {sorted(need)}), replays "
               f"{s['graph_replays']} over {s['steps']} steps")
-    # the means leave each shape's first step out (eager: lazy set-up)
-    by_shape = {True: [], False: []}
-    for has_chunk, start, end, wall in steps:
-        by_shape[has_chunk].append((wall, start.elapsed_time(end)))
-    first = [w[0] for w in by_shape.values() if w]
-    rest = {k: v[1:] for k, v in by_shape.items()}
+    # the means leave each (shape, mode)'s first step out (eager: lazy
+    # set-up; graphs: a capture at that step for a mode not captured up
+    # front)
+    by_key = {}
+    for has_chunk, mode, start, end, wall in steps:
+        by_key.setdefault((has_chunk, mode), []).append(
+            (wall, start.elapsed_time(end)))
+    by_shape = {h: [x for (hc, _), v in by_key.items() if hc == h
+                    for x in v[1:]] for h in (True, False)}
+    first = [w[0] for w in by_key.values() if w]
 
     def mean(xs):
         return sum(xs) / max(len(xs), 1)
 
-    device_ms = sum(start.elapsed_time(end) for _, start, end, _ in steps)
+    def name(key):
+        return ("chunk" if key[0] else "decode") + "/" + key[1]
+
+    by_mode = {name(k): {"steps": len(v), "step_ms_mean": 1e3 * mean(
+        [w for w, _ in v[1:]]), "device_ms_mean": mean([d for _, d in v[1:]])}
+        for k, v in sorted(by_key.items())}
+    device_ms = sum(start.elapsed_time(end) for _, _, start, end, _ in steps)
     lat = [s["latency"][r.rid] for r in reqs]
     ttft = [x["first_token_wall"] - x["arrival_wall"] for x in lat]
     gap = [(x["done_wall"] - x["first_token_wall"]) / max(max_new - 1, 1)
@@ -1512,14 +1607,19 @@ def serve(torch, counters, eng, reqs, max_new, expect):
            "tokens": s["tokens"],
            "capture_s": capture_s,
            "first_step_s": [w for w, _ in first],
-           "chunk_step_ms_mean": 1e3 * mean([w for w, _ in rest[True]]),
-           "decode_step_ms_mean": 1e3 * mean([w for w, _ in rest[False]]),
-           "chunk_body_device_ms_mean": mean([d for _, d in rest[True]]),
-           "decode_body_device_ms_mean": mean([d for _, d in rest[False]]),
+           "chunk_step_ms_mean": 1e3 * mean([w for w, _ in by_shape[True]]),
+           "decode_step_ms_mean": 1e3 * mean([w for w, _ in
+                                              by_shape[False]]),
+           "chunk_body_device_ms_mean": mean([d for _, d in by_shape[True]]),
+           "decode_body_device_ms_mean": mean([d for _, d in
+                                               by_shape[False]]),
            "body_device_ms": device_ms,
            "busy_share_events": device_ms / max(1e3 * s["wall_s"], 1e-9),
-           "chunk_steps": len(by_shape[True]),
-           "decode_steps": len(by_shape[False]),
+           "chunk_steps": sum(len(v) for k, v in by_key.items() if k[0]),
+           "decode_steps": sum(len(v) for k, v in by_key.items()
+                               if not k[0]),
+           "by_mode": by_mode, "capture_s_by_mode": capture_by_mode,
+           "graph_pool_mib_after_capture": pool_by_mode,
            "most_chunks_in_a_step": widest[0],
            "cache_hit_tokens": s["cache_hit_tokens"],
            "prefill_chunks": s["prefill_chunks"],
@@ -1706,6 +1806,345 @@ def serve_packed(torch, counters, card, params):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sampling surface and speculative decoding at glm4's size
+# ---------------------------------------------------------------------------
+
+
+def check_streams(torch, V):
+    """Phase 9a: jax's threefry bits for 64 (seed, rid, counter, tag) keys
+    over V words, card against CPU, bit for bit; the Gumbel noise within
+    2 ulp of max(1, |g|). The first words are printed for a check against
+    ``jax.random.bits`` off the card. Then the draw's own device time:
+    ``sample_tokens`` and ``sample_tokens_full`` over (9, V) rows, each
+    captured alone in a CUDA graph, against an argmax, by events around
+    replays."""
+    import numpy as np
+    from repro_torch.serving import prng
+    from repro_torch.serving.sampling import (SP_KEYS, base_key,
+                                              sample_tokens,
+                                              sample_tokens_full)
+
+    g = np.random.default_rng(3)
+    seeds = torch.tensor(g.integers(-2 ** 31, 2 ** 31, 64), dtype=torch.int32)
+    rids = torch.tensor(g.integers(0, 2 ** 20, 64))
+    cnts = torch.tensor(g.integers(0, 2 ** 20, 64))
+    tags = torch.tensor(g.integers(0, 4, 64))          # 0: the plain stream
+    base = base_key(seeds, rids, cnts)
+    keys = torch.where((tags > 0)[:, None], prng.fold_in(base, tags), base)
+    bits = {d: prng.random_bits(keys.to(d), V).cpu() for d in ("cpu", DEV)}
+    check(torch.equal(bits["cpu"], bits[DEV]),
+          "threefry bits differ between the card and the CPU")
+    gum = {d: prng.gumbel(keys.to(d), V).cpu().numpy() for d in ("cpu", DEV)}
+    # ulps of max(1, |g|): near g = 0, -log(-log(u)) cancels, and one ulp
+    # of the inner log (near 1) is many ulps of the result
+    ulps = np.abs(gum[DEV] - gum["cpu"]) / np.spacing(
+        np.maximum(np.abs(gum["cpu"]), np.float32(1)))
+    check(float(ulps.max()) <= 2, f"Gumbel noise: card vs CPU "
+          f"{float(ulps.max())} ulp of max(1, |g|)")
+    for i in range(3):
+        print(f"[streams] seed {int(seeds[i])} rid {int(rids[i])} counter "
+              f"{int(cnts[i])} tag {int(tags[i])}: bits[:4] "
+              f"{[hex(int(x)) for x in bits[DEV][i, :4]]}", flush=True)
+    # the draw alone, as the step graph runs it
+    N = 9
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    logits = torch.randn((N, V), generator=gen, device=DEV) * 3
+    a = {"temps": torch.full((N,), 0.8, device=DEV),
+         "top_ks": torch.full((N,), 50, dtype=torch.int32, device=DEV),
+         "seeds": seeds[:N].to(DEV), "rids": rids[:N].to(DEV),
+         "counters": cnts[:N].to(DEV),
+         "top_ps": torch.full((N,), 0.9, device=DEV),
+         "min_ps": torch.full((N,), 0.05, device=DEV),
+         "rep_pens": torch.full((N,), 1.2, device=DEV),
+         "pres_pens": torch.full((N,), 0.3, device=DEV),
+         "freq_pens": torch.full((N,), 0.2, device=DEV),
+         "pmask": torch.rand((N, V), generator=gen, device=DEV) < 0.01,
+         "ocounts": (torch.rand((N, V), generator=gen, device=DEV)
+                     < 0.001).int()}
+    plain = ("temps", "top_ks", "seeds", "rids", "counters")
+    fns = {"argmax": lambda: torch.argmax(logits, -1),
+           "plain": lambda: sample_tokens(logits, *(a[k] for k in plain)),
+           "full": lambda: sample_tokens_full(
+               logits, {k: a[k] for k in SP_KEYS}, max_logprobs=8)}
+    ms = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        ms[name] = graph_replay_ms(torch, graph)
+        del graph
+    print(f"[streams] card and CPU bits equal for 64 keys x {V}; Gumbel "
+          f"within {float(ulps.max()):.0f} ulp of max(1, |g|); draw over "
+          f"({N}, {V}) rows on a graph: plain {ms['plain']:.4f} ms, full "
+          f"{ms['full']:.4f} "
+          f"ms, an argmax {ms['argmax']:.4f} ms", flush=True)
+    return {"bits_equal": True, "gumbel_max_ulp": float(ulps.max()),
+            "draw_ms": ms}
+
+
+def graph_replay_ms(torch, graph, iters=50):
+    """Mean device time of a replay of ``graph`` by CUDA events."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def near_tie_or_same(torch, params, cfg, prompt, ours, ref) -> bool:
+    """Equal greedy streams (True), or a first difference whose top-2
+    margin (the card's logits after the common prefix, one monolithic
+    chunk) is below the bf16 tolerance (False); anything else fails."""
+    import numpy as np
+    if ours == ref:
+        return True
+    i = next(j for j, (x, y) in enumerate(zip(ours, ref)) if x != y)
+    lg = last_logits(torch, params, cfg,
+                     np.concatenate([prompt, np.asarray(ours[:i], np.int32)]),
+                     "bf16", device=DEV)
+    top = torch.topk(lg, 2)
+    margin = float(top.values[0] - top.values[1])
+    check(margin < TOL and {ours[i], ref[i]} == set(top.indices.tolist()),
+          f"greedy streams differ at step {i} with top-2 margin {margin}")
+    return False
+
+
+def serve_sampling(torch, counters, card, params):
+    """Phase 9 at glm4_9b's full width and depth (the phase-3 weights),
+    on CUDA graphs: (a) the streams, card against CPU; (b) mixed sampling:
+    a greedy / temperature-top-k batch alone and again beside one
+    logprobs request (full graphs): byte-identical tokens; then eight
+    requests (greedy; t 0.8 top-k 50; top-p 0.9 min-p 0.05; penalties;
+    logprobs 5; a stop sequence from the first greedy run's output;
+    min_new over an EOS; top-k + top-p + logprobs) on graphs and eager:
+    tokens and logprobs byte-identical, the stop fires where the greedy
+    stream completes it; (c) speculative decoding, k = 2: a self-draft
+    sharing the weights, a fresh draft of 4 layers, the self-draft at
+    t = 0.8; greedy runs equal the plain greedy graph run (near-tie
+    rule; bitwise or not is reported). Returns the runs' measurements."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import InferenceEngine, Request, SamplingParams
+
+    cfg = get_config("glm4_9b")
+    streams = check_streams(torch, cfg.padded_vocab_size)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(160, 321, 8)]
+    max_new, modes = 24, ("greedy", "plain", "full")
+    expect = ("paged_attention", "paged_prefill_attention", "gather")
+    base_kw = dict(device=DEV, params=params, max_batch=8, block_size=16,
+                   max_len=1024, seed=0)
+    runs = []
+
+    def run(label, specs, graphs=True, spec=None, eos=None, min_new=None):
+        kw = dict(base_kw, max_num_batched_tokens=8 + 256)
+        if spec is not None:
+            kw.update(spec, max_num_batched_tokens=8 * 3 + 256)
+        eng = InferenceEngine(cfg, cuda_graphs=graphs, **kw)
+        probe = VerifyProbe(eng) if spec is not None else None
+        reqs = [Request(prompts[i].copy(), max_new=max_new, sampling=sp,
+                        rid=900 + j, eos_id=(eos or {}).get(j),
+                        min_new=(min_new or {}).get(j, 0))
+                for j, (i, sp) in enumerate(specs)]
+        lps = []
+        eng.on_token = lambda r, t, lp: lps.append((r.rid, t, lp))
+        try:
+            res, toks = serve(torch, counters, eng, reqs, max_new, expect,
+                              modes=modes if graphs else (),
+                              exact_len=eos is None)
+        finally:
+            if probe is not None:
+                probe.close()
+        if probe is not None:
+            res["verify_launches"], res["verify_replayed_launches"] = \
+                probe.launches(cfg.num_layers, res["steps"])
+        res.update(label=label, stats={k: eng.stats[k] for k in (
+            "full_sampling_steps", "stop_hits", "spec_decodes",
+            "spec_emitted", "graph_replays")},
+            mean_accept_len=eng.mean_accept_len)
+        stop_hit = {r.rid: r.stop_hit for r in reqs}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        modes_line = ", ".join(
+            f"{k} {v['step_ms_mean']:.2f} ms (device "
+            f"{v['device_ms_mean']:.2f}, {v['steps']} steps)"
+            for k, v in res["by_mode"].items())
+        cap = {k: round(v, 3) for k, v in res["capture_s_by_mode"].items()}
+        pool = {k: round(v, 1)
+                for k, v in res["graph_pool_mib_after_capture"].items()}
+        print(f"[serve-sampling] {card}: {label}: {res['tok_s']} tok/s; "
+              f"steps by (shape/mode): {modes_line}; capture s {cap}"
+              f"; graph pool MiB after each capture {pool}"
+              f"; mean_accept_len {res['mean_accept_len']:.3f}; peak "
+              f"{res['peak_mem_gib']:.2f} GiB; {json.dumps(res['stats'])}",
+              flush=True)
+        runs.append(res)
+        return res, [toks[900 + j] for j in range(len(specs))], lps, \
+            stop_hit
+
+    greedy = SamplingParams()
+    tk = SamplingParams(temperature=0.8, top_k=50, seed=1)
+    base = [(0, greedy), (1, tk), (2, SamplingParams(temperature=1.0,
+                                                     seed=2)), (3, greedy)]
+    _, alone, _, _ = run("greedy + temperature/top-k", base)
+    forced, beside, _, _ = run("the same beside a logprobs request",
+                               base + [(4, SamplingParams(logprobs=1))])
+    check(forced["stats"]["full_sampling_steps"] > 0, "no full step ran")
+    check(beside[:4] == alone, "tokens of plain rows in full steps differ "
+          "from the plain graphs'")
+    out0 = alone[0]
+    stop = tuple(out0[5:7])
+    mixed = [(0, greedy), (1, tk),
+             (2, SamplingParams(temperature=0.9, top_p=0.9, min_p=0.05,
+                                seed=3)),
+             (3, SamplingParams(temperature=0.7, repetition_penalty=1.2,
+                                presence_penalty=0.3, frequency_penalty=0.2,
+                                seed=4)),
+             (4, SamplingParams(temperature=0.6, logprobs=5, seed=5)),
+             (0, SamplingParams(stop=(stop,))),
+             (0, greedy),
+             (5, SamplingParams(temperature=1.0, top_k=20, top_p=0.95,
+                                logprobs=3, seed=7))]
+    eos, min_new = {6: out0[2]}, {6: 8}
+    res_g, toks_g, lps_g, hits = run("mixed sampling, graphs", mixed,
+                                     eos=eos, min_new=min_new)
+    res_e, toks_e, lps_e, _ = run("mixed sampling, eager", mixed,
+                                  graphs=False, eos=eos, min_new=min_new)
+    check(toks_g == toks_e, "mixed sampling: graph and eager tokens differ")
+    check(lps_g == lps_e, "mixed sampling: graph and eager logprobs differ")
+    g0 = toks_g[0]
+    first = next((i for i in range(1, len(g0))
+                  if tuple(g0[i - 1:i + 1]) == stop), None)
+    check(first is not None and toks_g[5] == g0[:first + 1] and hits[905],
+          f"the stop {stop} did not retire request 905 where the greedy "
+          f"stream completes it: {toks_g[5]} vs {g0}")
+    m = toks_g[6]
+    check(m == g0[:len(m)] and len(m) >= 8
+          and (len(m) == max_new or m[-1] == out0[2]),
+          f"min_new: request 906 gave {m}")
+    res_g["eager"] = res_e
+    sampling = {"streams": streams, "stop": list(stop),
+                "stop_fired_at": first, "min_new_len": len(m)}
+
+    # (c) speculative decoding, k = 2
+    plain_res, plain, _, _ = run("plain greedy (8 requests)",
+                                 [(i, greedy) for i in range(8)])
+    spec_runs = {}
+    draft_cfg = dataclasses.replace(cfg, num_layers=4)
+    for label, spec, sp in (
+            ("self-draft, shared weights", dict(draft_cfg=cfg,
+                                                draft_params=params), greedy),
+            ("fresh glm4_9b draft, 4 of 40 layers",
+             dict(draft_cfg=draft_cfg,
+                  draft_params=init_model(draft_cfg, 1, DEV)), greedy),
+            ("self-draft, t = 0.8", dict(draft_cfg=cfg, draft_params=params),
+             SamplingParams(temperature=0.8, seed=11))):
+        spec["num_speculative_tokens"] = 2
+        res, toks, _, _ = run(f"speculative k=2, {label}",
+                              [(i, sp) for i in range(8)], spec=spec)
+        spec.clear()
+        check(res["stats"]["spec_decodes"] > 0, f"{label}: no verify step")
+        if sp is greedy:
+            bitwise = [near_tie_or_same(torch, params, cfg, prompts[i], o, r)
+                       for i, (o, r) in enumerate(zip(toks, plain))]
+            res["bitwise_equal_to_plain"] = all(bitwise)
+            res["requests_bitwise_equal"] = sum(bitwise)
+        spec_runs[label] = res
+        print(f"[serve-spec] {card}: {label}: mean_accept_len "
+              f"{res['mean_accept_len']:.3f}, {res['tok_s']} tok/s (plain "
+              f"greedy {plain_res['tok_s']}), spec decode step "
+              f"{res['decode_step_ms_mean']:.2f} ms (device "
+              f"{res['decode_body_device_ms_mean']:.2f}; plain greedy "
+              f"{plain_res['decode_step_ms_mean']:.2f}), chunk step "
+              f"{res['chunk_step_ms_mean']:.2f} ms, verify launches "
+              f"{res['verify_launches']} ({res['verify_replayed_launches']}"
+              f" in replays), peak "
+              f"{res['peak_mem_gib']:.2f} GiB"
+              + (f", greedy tokens equal plain greedy (near-tie rule), "
+                 f"bitwise for {res['requests_bitwise_equal']}/8 requests"
+                 if sp is greedy else ""), flush=True)
+    sampling["speculative"] = {k: {n: v[n] for n in (
+        "mean_accept_len", "tok_s", "decode_step_ms_mean",
+        "decode_body_device_ms_mean", "chunk_step_ms_mean", "peak_mem_gib")}
+        for k, v in spec_runs.items()}
+    print(f"[serve-sampling] {card}: {json.dumps(sampling)}", flush=True)
+    verify = {k: sum(r[k] for r in spec_runs.values())
+              for k in ("verify_launches", "verify_replayed_launches")}
+    return runs, verify
+
+
+class VerifyProbe:
+    """Counts the chunk kernel's launches inside a speculative engine's
+    verify pass (``prefill_chunk_paged(all_logits=True)``, which only the
+    verify calls), replay-aware: the counter's delta over every eager call
+    (warm-ups, captures, eager steps) plus, per graph, its replays x the
+    delta over the call that its capture recorded."""
+
+    def __init__(self, eng):
+        from repro_torch.models import transformer
+        from repro_torch.serving.graphs import WARMUP_STEPS, launch_counts
+
+        self.transformer, self.eng = transformer, eng
+        self.fn = fn = transformer.prefill_chunk_paged
+        self.calls, self.per_capture = [], {}
+
+        def counted():
+            return sum(n for (k, _), n in launch_counts().items()
+                       if k == "paged_prefill_attention")
+
+        def verify_counted(*args, **kw):
+            if not kw.get("all_logits"):
+                return fn(*args, **kw)
+            n = counted()
+            out = fn(*args, **kw)
+            self.calls.append(counted() - n)
+            return out
+
+        transformer.prefill_chunk_paged = verify_counted
+        graphs = eng.graphs
+        if graphs is not None:
+            capture = graphs.capture
+
+            def capture_counted(key):
+                n = len(self.calls)
+                capture(key)
+                check(len(self.calls) == n + WARMUP_STEPS + 1,
+                      f"verify probe: {len(self.calls) - n} verify passes "
+                      f"in the capture of {key}")
+                self.per_capture[key] = self.calls[-1]
+
+            graphs.capture = capture_counted
+
+    def close(self):
+        self.transformer.prefill_chunk_paged = self.fn
+
+    def launches(self, layers: int, steps: int) -> tuple[int, int]:
+        """The run's verify launches and the replays' part of them; checks
+        one launch per target layer in every verify pass and one replayed
+        verify per step."""
+        replays = self.eng.graphs.replays if self.eng.graphs else {}
+        check(all(n == layers for n in self.calls)
+              and all(n == layers for n in self.per_capture.values()),
+              f"verify passes launched {sorted(set(self.calls))} chunk "
+              f"kernels (captures {self.per_capture}), not {layers}")
+        replayed = sum(self.per_capture[k] * n for k, n in replays.items())
+        check(replayed == steps * layers,
+              f"verify launches in replays {replayed} != {steps} steps x "
+              f"{layers} layers")
+        return sum(self.calls) + replayed, replayed
+
+
 def graph_edge_types(graph) -> dict:
     """{dependency type: edges} of a captured CUDA graph, read with
     libcuda's cuGraphGetEdges_v2 (type 0: full dependency, 1:
@@ -1772,11 +2211,11 @@ def serve_ssm(torch, counters, card):
             if graphs:
                 capture = eng.graphs.capture
 
-                def inspected(has_chunk):
-                    capture(has_chunk)
-                    if has_chunk:
+                def inspected(key):
+                    capture(key)
+                    if key[0]:
                         seen["edges"] = graph_edge_types(
-                            eng.graphs.graphs[True])
+                            eng.graphs.graphs[key])
                 eng.graphs.capture = inspected
             return eng
 
@@ -1836,16 +2275,18 @@ def serve_ssm(torch, counters, card):
 # ---------------------------------------------------------------------------
 
 
-def last_logits(torch, params, cfg, tokens, kv):
-    """fp32 logits after ``tokens`` on the CPU, by one monolithic chunk
-    from fresh state (block 0 is the trash block)."""
+def last_logits(torch, params, cfg, tokens, kv, device="cpu"):
+    """fp32 logits after ``tokens`` on ``device`` (the parameters' own),
+    by one monolithic chunk from fresh state (block 0 is the trash
+    block)."""
     from repro_torch.models import transformer
     from repro_torch.serving.runners import make_runner
 
     n = len(tokens)
     nb = -(-n // 16)
-    cache = make_runner(cfg).init_cache(nb + 1, 16, 1, "cpu", kv)
-    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    cache = make_runner(cfg).init_cache(nb + 1, 16, 1, device, kv)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32,  # noqa: E731
+                                 device=device)
     batch = {"tokens": i32([list(tokens)]), "q_start": i32([0]),
              "q_lens": i32([n]), "block_tables": i32([list(range(1, nb + 1))]),
              "ctx_lens": i32([n])}
@@ -2186,6 +2627,10 @@ def main() -> int:
     counters = KERNELS            # every kernel wrapper and its counter
     res, params = serve_full(torch, counters, card)
     runs = [res] + serve_packed(torch, counters, card, params)
+    sampling_runs, verify_launches = serve_sampling(torch, counters, card,
+                                                    params)
+    runs += sampling_runs
+    rows["paged_prefill_attention"].update(verify_launches)
     del params
     torch.cuda.empty_cache()
     runs += serve_ssm(torch, counters, card)
@@ -2209,7 +2654,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items() if k in SUMMARY_EXTRAS
                        or k.startswith(("no_write", "device_ms", "hd80_",
-                                        "zamba2_",
+                                        "zamba2_", "verify_",
                                         "plain_device_ms",
                                         "library_device_ms"))})
                for name, r in rows.items()]

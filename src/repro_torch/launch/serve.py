@@ -6,11 +6,16 @@ async front-end, fleets or meshes, which later slices bring).
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --prefill-pack 4 --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --temperature 0.8 --top-p 0.9 --repetition-penalty 1.2 --logprobs 3 \\
+      --stop 5,7 --min-new 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --num-speculative-tokens 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
 
 The default device is the card ("cuda"), where the engine runs its step
-as CUDA graphs; ``--device cpu`` runs the plain PyTorch paths instead of
-the CUDA kernels, eagerly.
+as CUDA graphs, one per (shape, sampling mode); ``--device cpu`` runs the
+plain PyTorch paths instead of the CUDA kernels, eagerly.
 """
 
 from __future__ import annotations
@@ -38,11 +43,18 @@ def make_requests(cfg, args, rng):
     for i in range(args.requests):
         # staggered horizons: each request retires on its own max_new
         max_new = max(1, args.max_new - (i % 4) * args.max_new // 4)
+        stop = tuple(tuple(int(t) for t in s.split(","))
+                     for s in (args.stop or []))
         sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                            seed=i)
+                            seed=i, top_p=args.top_p, min_p=args.min_p,
+                            repetition_penalty=args.repetition_penalty,
+                            presence_penalty=args.presence_penalty,
+                            frequency_penalty=args.frequency_penalty,
+                            logprobs=args.logprobs, stop=stop)
         reqs.append(Request(
             rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-            max_new=max_new, sampling=sp, eos_id=args.eos_id))
+            max_new=max_new, sampling=sp, eos_id=args.eos_id,
+            min_new=min(args.min_new, max_new)))
     return reqs
 
 
@@ -78,13 +90,17 @@ def profiled_run(eng, reqs, arrivals, top: int):
 
 def run_engine(cfg, args):
     from repro_torch.serving import InferenceEngine
+    draft_cfg = (get_config(args.speculative_draft, smoke=args.smoke)
+                 if args.speculative_draft else None)
     eng = InferenceEngine(
         cfg, device=args.device, max_batch=args.max_batch,
         block_size=args.block_size, max_len=args.max_len,
         num_blocks=args.num_blocks,
         max_num_batched_tokens=args.max_batched_tokens,
         enable_prefix_caching=not args.no_prefix_caching, seed=args.seed,
-        prefill_pack=args.prefill_pack, kv_dtype=args.kv_dtype)
+        prefill_pack=args.prefill_pack, kv_dtype=args.kv_dtype,
+        draft_cfg=draft_cfg,
+        num_speculative_tokens=args.num_speculative_tokens)
     if eng.device.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()            # compile before, not inside, the run
@@ -115,6 +131,9 @@ def run_engine(cfg, args):
           f"ttft_p95={eng.hist['ttft_steps'].percentile(95):.0f}steps "
           f"graph_captures={s['graph_captures']} "
           f"graph_replays={s['graph_replays']}")
+    print(f"[serve] full_sampling_steps={s['full_sampling_steps']} "
+          f"stop_hits={s['stop_hits']} "
+          f"mean_accept_len={eng.mean_accept_len:.3f}")
     print("[serve] sample output ids:", outs[reqs[0].rid][:8].tolist())
     return outs
 
@@ -151,8 +170,38 @@ def main(argv=None):
                     "ragged token row (1 = one chunk per step)")
     ap.add_argument("--rate", type=float, default=0.5,
                     help="poisson arrivals per engine step")
+    ap.add_argument("--speculative-draft", default=None,
+                    help="draft-model arch for speculative decoding "
+                    "(defaults to --arch, a fresh-init self-draft, when "
+                    "--num-speculative-tokens > 0)")
+    ap.add_argument("--num-speculative-tokens", type=int, default=0,
+                    help="draft tokens proposed per slot per step; the "
+                    "target verifies k+1 positions in one widened step "
+                    "(0 disables speculation)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off); composes "
+                    "with --top-k / --min-p")
+    ap.add_argument("--min-p", type=float, default=0.0,
+                    help="min-p truncation relative to the max "
+                    "probability (0 = off)")
+    ap.add_argument("--repetition-penalty", type=float, default=1.0,
+                    help="divide positive / multiply negative logits of "
+                    "already-seen tokens (1.0 = off)")
+    ap.add_argument("--presence-penalty", type=float, default=0.0,
+                    help="subtract once per distinct generated token")
+    ap.add_argument("--frequency-penalty", type=float, default=0.0,
+                    help="subtract per occurrence of a generated token")
+    ap.add_argument("--logprobs", type=int, default=0,
+                    help="per-token top-N logprobs (0 = off)")
+    ap.add_argument("--stop", action="append", default=None,
+                    metavar="IDS",
+                    help="stop sequence as comma-separated token ids; "
+                    "repeatable (each flag adds one sequence)")
+    ap.add_argument("--min-new", type=int, default=0,
+                    help="ignore EOS / stop sequences before this many "
+                    "generated tokens (max_new still wins)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",

@@ -186,7 +186,8 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
     return decode_logits(x, head, cfg), cache
 
 
-def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
+def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None,
+                        *, all_logits: bool = False):
     """One chunk of prompt prefill against the paged KV cache.
 
     batch: tokens (B, C) the chunk's token slice (right-padded), q_start
@@ -196,6 +197,9 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
     chunk's slot row), read as the previous chunk's state and overwritten
     with the new one.
     Returns (logits (B, V_pad) fp32 at each row's last valid token, cache).
+    With ``all_logits=True`` the logits cover every chunk position, (B, C,
+    V_pad): the speculative verify step scores all k + 1 candidate
+    positions in one widened pass.
     """
     tokens = batch["tokens"]
     B, C = tokens.shape
@@ -224,9 +228,12 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
         return y
 
     x = _layers(params, cache, cfg, x, attend, mamba)
+    head = head_table(params["embed"], cfg) if head is None else head
+    if all_logits:
+        logits = decode_logits(x.reshape(B * C, 1, -1), head, cfg)
+        return logits.reshape(B, C, -1), cache
     last = (q_lens.long() - 1).clamp(0, C - 1)
     x_last = x[torch.arange(B, device=x.device), last][:, None]   # (B,1,d)
-    head = head_table(params["embed"], cfg) if head is None else head
     return decode_logits(x_last, head, cfg), cache
 
 

@@ -3,26 +3,38 @@
 
 One ``InferenceEngine`` owns the model parameters, a runner, the device
 cache, the host caches the runner needs (a ``BlockManager`` for paged KV,
-a ``SlotStateCache`` for Mamba state) and a ``Scheduler``. Every
-iteration is one budgeted step:
+a ``SlotStateCache`` for Mamba state), the per-slot sampling state (a
+``SamplingBuffer``) and a ``Scheduler``. Every iteration is one budgeted
+step:
 
     plan = scheduler.schedule()      # decodes (1 token each) + chunks
     apply COW page copies
+    pick the step's sampling mode on the host: "greedy" (every scheduled
+        request greedy), "plain" (temperature / top-k) or "full" (some
+        request needs penalties, top-p, min-p or logprobs)
     fill the step inputs: fixed-shape device buffers, written through one
-        pinned host staging area and uploaded in one copy
+        pinned host staging area and uploaded in one copy (the full
+        path's parameter rows and (B + S, V_pad) count rows in a second
+        area, allocated at the first full step)
     runner step body: the chunk (if any; with prefill_pack S > 1, up to S
         chunks packed into one flat row), then the max_batch-wide decode
-        batch, then the greedy tokens over the decode logits + the
-        chunks' logits; rows with a temperature are drawn after it
-    one device-to-host copy of the tokens; append them; retire on EOS /
-        max_new; publish the content hashes of newly full blocks
+        batch, then the tokens, drawn in the body from jax's threefry
+        streams (``serving.prng``)
+    one device-to-host copy of the step's tokens (and logprobs); append
+        them; retire on EOS / stop sequence / max_new; publish the content
+        hashes of newly full blocks
 
-On a card the step body runs as one of two CUDA graphs per engine, one
-per step shape (with and without the chunk row), each captured at its
-shape's first step (``serving.graphs``), as the JAX engine runs one of
-its two jitted executables. ``cuda_graphs=False`` runs the same body
-eagerly on the card (for A/B runs and tests); the CPU always runs it
-eagerly.
+On a card the step body runs as a CUDA graph per (shape, mode), each
+captured at its first step (``serving.graphs``), as the JAX engine runs
+its two plain executables and compiles its full-sampling ones lazily.
+``cuda_graphs=False`` runs the same body eagerly on the card (for A/B
+runs and tests); the CPU always runs it eagerly.
+
+With speculative decoding (``num_speculative_tokens`` = k, a draft config
+or the target's own) the decode half is the draft-and-verify step of
+``runners.SpeculativeRunner``; the host appends each slot's accepted
+prefix and the corrected (or bonus) token, then rewinds the rejected
+lookahead blocks with ``BlockManager.truncate``.
 
 Time is measured in engine steps; request arrivals are given in the same
 unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
@@ -32,9 +44,9 @@ KV pools are bf16, int8 or fp8 (``kv_dtype``; the narrow ones with fp32
 per-row scales, dequantized inside the attention kernels); SSM and hybrid
 runners keep bf16 pools and fp32 Mamba state.
 
-What the port refuses, each with the ROADMAP item that brings it:
-speculative decoding, swap space, a cross-replica ``shared_index``, the
-full sampling surface, and any mesh or tensor parallelism.
+What the port refuses, each with the ROADMAP item that brings it: swap
+space, a cross-replica ``shared_index`` and any mesh or tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -54,7 +66,7 @@ from repro_torch.serving.cache import SlotStateCache, slot_state_bytes
 from repro_torch.serving.graphs import CompiledSteps
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
-from repro_torch.serving.sampling import draw_rows
+from repro_torch.serving.sampling import SamplingBuffer
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
                                            StepPlan)
 from repro_torch.serving.stats import Histogram, SECONDS_BUCKETS, STEP_BUCKETS
@@ -100,7 +112,8 @@ def unpack_ragged(tok: np.ndarray, starts: np.ndarray, ends: np.ndarray,
 
 def step_input_shapes(B: int, C: int, nb: int, S: int) -> dict:
     """{name: (shape, dtype)} of one engine's step inputs: max_batch B,
-    chunk width C, block-table width nb, prefill_pack S."""
+    chunk width C, block-table width nb, prefill_pack S. Rows 0..B-1 of
+    the sampling inputs are the decode slots, B.. the chunks."""
     i32 = torch.int32
     shapes = {"d_tok": ((B,), i32), "d_pos": ((B,), i32),
               "d_tables": ((B, nb), i32), "d_active": ((B,), torch.bool),
@@ -115,61 +128,118 @@ def step_input_shapes(B: int, C: int, nb: int, S: int) -> dict:
         shapes.update({"c_pos": ((1, C), i32), "c_seq": ((C,), i32),
                        "c_starts": ((S,), i32), "c_ends": ((S,), i32),
                        "c_ctx": ((S,), i32), "c_tables": ((S, nb), i32)})
+    # the plain path's sampling rows, int32 as the reference fills them
+    shapes["temps"] = ((B + S,), torch.float32)
+    for name in ("top_ks", "seeds", "rids", "counters"):
+        shapes[name] = ((B + S,), i32)
     return shapes
 
 
+def full_input_shapes(N: int, V: int) -> dict:
+    """The full path's extra step inputs over N = B + S rows of V_pad
+    columns: parameter rows and the count state."""
+    f32 = torch.float32
+    shapes = {name: ((N,), f32) for name in ("top_ps", "min_ps", "rep_pens",
+                                              "pres_pens", "freq_pens")}
+    shapes.update({"pmask": ((N, V), torch.bool),
+                   "ocounts": ((N, V), torch.int32)})
+    return shapes
+
+
+# inputs whose default is not zero: block tables point at the trash block,
+# the full path's multiplicative parameters are the identity
+INPUT_DEFAULTS = {"d_tables": TRASH_BLOCK, "c_table": TRASH_BLOCK,
+                  "c_tables": TRASH_BLOCK, "top_ps": 1.0, "rep_pens": 1.0}
+
+
+def _i32(x: int) -> int:
+    """An int wrapped into int32, as the reference's int32 inputs hold
+    it (a seed of 2^31 or more turns negative)."""
+    return (int(x) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
 class StepInputs:
-    """A step's inputs in fixed-shape buffers, allocated once: one host
-    staging area (pinned for a card) and one device buffer of the same
-    bytes, each input a view of both (``host``: numpy arrays, ``dev``:
-    tensors). ``reset`` sets every input to its default, the caller writes
-    the host views, ``upload`` copies the whole area to the device in one
-    transfer on the current stream. The device tensors keep their
-    addresses for the engine's life, as a captured graph needs."""
+    """A step's inputs in fixed-shape buffers, allocated once: per area,
+    one host staging area (pinned for a card) and one device buffer of the
+    same bytes, each input a view of both (``host``: numpy arrays,
+    ``dev``: tensors, one dict over every area). ``reset`` sets an area's
+    inputs to their defaults, the caller writes the host views, ``upload``
+    copies the area to the device in one transfer on the current stream.
+    The device tensors keep their addresses for the engine's life, as a
+    captured graph needs. Area 0 is the step's own inputs; ``add`` appends
+    another (the full path's, at its first step)."""
 
     def __init__(self, shapes: dict, device):
         self.device = torch.device(device)
+        self.host, self.dev = {}, {}
+        self.areas = []                   # (host bytes, device bytes, names)
+        self.add(shapes)
+
+    def add(self, shapes: dict) -> int:
+        """Allocate an area for ``shapes``; returns its index."""
         offsets, total = {}, 0
         for name, (shape, dtype) in shapes.items():
             offsets[name] = total
             nbytes = int(np.prod(shape)) * dtype.itemsize
             total += -(-nbytes // 16) * 16        # 16-byte aligned views
         pin = self.device.type == "cuda"
-        self.host_bytes = torch.zeros(total, dtype=torch.uint8,
-                                      pin_memory=pin)
-        self.dev_bytes = torch.zeros(total, dtype=torch.uint8,
-                                     device=self.device)
-        host_np = self.host_bytes.numpy()
-        self.host, self.dev = {}, {}
+        host_bytes = torch.zeros(total, dtype=torch.uint8, pin_memory=pin)
+        dev_bytes = torch.zeros(total, dtype=torch.uint8, device=self.device)
+        host_np = host_bytes.numpy()
         for name, (shape, dtype) in shapes.items():
             lo = offsets[name]
             hi = lo + int(np.prod(shape)) * dtype.itemsize
             np_dtype = torch.empty((), dtype=dtype).numpy().dtype
             self.host[name] = host_np[lo:hi].view(np_dtype).reshape(shape)
-            self.dev[name] = self.dev_bytes[lo:hi].view(dtype).view(shape)
+            self.dev[name] = dev_bytes[lo:hi].view(dtype).view(shape)
+        self.areas.append((host_bytes, dev_bytes, tuple(shapes)))
+        return len(self.areas) - 1
 
-    def reset(self) -> None:
-        """Every input to its default: zeros, block tables the trash
-        block (a decode slot inactive, no chunk)."""
-        self.host_bytes.zero_()
-        for name in ("d_tables", "c_table", "c_tables"):
-            if name in self.host:
-                self.host[name][...] = TRASH_BLOCK
+    def reset(self, area: int = 0) -> None:
+        """Every input of ``area`` to its default: zeros, block tables the
+        trash block (a decode slot inactive, no chunk), identity sampling
+        parameters."""
+        host_bytes, _, names = self.areas[area]
+        host_bytes.zero_()
+        for name in names:
+            if name in INPUT_DEFAULTS:
+                self.host[name][...] = INPUT_DEFAULTS[name]
 
     def null_step(self) -> None:
         """Inputs that change no state but the trash block's, uploaded:
         no decode slot active, an empty chunk that does not start its
         sequence (so a slot-state chunk keeps its row as it is)."""
-        self.reset()
+        for area in range(len(self.areas)):
+            self.reset(area)
+            if area:
+                self.upload(area)
         if "c_start" in self.host:
             self.host["c_start"][0] = 1
         self.upload()
 
-    def upload(self) -> None:
+    def upload(self, area: int = 0) -> None:
         """Host staging -> device buffer, asynchronously on the current
         stream (the engine synchronizes at the end of every step, before
         the host writes the staging area again)."""
-        self.dev_bytes.copy_(self.host_bytes, non_blocking=True)
+        host_bytes, dev_bytes, _ = self.areas[area]
+        dev_bytes.copy_(host_bytes, non_blocking=True)
+
+
+def _mode(reqs) -> str:
+    """The step's sampling mode over its scheduled requests: "full" when
+    one needs the pipeline, else "plain" when one has a temperature, else
+    "greedy"."""
+    if any(r.sampling.needs_pipeline for r in reqs):
+        return "full"
+    if any(r.sampling.temperature > 0 for r in reqs):
+        return "plain"
+    return "greedy"
+
+
+def _replay_name(key) -> str:
+    has_chunk, mode = key
+    name = "chunk" if has_chunk else "decode"
+    return name if mode == "greedy" else f"{name}/{mode}"
 
 
 def _refuse(swap_space_bytes, shared_index, mesh):
@@ -196,16 +266,23 @@ class InferenceEngine:
                  debug_invariants: bool = False, seed: int = 0, params=None,
                  prefill_pack: int = 1, kv_dtype: str = "bf16",
                  draft_cfg: ModelConfig | None = None,
-                 num_speculative_tokens: int = 0,
+                 num_speculative_tokens: int = 0, draft_params=None,
+                 max_logprobs: int = 8, max_stop_len: int = 8,
                  swap_space_bytes: int = 0, shared_index=None, mesh=None,
                  cuda_graphs: bool | None = None):
         _refuse(swap_space_bytes, shared_index, mesh)
         if kv_dtype not in quant.KV_DTYPES:
             raise ValueError(
                 f"kv_dtype={kv_dtype!r} not in {sorted(quant.KV_DTYPES)}")
+        if num_speculative_tokens and draft_cfg is None:
+            draft_cfg = cfg          # self-speculation (a fresh draft unless
+            #                          draft_params shares the weights)
+        self.draft_cfg = draft_cfg
         self.runner = make_runner(                  # raises if unsupported
             cfg, draft_cfg=draft_cfg,
-            num_speculative_tokens=num_speculative_tokens)
+            num_speculative_tokens=num_speculative_tokens,
+            max_logprobs=max_logprobs)
+        spec = self.runner.spec_tokens
         self.cfg = cfg
         self.device = torch.device(device)
         on_card = self.device.type == "cuda"
@@ -216,16 +293,21 @@ class InferenceEngine:
                              "graphs need a CUDA device")
         self.block_size = block_size
         self.max_len = max_len
-        self.max_blocks_per_seq = -(-max_len // block_size)
+        # block-table rows widened past max_len by the speculative
+        # lookahead: a verify step writes up to spec positions past the
+        # context, even for a request that retires before using them
+        self.max_blocks_per_seq = -(-max_len // block_size) \
+            + -(-spec // block_size)
         if num_blocks is None:
-            # every slot can reach max_len; +1 trash block
+            # every slot can reach max_len (+ lookahead); +1 trash block
             num_blocks = max_batch * self.max_blocks_per_seq + 1
         if max_num_batched_tokens is None:
-            max_num_batched_tokens = max_batch + 2 * block_size
+            max_num_batched_tokens = max_batch * (1 + spec) + 2 * block_size
         self.max_num_batched_tokens = max_num_batched_tokens
         # fixed chunk width: a full decode batch plus a full chunk stay in
         # the budget, and no chunk is longer than max_len
-        self.chunk_width = min(max_num_batched_tokens - max_batch, max_len)
+        self.chunk_width = min(
+            max_num_batched_tokens - max_batch * (1 + spec), max_len)
         # packed prefill: several prompts' chunks share one flat row per
         # step, for runners that have a ragged prefill path
         if not self.runner.supports_packed_prefill:
@@ -241,33 +323,52 @@ class InferenceEngine:
         # prefix: only the paged transformer qualifies
         enable_prefix_caching = (enable_prefix_caching
                                  and self.runner.supports_prefix_caching)
+        # the full path's per-slot state, V_pad columns wide (the logit
+        # rows' width; ids past the vocabulary are never counted)
+        self.samp_buf = SamplingBuffer(max_batch, cfg.vocab_size,
+                                       width=cfg.padded_vocab_size,
+                                       max_stop_len=max_stop_len,
+                                       max_logprobs=max_logprobs)
         self.sched = Scheduler(self.bm, max_batch, self.max_blocks_per_seq,
                                max_num_batched_tokens, self.chunk_width,
                                enable_prefix_caching=enable_prefix_caching,
                                chunk_quantum=self.runner.chunk_quantum,
                                slot_cache=self.slot_cache,
-                               max_context=self.max_blocks_per_seq
-                               * block_size, prefill_pack=self.prefill_pack)
+                               max_context=-(-max_len // block_size)
+                               * block_size, prefill_pack=self.prefill_pack,
+                               spec_tokens=spec,
+                               sampling_buffer=self.samp_buf)
         self.max_batch = max_batch
         self.debug_invariants = debug_invariants
-        self.params = (init_model(cfg, seed, self.device) if params is None
-                       else params)
+        if params is None:
+            params = init_model(cfg, seed, self.device)
+        if draft_cfg is not None:
+            if draft_params is None:
+                draft_params = init_model(draft_cfg, seed + 1, self.device)
+            params = {"tgt": params, "dft": draft_params}
+        self.params = params
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
                                             max_batch, self.device, kv_dtype)
         self.inputs = StepInputs(step_input_shapes(
             max_batch, self.chunk_width, self.max_blocks_per_seq,
             self.prefill_pack), self.device)
-        self._tokens_host = torch.zeros(max_batch + self.prefill_pack,
-                                        dtype=torch.int32, pin_memory=on_card)
-        # the runner's step body on the step inputs: runner_body(has_chunk=)
-        # -> (logits (B + S, V_pad) fp32, greedy tokens (B + S,) int32)
+        self._full_area = None         # the full path's inputs, lazily
+        self._host_out = {}            # pinned host copies of the outputs
+        # the runner's step body on the step inputs: runner_body(has_chunk=,
+        # sampling=) -> {"logits", "tokens", ...} (runners.ModelRunner.step)
         self.runner_body = functools.partial(
             self.runner.step, self.params, self.cache, self.inputs.dev)
         self.graphs = (CompiledSteps(self.runner_body, self.inputs.null_step,
                                      self.device) if cuda_graphs else None)
-        kv_mib = (num_blocks * block_bytes(cfg, block_size, kv_dtype=kv_dtype)
-                  / 2 ** 20 if self.runner.needs_blocks else 0.0)
+        kv_mib = 0.0
+        if self.runner.needs_blocks:
+            kv_mib = num_blocks * block_bytes(cfg, block_size,
+                                              kv_dtype=kv_dtype)
+            if draft_cfg is not None:
+                kv_mib += num_blocks * block_bytes(draft_cfg, block_size,
+                                                   kv_dtype=kv_dtype)
+            kv_mib /= 2 ** 20
         slot_mib = (max_batch * slot_state_bytes(cfg) / 2 ** 20
                     if self.runner.needs_slots else 0.0)
         self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
@@ -275,6 +376,8 @@ class InferenceEngine:
                       "quantum_dropped_tokens": 0,
                       "cache_hit_tokens": 0, "cow_copies": 0,
                       "requests": 0, "requests_done": 0,
+                      "spec_decodes": 0, "spec_emitted": 0,
+                      "stop_hits": 0, "full_sampling_steps": 0,
                       "peak_block_utilization": 0.0, "peak_blocks_in_use": 0,
                       "latency": {},
                       # the JAX package's total: page pools + slot state
@@ -282,12 +385,18 @@ class InferenceEngine:
                       "slot_state_mib": round(slot_mib, 3),
                       "kv_dtype": kv_dtype,
                       "graph_captures": 0,
+                      # by (shape, mode): "decode", "chunk" (greedy),
+                      # "decode/plain", "chunk/full", ...
                       "graph_replays": {"chunk": 0, "decode": 0}}
         self.step_count = 0           # virtual clock: one step() = one tick
         self.hist = {"ttft_seconds": Histogram(SECONDS_BUCKETS),
                      "e2e_seconds": Histogram(SECONDS_BUCKETS),
                      "ttft_steps": Histogram(STEP_BUCKETS),
                      "e2e_steps": Histogram(STEP_BUCKETS)}
+        # streaming hooks: on_token(req, tok, logprobs) after every
+        # appended token, on_finish(req) after the request has retired
+        self.on_token = None
+        self.on_finish = None
 
     # -- derived stats -----------------------------------------------------
 
@@ -304,35 +413,58 @@ class InferenceEngine:
         n = self.stats["requests"]
         return self.stats["preemptions"] / n if n else 0.0
 
+    @property
+    def mean_accept_len(self) -> float:
+        """Tokens emitted per speculative decode slot-step (1.0: no draft
+        token survived; 1 + k is the cap); 0.0 before any."""
+        n = self.stats["spec_decodes"]
+        return self.stats["spec_emitted"] / n if n else 0.0
+
     # -- device helpers ----------------------------------------------------
 
     def _copy_block(self, src: int, dst: int) -> None:
         """The device half of a copy-on-write: pool row src -> dst in every
-        layer's pools (k, v and, when quantized, their scales), in place."""
-        for name in PAGE_POOLS:
-            if name in self.cache:
-                pool = self.cache[name]
-                pool[:, dst] = pool[:, src]
+        layer's pools (k, v and, when quantized, their scales) of every
+        pool set (a speculative engine's target and draft), in place."""
+        for pools in self.runner.pool_sets(self.cache):
+            for name in PAGE_POOLS:
+                if name in pools:
+                    pool = pools[name]
+                    pool[:, dst] = pool[:, src]
 
-    def _build_arrays(self, plan: StepPlan) -> dict:
+    def _full_inputs(self) -> None:
+        """Allocate the full path's input area at its first step (before
+        its graphs are captured: they read its buffers)."""
+        if self._full_area is None:
+            self._full_area = self.inputs.add(full_input_shapes(
+                self.max_batch + self.prefill_pack,
+                self.cfg.padded_vocab_size))
+
+    def _build_arrays(self, plan: StepPlan, mode: str = "greedy") -> None:
         """Fill the step inputs (``self.inputs``) for ``plan`` and upload
-        them. Returns the host sampling arrays, rows 0..B-1 the decode
-        slots and B.. the chunks."""
+        them: rows 0..B-1 of the sampling inputs are the decode slots,
+        B.. the chunks; in full mode also the full path's area."""
         B, S = self.max_batch, self.prefill_pack
+        full = mode == "full"
         self.inputs.reset()
+        if full:
+            self.inputs.reset(self._full_area)
         a = self.inputs.host
-        samp = {"temps": np.zeros(B + S, np.float32),
-                "top_ks": np.zeros(B + S, np.int32),
-                "seeds": np.zeros(B + S, np.int64),
-                "rids": np.zeros(B + S, np.int64),
-                "counters": np.zeros(B + S, np.int64)}
 
         def fill_samp(i, req):
-            samp["temps"][i] = req.sampling.temperature
-            samp["top_ks"][i] = req.sampling.top_k
-            samp["seeds"][i] = req.sampling.seed
-            samp["rids"][i] = req.rid
-            samp["counters"][i] = len(req.out)
+            sp = req.sampling
+            a["temps"][i] = sp.temperature
+            a["top_ks"][i] = sp.top_k
+            a["seeds"][i] = _i32(sp.seed)
+            a["rids"][i] = _i32(req.rid)
+            a["counters"][i] = len(req.out)
+            if full:
+                a["top_ps"][i] = sp.top_p
+                a["min_ps"][i] = sp.min_p
+                a["rep_pens"][i] = sp.repetition_penalty
+                a["pres_pens"][i] = sp.presence_penalty
+                a["freq_pens"][i] = sp.frequency_penalty
+                a["pmask"][i], a["ocounts"][i] = self.samp_buf.row(req.rid)
 
         for slot, req in plan.decodes:
             a["d_active"][slot] = True
@@ -370,40 +502,69 @@ class InferenceEngine:
             a["c_seq"][...], a["c_starts"][...], a["c_ends"][...] = \
                 seq, starts, ends
         self.inputs.upload()
-        return samp
+        if full:
+            self.inputs.upload(self._full_area)
 
-    def capture_graphs(self, shapes=(True, False)) -> None:
-        """Capture the step graphs of ``shapes`` (has_chunk values) that
-        have none yet: a server's start-up, instead of each shape's first
-        step. Nothing to do without graphs."""
+    def capture_graphs(self, shapes=(True, False), mode: str = "greedy"):
+        """Capture the step graphs of ``shapes`` (has_chunk values) in
+        sampling ``mode`` that have none yet: a server's start-up, instead
+        of each graph's first step. Nothing to do without graphs."""
         for has_chunk in shapes:
-            if self.graphs is not None and has_chunk not in self.graphs:
-                self.graphs.capture(has_chunk)
+            key = (has_chunk, mode)
+            if self.graphs is not None and key not in self.graphs:
+                if mode == "full":
+                    self._full_inputs()
+                self.graphs.capture(key)
                 self.stats["graph_captures"] += 1
 
-    def _forward(self, has_chunk: bool):
-        """The step body on the filled inputs: a replay of the shape's
-        graph, or the eager body without graphs."""
+    def _forward(self, has_chunk: bool, mode: str = "greedy") -> dict:
+        """The step body on the filled inputs: a replay of the (shape,
+        mode) graph, or the eager body without graphs."""
         if self.graphs is None:
-            return self.runner_body(has_chunk=has_chunk)
-        self.stats["graph_replays"]["chunk" if has_chunk else "decode"] += 1
-        return self.graphs.replay(has_chunk)
+            return self.runner_body(has_chunk=has_chunk, sampling=mode)
+        key = (has_chunk, mode)
+        rep = self.stats["graph_replays"]
+        rep[_replay_name(key)] = rep.get(_replay_name(key), 0) + 1
+        return self.graphs.replay(key)
 
-    def _run_step(self, plan: StepPlan) -> np.ndarray:
-        """One step of ``plan`` on the device: inputs, the body (captured
-        first if its shape has no graph yet), the temperature rows, one
-        device-to-host copy of the (B + S,) tokens."""
-        has_chunk = bool(plan.chunks)
-        self.capture_graphs((has_chunk,))
-        samp = self._build_arrays(plan)
-        logits, toks = self._forward(has_chunk)
-        if (samp["temps"] > 0).any():
-            draw_rows(logits, toks, samp["temps"], samp["top_ks"],
-                      samp["seeds"], samp["rids"], samp["counters"])
-        self._tokens_host.copy_(toks, non_blocking=True)
+    def _fetch(self, out: dict, names) -> dict:
+        """Device -> host of the step outputs ``names``: one asynchronous
+        copy each into pinned buffers, one synchronize; numpy views."""
+        host = {}
+        for name in names:
+            t = out[name]
+            buf = self._host_out.get(name)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype,
+                                  pin_memory=self.device.type == "cuda")
+                self._host_out[name] = buf
+            buf.copy_(t, non_blocking=True)
+            host[name] = buf.numpy()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        return self._tokens_host.numpy()
+        return host
+
+    def _run_step(self, plan: StepPlan) -> dict:
+        """One step of ``plan`` on the device: its mode, inputs, the body
+        (captured first if its (shape, mode) has no graph yet), one copy
+        of the outputs the host reads. Returns them as numpy arrays."""
+        has_chunk = bool(plan.chunks)
+        mode = _mode([r for _, r in plan.decodes]
+                     + [r for _, r, _ in plan.chunks])
+        if mode == "full":
+            self.stats["full_sampling_steps"] += 1
+            self._full_inputs()
+        self.capture_graphs((has_chunk,), mode)
+        self._build_arrays(plan, mode)
+        out = self._forward(has_chunk, mode)
+        names = ["tokens"]
+        if self.draft_cfg is not None:               # speculative
+            names += ["n_acc", "c_tokens"]
+        if mode == "full":
+            lp = [n for n in out if n.endswith(("chosen", "top_lp",
+                                                "top_ids"))]
+            names += lp
+        return self._fetch(out, names)
 
     # -- host-side step ----------------------------------------------------
 
@@ -427,14 +588,39 @@ class InferenceEngine:
         self.hist["e2e_seconds"].observe(
             rec["done_wall"] - rec["arrival_wall"])
 
-    def _append_token(self, slot: int, req: Request, tok: int) -> None:
+    @staticmethod
+    def _req_logprobs(req: Request, lp, idx):
+        """One emitted token's logprobs for ``on_token``:
+        {"token_logprob": float, "top": [(id, logprob), ...]} trimmed to
+        the request's ``logprobs``, or None when it asked for none (or the
+        step ran without the full path). ``lp`` maps "chosen", "top_lp"
+        and "top_ids" to host arrays; ``idx`` indexes their rows."""
+        n = req.sampling.logprobs
+        if lp is None or n <= 0:
+            return None
+        return {"token_logprob": float(lp["chosen"][idx]),
+                "top": [(int(t), float(v))
+                        for t, v in zip(lp["top_ids"][idx][:n],
+                                        lp["top_lp"][idx][:n])]}
+
+    def _append_token(self, slot: int, req: Request, tok: int,
+                      logprobs=None) -> None:
         req.out.append(tok)
+        self.samp_buf.commit(req.rid, tok)
         self.stats["tokens"] += 1
         rec = self._lat(req.rid)
         if "first_token_step" not in rec:
             rec.update(first_token_step=self.step_count,
                        first_token_wall=time.monotonic())
         self.sched.note_progress(req)
+        if (req.sampling.stop and not req.stop_hit
+                and len(req.out) >= req.min_new
+                and self.samp_buf.check_stop(req.rid, req.sampling.stop)
+                is not None):
+            req.stop_hit = True
+            self.stats["stop_hits"] += 1
+        if self.on_token is not None:
+            self.on_token(req, tok, logprobs)
         if req.done:
             rec.update(done_step=self.step_count, done_wall=time.monotonic())
             self._observe_latency(rec)
@@ -448,6 +634,15 @@ class InferenceEngine:
                         if len(lat) <= LATENCY_RECORD_CAP:
                             break
             self.sched.retire(slot)
+            if self.on_finish is not None:
+                self.on_finish(req)
+
+    @staticmethod
+    def _lp(out: dict, prefix: str = ""):
+        """The logprob arrays of ``out`` under ``prefix``, or None."""
+        if prefix + "chosen" not in out:
+            return None
+        return {n: out[prefix + n] for n in ("chosen", "top_lp", "top_ids")}
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -474,17 +669,44 @@ class InferenceEngine:
             if plan.admitted:
                 self.step_count += 1
             return plan.admitted > 0
-        nxt = self._run_step(plan)
-        for slot, req in plan.decodes:
-            req.num_computed += 1
-            self._append_token(slot, req, int(nxt[slot]))
+        out = self._run_step(plan)
+        B = self.max_batch
+        if "n_acc" in out:
+            toks, n_acc = out["tokens"], out["n_acc"]
+            chunk_toks, lp_d = out["c_tokens"], self._lp(out)
+            chunk_lp = self._lp(out, "c_")
+            for slot, req in plan.decodes:
+                self.stats["spec_decodes"] += 1
+                # the accepted draft prefix and the corrected (or bonus)
+                # token, cut short by retirement
+                for i in range(int(n_acc[slot]) + 1):
+                    req.num_computed += 1
+                    self.stats["spec_emitted"] += 1
+                    self._append_token(slot, req, int(toks[slot, i]),
+                                       self._req_logprobs(req, lp_d,
+                                                          (slot, i)))
+                    if req.done:
+                        break
+                if self.sched.running.get(slot) is req:
+                    # roll back the lookahead blocks of the rejected tail
+                    # (both models' pools: they share the block table)
+                    self.bm.truncate(req.rid, req.context_len)
+        else:
+            toks, lp = out["tokens"], self._lp(out)
+            chunk_toks = toks[B:]
+            chunk_lp = (None if lp is None
+                        else {n: v[B:] for n, v in lp.items()})
+            for slot, req in plan.decodes:
+                req.num_computed += 1
+                self._append_token(slot, req, int(toks[slot]),
+                                   self._req_logprobs(req, lp, slot))
         for ci, (slot, req, n) in enumerate(plan.chunks):
             req.num_computed += n
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
             if req.num_computed == req.context_len:
-                self._append_token(slot, req,
-                                   int(nxt[self.max_batch + ci]))
+                self._append_token(slot, req, int(chunk_toks[ci]),
+                                   self._req_logprobs(req, chunk_lp, ci))
             else:
                 self.sched.note_progress(req)
         self.stats["steps"] += 1
@@ -518,9 +740,12 @@ class InferenceEngine:
                     f"chunk would write shared block {t[j]}"
         for slot, req in plan.decodes:
             t = self.bm.table(req.rid)
-            p = req.context_len - 1
-            assert self.bm.refcount(t[p // bs]) == 1, \
-                f"decode would write shared block {t[p // bs]}"
+            # the decode (or the verify row) writes positions
+            # context_len - 1 .. context_len - 1 + spec: exclusively owned
+            for p in range(req.context_len - 1,
+                           req.context_len + plan.spec_tokens):
+                assert self.bm.refcount(t[p // bs]) == 1, \
+                    f"decode would write shared block {t[p // bs]}"
 
     def run(self, requests: list[Request],
             arrival_steps: list[int] | None = None) -> dict[int, np.ndarray]:
@@ -554,4 +779,6 @@ class InferenceEngine:
         self.stats["wall_s"] = round(dt, 3)
         self.stats["tok_s"] = round((self.stats["tokens"] - tok0)
                                     / max(dt, 1e-9), 1)
+        if self.stats["spec_decodes"]:
+            self.stats["mean_accept_len"] = round(self.mean_accept_len, 3)
         return {r.rid: np.asarray(r.out, np.int32) for r in requests}

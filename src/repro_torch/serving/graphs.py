@@ -1,12 +1,20 @@
-"""The engine's compiled steps: each step shape captured once as a CUDA
-graph and replayed (the port of the JAX engine's two jitted step
-executables, ``_step_chunk`` and ``_step_plain`` in
+"""The engine's compiled steps: each (step shape, sampling mode) captured
+once as a CUDA graph and replayed (the port of the JAX engine's jitted
+step executables: ``_step_chunk`` and ``_step_plain``, and the
+full-sampling pair ``_full_steps`` it compiles at first use, in
 ``repro.serving.engine``).
 
-A runner's step body has exactly two shapes per engine, with and without
-the chunk row, at fixed tensor shapes, and reads only device tensors. On
-the card :class:`CompiledSteps` captures each shape lazily, at its first
-step, as ``jax.jit`` compiles on first call, following PyTorch's recipe:
+A runner's step body has two shapes per engine, with and without the
+chunk row, at fixed tensor shapes, and three sampling modes
+(``runners.SAMPLING_MODES``): "greedy" (the argmax, no noise), "plain"
+(temperature and top-k rows drawn in the body) and "full" (the whole
+pipeline). The engine picks the mode on the host from the scheduled
+requests, a generalisation of the JAX engine's switch between its plain
+and full executables: a greedy step gets a graph that draws no noise,
+since the threefry noise of (B + S) x V_pad words costs real time. The
+body reads only device tensors. On the card :class:`CompiledSteps`
+captures each (shape, mode) lazily, at its first step, as ``jax.jit``
+compiles on first call, following PyTorch's recipe:
 
 1. a null step into the engine's input buffers (no decode slot active, an
    empty chunk that does not start its sequence), which changes no state
@@ -14,9 +22,9 @@ step, as ``jax.jit`` compiles on first call, following PyTorch's recipe:
 2. the body run eagerly ``WARMUP_STEPS`` times on a side stream on that
    null step, so that the kernels' first-use builds, their attribute
    calls and cuBLAS's lazy handles happen outside capture;
-3. the capture, into one memory pool shared by the engine's two graphs:
+3. the capture, into one memory pool shared by all the engine's graphs:
    they never run at once, and each graph's outputs are read right after
-   its own replay, before the other can reuse the memory.
+   its own replay, before another can reuse the memory.
 
 A capture that fails raises; nothing falls back to the eager body. The
 cyclic garbage collector is run before a capture and kept off during it:
@@ -26,7 +34,7 @@ stream captures, which invalidates the capture.
 Kernel wrappers count launches in Python, which a replay never runs. Each
 capture records the launches its body made (the counters' delta over the
 capture); a run's launches are then the counters' own (warm-up and
-capture) plus, per shape, replays x launches per capture
+capture) plus, per (shape, mode), replays x launches per capture
 (:func:`replayed_launches`).
 """
 
@@ -67,9 +75,9 @@ def launch_counts() -> Counter:
 
 
 def replayed_launches(per_capture: dict, replays: dict) -> Counter:
-    """Launches made by replays: for each shape, its replays times the
-    launches one capture of it recorded. ``per_capture``: {shape: {kernel:
-    launches}}; ``replays``: {shape: replays}."""
+    """Launches made by replays: for each graph key, its replays times the
+    launches one capture of it recorded. ``per_capture``: {key: {kernel:
+    launches}}; ``replays``: {key: replays}."""
     out = Counter()
     for shape, n in replays.items():
         for kernel, k in per_capture.get(shape, {}).items():
@@ -78,31 +86,33 @@ def replayed_launches(per_capture: dict, replays: dict) -> Counter:
 
 
 class CompiledSteps:
-    """One CUDA graph per step shape of one engine.
+    """One CUDA graph per (step shape, sampling mode) of one engine.
 
-    ``body(has_chunk=...)`` runs the step body on the engine's input
-    buffers and returns its outputs; ``null_step()`` fills those buffers
-    with a step that changes no state but the trash block. Neither may
-    hold the engine: the engine then stays free of reference cycles, and
-    its graphs (and their memory pool) go with its last reference. The
-    engine calls :meth:`capture` before it fills a shape's first real
-    inputs, then :meth:`replay` on every step of that shape."""
+    ``body(has_chunk=..., sampling=...)`` runs the step body on the
+    engine's input buffers and returns its outputs; ``null_step()`` fills
+    those buffers with a step that changes no state but the trash block.
+    Neither may hold the engine: the engine then stays free of reference
+    cycles, and its graphs (and their memory pool) go with its last
+    reference. The engine calls :meth:`capture` before it fills a key's
+    first real inputs, then :meth:`replay` on every step of that key. A
+    key is ``(has_chunk, mode)``."""
 
     def __init__(self, body, null_step, device):
         self.body = body
         self.null_step = null_step
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.graphs = {}                 # has_chunk -> CUDAGraph
-        self.outputs = {}                # has_chunk -> the body's outputs
-        self.launches = {}               # has_chunk -> Counter per replay
-        self.replays = Counter()         # has_chunk -> replays
+        self.graphs = {}                 # key -> CUDAGraph
+        self.outputs = {}                # key -> the body's outputs
+        self.launches = {}               # key -> Counter per replay
+        self.replays = Counter()         # key -> replays
 
-    def __contains__(self, has_chunk: bool) -> bool:
-        return has_chunk in self.graphs
+    def __contains__(self, key) -> bool:
+        return key in self.graphs
 
-    def capture(self, has_chunk: bool) -> None:
-        """Warm up on a null step, then capture the shape's graph."""
+    def capture(self, key) -> None:
+        """Warm up on a null step, then capture the key's graph."""
+        has_chunk, mode = key
         gc.collect()
         with torch.cuda.device(self.device), torch.no_grad():
             self.null_step()
@@ -111,30 +121,30 @@ class CompiledSteps:
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_STEPS):
-                    self.body(has_chunk=has_chunk)
+                    self.body(has_chunk=has_chunk, sampling=mode)
             main.wait_stream(side)
             g = torch.cuda.CUDAGraph(keep_graph=True)
             before = launch_counts()
             gc.disable()
             try:
                 with torch.cuda.graph(g, pool=self.pool):
-                    out = self.body(has_chunk=has_chunk)
+                    out = self.body(has_chunk=has_chunk, sampling=mode)
             finally:
                 gc.enable()
-            self.launches[has_chunk] = launch_counts() - before
+            self.launches[key] = launch_counts() - before
             g.instantiate()
             # the null step's upload has finished: the host may refill
             # the staging area
             torch.cuda.synchronize()
-        self.graphs[has_chunk] = g
-        self.outputs[has_chunk] = out
+        self.graphs[key] = g
+        self.outputs[key] = out
 
-    def replay(self, has_chunk: bool):
-        """Run the shape's graph on the current stream; returns its output
-        tensors (valid until the next replay of either shape)."""
-        self.graphs[has_chunk].replay()
-        self.replays[has_chunk] += 1
-        return self.outputs[has_chunk]
+    def replay(self, key):
+        """Run the key's graph on the current stream; returns its output
+        tensors (valid until the next replay of any key)."""
+        self.graphs[key].replay()
+        self.replays[key] += 1
+        return self.outputs[key]
 
     def run_launches(self) -> Counter:
         """Kernel launches made by this engine's replays so far."""

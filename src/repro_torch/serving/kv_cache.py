@@ -267,14 +267,32 @@ class BlockManager:
         t[idx] = new
         return new
 
+    def _drop(self, b: int) -> None:
+        self._ref[b] -= 1
+        if self._ref[b] == 0:
+            del self._ref[b]
+            self._free.append(b)
+
+    def truncate(self, rid: int, n_tokens: int) -> list[int]:
+        """Rewind rid's table to cover only ``n_tokens``, freeing the tail
+        (the speculative rollback of the lookahead a verify step reserved
+        past the accepted tokens). Dropped blocks follow ``free``: refcount
+        down, content hash kept while on the free list. Returns the freed
+        block ids, newest first."""
+        t = self._tables[rid]
+        keep = self.blocks_for(max(n_tokens, 0))
+        dropped = []
+        while len(t) > keep:
+            b = t.pop()
+            self._drop(b)
+            dropped.append(b)
+        return dropped
+
     def free(self, rid: int) -> None:
         """Drop rid's references. Freed blocks keep their content hash
         while on the free list, so they stay matchable until reused."""
         for b in self._tables.pop(rid):
-            self._ref[b] -= 1
-            if self._ref[b] == 0:
-                del self._ref[b]
-                self._free.append(b)
+            self._drop(b)
 
     def check(self) -> None:
         """Invariants: refcounts == table references, free list exact,

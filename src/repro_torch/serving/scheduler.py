@@ -19,12 +19,23 @@ limited by slots only. ``chunk_quantum`` rounds non-final chunks down to
 a multiple (SSM runners: the SSD chunk size, so chunked prefill groups
 the scan as a monolithic one does).
 
+With speculative decoding (``spec_tokens`` = k > 0) each decode slot
+costs ``1 + k`` budget tokens (the verify row) and its block horizon is
+ensured at ``context_len + 1 + k``; the engine rolls the rejected tail
+back with ``BlockManager.truncate`` after the step. A preemption victim's
+recompute chunk stops one token short of its stream, so that the verify
+step emits the final token again with the uninterrupted run's window
+alignment (temperature streams replay).
+
+A ``sampling_buffer`` (``sampling.SamplingBuffer``) validates each
+request's sampling parameters and is bound and released beside the slot
+cache.
+
 Pure host logic: the same requests give the same plans as the JAX
 package's scheduler (the port's tests compare them step by step).
 
-Not ported yet: speculative lookahead, swap preemption, cross-replica
-prefix adoption, the encoder cache and the full sampling surface
-(ROADMAP.md).
+Not ported yet: swap preemption, cross-replica prefix adoption and the
+encoder cache (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,30 +53,37 @@ _RID = itertools.count()
 
 @dataclass(frozen=True)
 class SamplingParams:
-    """Per-request sampling. This slice serves greedy (temperature 0) and
-    temperature/top-k; the other fields keep the JAX package's request
-    surface, and a request that sets any of them is refused."""
+    """Per-request sampling surface. Every default is an exact identity:
+    a request at the defaults draws the same tokens on the plain path
+    (greedy, temperature, top-k) and the full pipeline. ``stop`` holds
+    token-id sequences (tuples, so the dataclass stays hashable), matched
+    on the host against the request's most recent tokens."""
 
     temperature: float = 0.0       # 0 => greedy
     top_k: int = 0                 # 0 => no truncation
     seed: int = 0
-    top_p: float = 1.0
-    min_p: float = 0.0
+    top_p: float = 1.0             # 1.0 => no nucleus truncation
+    min_p: float = 0.0             # 0 => no min-p truncation
     repetition_penalty: float = 1.0
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
-    logprobs: int = 0
-    stop: tuple = ()
+    logprobs: int = 0              # top-N logprobs per token (0 = off)
+    stop: tuple = ()               # stop sequences: tuples of token ids
+
+    def __post_init__(self):
+        object.__setattr__(self, "stop", tuple(tuple(int(t) for t in s)
+                                               for s in self.stop))
 
     @property
     def needs_pipeline(self) -> bool:
         """True when sampling needs the full pipeline (penalties, top-p,
-        min-p, logprobs, stop), which this slice does not serve."""
+        min-p, logprobs). Stop sequences and min_new are host checks and
+        do not force it."""
         return (self.top_p < 1.0 or self.min_p > 0.0
                 or self.repetition_penalty != 1.0
                 or self.presence_penalty != 0.0
                 or self.frequency_penalty != 0.0
-                or self.logprobs > 0 or bool(self.stop))
+                or self.logprobs > 0)
 
 
 @dataclass
@@ -74,7 +92,11 @@ class Request:
     max_new: int = 16
     sampling: SamplingParams = field(default_factory=SamplingParams)
     eos_id: int | None = None
-    min_new: int = 0                        # EOS ignored before this many
+    # EOS and stop sequences are ignored until min_new tokens exist
+    min_new: int = 0
+    # set by the engine when a stop sequence matched the output's tail;
+    # host state on the request, so it survives preemption like ``out``
+    stop_hit: bool = False
     rid: int = field(default_factory=lambda: next(_RID))
     out: list[int] = field(default_factory=list)
     num_computed: int = 0                   # prefill_tokens() with KV cached
@@ -88,6 +110,8 @@ class Request:
             return True
         if len(self.out) < self.min_new:
             return False
+        if self.stop_hit:
+            return True
         return bool(self.out) and self.eos_id is not None \
             and self.out[-1] == self.eos_id
 
@@ -117,6 +141,8 @@ class StepPlan:
     chunks: list[tuple[int, Request, int]]
     copies: list[tuple[int, int]]                 # device page copies (COW)
     admitted: int = 0                             # waiting -> running joins
+    # speculative lookahead: each decode costs 1 + spec_tokens positions
+    spec_tokens: int = 0
 
     @property
     def chunk(self) -> tuple[int, Request, int] | None:
@@ -125,7 +151,8 @@ class StepPlan:
 
     @property
     def scheduled_tokens(self) -> int:
-        return len(self.decodes) + sum(c[2] for c in self.chunks)
+        return (len(self.decodes) * (1 + self.spec_tokens)
+                + sum(c[2] for c in self.chunks))
 
 
 class Scheduler:
@@ -141,12 +168,14 @@ class Scheduler:
                  max_blocks_per_seq: int, max_num_batched_tokens: int,
                  chunk_width: int, *, enable_prefix_caching: bool = True,
                  chunk_quantum: int = 1, slot_cache=None,
-                 max_context: int | None = None, prefill_pack: int = 1):
-        if max_num_batched_tokens <= max_batch:
+                 max_context: int | None = None, prefill_pack: int = 1,
+                 spec_tokens: int = 0, sampling_buffer=None):
+        if max_num_batched_tokens <= max_batch * (1 + spec_tokens):
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
-                f"exceed max_batch={max_batch} (a prefill chunk needs "
-                "leftover budget)")
+                f"exceed max_batch={max_batch} x (1 + spec_tokens="
+                f"{spec_tokens}) (each decode slot costs a 1 + k wide "
+                "verify row; a prefill chunk needs leftover budget)")
         if chunk_width < chunk_quantum:
             raise ValueError(
                 f"chunk_width={chunk_width} below chunk_quantum="
@@ -161,6 +190,9 @@ class Scheduler:
         self.chunk_width = chunk_width
         self.chunk_quantum = chunk_quantum
         self.slot_cache = slot_cache
+        self.spec_tokens = spec_tokens
+        # per-slot sampling state, bound at admission like the slot cache
+        self.sampling_buffer = sampling_buffer
         if max_context is None and bm is not None:
             max_context = max_blocks_per_seq * bm.block_size
         self.max_context = max_context           # None: no horizon (slots)
@@ -184,14 +216,12 @@ class Scheduler:
     # -- submission -------------------------------------------------------
 
     def validate(self, req: Request) -> None:
-        """Reject at submission what this slice cannot serve: a horizon
-        past the block-table capacity, or the full sampling surface.
-        Slot state is constant-size: without blocks there is no horizon."""
-        if req.sampling.needs_pipeline:
-            raise NotImplementedError(
-                f"request {req.rid}: top-p / min-p / penalties / logprobs / "
-                "stop sequences are not ported yet (ROADMAP.md queue 1 "
-                "item 5)")
+        """Reject at submission sampling parameters no path serves (the
+        sampling buffer's checks) and a horizon past the block-table
+        capacity. Slot state is constant-size: without blocks there is no
+        horizon."""
+        if self.sampling_buffer is not None:
+            self.sampling_buffer.validate(req)
         if self.bm is None:
             return
         horizon = len(req.prompt) + req.max_new
@@ -217,7 +247,8 @@ class Scheduler:
         self._ensure_decode_capacity()
         decodes = [(s, r) for s, r in sorted(self.running.items())
                    if r.decode_ready]
-        budget_left = self.max_num_batched_tokens - len(decodes)
+        budget_left = self.max_num_batched_tokens \
+            - len(decodes) * (1 + self.spec_tokens)
 
         admitted = 0
         pres = [(s, r) for s, r in sorted(self.running.items())
@@ -235,6 +266,11 @@ class Scheduler:
             if budget_left <= 0 or width_left <= 0:
                 break
             remaining = req.context_len - req.num_computed
+            if self.spec_tokens and req.out:
+                # a speculative recompute stops one token short: the verify
+                # step emits the final token again, so the rejection-
+                # sampling windows stay aligned with the uninterrupted run
+                remaining -= 1
             want = min(budget_left, width_left, remaining)
             n = self._quantize(want, remaining)
             # a remainder below one quantum rolls into the next chunk's
@@ -249,7 +285,7 @@ class Scheduler:
                 width_left -= n
         self.quantum_dropped_tokens += pending_q_loss
         return StepPlan(decodes=decodes, chunks=chunks, copies=copies,
-                        admitted=admitted)
+                        admitted=admitted, spec_tokens=self.spec_tokens)
 
     def _quantize(self, n: int, remaining: int) -> int:
         """Round a non-final chunk down to the chunk quantum. A prompt's
@@ -259,16 +295,17 @@ class Scheduler:
         return n
 
     def _ensure_decode_capacity(self) -> None:
-        """Every decode-ready request must own blocks for context_len + 1;
-        preempt the newest requests until the survivors fit. Slot state
-        is constant-size: without blocks decode never runs out."""
+        """Every decode-ready request must own blocks for context_len + 1
+        plus the ``spec_tokens`` lookahead positions the verify row may
+        write; preempt the newest requests until the survivors fit. Slot
+        state is constant-size: without blocks decode never runs out."""
         if self.bm is None:
             return
         for slot in list(self._join_order):             # oldest first
             req = self.running.get(slot)
             if req is None or not req.decode_ready:
                 continue
-            horizon = req.context_len + 1
+            horizon = req.context_len + 1 + self.spec_tokens
             while not self.bm.ensure(req.rid, horizon):
                 victim_slot = self._pick_victim()       # newest running
                 if victim_slot == slot and len(self.running) == 1 and \
@@ -349,6 +386,8 @@ class Scheduler:
         slot = self.free_slots()[0]
         self.running[slot] = req
         self._join_order.append(slot)
+        if self.sampling_buffer is not None:
+            self.sampling_buffer.bind(req, slot)
         if self.slot_cache is not None:
             self.slot_cache.allocate(req.rid, slot)
         return slot, req
@@ -381,6 +420,8 @@ class Scheduler:
             self.bm.free(req.rid)
         if self.slot_cache is not None:
             self.slot_cache.free(req.rid)
+        if self.sampling_buffer is not None:
+            self.sampling_buffer.free(req.rid)
 
     def _preempt(self, slot: int) -> Request:
         """Evict one running request: blocks freed hash-retained, its slot

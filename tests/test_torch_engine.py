@@ -187,11 +187,36 @@ def test_latency_records_stay_bounded(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"num_speculative_tokens": 2}, {"swap_space_bytes": 1 << 20},
+    {"swap_space_bytes": 1 << 20},
     {"shared_index": object()}, {"mesh": object()}])
 def test_engine_refuses_unported_options(setup, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(setup, **kw)
+
+
+@pytest.mark.parametrize("target,draft,k,match", [
+    ("mamba2_370m", "glm4_9b", 2, "paged-transformer target and draft"),
+    ("glm4_9b", "zamba2_2p7b", 2, "paged-transformer target and draft"),
+    ("glm4_9b", "glm4_9b:v300", 2, "draft vocab 300 != target vocab"),
+    ("glm4_9b", "glm4_9b", -1, "spec_tokens=-1"),
+])
+def test_make_runner_refuses_bad_pairs(target, draft, k, match):
+    """make_runner refuses the speculative pairs the reference refuses: a
+    target or draft that is not a paged transformer, a vocabulary
+    mismatch, a negative k. A good pair (a self-draft, with k or with a
+    draft config alone) gives a SpeculativeRunner."""
+    import dataclasses
+    from repro_torch.serving.runners import SpeculativeRunner, make_runner
+    arch, _, vocab = draft.partition(":v")
+    dcfg = get_config(arch, smoke=True)
+    if vocab:
+        dcfg = dataclasses.replace(dcfg, vocab_size=int(vocab))
+    with pytest.raises(ValueError, match=match):
+        make_runner(get_config(target, smoke=True), draft_cfg=dcfg,
+                    num_speculative_tokens=k)
+    cfg = get_config("glm4_9b", smoke=True)
+    for kw in ({"num_speculative_tokens": 2}, {"draft_cfg": cfg}):
+        assert type(make_runner(cfg, **kw)) is SpeculativeRunner
 
 
 def test_serve_cli_runs_on_cpu(capsys):

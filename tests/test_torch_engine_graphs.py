@@ -1,22 +1,24 @@
 """The engine's compiled-step contract on the CPU, at smoke size.
 
-On the card the engine captures each runner's two step shapes as CUDA
-graphs (``repro_torch.serving.graphs``); the CPU runs the same body
-eagerly. What makes the body capturable is held here:
+On the card the engine captures each runner's step shapes, in each
+sampling mode, as CUDA graphs (``repro_torch.serving.graphs``); the CPU
+runs the same body eagerly. What makes the body capturable is held here:
 
 * each runner's step body (glm4_9b at prefill_pack 1 and 4, mamba2_370m,
-  zamba2_2p7b; with and without the chunk row), on inputs built by the
-  engine's ``_build_arrays``, runs under ``FakeTensorMode``, which raises
-  on any read of a tensor's values by the host;
+  zamba2_2p7b, and the speculative runner; with and without the chunk
+  row; greedy, plain and full sampling), on inputs built by the engine's
+  ``_build_arrays``, runs under ``FakeTensorMode``, which raises on any
+  read of a tensor's values by the host;
 * the step inputs keep their addresses across steps;
 * the slot-state chunk, its slot given as a device tensor, writes only
   its own slot row and reads zeros when it is fresh; idle decode slots
   keep their state;
 * the null step that warms a capture up changes no cache byte outside
-  the trash block;
+  the trash block, in every mode and in both pool sets of the
+  speculative runner;
 * ``cuda_graphs=True`` on the CPU raises;
 * the replay-aware launch count (launches per capture x replays);
-* the temperature draws, now after the body, give ``sample_tokens``'
+* the temperature draws, made inside the body, give ``sample_tokens``'
   tokens.
 
 The greedy and near-tie comparisons against the JAX engine, and chunked
@@ -38,25 +40,48 @@ from repro_torch.models.transformer import PAGE_POOLS
 from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving import graphs
 from repro_torch.serving.kv_cache import TRASH_BLOCK
-from repro_torch.serving.sampling import draw_rows, sample_tokens
+from repro_torch.serving.runners import SAMPLING_MODES
+from repro_torch.serving.sampling import sample_tokens
+from repro_torch.serving.scheduler import SamplingParams
 
-# (arch, prefill_pack, kv_dtype)
-RUNNERS = [("glm4_9b", 1, "bf16"), ("glm4_9b", 4, "int8"),
-           ("mamba2_370m", 1, "bf16"), ("zamba2_2p7b", 1, "bf16")]
+# (arch, prefill_pack, kv_dtype, speculative tokens)
+RUNNERS = [("glm4_9b", 1, "bf16", 0), ("glm4_9b", 4, "int8", 0),
+           ("mamba2_370m", 1, "bf16", 0), ("zamba2_2p7b", 1, "bf16", 0),
+           ("glm4_9b", 1, "bf16", 2), ("glm4_9b", 4, "bf16", 2)]
 SMALL = dict(max_batch=2, block_size=16, max_len=96,
              max_num_batched_tokens=2 + 16)
+# requests whose steps run each sampling mode
+MODE_PARAMS = {"greedy": SamplingParams(),
+               "plain": SamplingParams(temperature=0.8, top_k=5, seed=1),
+               "full": SamplingParams(temperature=0.8, top_p=0.9,
+                                      repetition_penalty=1.2, logprobs=2)}
 
 
-def _engine(arch, pack=1, kv="bf16", **kw):
+def _engine(arch, pack=1, kv="bf16", spec=0, **kw):
     cfg = get_config(arch, smoke=True)
+    budget = {"max_num_batched_tokens": 2 * (1 + spec) + 16}
     return InferenceEngine(cfg, device="cpu", prefill_pack=pack,
-                           kv_dtype=kv, **{**SMALL, **kw})
+                           kv_dtype=kv, num_speculative_tokens=spec,
+                           **{**SMALL, **budget, **kw})
 
 
-def _requests(eng, n=3, length=20, max_new=4, seed=0):
+def _requests(eng, n=3, length=20, max_new=4, seed=0, sampling=None):
     rng = np.random.default_rng(seed)
+    sp = sampling or SamplingParams()
     return [Request(rng.integers(0, eng.cfg.vocab_size, length)
-                    .astype(np.int32), max_new=max_new) for _ in range(n)]
+                    .astype(np.int32), max_new=max_new, sampling=sp)
+            for _ in range(n)]
+
+
+def _cache_leaves(eng):
+    """(name, tensor) of every cache tensor, the speculative runner's two
+    pool sets flattened as "tgt/k", "dft/v", ..."""
+    for key, val in eng.cache.items():
+        if isinstance(val, dict):
+            for name, t in val.items():
+                yield f"{key}/{name}", t
+        else:
+            yield key, val
 
 
 def _tree(fn, x):
@@ -70,7 +95,7 @@ def _tree(fn, x):
 def _random_cache(eng, seed=0):
     """Fill every cache tensor with random values (in place)."""
     g = torch.Generator().manual_seed(seed)
-    for t in eng.cache.values():
+    for _, t in _cache_leaves(eng):
         if t.dtype.is_floating_point and t.element_size() > 1:
             t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
         else:
@@ -80,42 +105,77 @@ def _random_cache(eng, seed=0):
 
 
 def _snapshot(eng):
-    return {k: v.clone() for k, v in eng.cache.items()}
+    return {k: v.clone() for k, v in _cache_leaves(eng)}
 
 
+def _ids(r):
+    return "-".join(map(str, r))
+
+
+def _expected_outputs(eng, mode):
+    """{name: (shape, dtype)} of the body's outputs in ``mode``."""
+    B, S = eng.max_batch, eng.prefill_pack
+    V_pad, L = eng.cfg.padded_vocab_size, eng.runner.max_logprobs
+    k = eng.runner.spec_tokens
+    f32, i32 = torch.float32, torch.int32
+    if eng.draft_cfg is None:
+        out = {"logits": ((B + S, V_pad), f32), "tokens": ((B + S,), i32)}
+        lp = {"chosen": ((B + S,), f32), "top_lp": ((B + S, L), f32),
+              "top_ids": ((B + S, L), i32)}
+    else:
+        out = {"logits": ((B * (k + 1) + S, V_pad), f32),
+               "tokens": ((B, k + 1), i32), "n_acc": ((B,), i32),
+               "c_tokens": ((S,), i32)}
+        lp = {"chosen": ((B, k + 1), f32), "top_lp": ((B, k + 1, L), f32),
+              "top_ids": ((B, k + 1, L), i32), "c_chosen": ((S,), f32),
+              "c_top_lp": ((S, L), f32), "c_top_ids": ((S, L), i32)}
+    return {**out, **lp} if mode == "full" else out
+
+
+class _Seen(Exception):
+    """Raised once the faked body has run in the wanted shape and mode."""
+
+
+@pytest.mark.parametrize("mode", SAMPLING_MODES)
 @pytest.mark.parametrize("has_chunk", [False, True])
-@pytest.mark.parametrize("runner", RUNNERS, ids=lambda r: "-".join(map(
-    str, r)))
-def test_step_body_reads_no_host_value(runner, has_chunk):
+@pytest.mark.parametrize("runner", RUNNERS, ids=_ids)
+def test_step_body_reads_no_host_value(runner, has_chunk, mode):
     """The body on the inputs ``_build_arrays`` gave a real step of that
-    shape, every tensor fake: a host read of a value would raise."""
-    arch, pack, kv = runner
-    eng = _engine(arch, pack, kv)
+    shape and sampling mode, every tensor fake: a host read of a value
+    would raise."""
+    arch, pack, kv, spec = runner
+    eng = _engine(arch, pack, kv, spec)
     body, seen = eng.runner_body, []
+    heads = [n for n in ("head", "draft_head")
+             if getattr(eng.runner, n, None) is not None]
 
-    def faked(*, has_chunk):
-        if has_chunk == want and not seen:
-            mode = FakeTensorMode()
-            fake = lambda t: mode.from_tensor(t)          # noqa: E731
+    def faked(*, has_chunk, sampling):
+        if (has_chunk, sampling) == (want, mode) and not seen:
+            fmode = FakeTensorMode()
+            fake = lambda t: fmode.from_tensor(t)         # noqa: E731
             fp, fc, fa = (_tree(fake, x) for x in (eng.params, eng.cache,
                                                    eng.inputs.dev))
-            head, eng.runner.head = eng.runner.head, fake(eng.runner.head)
+            real = {n: getattr(eng.runner, n) for n in heads}
+            for n in heads:
+                setattr(eng.runner, n, fake(real[n]))
             try:
-                with mode:
-                    logits, toks = eng.runner.step(fp, fc, fa,
-                                                   has_chunk=has_chunk)
+                with fmode:
+                    out = eng.runner.step(fp, fc, fa, has_chunk=has_chunk,
+                                          sampling=sampling)
             finally:
-                eng.runner.head = head
-            seen.append((tuple(logits.shape), logits.dtype,
-                         tuple(toks.shape), toks.dtype))
-        return body(has_chunk=has_chunk)
+                for n in heads:
+                    setattr(eng.runner, n, real[n])
+            seen.append({n: (tuple(t.shape), t.dtype)
+                         for n, t in out.items()})
+            raise _Seen                    # the rest of the run adds nothing
+        return body(has_chunk=has_chunk, sampling=sampling)
 
     want = has_chunk
     eng.runner_body = faked
-    eng.run(_requests(eng, n=3, length=20, max_new=4))
-    rows = eng.max_batch + eng.prefill_pack
-    V_pad = eng.runner.head.shape[0]
-    assert seen == [((rows, V_pad), torch.float32, (rows,), torch.int32)]
+    with pytest.raises(_Seen):
+        eng.run(_requests(eng, n=3, length=20, max_new=4,
+                          sampling=MODE_PARAMS[mode]))
+    assert seen == [_expected_outputs(eng, mode)]
 
 
 @pytest.mark.parametrize("pack", [1, 4])
@@ -125,10 +185,10 @@ def test_step_inputs_keep_their_addresses(pack):
     eng = _engine("glm4_9b", pack)
     body, ptrs = eng.runner_body, []
 
-    def recorded(*, has_chunk):
+    def recorded(*, has_chunk, sampling):
         ptrs.append({k: (v.data_ptr(), tuple(v.shape))
                      for k, v in body.args[2].items()})
-        return body(has_chunk=has_chunk)
+        return body(has_chunk=has_chunk, sampling=sampling)
 
     eng.runner_body = recorded
     first = {k: (v.data_ptr(), tuple(v.shape))
@@ -152,7 +212,7 @@ def _slot_chunk(eng, slot, start, n, seed=1):
         a["c_table"][0, :nb] = np.arange(1, nb + 1)
     eng.inputs.upload()
     with torch.no_grad():
-        return eng.runner_body(has_chunk=True)
+        return eng.runner_body(has_chunk=True)["logits"]
 
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2p7b"])
@@ -171,12 +231,12 @@ def test_slot_chunk_on_device_index(arch):
         assert not torch.equal(eng.cache[key][:, 1], before[key][:, 1])
 
     _random_cache(eng, seed=2)
-    logits_r, _ = _slot_chunk(eng, slot=1, start=0, n=8)
+    logits_r = _slot_chunk(eng, slot=1, start=0, n=8)
     got = {k: eng.cache[k][:, 1].clone() for k in ("conv", "ssm")}
     others = {k: eng.cache[k][:, [0, 2]].clone() for k in ("conv", "ssm")}
     for key in ("conv", "ssm"):
         eng.cache[key][:, 1].zero_()
-    logits_z, _ = _slot_chunk(eng, slot=1, start=0, n=8)
+    logits_z = _slot_chunk(eng, slot=1, start=0, n=8)
     B = eng.max_batch
     assert torch.equal(logits_r[B], logits_z[B])
     for key in ("conv", "ssm"):
@@ -184,21 +244,24 @@ def test_slot_chunk_on_device_index(arch):
         assert torch.equal(eng.cache[key][:, [0, 2]], others[key])
 
 
-@pytest.mark.parametrize("runner", RUNNERS, ids=lambda r: "-".join(map(
-    str, r)))
+@pytest.mark.parametrize("runner", RUNNERS, ids=_ids)
 def test_null_step_changes_only_the_trash_block(runner):
-    """The capture's warm-up step, in both shapes, on random caches: every
-    slot-state row and every page but the trash block keep their bits."""
-    arch, pack, kv = runner
-    eng = _engine(arch, pack, kv)
+    """The capture's warm-up step, in both shapes and every sampling mode,
+    on random caches: every slot-state row and every page but the trash
+    block (of both pool sets, for the speculative runner) keep their
+    bits."""
+    arch, pack, kv, spec = runner
+    eng = _engine(arch, pack, kv, spec)
+    eng._full_inputs()                  # the full mode's input area
     _random_cache(eng)
     before = _snapshot(eng)
     for has_chunk in (False, True):
-        eng.inputs.null_step()
-        with torch.no_grad():
-            eng.runner_body(has_chunk=has_chunk)
-    for key, t in eng.cache.items():
-        if key in PAGE_POOLS:
+        for mode in SAMPLING_MODES:
+            eng.inputs.null_step()
+            with torch.no_grad():
+                eng.runner_body(has_chunk=has_chunk, sampling=mode)
+    for key, t in _cache_leaves(eng):
+        if key.split("/")[-1] in PAGE_POOLS:
             keep = [b for b in range(t.shape[1]) if b != TRASH_BLOCK]
             t, ref = t[:, keep], before[key][:, keep]
         else:
@@ -252,18 +315,30 @@ def test_launch_counts_read_every_wrapper(monkeypatch):
 
 
 def test_draws_after_the_body_equal_sample_tokens():
-    """The engine's order (greedy argmax in the body, temperature rows
-    drawn after it) gives sample_tokens' tokens; greedy rows keep their
-    argmax."""
-    rng = np.random.default_rng(3)
-    logits = torch.tensor(rng.normal(0, 3, (6, 50)), dtype=torch.float32)
-    temps = np.array([0, 0.7, 0, 1.3, 0.2, 0], np.float32)
-    top_ks = np.array([0, 5, 0, 0, 3, 0], np.int32)
-    seeds, rids = np.arange(6) + 10, np.arange(6) + 100
-    counters = np.array([0, 3, 1, 7, 2, 0])
-    want = sample_tokens(logits, temps, top_ks, seeds, rids, counters)
-    toks = torch.argmax(logits, dim=-1).to(torch.int32)
-    greedy = toks.clone()
-    draw_rows(logits, toks, temps, top_ks, seeds, rids, counters)
-    assert torch.equal(toks, want)
-    assert torch.equal(toks[temps == 0], greedy[temps == 0])
+    """The draw now happens inside the body: in a real engine run with
+    greedy and temperature rows, every plain-mode body's tokens equal
+    ``sample_tokens`` on its own logits and sampling inputs, and its
+    greedy rows the argmax."""
+    eng = _engine("glm4_9b", max_batch=3)
+    body, checked = eng.runner_body, []
+
+    def recorded(*, has_chunk, sampling):
+        out = body(has_chunk=has_chunk, sampling=sampling)
+        if sampling == "plain":
+            a = eng.inputs.dev
+            want = sample_tokens(out["logits"], a["temps"], a["top_ks"],
+                                 a["seeds"], a["rids"], a["counters"])
+            assert torch.equal(out["tokens"], want)
+            greedy = a["temps"] <= 0
+            assert torch.equal(out["tokens"][greedy],
+                               out["logits"][greedy].argmax(-1).int())
+            checked.append(bool((~greedy).any()))
+        return out
+
+    eng.runner_body = recorded
+    reqs = _requests(eng, n=4, length=20, max_new=5)
+    for i in (1, 2):
+        reqs[i].sampling = SamplingParams(temperature=0.5 + i / 4,
+                                          top_k=4 * i, seed=i)
+    eng.run(reqs)
+    assert len(checked) >= 5 and all(checked)

@@ -5,13 +5,14 @@ package, so on a machine with a card and without jax it runs alone:
 
   PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_engine_graphs_cuda.py
 
-Graph and eager run one step body on the same inputs, so greedy tokens
-must be byte-identical (no tolerance): glm4_9b (head dim 16 at smoke
-size, the paged kernels' hd-16 route), mamba2_370m and zamba2_2p7b, an
-int8 pool with prefill_pack 4, a run that preempts, and a temperature
-run whose draws replay. Each graph engine captures at most two graphs
-and replays every step. The slot-state chunk's invariants hold under
-replay.
+Graph and eager run one step body on the same inputs, so tokens (and
+logprobs) must be byte-identical (no tolerance): glm4_9b (head dim 16 at
+smoke size, the paged kernels' hd-16 route), mamba2_370m and zamba2_2p7b,
+an int8 pool with prefill_pack 4, a run that preempts, a temperature run
+whose draws replay, every sampling mode (greedy, plain, full) on every
+runner, and the speculative runner in each mode. Each graph engine
+captures at most one graph per (shape, mode) and replays every step. The
+slot-state chunk's invariants hold under replay.
 """
 
 import numpy as np
@@ -41,25 +42,44 @@ def _prompts(cfg, n, length, seed):
             for _ in range(n)]
 
 
-def _both(arch, prompts, arrivals=None, max_new=12, sampling=None, **kw):
+def _modes(sampling):
+    """The sampling modes a step over these requests can run in."""
+    return {"full" if sp.needs_pipeline else
+            "plain" if sp.temperature > 0 else "greedy" for sp in sampling}
+
+
+def _both(arch, prompts, arrivals=None, max_new=12, sampling=None,
+          logprobs=None, **kw):
     """The same requests through a graph engine and an eager one, same
-    weights. Returns (graph tokens, eager tokens, graph engine)."""
+    weights. ``sampling``: one SamplingParams for all, or one per request.
+    Returns (graph tokens, eager tokens, graph engine); with a
+    ``logprobs`` dict, fills it with each run's logprobs by graphs."""
     cfg = get_config(arch, smoke=True)
     params = init_model(cfg, 0, "cuda")
+    if not isinstance(sampling, (list, tuple)):
+        sampling = [sampling or SamplingParams()] * len(prompts)
     outs = {}
     for graphs in (True, False):
         eng = InferenceEngine(cfg, device="cuda", params=params,
                               cuda_graphs=graphs, debug_invariants=True,
                               **kw)
-        reqs = [Request(p.copy(), max_new=max_new, rid=100 + i,
-                        sampling=sampling or SamplingParams())
-                for i, p in enumerate(prompts)]
+        reqs = [Request(p.copy(), max_new=max_new, rid=100 + i, sampling=sp)
+                for i, (p, sp) in enumerate(zip(prompts, sampling))]
+        seen = []
+        eng.on_token = lambda r, t, lp: seen.append((r.rid, t, lp))
         got = eng.run(reqs, arrival_steps=arrivals)
         outs[graphs] = [got[r.rid].tolist() for r in reqs]
+        if logprobs is not None:
+            logprobs[graphs] = seen
         if graphs:
             graph_eng = eng
             s = eng.stats
-            assert 1 <= s["graph_captures"] <= 2
+            # one graph per (shape, mode), of the modes the requests need
+            # only (greedy requests: the greedy pair)
+            used = {m for _, m in eng.graphs.graphs}
+            assert used <= _modes(sampling)
+            assert 1 <= s["graph_captures"] == len(eng.graphs.graphs) \
+                <= 2 * len(used)
             assert sum(s["graph_replays"].values()) == s["steps"]
         else:
             assert eng.graphs is None and eng.stats["graph_captures"] == 0
@@ -119,7 +139,7 @@ def test_cuda_graph_captured_up_front():
 
 
 def test_cuda_graph_temperature_replays():
-    """Temperature rows are drawn after the replay from its logits: the
+    """Temperature rows are drawn inside the replay (jax's streams): the
     same draws as eager, and the same again in a second graph run."""
     _card()
     cfg = get_config("glm4_9b", smoke=True)
@@ -139,7 +159,7 @@ def test_cuda_graph_slot_chunk_invariants(arch):
     cfg = get_config(arch, smoke=True)
     eng = InferenceEngine(cfg, device="cuda", max_batch=3, block_size=16,
                           max_len=96, max_num_batched_tokens=3 + 16)
-    eng.graphs.capture(True)
+    eng.graphs.capture((True, "greedy"))
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randomize():
@@ -155,7 +175,7 @@ def test_cuda_graph_slot_chunk_invariants(arch):
         if eng.bm is not None:
             a["c_table"][0, :2] = [1, 2]
         eng.inputs.upload()
-        logits, _ = eng.graphs.replay(True)
+        logits = eng.graphs.replay((True, "greedy"))["logits"]
         torch.cuda.synchronize()
         return logits[eng.max_batch].clone()
 
@@ -173,3 +193,43 @@ def test_cuda_graph_slot_chunk_invariants(arch):
     assert torch.equal(chunk(0), lg_r)
     for key in ("conv", "ssm"):
         assert torch.equal(eng.cache[key][:, 1], state[key])
+
+
+MIXED = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20, seed=5),
+         SamplingParams(temperature=0.7, top_p=0.9, min_p=0.05,
+                        repetition_penalty=1.2, presence_penalty=0.3,
+                        frequency_penalty=0.2, logprobs=3, seed=9)]
+
+
+@pytest.mark.parametrize("arch", ["glm4_9b", "mamba2_370m", "zamba2_2p7b"])
+def test_cuda_graph_equals_eager_every_mode(arch):
+    """Greedy, temperature and full-pipeline requests arriving apart, so
+    steps run in each mode: tokens and logprobs byte-identical, one graph
+    per (shape, mode) used."""
+    _card()
+    cfg = get_config(arch, smoke=True)
+    prompts = _prompts(cfg, 3, 27, 6)
+    lps = {}
+    g, e, eng = _both(arch, prompts, [0, 4, 9], sampling=MIXED,
+                      logprobs=lps, **SMALL)
+    assert g == e and lps[True] == lps[False]
+    modes = {k[1] for k in eng.graphs.graphs}
+    assert modes == {"greedy", "plain", "full"}
+    assert eng.stats["full_sampling_steps"] > 0
+
+
+@pytest.mark.parametrize("sampling", [0, 1, 2], ids=["greedy", "plain",
+                                                       "full"])
+def test_cuda_graph_speculative_equals_eager(sampling):
+    """The speculative runner (k = 2, a fresh draft) in each mode: graph
+    and eager byte-identical, tokens and logprobs."""
+    _card()
+    cfg = get_config("glm4_9b", smoke=True)
+    prompts = _prompts(cfg, 3, 27, 7)
+    lps = {}
+    g, e, eng = _both("glm4_9b", prompts, sampling=MIXED[sampling],
+                      logprobs=lps, num_speculative_tokens=2, max_batch=2,
+                      block_size=16, max_len=96,
+                      max_num_batched_tokens=2 * 3 + 12)
+    assert g == e and lps[True] == lps[False]
+    assert eng.stats["spec_decodes"] > 0

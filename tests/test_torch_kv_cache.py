@@ -184,12 +184,27 @@ def test_scheduler_plans_match_reference(num_blocks, prefix):
 
 
 def test_scheduler_refuses_full_sampling_surface():
+    """The scheduler serves the full sampling surface now; its validation
+    delegates to ``SamplingBuffer.validate``, which refuses what no path
+    serves with the reference's messages."""
+    from repro_torch.serving.sampling import SamplingBuffer
     from repro_torch.serving.scheduler import SamplingParams
-    s = Scheduler(BlockManager(9, 4), 2, 8, 8, 6)
+    buf = SamplingBuffer(2, 16, max_stop_len=2, max_logprobs=4)
+    s = Scheduler(BlockManager(9, 4), 2, 8, 8, 6, sampling_buffer=buf)
     for sp in (SamplingParams(top_p=0.9), SamplingParams(logprobs=2),
                SamplingParams(stop=((1, 2),)),
                SamplingParams(repetition_penalty=1.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.add(Request(np.zeros(4, np.int32), max_new=2, sampling=sp))
+        s.add(Request(np.zeros(4, np.int32), max_new=2, sampling=sp))
+    assert len(s.waiting) == 4
+    for bad, msg in ((dict(top_p=0.0), "top_p"), (dict(min_p=1.5), "min_p"),
+                     (dict(repetition_penalty=0.0), "repetition"),
+                     (dict(logprobs=5), "logprobs"),
+                     (dict(stop=((1, 2, 3),)), "stop")):
+        with pytest.raises(ValueError, match=msg):
+            s.add(Request(np.zeros(4, np.int32), max_new=2,
+                          sampling=SamplingParams(**bad)))
+    with pytest.raises(ValueError, match="min_new"):
+        s.add(Request(np.zeros(4, np.int32), max_new=2, min_new=3))
     with pytest.raises(ValueError, match="capacity"):
         s.add(Request(np.zeros(30, np.int32), max_new=8))
+    assert len(s.waiting) == 4

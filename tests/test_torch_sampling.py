@@ -1,19 +1,21 @@
 """The port's plain sampling path: greedy equals the JAX package's exactly;
 temperature/top-k keeps exactly the numpy oracle's support and matches
 its distribution (TV distance + chi-square over many request ids); a
-(seed, rid, counter) triple replays the same token. The random streams
-are the port's own (not jax threefry), so only distributions are
-compared across packages."""
+(seed, rid, counter) triple replays the same token, and its key is the
+JAX package's ``_base_key`` (the streams are jax's own: the draws
+themselves are held against jax in ``test_torch_prng.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.serving.sampling import _base_key as jax_base_key
 from repro.serving.sampling import _prep_logits as jax_prep_logits
 from repro.serving.sampling import sample_tokens as jax_sample_tokens
-from repro_torch.serving.sampling import (NEG, prep_logits, sample_tokens,
-                                          stream_seed)
+from repro_torch.serving.sampling import (NEG, base_key, prep_logits,
+                                          sample_tokens)
 
 
 def _oracle_probs(lg, t, k):
@@ -84,9 +86,15 @@ def test_stream_replays_by_seed_rid_counter():
     a = [draw(3, 17, c) for c in range(8)]
     b = [draw(3, 18, c) for c in range(8)]
     assert a != b and len(set(a)) > 1
-    assert stream_seed(3, 17, 5) != stream_seed(3, 17, 6) != \
-        stream_seed(4, 17, 5)
-    assert 0 <= stream_seed(2 ** 40, 2 ** 40, 2 ** 40) < 2 ** 63
+    # the key of a (seed, rid, counter) row is the reference's, word for
+    # word, negative and wrapped int32 seeds included
+    rows = [(3, 17, 5), (3, 17, 6), (4, 17, 5), (-1, 2 ** 20, 2 ** 20),
+            (-(2 ** 31) + 5, 0, 7)]
+    got = base_key(*(torch.tensor(c) for c in zip(*rows)))
+    for (s, r, c), k in zip(rows, got.tolist()):
+        want = jax.random.key_data(jax_base_key(jnp.int32(s), r, c))
+        assert k == np.asarray(want).astype(np.int64).tolist(), (s, r, c)
+    assert len({tuple(k) for k in got.tolist()}) == len(rows)
     # batch composition does not move a row's stream
     rows = lg.repeat(3, 1)
     toks = sample_tokens(rows, [1.0, 0.0, 1.0], [0, 0, 0], [3, 0, 9],
