@@ -64,6 +64,23 @@ Phases, each of which raises on failure:
         device time by launch (the two gathers, the GEMM launch and its
         TFLOP/s, row loss, mean) and torch.mm's time for the same bf16
         product (gemm_ms, a yardstick the port never calls).
+     f. the rest of the dense family's heads at hd 128, bf16 pools:
+        gemma2_27b (H=32, K=16) with its local layers' window 4096, cap
+        50 and scale 144^-0.5 at contexts to 6144 (and its global layers'
+        cap and scale), qwen3_32b (64, 8) and starcoder2_3b (24, 2)
+        causal at glm4's lengths: decode (8 sequences), a 256-row chunk
+        and the packed kernel (T=512, S=4, fused write) against their
+        plain versions, decode == chunk(C=1), packed S=1 == chunk, packed
+        == unpacked and fused == scatter bit for bit; the flash forward at
+        gemma2's 6144-token prompt (window, cap, scale) and causal S=2048
+        at the other two, and at phase 10's static prefill shapes (B=8,
+        S=512 for each; B=2, S=6000 for gemma2, a partial last row tile),
+        gemma2 also with its global layers' options: o within 1e-2 of
+        dense_attention, lse within 1e-3 of the plain one, two launches
+        bit-equal; beside SDPA where SDPA computes the same function (no
+        softcap: for gemma2 SDPA's causal time is a yardstick); the gather at each member's table (256000 x 4608,
+        152064 x 5120, 49152 x 3072). Under "<member>_" keys of each
+        kernel's row.
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -109,7 +126,9 @@ Phases, each of which raises on failure:
      (4, int8) and (1, fp8), mamba2 and zamba2 with quantized chunks (and
      zamba2 preempting): greedy tokens must agree, except after a first
      difference whose top-2 logit margin is below the bf16 tolerance. On
-     the card, pack 4 and pack 1 give the same bf16 tokens.
+     the card, pack 4 and pack 1 give the same bf16 tokens. gemma2_27b's
+     smoke config at packs 1 and 4 (its 16-token window, both softcaps
+     and post-block norms through the hd-16 kernels).
   7. training: glm4_9b at full width with 8 of its 40 layers (seeded fp32
      masters, bf16 working params, AdamW with fp32 slots, remat full),
      6 steps of B=2 x S=2048 from ShardedSource(seed=0) through
@@ -149,6 +168,26 @@ Phases, each of which raises on failure:
      launches inside phase 9c's verify passes, counted around the verify
      call and replay-aware: ``verify_launches``, the replays' part
      ``verify_replayed_launches``).
+  10. the rest of the dense family at full width and depth (failing if a
+     model does not fit the card), random weights from seed 0, one model
+     at a time, each freed before the next: qwen3_32b (64 layers),
+     gemma2_27b (46) and starcoder2_3b (30). Phase 3's traffic on CUDA
+     graphs and eager (byte-identical greedy tokens); the static path
+     (models.api.generate_static: prefill through the flash kernel,
+     plain decode attention over dense caches) on the same prompts: the
+     logits after the prompts of the static prefill and of the engine
+     path are held against an fp32 reading of the same weights (plain
+     attention, no kernel), the static path at most twice as far from it
+     as the engine path, and its greedy tokens must equal the engine's
+     up to a near-tie below the sum of those two distances (or 1e-2);
+     a prefill_pack 4 run of the same prompts (4 new tokens), equal to
+     the pack-1 run's first 4 up to a near-tie below twice the engine
+     path's distance (or 1e-2). gemma2 serves two 6000-token prompts the
+     same three ways, past its 4096-key window. Per run: tok/s, decode
+     and chunk step ms (wall and device), busy share, TTFT, token gap,
+     peak memory and the decode step's bytes floor; each member's
+     launches per kernel ("<member>_launches", replay-aware) go into the
+     kernels' rows.
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
 
@@ -724,28 +763,30 @@ def ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, ctx):
                 vn16=vn16)
 
 
-def ragged_checks(torch, inp, kv, name) -> dict:
+def ragged_checks(torch, inp, kv, name, opts=None) -> dict:
     """The packed kernel over one pool dtype, bit for bit: a 1-sequence
     launch equals the chunk kernel, each packed sequence its unpacked
     launch, pool bytes after the fused write the separate scatter, the
     fused output the kernel after that scatter, two launches each other;
     unowned rows exact zeros; within TOL of plain without and with the
-    write. Returns the tensors the timings reuse and the errors."""
+    write. ``opts``: window, cap and scale, for every launch. Returns the
+    tensors the timings reuse and the errors."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.attention import (ragged_chunk_attention_xla,
                                               update_paged_cache_ragged)
     from repro_torch.models.quant import quantize_kv
 
+    opts = opts or {}
     q, seqs, seq, pad = inp["q"], inp["seqs"], inp["seq"], inp["pad"]
     bt, ctxt, st, en = seqs
     own = ~pad
     zero1 = torch.zeros(1, dtype=torch.int32, device=DEV)
     kp, vp, sc = pools_in(kv, inp["kp16"], inp["vp16"])
-    o_k = pa.ragged_paged_prefill_attention(q, kp, vp, *seqs, **sc)
-    check(same_bytes(o_k, pa.ragged_paged_prefill_attention(q, kp, vp, *seqs,
-                                                            **sc)),
+    o_k = pa.ragged_paged_prefill_attention(q, kp, vp, *seqs, **sc, **opts)
+    check(same_bytes(o_k, pa.ragged_paged_prefill_attention(
+        q, kp, vp, *seqs, **sc, **opts)),
           f"{name}: two launches differ")
-    o_p = ragged_chunk_attention_xla(q, kp, vp, *seqs, seq, **sc)
+    o_p = ragged_chunk_attention_xla(q, kp, vp, *seqs, seq, **sc, **opts)
     e_n, rel_n = check_close(f"{name} vs plain", o_k[own], o_p[own])
     check(bool((o_k[pad] == 0).all()), f"{name}: unowned rows not zero")
     # one sequence alone == the chunk kernel; packed == unpacked
@@ -755,9 +796,9 @@ def ragged_checks(torch, inp, kv, name) -> dict:
         tab, cx = bt[s:s + 1].contiguous(), ctxt[s:s + 1].contiguous()
         ql = (en - st)[s:s + 1].contiguous()
         o_c = pa.paged_prefill_attention(one[None], kp, vp, tab, cx, ql,
-                                         **sc)[0]
+                                         **sc, **opts)[0]
         o_1 = pa.ragged_paged_prefill_attention(one, kp, vp, tab, cx,
-                                                zero1, ql, **sc)
+                                                zero1, ql, **sc, **opts)
         check(torch.equal(o_1, o_c), f"{name}: S=1 != chunk kernel "
               f"(sequence {s})")
         check(torch.equal(o_k[a:b], o_c[:b - a]),
@@ -773,17 +814,18 @@ def ragged_checks(torch, inp, kv, name) -> dict:
                for n, r in (("k_scale", ksr), ("v_scale", vsr))}
     k1, v1 = kp.clone(), vp.clone()
     o_w, _, _ = pa.ragged_paged_prefill_attention(
-        q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc)
+        q, k1, v1, *seqs, k_new=kn, v_new=vn, **nsc, **opts)
     k2 = update_paged_cache_ragged(kp.clone(), kn[None], *seqs, seq)
     v2 = update_paged_cache_ragged(vp.clone(), vn[None], *seqs, seq)
     check(same_bytes(k1[1:], k2[1:]) and same_bytes(v1[1:], v2[1:]),
           f"{name}: pool bytes after the fused write != the scatter")
     check(not same_bytes(k1, kp), f"{name}: the fused write wrote nothing")
     check(torch.equal(o_w, pa.ragged_paged_prefill_attention(
-        q, k2, v2, *seqs, **nsc)), f"{name}: fused != scatter + kernel")
+        q, k2, v2, *seqs, **nsc, **opts)),
+          f"{name}: fused != scatter + kernel")
     e, rel = check_close(f"{name} fused vs plain", o_w[own],
                          ragged_chunk_attention_xla(q, k2, v2, *seqs, seq,
-                                                    **nsc)[own])
+                                                    **nsc, **opts)[own])
     return dict(kp=kp, vp=vp, sc=sc, k1=k1, v1=v1, k2=k2, v2=v2, kn=kn,
                 vn=vn, nsc=nsc, e=e, rel=rel, e_n=e_n, rel_n=rel_n)
 
@@ -1375,6 +1417,284 @@ def check_sampled_softmax(torch, timer, gen, rows):
           flush=True)
 
 
+# the kernels of the family's serving path (bf16 pools, the flash kernel's
+# hd-128 route), whose rows carry each member's numbers
+FAMILY_KERNELS = ("paged_attention", "paged_prefill_attention",
+                  "ragged_paged_prefill_attention", "flash_attention",
+                  "gather")
+# phase 2f: the paged, flash and gather kernels at the heads and tables of
+# the rest of the dense family (hd 128): name -> (arch, H, K, the layer
+# options of its windowed layers). gemma2_27b's local layers: a 4096-key
+# window, attention softcap 50, scale 144^-0.5 (its global layers drop
+# the window); qwen3_32b and starcoder2_3b: causal, hd^-0.5
+FAMILY = {"gemma2": ("gemma2_27b", 32, 16,
+                     dict(window=4096, cap=50.0, scale=144 ** -0.5)),
+          "qwen3": ("qwen3_32b", 64, 8, {}),
+          "starcoder2": ("starcoder2_3b", 24, 2, {})}
+# decode contexts (8 sequences, one inactive) and the chunk's end: past
+# gemma2's window, glm4's lengths for the others
+FAMILY_CTX = {"gemma2": ([6144, 6000, 4097, 4095, 5000, 1, 0, 300], 6144),
+              "qwen3": ([2048, 1536, 1024, 777, 2000, 1, 0, 300], 2048),
+              "starcoder2": ([2048, 1536, 1024, 777, 2000, 1, 0, 300], 2048)}
+# packed: phase 2b's q_lens at these contexts (gemma2's first past the
+# window)
+FAMILY_PACKED = {"gemma2": [6144, 96, 4700, 5000],
+                 "qwen3": [2048, 96, 700, 1000],
+                 "starcoder2": [2048, 96, 700, 1000]}
+# flash: (B, S) per family member, the member's layer options. The first
+# is the row's timed shape (gemma2 at a long prompt past its window, the
+# others causal at 2048); the rest are the shapes phase 10's static path
+# gives the kernel: its 8 x 512 prompts, and gemma2's two 6000-token
+# prompts (a partial last 128-row tile)
+FAMILY_FLASH = {"gemma2": [(1, 6144), (8, 512), (2, 6000)],
+                "qwen3": [(1, 2048), (8, 512)],
+                "starcoder2": [(1, 2048), (8, 512)]}
+
+
+def visible_keys(pos: int, window) -> int:
+    """Keys a query at absolute position ``pos`` sees."""
+    return pos + 1 if window is None else min(pos + 1, window)
+
+
+def family_row(rows, kernel, prefix, **kw) -> None:
+    """A family member's numbers as ``prefix``-ed keys of a kernel's
+    row."""
+    rows[kernel].update({prefix + k: v for k, v in kw.items()})
+
+
+def check_family_flash(torch, timer, gen, arch, H, K, hd, variants, B, S,
+                       F, fa, ref, dense_attention) -> dict:
+    """The flash forward at one family shape, for each of the member's
+    layer options (``variants``; the first is timed): two launches
+    bit-equal, o within TOL of dense_attention, lse within LSE_TOL of the
+    plain one; the first's times (SDPA's where SDPA computes the same
+    function) and bound."""
+    q = torch.randn((B, S, H, hd), generator=gen, device=DEV).bfloat16()
+    k = torch.randn((B, S, K, hd), generator=gen, device=DEV).bfloat16()
+    v = torch.randn((B, S, K, hd), generator=gen, device=DEV).bfloat16()
+    for o in reversed(variants):
+        fo = dict(causal=True, **o)
+        o_k, lse_k = fa.flash_attention(q, k, v, **fo)
+        o_2, lse_2 = fa.flash_attention(q, k, v, **fo)
+        check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
+              f"flash {arch} B={B} S={S} {o}: two launches differ")
+        del o_2, lse_2
+        e, rel = check_close(f"flash {arch} B={B} S={S} {o} vs "
+                             "dense_attention", o_k,
+                             dense_attention(q, k, v, **fo))
+        e_lse = err(lse_k, ref.flash_attention_fwd_plain(q, k, v, **fo)[1])
+        check(e_lse <= LSE_TOL, f"flash {arch} B={B} S={S} {o}: lse max abs "
+              f"err {e_lse} (limit {LSE_TOL})")
+    opts = variants[0]
+    pairs = causal_pairs(S, S, True, opts.get("window"), 0)
+    flops = 4.0 * B * H * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse_k.numel()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    ms = timer(lambda: fa.flash_attention(q, k, v, **fo))
+    if opts:
+        # SDPA has no softcap: no library call computes gemma2's function;
+        # SDPA's causal time on the same tensors is a yardstick only
+        lib = dict(library_ms=None, sdpa_causal_no_cap_ms=timer(sdpa))
+    else:
+        lib = dict(library_ms=timer(sdpa), library_device_ms=timer.device(sdpa))
+    return dict(
+        max_abs_err=e, max_row_rel_err=rel, lse_max_abs_err=e_lse, ms=ms,
+        tflops=flops / ms * 1e-9,
+        device_ms=timer.device(lambda: fa.flash_attention(q, k, v, **fo)),
+        plain_ms=timer(lambda: ref.flash_attention_fwd_plain(q, k, v, **fo),
+                       iters=5),
+        shape=f"{arch}: B={B} S={S} H={H} K={K} hd={hd} causal {opts} "
+              f"({pairs} row-key pairs per batch row)",
+        **lib, **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
+
+
+def check_family(torch, timer, gen, rows):
+    """Phase 2f: decode, chunk and packed kernels at each member's (H, K)
+    over bf16 pools with its windowed layers' options (and gemma2's global
+    layers without the window): within TOL of the plain versions, decode
+    == chunk(C=1), packed S=1 == chunk, packed == unpacked, fused write ==
+    scatter, bit for bit; the flash forward vs dense_attention (its lse
+    vs the plain one) at the member's long prompt and at phase 10's static
+    prefill shapes, beside SDPA where SDPA computes the same function; the
+    gather == table[ids] at each member's embedding table.
+    Times, bounds and errors go into each kernel's row under the member's
+    prefix ("gemma2_", "qwen3_", "starcoder2_")."""
+    import torch.nn.functional as F
+    from repro_torch.config import get_config
+    from repro_torch.kernels import embedding as emb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import (dense_attention,
+                                              paged_chunk_attention_xla,
+                                              ragged_chunk_attention_xla)
+
+    hd, bs = 128, 16
+    for name, (arch, H, K, opts) in FAMILY.items():
+        p = name + "_"
+        window = opts.get("window")
+        ctx, c_end = FAMILY_CTX[name]
+        B, nb = len(ctx), -(-max(ctx) // bs)
+        q, kp, vp, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs, nb,
+                                         ctx)
+        ones = torch.ones(B, dtype=torch.int32, device=DEV)
+        # gemma2's global layers: cap and scale, no window (checked only)
+        variants = [opts] + ([{k: v for k, v in opts.items()
+                               if k != "window"}] if window else [])
+        for o in variants:
+            o_k = pa.paged_attention(q, kp, vp, bt, ctxt, **o)
+            e, rel = check_close(f"paged_attention {name} {o} vs plain", o_k,
+                                 ref.paged_attention_ref(q, kp, vp, bt, ctxt,
+                                                         **o))
+            check(bool((o_k[ctx.index(0)] == 0).all()),
+                  f"paged_attention {name}: ctx=0 row not zero")
+            o_c = pa.paged_prefill_attention(q[:, None].contiguous(), kp, vp,
+                                             bt, ctxt, ones, **o)
+            check(torch.equal(o_c[:, 0], o_k),
+                  f"{name} {o}: chunk(C=1) != decode bitwise")
+        keys = sum(visible_keys(c - 1, window) for c in ctx if c)
+        b_dec = (2 * q.numel() * 2 + 2 * keys * kv_row_bytes("bf16", K, hd)
+                 + bt.numel() * 4 + B * 4)
+        e, rel = check_close(f"paged_attention {name} vs plain",
+                             pa.paged_attention(q, kp, vp, bt, ctxt, **opts),
+                             ref.paged_attention_ref(q, kp, vp, bt, ctxt,
+                                                     **opts))
+        family_row(
+            rows, "paged_attention", p, max_abs_err=e, max_row_rel_err=rel,
+            shape=f"{arch}: B={B} H={H} K={K} hd={hd} bs={bs} ctx={ctx} "
+                  f"{opts}",
+            **timed(timer, lambda: pa.paged_attention(q, kp, vp, bt, ctxt,
+                                                      **opts),
+                    lambda: ref.paged_attention_ref(q, kp, vp, bt, ctxt,
+                                                    **opts)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_dec, 4.0 * keys * H * hd))))
+
+        # a 256-row chunk, 200 rows valid, ending at c_end
+        C, qlen = 256, 200
+        q, kp, vp, bt, ctxt = paged_case(torch, gen, 1, H, K, hd, bs, nb,
+                                         [c_end], C=C)
+        ql = torch.tensor([qlen], dtype=torch.int32, device=DEV)
+        for o in variants:
+            o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql, **o)
+            e, rel = check_close(
+                f"paged_prefill_attention {name} {o} vs plain",
+                o_k[:, :qlen], paged_chunk_attention_xla(
+                    q, kp, vp, bt, ctxt, ql, **o)[:, :qlen])
+            check(bool((o_k[:, qlen:] == 0).all()),
+                  f"{name}: chunk padding rows not zero")
+        pos0 = c_end - qlen
+        pairs = sum(visible_keys(pos0 + i, window) for i in range(qlen))
+        span = c_end - (0 if window is None else max(0, pos0 - window + 1))
+        b_chk = (2 * q.numel() * 2 + 2 * span * kv_row_bytes("bf16", K, hd)
+                 + bt.numel() * 4 + 8)
+        e, rel = check_close(
+            f"paged_prefill_attention {name} vs plain",
+            pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql,
+                                       **opts)[:, :qlen],
+            paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql,
+                                      **opts)[:, :qlen])
+        family_row(
+            rows, "paged_prefill_attention", p, max_abs_err=e,
+            max_row_rel_err=rel,
+            shape=f"{arch}: B=1 C={C} q_len={qlen} ctx={c_end} H={H} K={K} "
+                  f"hd={hd} {opts}",
+            **timed(timer, lambda: pa.paged_prefill_attention(
+                        q, kp, vp, bt, ctxt, ql, **opts),
+                    lambda: paged_chunk_attention_xla(q, kp, vp, bt, ctxt, ql,
+                                                      **opts)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_chk, 4.0 * pairs * H * hd))))
+
+        # packed: T = 512 rows of 4 sequences, with the fused KV write
+        T, q_lens, pctx = 512, [200, 96, 150, 40], FAMILY_PACKED[name]
+        inp = ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, pctx)
+        r = [ragged_checks(torch, inp, "bf16", f"ragged {name} {o}", o)
+             for o in variants][0]
+        qr, seqs, seq = inp["q"], inp["seqs"], inp["seq"]
+        k1, v1, k2, v2, kn, vn = (r[k] for k in ("k1", "v1", "k2", "v2",
+                                                  "kn", "vn"))
+
+        def plain_fused():
+            from repro_torch.models.attention import update_paged_cache_ragged
+            update_paged_cache_ragged(k2, kn[None], *seqs, seq)
+            update_paged_cache_ragged(v2, vn[None], *seqs, seq)
+            return ragged_chunk_attention_xla(qr, k2, v2, *seqs, seq, **opts)
+
+        pairs = sum(visible_keys(c - n + i, window)
+                    for n, c in zip(q_lens, pctx) for i in range(n))
+        span = sum(c - (0 if window is None else max(0, c - n - window + 1))
+                   for n, c in zip(q_lens, pctx))
+        qb, rb, meta = 2 * qr.numel() * 2, kv_row_bytes("bf16", K, hd), \
+            seqs[0].numel() * 4 + 3 * len(q_lens) * 4
+        b_write = qb + 2 * span * rb + 2 * sum(q_lens) * rb + meta
+        family_row(
+            rows, "ragged_paged_prefill_attention", p, max_abs_err=r["e"],
+            max_row_rel_err=r["rel"],
+            shape=f"{arch}: T={T} S={len(q_lens)} q_lens={q_lens} "
+                  f"ctx={pctx} H={H} K={K} hd={hd} {opts}; fused KV write",
+            **timed(timer, lambda: pa.ragged_paged_prefill_attention(
+                        qr, k1, v1, *seqs, k_new=kn, v_new=vn, **opts),
+                    plain_fused),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_write, 4.0 * pairs * H * hd))))
+        print(f"[kernels] {name} (H={H} K={K} G={H // K} hd={hd}, "
+              f"{opts or 'causal'}): decode == chunk(C=1), packed S=1 == "
+              "chunk, packed == unpacked, fused write == scatter (bit for "
+              f"bit); within {TOL} of plain", flush=True)
+        del inp, r, k1, v1, k2, v2
+
+        # the flash forward at the member's shapes
+        for case, (Bf, S) in enumerate(FAMILY_FLASH[name]):
+            d = check_family_flash(torch, timer, gen, arch, H, K, hd,
+                                   variants, Bf, S, F, fa, ref,
+                                   dense_attention)
+            if case == 0:
+                family_row(rows, "flash_attention", p, **d)
+            else:
+                rows["flash_attention"].setdefault(
+                    p + "serving_shapes", []).append(d)
+            print(f"[kernels] flash {name} at B={Bf} S={S}: {d['ms']:.4f} ms "
+                  f"({d['tflops']:.0f} TFLOP/s), device "
+                  f"{d['device_ms']:.4f}, SDPA "
+                  f"{d.get('library_ms') or d.get('sdpa_causal_no_cap_ms')}"
+                  f" ms{' (causal, no cap: a yardstick)' if opts else ''}; o "
+                  f"max row rel err {d['max_row_rel_err']:.3g}, lse "
+                  f"{d['lse_max_abs_err']:.3g}; two launches bit-equal",
+                  flush=True)
+
+        # the gather at the member's embedding table
+        c = get_config(arch)
+        V, d = c.padded_vocab_size, c.d_model
+        table = torch.randn((V, d), generator=gen, device=DEV).bfloat16()
+        for n in (8, 256):
+            i = torch.randint(0, V, (n,), generator=gen, device=DEV,
+                              dtype=torch.int32)
+            check(torch.equal(emb.gather(table, i), emb.gather_plain(table,
+                                                                     i)),
+                  f"gather != table[ids] at {arch} ({V}x{d}), {n} ids")
+        family_row(
+            rows, "gather", p, max_abs_err=0.0, max_row_rel_err=0.0,
+            shape=f"{arch}: table {V}x{d} bf16 (rows of {2 * d} bytes), "
+                  "256 ids",
+            ms=timer(lambda: emb.gather(table, i)),
+            device_ms=timer.device(lambda: emb.gather(table, i)),
+            plain_ms=timer(lambda: emb.gather_plain(table, i)),
+            library_ms=timer(lambda: torch.index_select(table, 0, i)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(2 * 256 * d * 2 + 256 * 4, 0.0))))
+        print(f"[kernels] gather {name} ({V}x{d}): == table[ids]; 256 ids "
+              f"{rows['gather'][p + 'ms']:.4f} ms, index_select "
+              f"{rows['gather'][p + 'library_ms']:.4f}", flush=True)
+        del table
+        torch.cuda.empty_cache()
+
+
 def check_kernels(torch, timer):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -1387,6 +1707,7 @@ def check_kernels(torch, timer):
     check_ssd(torch, timer, gen, rows)
     check_flash(torch, timer, gen, rows)
     check_sampled_softmax(torch, timer, gen, rows)
+    check_family(torch, timer, gen, rows)
     for name, r in rows.items():
         extra = ""
         if "no_write_ms" in r:
@@ -1641,7 +1962,7 @@ def serve_ab(torch, counters, card, label, make_engine, make_reqs, max_new,
     """Phases 3-5's A/B: the same requests through a graph engine (the
     card's default) and an eager one (``cuda_graphs=False``), same
     weights; greedy tokens byte-identical. Returns (graph run, eager
-    run)."""
+    run, the greedy tokens in request order)."""
     runs = {}
     toks = {}
     for graphs in (True, False):
@@ -1677,7 +1998,7 @@ def serve_ab(torch, counters, card, label, make_engine, make_reqs, max_new,
           f"{g['peak_mem_gib']:.2f} vs {e['peak_mem_gib']:.2f} GiB; graph "
           f"pool {g['graph_pool_mib']:.1f} MiB, both captures "
           f"{g['capture_s']:.2f} s", flush=True)
-    return g, e
+    return g, e, list(toks[True].values())
 
 
 def serve_full(torch, counters, card):
@@ -1708,7 +2029,7 @@ def serve_full(torch, counters, card):
         check(eng.chunk_width == 256, f"chunk width {eng.chunk_width}")
         return eng
 
-    res, eager = serve_ab(
+    res, eager, _ = serve_ab(
         torch, counters, card, "glm4_9b bf16 pack 1", make_engine,
         lambda: [Request(p.copy(), max_new=32) for p in prompts], 32,
         ("paged_attention", "paged_prefill_attention", "gather"))
@@ -1776,7 +2097,7 @@ def serve_packed(torch, counters, card, params):
         expect = (variant(prefill, kv), variant("paged_attention", kv),
                   "gather")
         if i == 0:
-            res, eager = serve_ab(
+            res, eager, _ = serve_ab(
                 torch, counters, card, f"glm4_9b {kv} pack {pack}",
                 make_engine, make_reqs, max_new, expect)
             res["eager"] = eager
@@ -1898,10 +2219,12 @@ def graph_replay_ms(torch, graph, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def near_tie_or_same(torch, params, cfg, prompt, ours, ref) -> bool:
+def near_tie_or_same(torch, params, cfg, prompt, ours, ref, limit=TOL,
+                     margins=None) -> bool:
     """Equal greedy streams (True), or a first difference whose top-2
     margin (the card's logits after the common prefix, one monolithic
-    chunk) is below the bf16 tolerance (False); anything else fails."""
+    chunk) is below ``limit``, the bf16 tolerance by default (False);
+    anything else fails. ``margins`` collects (step, margin, limit)."""
     import numpy as np
     if ours == ref:
         return True
@@ -1911,8 +2234,11 @@ def near_tie_or_same(torch, params, cfg, prompt, ours, ref) -> bool:
                      "bf16", device=DEV)
     top = torch.topk(lg, 2)
     margin = float(top.values[0] - top.values[1])
-    check(margin < TOL and {ours[i], ref[i]} == set(top.indices.tolist()),
-          f"greedy streams differ at step {i} with top-2 margin {margin}")
+    if margins is not None:
+        margins.append((i, margin, limit))
+    check(margin < limit and {ours[i], ref[i]} == set(top.indices.tolist()),
+          f"greedy streams differ at step {i} with top-2 margin {margin} "
+          f"(limit {limit})")
     return False
 
 
@@ -2227,7 +2553,7 @@ def serve_ssm(torch, counters, card):
         expect = ["ssd", "gather"]
         if cfg.shared_attn_period:
             expect += ["paged_attention", "paged_prefill_attention"]
-        res, eager = serve_ab(
+        res, eager, _ = serve_ab(
             torch, counters, card, f"{arch} prompts of {lens} tokens",
             make_engine,
             lambda: [Request(p.copy(), max_new=max_new) for p in prompts],
@@ -2268,6 +2594,267 @@ def serve_ssm(torch, counters, card):
     gc.collect()
     torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the dense family at full width
+# ---------------------------------------------------------------------------
+
+# phase 3's traffic (8 prompts of 512 tokens sharing a 256-token prefix,
+# 32 new each) through each member; gemma2 also serves two 6000-token
+# prompts, past its 4096-key window
+LONG_PROMPT, LONG_REQUESTS = 6000, 2
+def check_fits(torch, arch, cfg) -> None:
+    """Fail, with the card's memory reading, if ``cfg``'s bf16 weights
+    and the serving runner's fp32 head do not fit the free memory."""
+    free, total = torch.cuda.mem_get_info()
+    need = 2 * cfg.param_count() + 4 * cfg.padded_vocab_size * cfg.d_model
+    check(need < free, f"{arch}: {cfg.num_layers} layers need "
+          f"{need / 2 ** 30:.1f} GiB of bf16 weights and fp32 head; the "
+          f"card has {free / 2 ** 30:.1f} GiB free of {total / 2 ** 30:.1f}")
+
+
+# query rows per block of the fp32 reading's attention
+FP32_ROWS = 512
+
+
+def fp32_logits(torch, params, cfg, tokens, head):
+    """The last position's logits (B, V_pad) of the same bf16 weights
+    computed in fp32: the bf16 embedding's output cast up, each layer's
+    weights cast up in turn (one layer's fp32 copy alive at a time),
+    activations in fp32, attention by the plain ``dense_attention`` in fp32
+    (FP32_ROWS query rows at a time), the fp32 head. Neither the flash nor
+    a paged kernel takes part: an independent reading of the function both
+    serving paths compute in bf16."""
+    from repro_torch.models.attention import (attention_scale,
+                                              dense_attention, project_kv,
+                                              project_q)
+    from repro_torch.models.embedding import decode_logits, embed
+    from repro_torch.models.transformer import _layers, _rope
+
+    def up(t):
+        return ({n: up(v) for n, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    B, S = tokens.shape
+    x = embed(params["embed"]["table"], tokens, cfg).float()
+    cos_sin = _rope(cfg, torch.arange(S, dtype=torch.int32,
+                                      device=tokens.device)[None].expand(B, S))
+
+    def attend(ap, h, pools, window):
+        q = project_q(ap, h, cfg, cos_sin)
+        k, v = project_kv(ap, h, cfg, cos_sin)
+        return torch.cat([dense_attention(
+            q[:, r:r + FP32_ROWS], k[:, :r + FP32_ROWS],
+            v[:, :r + FP32_ROWS], causal=True, window=window,
+            cap=cfg.attn_logit_softcap, scale=attention_scale(cfg),
+            q_offset=r) for r in range(0, S, FP32_ROWS)], dim=1)
+
+    x = _layers({"layers": (up(lp) for lp in params["layers"]),
+                 "final_norm": up(params["final_norm"])}, {}, cfg, x, attend)
+    return decode_logits(x[:, -1:], head, cfg)
+
+
+def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
+                     label) -> dict:
+    """The static path (``api.generate_static``: the flash kernel for the
+    prefill, plain decode attention over dense caches) on the same
+    prompts. Both paths' logits after each prompt (the static prefill's;
+    the engine path's, one paged chunk) are held against the fp32 reading
+    (``fp32_logits``): the static path may be at most twice as far from it
+    as the engine path (a wrong flash prefill would be far from it; the
+    two bf16 paths' rounding, amplified over the layers, is what both
+    show). Its greedy tokens then equal the engine's ``ref`` tokens, or
+    part at a near-tie: a top-2 margin below the sum of the two paths'
+    measured distances from the fp32 reading (the largest gap those
+    readings allow between them), or TOL if that is larger. Counts its
+    flash launches. Returns the readings."""
+    import numpy as np
+    from repro_torch.models.api import generate_static
+    from repro_torch.models.embedding import head_table
+    from repro_torch.models.transformer import prefill_logits
+
+    V = cfg.vocab_size
+    head = head_table(params["embed"], cfg).float()
+    tokens = torch.from_numpy(np.stack(prompts)).to(DEV)
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        out = generate_static(params, tokens, cfg, max_new, head=head)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches(counters)
+    check(launches.get("flash_attention", 0) == cfg.num_layers,
+          f"{label}: static prefill made {launches.get('flash_attention')} "
+          f"flash launches, not {cfg.num_layers}")
+    with torch.no_grad():
+        static = prefill_logits(params, {"tokens": tokens}, cfg,
+                                head)[1][:, :V]
+        engine = torch.stack([last_logits(torch, params, cfg, p, "bf16",
+                                          device=DEV) for p in prompts])
+        t0 = time.monotonic()
+        exact = fp32_logits(torch, params, cfg, tokens, head)[:, :V]
+        torch.cuda.synchronize()
+        fp32_s = time.monotonic() - t0
+    del head
+    e_static, e_engine = err(static, exact), err(engine, exact)
+    delta = err(static, engine)
+    std = float(exact.std())
+    check(e_static <= 2 * e_engine,
+          f"{label}: the static prefill's logits are {e_static:.4g} from "
+          f"the fp32 reading, more than twice the engine path's "
+          f"{e_engine:.4g}")
+    limit = max(TOL, e_static + e_engine)
+    margins = []
+    same = [near_tie_or_same(torch, params, cfg, p, o.tolist(), r, limit,
+                             margins)
+            for p, o, r in zip(prompts, out.cpu(), ref)]
+    print(f"[static] {label}: generate_static (prefill through the flash "
+          f"kernel, {max_new - 1} decode steps) in {wall:.2f} s; logits "
+          f"after the prompts: max abs distance from the fp32 reading "
+          f"(std {std:.4g}, {fp32_s:.1f} s) static {e_static:.4g}, engine "
+          f"{e_engine:.4g}; static vs engine {delta:.4g}; "
+          f"{sum(same)}/{len(same)} requests token-identical to the engine, "
+          f"the rest part at a near-tie: (step, top-2 margin, limit) "
+          f"{margins}", flush=True)
+    return {"wall_s": wall, "identical": sum(same), "requests": len(same),
+            "margins": margins, "logit_delta": delta,
+            "fp32_err_static": e_static, "fp32_err_engine": e_engine,
+            "fp32_logit_std": std, "fp32_s": fp32_s, "launches": launches}
+
+
+# the numbers of a serving run that phase 10's summary line carries
+BRIEF = ("tok_s", "wall_s", "steps", "tokens", "decode_step_ms_mean",
+         "decode_body_device_ms_mean", "chunk_step_ms_mean",
+         "chunk_body_device_ms_mean", "busy_share_events",
+         "busy_share_from_graph_device_ms", "ttft_s_median", "ttft_s_max",
+         "token_gap_s_median", "token_gap_s_max", "peak_mem_gib",
+         "graph_pool_mib", "capture_s", "decode_floor_ms", "kv_cache_mib",
+         "cache_hit_tokens", "prefill_chunks", "most_chunks_in_a_step",
+         "launches", "replayed_launches", "identical", "requests",
+         "margins", "logit_delta", "fp32_err_static", "fp32_err_engine",
+         "fp32_logit_std")
+
+
+def brief(runs: dict) -> dict:
+    return {k: {n: v for n, v in r.items() if n in BRIEF}
+            for k, r in runs.items()}
+
+
+def serve_family(torch, counters, card, rows) -> list:
+    """Phase 10: qwen3_32b, gemma2_27b and starcoder2_3b at full width
+    and depth (failing if one does not fit the card), random weights from
+    seed 0, one at a time, each freed before the next: phase 3's traffic
+    on CUDA graphs and eager (byte-identical tokens), the static path on
+    the same prompts (logits held against an fp32 reading, tokens == the
+    engine's up to a near-tie; ``static_vs_engine``), a prefill_pack 4 run
+    of the same prompts (4 new tokens, the packed kernel; == the first 4
+    of the pack-1 run up to a near-tie below twice the engine path's
+    distance from the fp32 reading); gemma2 also serves two 6000-token prompts the same
+    three ways. Each member's launches per kernel go into the kernels'
+    rows (``<member>_launches``). Returns the runs."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import InferenceEngine, Request
+
+    runs = []
+    for name in ("qwen3", "gemma2", "starcoder2"):
+        arch = FAMILY[name][0]
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_fits(torch, arch, cfg)
+        t0 = time.monotonic()
+        params = init_model(cfg, 0, DEV)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        rng = np.random.default_rng(0)
+        prefix = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+        prompts = [np.concatenate(
+            [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)])
+            for _ in range(8)]
+        traffic = [("8x512", prompts, 8, 1024, 32)]
+        if name == "gemma2":
+            traffic.append(("2x6000", [
+                rng.integers(0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+                for _ in range(LONG_REQUESTS)], LONG_REQUESTS,
+                LONG_PROMPT + 48, 32))
+        member = {"arch": arch, "layers": cfg.num_layers,
+                  "params": cfg.param_count(), "init_s": init_s}
+        launches, replayed = {}, {}
+        for label, ps, batch, max_len, max_new in traffic:
+            def make_engine(graphs, batch=batch, max_len=max_len, pack=1):
+                # phase 3's 256-row chunk row, phase 4's 512 when packed
+                return InferenceEngine(
+                    cfg, device=DEV, params=params, max_batch=batch,
+                    block_size=16, max_len=max_len,
+                    max_num_batched_tokens=batch + (256 if pack == 1
+                                                    else 512), seed=0,
+                    prefill_pack=pack, cuda_graphs=graphs)
+
+            def make_reqs(ps=ps, max_new=max_new):
+                return [Request(p.copy(), max_new=max_new) for p in ps]
+
+            tag = f"{arch} {label}"
+            g, e, toks = serve_ab(torch, counters, card, tag, make_engine,
+                                  make_reqs, max_new,
+                                  ("paged_attention",
+                                   "paged_prefill_attention", "gather"))
+            static = static_vs_engine(torch, counters, params, cfg, ps,
+                                      max_new, toks, tag)
+            eng = make_engine(True, pack=4)
+            packed, ptoks = serve(torch, counters, eng, make_reqs(max_new=4),
+                                  4, ("ragged_paged_prefill_attention",
+                                      "paged_attention", "gather"))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(packed["most_chunks_in_a_step"] >= 2,
+                  f"{tag}: no step carried two packed chunks")
+            # two engine paths, each the engine's distance from the fp32
+            # reading: they part only at a margin below twice that
+            limit = max(TOL, 2 * static["fp32_err_engine"])
+            margins = []
+            packed["identical"] = sum(
+                near_tie_or_same(torch, params, cfg, p, o, r[:4], limit,
+                                 margins)
+                for p, o, r in zip(ps, ptoks.values(), toks))
+            packed["requests"], packed["margins"] = len(ps), margins
+            print(f"[serve-family] {tag}: pack 4's 4 tokens == pack 1's "
+                  f"first 4 on {packed['identical']}/{len(ps)} requests, the "
+                  f"rest part at a near-tie: (step, top-2 margin, limit) "
+                  f"{margins}", flush=True)
+            for r in (g, e, static, packed):
+                for k, n in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            runs += [g, e, static, packed]
+            for k, n in g["replayed_launches"].items():
+                replayed[k] = replayed.get(k, 0) + n
+            for k, n in packed["replayed_launches"].items():
+                replayed[k] = replayed.get(k, 0) + n
+            member[label] = {"graphs": g, "eager": e, "static": static,
+                             "packed": packed}
+            print(f"[serve-family] {card}: {tag}: {cfg.num_layers} layers "
+                  f"({cfg.param_count() / 1e9:.2f} B params), CUDA graphs "
+                  f"{g['tok_s']} tok/s (eager {e['tok_s']}), decode step "
+                  f"{g['decode_step_ms_mean']:.2f} ms (device "
+                  f"{g['decode_body_device_ms_mean']:.2f}; bytes floor "
+                  f"{g['decode_floor_ms']:.2f}), chunk step "
+                  f"{g['chunk_step_ms_mean']:.2f} ms, busy share "
+                  f"{g['busy_share_events']:.3f}, TTFT median "
+                  f"{g['ttft_s_median']:.3f} s, peak {g['peak_mem_gib']:.2f} "
+                  f"GiB; pack 4: {packed['tok_s']} tok/s: "
+                  f"{json.dumps(brief(member[label]))}", flush=True)
+        for kernel in FAMILY_KERNELS:
+            rows[kernel][name + "_launches"] = launches.get(kernel, 0)
+            rows[kernel][name + "_replayed_launches"] = replayed.get(kernel,
+                                                                     0)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2366,6 +2953,14 @@ def card_vs_cpu(torch):
           "on the card, prefill_pack 4 and 1 gave different bf16 tokens")
     print("[card-vs-cpu] on the card, prefill_pack 4 == prefill_pack 1 "
           "(bf16), token for token", flush=True)
+    # gemma2: its 16-token window (prompts of 20-45 tokens), both softcaps,
+    # scale 1/4 and post-block norms through the hd-16 kernels
+    cfg = get_config("gemma2_27b", smoke=True)
+    params = init_model(cfg, seed=0, device="cpu")
+    for pack in (1, 4):
+        _, summary[f"gemma2_pack{pack}"] = compare_card_cpu(
+            torch, cfg, params, prompts, [0, 5, 9, 9],
+            f"gemma2 smoke, prefill_pack {pack}, bf16 pools", pack, **kw)
     # SSM and hybrid: quantized chunks (a 13-token budget over 8-token SSD
     # chunks), staggered arrivals; zamba2 also preempts (7 blocks of 16)
     for arch in ("mamba2_370m", "zamba2_2p7b"):
@@ -2637,6 +3232,7 @@ def main() -> int:
     card_vs_cpu(torch)
     runs.append(train_full(torch, counters, card))
     train_card_vs_cpu(torch)
+    runs += serve_family(torch, counters, card, rows)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}
@@ -2656,7 +3252,8 @@ def main() -> int:
                        or k.startswith(("no_write", "device_ms", "hd80_",
                                         "zamba2_", "verify_",
                                         "plain_device_ms",
-                                        "library_device_ms"))})
+                                        "library_device_ms")
+                                       + tuple(f"{m}_" for m in FAMILY))})
                for name, r in rows.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -196,7 +196,9 @@ _ALIASES = {
 }
 
 # The architectures whose configs the port carries so far.
-PORTED_ARCHS: tuple[str, ...] = ("glm4_9b", "mamba2_370m", "zamba2_2p7b")
+PORTED_ARCHS: tuple[str, ...] = ("glm4_9b", "qwen3_32b", "starcoder2_3b",
+                                  "gemma2_27b", "mamba2_370m",
+                                  "zamba2_2p7b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -207,6 +209,6 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in PORTED_ARCHS:
         raise NotImplementedError(
             f"{arch} is not ported to repro_torch yet (ported: "
-            f"{PORTED_ARCHS}); see ROADMAP.md queue 1 item 3")
+            f"{PORTED_ARCHS}); see ROADMAP.md queue 1 item 10")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.CONFIG

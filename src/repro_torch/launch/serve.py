@@ -11,6 +11,8 @@ async front-end, fleets or meshes, which later slices bring).
       --stop 5,7 --min-new 2
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --num-speculative-tokens 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_27b \\
+      --smoke --device cpu --prompt-len 40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
 
 The default device is the card ("cuda"), where the engine runs its step

@@ -5,10 +5,14 @@ package's parameter tree.
 the JAX package's distributions (``repro.models.modules.dense_init`` and
 the ``init_*`` functions): truncated normal on [-2, 2] scaled by
 ``1/sqrt(fan_in)``, ``wo`` by ``1/sqrt(H*hd)``, the embedding table by
-0.02, the mamba conv weights by 0.5, norm scales and ``D`` at 1,
-``dt_bias`` at 0, ``A_log = log(linspace(1, 16, nh))``. The numbers
-differ from ``jax.random``'s; tests that compare the two packages convert
-the JAX tree with ``params_from_jax`` instead.
+0.02, the mamba conv weights by 0.5, norm and qk-norm scales and ``D``
+at 1, LayerNorm biases and ``dt_bias`` at 0, ``A_log = log(linspace(1,
+16, nh))``. The numbers differ from ``jax.random``'s; tests that compare
+the two packages convert the JAX tree with ``params_from_jax`` instead.
+
+The static path's entry points (``prefill_fn``, ``decode_fn``,
+``init_cache``) and ``generate_static``, the static server's greedy loop
+over them, serve dense decoders.
 """
 
 from __future__ import annotations
@@ -50,7 +54,10 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
         return _trunc_normal(shape, scale, gen, device).to(dt)
 
     def norm():
-        return {"scale": torch.ones(d, dtype=dt, device=device)}
+        p = {"scale": torch.ones(d, dtype=dt, device=device)}
+        if cfg.norm == "layernorm":
+            p["bias"] = torch.zeros(d, dtype=dt, device=device)
+        return p
 
     embed = {"table": dense((V, d), scale=0.02)}
     if not cfg.tie_embeddings:
@@ -62,13 +69,21 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
         def mlp():
             return {"w_gate": dense((d, f)), "w_in": dense((d, f)),
                     "w_out": dense((f, d))}
-    def attn_block():
-        return {"norm": norm(),
-                "attn": {"wq": dense((d, H, hd)), "wk": dense((d, K, hd)),
-                         "wv": dense((d, K, hd)),
-                         "wo": dense((H, hd, d), 1.0 / math.sqrt(H * hd))},
-                "norm2": norm(),
-                "mlp": mlp()}
+    def attention():
+        p = {"wq": dense((d, H, hd)), "wk": dense((d, K, hd)),
+             "wv": dense((d, K, hd)),
+             "wo": dense((H, hd, d), 1.0 / math.sqrt(H * hd))}
+        if cfg.qk_norm:
+            p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
+            p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
+        return p
+
+    def attn_block(shared=False):
+        p = {"norm": norm(), "attn": attention(), "norm2": norm(),
+             "mlp": mlp()}
+        if cfg.post_block_norm and not shared:
+            p["post_norm"], p["post_norm2"] = norm(), norm()
+        return p
 
     def mamba_block():
         s = cfg.ssm
@@ -92,7 +107,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
               for kind in cfg.layer_kinds()]
     params = {"embed": embed, "layers": layers, "final_norm": norm()}
     if cfg.shared_attn_period:
-        params["shared"] = attn_block()
+        params["shared"] = attn_block(shared=True)
     return params
 
 
@@ -100,6 +115,44 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
     """Training loss and metrics (dense decoders; see
     ``transformer.forward_loss``)."""
     return transformer.forward_loss(params, batch, cfg, pcfg, sampled_ids)
+
+
+def prefill_fn(params, batch, cfg: ModelConfig, head=None, max_len=None):
+    """The static path's prefill (dense decoders; see
+    ``transformer.prefill``): (cache of ``max_len`` positions (default the
+    prompts' S), greedy next token (B,))."""
+    return transformer.prefill(params, batch, cfg, head, max_len)
+
+
+def decode_fn(params, cache, batch, cfg: ModelConfig, head=None):
+    """The static path's decode step (see ``transformer.decode_step``):
+    (greedy next token (B,), cache)."""
+    return transformer.decode_step(params, cache, batch, cfg, head)
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda"):
+    """Zero static cache for B sequences of S positions."""
+    return transformer.init_cache(cfg, B, S, device)
+
+
+def generate_static(params, tokens, cfg: ModelConfig, max_new: int,
+                    max_len: int | None = None, head=None):
+    """Greedy tokens of the static path, as the JAX package's static
+    server makes them (``tests/helpers.StaticServerOracle``): one
+    ``prefill_fn`` over equal-length prompts tokens (B, S) into caches of
+    ``max_len`` positions (default S + max_new), then max_new - 1
+    ``decode_fn`` steps. Returns (B, max_new) int32."""
+    B, S = tokens.shape
+    max_len = S + max_new if max_len is None else max_len
+    cache, tok = prefill_fn(params, {"tokens": tokens}, cfg, head, max_len)
+    outs = [tok]
+    pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    for _ in range(max_new - 1):
+        tok, cache = decode_fn(params, cache, {"token": tok[:, None],
+                                               "pos": pos}, cfg, head)
+        outs.append(tok)
+        pos = pos + 1
+    return torch.stack(outs, dim=1)
 
 
 def _to_torch(a, device):
@@ -118,13 +171,10 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     The JAX package stacks layers by period: ``blocks/sub{i}`` holds kind
     ``i`` of every period along a leading NP axis, so layer ``p * P + i``
     is ``sub{i}[p]`` (P kinds per period). The leaves are split per layer
-    in that order; the hybrid's unstacked ``shared`` block is carried as
-    it is; einsum layouts are kept. Several stacks only for SSM models."""
+    in that order (gemma2's ("local", "attn") period: even layers from
+    ``sub0``, odd ones from ``sub1``); the hybrid's unstacked ``shared``
+    block is carried as it is; einsum layouts are kept."""
     P = len(tree["blocks"])
-    if P != 1 and cfg.ssm is None:
-        raise NotImplementedError(
-            f"blocks {sorted(tree['blocks'])}: only single-kind dense stacks "
-            "are ported (ROADMAP.md queue 1 item 3)")
 
     def conv(t, index=None):
         if isinstance(t, dict):

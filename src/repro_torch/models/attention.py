@@ -21,7 +21,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import causal_mask
 from repro_torch.models import quant
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, rms_norm_fp32, softcap
 
 NEG_INF = -1.0e30
 
@@ -30,6 +30,8 @@ def project_q(params, x, cfg: ModelConfig, cos_sin=None):
     B, S, d = x.shape
     w = params["wq"].to(x.dtype).reshape(d, -1)
     q = (x @ w).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm_fp32(q, params["q_norm"])
     if cos_sin is not None:
         q = apply_rope(q, *cos_sin)
     return q
@@ -40,6 +42,8 @@ def project_kv(params, x, cfg: ModelConfig, cos_sin=None):
     shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
     k = (x @ params["wk"].to(x.dtype).reshape(d, -1)).reshape(shape)
     v = (x @ params["wv"].to(x.dtype).reshape(d, -1)).reshape(shape)
+    if cfg.qk_norm:
+        k = rms_norm_fp32(k, params["k_norm"])
     if cos_sin is not None:
         k = apply_rope(k, *cos_sin)
     return k, v
@@ -85,6 +89,47 @@ def sharded_attention(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
     sequence-parallel fallback, only ``ops.flash_attention``."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                cap=cap, scale=scale)
+
+
+def update_cache(cache, new, pos):
+    """Write one new KV row per sequence into a dense static cache, in
+    place. cache: (B, S, K, hd); new: (B, 1, K, hd); pos: (B,) write
+    position, clamped into [0, S) as ``dynamic_update_slice`` clamps it."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    cache[rows, pos.long().clamp(0, S - 1)] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=None, cap=None,
+                     scale=None):
+    """One query per sequence against a dense static cache (port of the
+    JAX package's ``decode_attention`` on one device, where its
+    sequence-sharded stitch is the identity: ``_decode_attn_local`` over
+    the whole cache). q: (B, 1, H, hd); caches: (B, S, K, hd); pos: (B,)
+    the newest token's position (keys [0, pos] are visible, and with a
+    window only those after pos - window). fp32 logits of the exact
+    products, softcap, mask, the softmax normalized in fp32 and cast to
+    the value dtype, then p v summed in fp32."""
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(B, G, K, hd)
+    logits = torch.einsum("bgkh,bskh->bgks", qg.float(),
+                          k_cache.float()) * scale
+    logits = softcap(logits, cap)
+    k_pos = torch.arange(S, device=q.device)
+    ok = k_pos[None, :] <= pos.long()[:, None]                    # (B, S)
+    if window is not None:
+        ok &= k_pos[None, :] > pos.long()[:, None] - window
+    logits = torch.where(ok[:, None, None, :], logits, NEG_INF)
+    mx = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - mx)
+    sm = p.sum(dim=-1, keepdim=True).clamp(min=1e-37)
+    o = torch.einsum("bgks,bskh->bgkh", (p / sm).to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def _scatter(pages, blk, slot, rows):

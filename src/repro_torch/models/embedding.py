@@ -6,6 +6,8 @@ their one-shard values."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.config import ModelConfig
@@ -20,15 +22,23 @@ def head_table(params, cfg: ModelConfig):
 
 
 def embed(table, tokens, cfg: ModelConfig):
-    """tokens: (B, S) int -> (B, S, d) in the activation dtype. As in the
-    JAX package, ids are clamped into [0, V_pad) for the gather and rows of
-    out-of-range ids come out zero."""
+    """tokens: (B, S) int -> (B, S, d) in the activation dtype, times
+    sqrt(d) with ``cfg.embedding_scale``. As in the JAX package, ids are
+    clamped into [0, V_pad) for the gather and rows of out-of-range ids
+    come out zero."""
     V = table.shape[0]
     ids = tokens.clamp(0, V - 1).to(torch.int32)
     ok = (tokens >= 0) & (tokens < V)
     out = torch.where(ok[..., None], ops.embedding_gather(table, ids), 0)
-    return out.to(torch.bfloat16 if cfg.dtype == "bfloat16"
-                  else torch.float32)
+    out = out.to(torch.bfloat16 if cfg.dtype == "bfloat16"
+                 else torch.float32)
+    if cfg.embedding_scale:
+        # sqrt(d) rounded to the activation dtype before the multiply, as
+        # the JAX package's jnp.asarray(sqrt(d), out.dtype): gemma2's
+        # sqrt(4608) = 67.88 is 68.0 in bf16
+        out = out * torch.tensor(math.sqrt(cfg.d_model),
+                                 dtype=out.dtype).item()
+    return out
 
 
 def decode_logits(x, table, cfg: ModelConfig):

@@ -27,6 +27,14 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
     return y.to(dt)
 
 
+def rms_norm_fp32(x, scale, eps: float = 1e-6):
+    """Bare RMS-norm over the last axis in fp32, cast back (qk-norm)."""
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))

@@ -1,16 +1,21 @@
 """Decoder forward passes (port of ``repro.models.transformer``): the
 paged serving trio ``decode_step_paged``, ``prefill_chunk_paged`` and
-``prefill_chunk_ragged``, for dense GQA decoders, pure Mamba2 models and
-zamba2's hybrid (Mamba2 layers with one shared attention + MLP block
-applied after every ``shared_attn_period`` layers), and the training loss
-``forward_loss`` for dense decoders.
+``prefill_chunk_ragged``, for dense GQA decoders (glm4, qwen3's qk-norm,
+starcoder2's LayerNorm and ungated MLP, gemma2's alternating local and
+global layers with softcaps, post-block norms and the embedding scale),
+pure Mamba2 models and zamba2's hybrid (Mamba2 layers with one shared
+attention + MLP block applied after every ``shared_attn_period``
+layers); the static path ``init_cache`` / ``prefill`` / ``decode_step``
+and the training loss ``forward_loss``, for dense decoders.
 
 A Python loop over layers replaces ``lax.scan``. Parameters are a dict:
 ``{"embed": {"table"[, "head"]}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}[, "shared": {...}]}``, where each per-layer dict is
 one slice of the JAX package's stacked ``blocks/sub{i}`` trees: ``norm``,
-``attn/{wq,wk,wv,wo}``, ``norm2``, ``mlp/{w_gate,w_in,w_out}`` for an
-attention layer, ``norm``, ``mamba/{...}`` for a mamba layer; ``shared``
+``attn/{wq,wk,wv,wo[,q_norm,k_norm]}``, ``norm2``,
+``mlp/{w_gate,w_in,w_out}`` [, ``post_norm``, ``post_norm2``] for an
+attention layer, ``norm``, ``mamba/{...}`` for a mamba layer (a
+LayerNorm carries ``bias`` beside ``scale``); ``shared``
 is the hybrid's one unstacked attention block (``norm``, ``attn``,
 ``norm2``, ``mlp``).
 
@@ -25,7 +30,8 @@ decode slot (the serving ``SlotStateCache``'s device half; a chunk gets
 its slot's row). Every step writes its new KV rows and states into the
 cache in place (the JAX package donates the buffers instead) and returns
 it; into a quantized pool the rows are quantized first, their scale rows
-scattered beside them, and the attention dequantizes.
+scattered beside them, and the attention dequantizes. The static path's
+cache is dense instead: ``{"k", "v"}`` ``(num_layers, B, S, K, hd)``.
 """
 
 from __future__ import annotations
@@ -38,21 +44,33 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import quant
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (attention_scale, out_proj,
+from repro_torch.models.attention import (attention_scale, decode_attention,
+                                          out_proj,
                                           paged_chunk_attention,
                                           paged_decode_attention, project_kv,
                                           project_q,
                                           ragged_chunk_update_attend,
-                                          sharded_attention,
+                                          sharded_attention, update_cache,
                                           update_paged_cache,
                                           update_paged_cache_chunk)
-from repro_torch.models.embedding import (decode_logits, embed, head_table,
+from repro_torch.models.embedding import (decode_logits,
+                                          decode_logits_argmax, embed,
+                                          head_table,
                                           lm_loss, sampled_softmax_loss)
 from repro_torch.models.layers import apply_mlp, apply_norm, rope_cos_sin
 
 
-def _mlp_part(lp, x, cfg: ModelConfig):
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+def _post_norm(lp, name, y, cfg: ModelConfig):
+    """A block output through its post-block norm (gemma2), before the
+    residual add."""
+    return apply_norm(lp[name], y, cfg) if cfg.post_block_norm else y
+
+
+def _mlp_part(lp, x, cfg: ModelConfig, post: bool = True):
+    """The MLP half of a block. The hybrid's shared block has no
+    ``post_norm2`` (``post=False``), as in the JAX package."""
+    y = apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    return x + (_post_norm(lp, "post_norm2", y, cfg) if post else y)
 
 
 PAGE_POOLS = ("k", "v", "k_scale", "v_scale")
@@ -68,9 +86,6 @@ def unported(cfg: ModelConfig) -> str | None:
         return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
     if cfg.frontend is not None or cfg.rope_sections is not None:
         return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
-    if cfg.qk_norm or cfg.post_block_norm or cfg.embedding_scale:
-        return ("qk-norm, post-block norms and embedding scale "
-                "(ROADMAP.md queue 1 item 3)")
     return None
 
 
@@ -101,14 +116,15 @@ def _layers(params, cache, cfg: ModelConfig, x, attend, mamba=None):
     period = cfg.shared_attn_period
     n_attn = n_mamba = 0
 
-    def attention(bp, x, window):
+    def attention(bp, x, window, shared=False):
         nonlocal n_attn
         pools = {n: cache[n][n_attn] for n in PAGE_POOLS if n in cache}
         n_attn += 1
         y = attend(bp["attn"], apply_norm(bp["norm"], x, cfg), pools,
                    window)
-        x = x + out_proj(bp["attn"], y, x.dtype)
-        return _mlp_part(bp, x, cfg)
+        x = x + _post_norm(bp, "post_norm", out_proj(bp["attn"], y, x.dtype),
+                           cfg)
+        return _mlp_part(bp, x, cfg, post=not shared)
 
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
         if kind == MAMBA:
@@ -119,7 +135,7 @@ def _layers(params, cache, cfg: ModelConfig, x, attend, mamba=None):
             x = attention(lp, x, cfg.sliding_window if kind == LOCAL_ATTN
                           else None)
         if period and (i + 1) % period == 0:
-            x = attention(params["shared"], x, None)
+            x = attention(params["shared"], x, None, shared=True)
     return apply_norm(params["final_norm"], x, cfg)
 
 
@@ -278,6 +294,98 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
 
 
 # ---------------------------------------------------------------------------
+# The static path: monolithic prefill, then one token at a time against
+# dense per-sequence caches (the JAX package's prefill / decode_step)
+# ---------------------------------------------------------------------------
+
+
+def check_static(cfg: ModelConfig) -> None:
+    """Raise, naming ROADMAP, for a model the static path does not run:
+    it serves dense decoders only."""
+    why = unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    if cfg.ssm is not None or cfg.shared_attn_period:
+        raise NotImplementedError(
+            f"{cfg.name}: the static prefill / decode path of SSM and "
+            "hybrid models is not ported yet (ROADMAP.md queue 1 item 16)")
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda",
+               dtype=torch.bfloat16):
+    """Zero static cache: {"k", "v"} (num_layers, B, S, K, hd), one entry
+    per layer in layer order."""
+    check_static(cfg)
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("k", "v")}
+
+
+def prefill(params, batch, cfg: ModelConfig, head=None, max_len=None):
+    """Process equal-length prompts: batch tokens (B, S) [, positions (B,
+    S)]. Every layer attends through ``sharded_attention`` (the flash
+    kernel on the card). Returns (cache {"k", "v"} (num_layers, B,
+    max_len, K, hd) holding the prompts' K/V in positions [0, S) and zeros
+    after them (``max_len`` defaults to S), greedy next token (B,) int32).
+    ``head`` overrides the logits table, as in ``decode_step_paged``."""
+    cache, logits = prefill_logits(params, batch, cfg, head, max_len)
+    return cache, logits.argmax(dim=-1).to(torch.int32)
+
+
+def prefill_logits(params, batch, cfg: ModelConfig, head=None, max_len=None):
+    """``prefill`` with the last position's logits (B, V_pad) fp32 in
+    place of its greedy token."""
+    check_static(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"]["table"], tokens, cfg)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    cos_sin = _rope(cfg, positions)
+    cache = init_cache(cfg, B, S if max_len is None else max_len,
+                       tokens.device, x.dtype)
+
+    def attend(ap, h, pools, window):
+        q = project_q(ap, h, cfg, cos_sin)
+        k, v = project_kv(ap, h, cfg, cos_sin)
+        pools["k"][:, :S] = k
+        pools["v"][:, :S] = v
+        return sharded_attention(q, k, v, cfg, causal=True, window=window,
+                                 cap=cfg.attn_logit_softcap,
+                                 scale=attention_scale(cfg))
+
+    x = _layers(params, cache, cfg, x, attend)
+    head = head_table(params["embed"], cfg) if head is None else head
+    return cache, decode_logits(x[:, -1:], head, cfg)
+
+
+def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
+    """One token per sequence against the static cache: batch token (B,
+    1), pos (B,) the position to write at (the token attends to [0, pos]).
+    Writes the new K/V rows into ``cache`` in place. Returns (greedy next
+    token (B,) int32, cache)."""
+    check_static(cfg)
+    pos = batch["pos"]
+    x = embed(params["embed"]["table"], batch["token"], cfg)
+    cos_sin = _rope(cfg, pos[:, None])
+
+    def attend(ap, h, pools, window):
+        q = project_q(ap, h, cfg, cos_sin)
+        k, v = project_kv(ap, h, cfg, cos_sin)
+        kc = update_cache(pools["k"], k, pos)
+        vc = update_cache(pools["v"], v, pos)
+        return decode_attention(q, kc, vc, pos, window=window,
+                                cap=cfg.attn_logit_softcap,
+                                scale=attention_scale(cfg))
+
+    x = _layers(params, cache, cfg, x, attend)
+    head = head_table(params["embed"], cfg) if head is None else head
+    return decode_logits_argmax(x, head, cfg), cache
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -291,7 +399,8 @@ def _attn_full(lp, x, cfg: ModelConfig, cos_sin, kind: str):
     y = sharded_attention(q, k, v, cfg, causal=True, window=window,
                           cap=cfg.attn_logit_softcap,
                           scale=attention_scale(cfg))
-    return x + out_proj(lp["attn"], y, x.dtype)
+    return x + _post_norm(lp, "post_norm", out_proj(lp["attn"], y, x.dtype),
+                          cfg)
 
 
 def check_trainable(cfg: ModelConfig, pcfg) -> None:

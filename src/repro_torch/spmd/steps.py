@@ -1,5 +1,5 @@
 """The train step (port of ``repro.spmd.steps.make_train_step`` and
-``_split_microbatches``).
+``_split_microbatches``) and the static path's prefill and decode steps.
 
 One device and no mesh: the JAX package's sharding assignments
 (``batch_shardings``, ``param_shardings``, ZeRO-1 state shardings) wait for
@@ -101,3 +101,17 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> (cache, next_token)``."""
+    def prefill_step(params, batch):
+        return api.prefill_fn(params, batch, cfg)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, cache, batch) -> (next_token, cache)``."""
+    def decode_step(params, cache, batch):
+        return api.decode_fn(params, cache, batch, cfg)
+    return decode_step

@@ -7,7 +7,9 @@ package, so on a machine with a card and without jax it runs alone:
 
 Graph and eager run one step body on the same inputs, so tokens (and
 logprobs) must be byte-identical (no tolerance): glm4_9b (head dim 16 at
-smoke size, the paged kernels' hd-16 route), mamba2_370m and zamba2_2p7b,
+smoke size, the paged kernels' hd-16 route), gemma2_27b (hd 16 too: its
+16-token window, both softcaps and scale 1/4 through the kernels),
+mamba2_370m and zamba2_2p7b,
 an int8 pool with prefill_pack 4, a run that preempts, a temperature run
 whose draws replay, every sampling mode (greedy, plain, full) on every
 runner, and the speculative runner in each mode. Each graph engine
@@ -86,7 +88,8 @@ def _both(arch, prompts, arrivals=None, max_new=12, sampling=None,
     return outs[True], outs[False], graph_eng
 
 
-@pytest.mark.parametrize("arch", ["glm4_9b", "mamba2_370m", "zamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["glm4_9b", "gemma2_27b", "mamba2_370m",
+                                  "zamba2_2p7b"])
 def test_cuda_graph_equals_eager(arch):
     _card()
     cfg = get_config(arch, smoke=True)
@@ -108,7 +111,7 @@ def test_cuda_graph_equals_eager_int8_packed():
     assert eng.cache["k"].dtype == torch.int8
 
 
-@pytest.mark.parametrize("arch", ["glm4_9b", "zamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["glm4_9b", "gemma2_27b", "zamba2_2p7b"])
 def test_cuda_graph_equals_eager_under_preemption(arch):
     _card()
     cfg = get_config(arch, smoke=True)

@@ -52,7 +52,10 @@ def test_no_source_imports_repro():
 # the glm4_9b cases keep their first ids
 CONFIG_CASES = [("glm4_9b", False), ("glm4_9b", True),
                 ("mamba2_370m", False), ("mamba2_370m", True),
-                ("zamba2_2p7b", False), ("zamba2_2p7b", True)]
+                ("zamba2_2p7b", False), ("zamba2_2p7b", True),
+                ("qwen3_32b", False), ("qwen3_32b", True),
+                ("starcoder2_3b", False), ("starcoder2_3b", True),
+                ("gemma2_27b", False), ("gemma2_27b", True)]
 
 
 @pytest.mark.parametrize(
@@ -82,8 +85,9 @@ def test_glm4_config_equals_reference_field_for_field(arch, smoke):
 
 
 def test_unported_arch_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="qwen3_32b"):
-        get_config("qwen3_32b")
+    with pytest.raises(NotImplementedError,
+                       match="whisper_large_v3.*queue 1 item 10"):
+        get_config("whisper_large_v3")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no_such_model")
     assert get_config("glm4-9b") == get_config("glm4_9b")

@@ -277,10 +277,10 @@ def test_ssm_training_refused(arch):
 
 def test_unported_model_features_refused():
     """Features no forward of the port runs are refused by name, here as
-    in the serving engine (qk-norm: qwen3)."""
+    in the serving engine (M-RoPE: qwen2_vl)."""
     cfg = dataclasses.replace(get_config("glm4_9b", smoke=True),
-                              qk_norm=True)
-    with pytest.raises(NotImplementedError, match="qk-norm.*ROADMAP"):
+                              rope_sections=(2, 3, 3))
+    with pytest.raises(NotImplementedError, match="M-RoPE.*ROADMAP"):
         tsteps.make_train_step(cfg, ParallelConfig(), OptimizerConfig())
 
 
