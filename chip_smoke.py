@@ -188,6 +188,38 @@ Phases, each of which raises on failure:
      peak memory and the decode step's bytes floor; each member's
      launches per kernel ("<member>_launches", replay-aware) go into the
      kernels' rows.
+  11. abort, the host swap tier, the front end and the fleet, at glm4_9b's
+     full width and depth on phase 3's weights and traffic, on CUDA graphs
+     (run after phase 9, while those weights are on the card):
+     a. 80 allocatable blocks with a 1 GiB pinned host tier, swap_policy
+        "always" (graphs and eager), "never" (recompute), and a pool that
+        never preempts; then the same three over int8 pools at
+        prefill_pack 4: greedy tokens byte-identical in all, >= 2 swap
+        preemptions, swapped bytes = blocks x block bytes, every block and
+        host slot free at the end; the swap copies' device times per swap
+        beside a plain pinned copy_ of the same bytes ("[serve-swap]").
+     b. the 8 requests through AsyncEngineDriver over the swap engine:
+        when request 0 has 4 tokens it and one waiting request (a swapped
+        one if any) are aborted; the other 6 streams equal a run without
+        the two, byte for byte ("[serve-abort]").
+     c. FrontendServer on 127.0.0.1 (port 0), 8 concurrent SSE clients,
+        one gone after 4 tokens: the other 7 equal engine.run()'s tokens,
+        one abort, /health 200, /metrics parses as Prometheus text with
+        repro_engine_tokens_total == the tokens streamed; TTFT and token
+        gap as the clients saw them ("[serve-http]").
+     d. ReplicaRouter over 2 engines on the one card sharing the weights
+        and a 512-slot SharedPrefixIndex (320 MiB pinned), then with
+        disaggregate=True, n_prefill=1: tokens byte-identical to dp = 1,
+        blocks published and adopted across replicas; a full-sampling
+        request submitted mid-run makes one replica capture its graphs in
+        the middle of the other's run (the other's replays timed: some
+        before, none inside, under the process-wide device lock, some
+        after), and its tokens and logprobs equal its eager run alone;
+        tok/s, peak memory and the handoff's bytes and copy time
+        ("[serve-fleet]").
+     Each run's launches go into the kernels' rows, replay-aware.
+     ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
+     alone (a development run: no result line).
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
 
@@ -199,6 +231,7 @@ result.
 
 from __future__ import annotations
 
+import faulthandler
 import gc
 import json
 import math
@@ -214,6 +247,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same source
 TOL = 1e-2
 DEV = "cuda"                     # every phase runs on the card
+WATCHDOG_S = 1140                # the run's time limit is 1200 s
 KV_DTYPES = ("bf16", "int8", "fp8")
 DECODE_SRC = "src/repro_torch/csrc/paged_attention.cu"
 RAGGED_SRC = "src/repro_torch/csrc/ragged_paged_attention.cu"
@@ -2005,7 +2039,6 @@ def serve_full(torch, counters, card):
     """Phase 3: bf16 pools, one chunk per step, on graphs, then the same
     run eager (A/B). Returns (the graph run's measurements with the eager
     run's under "eager", the parameters, kept for phase 4)."""
-    import numpy as np
     from repro_torch.config import get_config
     from repro_torch.models.api import init_model
     from repro_torch.serving import InferenceEngine, Request
@@ -2015,11 +2048,7 @@ def serve_full(torch, counters, card):
     params = init_model(cfg, 0, DEV)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    rng = np.random.default_rng(0)
-    prefix = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
-    prompts = [np.concatenate(
-        [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)])
-        for _ in range(8)]
+    prompts = phase3_prompts(cfg)
 
     def make_engine(graphs):
         eng = InferenceEngine(cfg, device=DEV, params=params, max_batch=8,
@@ -2858,6 +2887,644 @@ def serve_family(torch, counters, card, rows) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: abort, the host swap tier, the front end and the fleet
+# ---------------------------------------------------------------------------
+
+# 80 allocatable blocks: phase 3's traffic touches 16 + 8 x 18 = 160, and
+# this pool swaps at least twice at pack 1 (at 100 blocks, once)
+SWAP_BLOCKS = 81
+SWAP_SPACE = 1 << 30
+SHARED_SLOTS = 512              # the fleet's shared index: 320 MiB pinned
+SWAP_KEYS = ("preemptions", "swap_preemptions", "swap_ins",
+             "swapped_out_blocks", "swapped_in_blocks", "swapped_out_bytes",
+             "swapped_in_bytes", "swap_d2h_s", "swap_h2d_s",
+             "host_hit_blocks", "cache_hit_tokens", "swap_space_mib")
+
+
+def phase3_prompts(cfg):
+    """Phase 3's prompts: 8 of 512 tokens sharing a 256-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+    return [np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)])
+        for _ in range(8)]
+
+
+def glm4_engine(params, graphs=True, pack=1, **kw):
+    """glm4_9b at phase 3's settings (8 slots, 16-token blocks, 256-row
+    chunks; 512 when packed)."""
+    from repro_torch.config import get_config
+    from repro_torch.serving import InferenceEngine
+    return InferenceEngine(get_config("glm4_9b"), device=DEV, params=params,
+                           max_batch=8, block_size=16, max_len=1024, seed=0,
+                           max_num_batched_tokens=8 + 256 * pack,
+                           prefill_pack=pack, cuda_graphs=graphs, **kw)
+
+
+def fleet_launches(counters, engines) -> tuple[dict, dict]:
+    """``run_launches`` over engines that share the kernels' counters."""
+    total = read_launches(counters)
+    replayed = {}
+    for eng in engines:
+        if eng.graphs is not None:
+            for (kernel, key), n in eng.graphs.run_launches().items():
+                name = summary_name(kernel, key)
+                replayed[name] = replayed.get(name, 0) + n
+                total[name] = total.get(name, 0) + n
+    return total, replayed
+
+
+def first_diff(a, b):
+    """(request, step) of the first differing token of two lists of
+    streams, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, next((j for j, (p, q) in enumerate(zip(x, y))
+                            if p != q), min(len(x), len(y)))
+    return None
+
+
+def same_streams(label, got, want) -> None:
+    d = first_diff(got, want)
+    check(d is None and len(got) == len(want),
+          f"{label}: tokens differ (request, step) {d}")
+
+
+def brief_swap(runs: dict) -> dict:
+    keys = ("tok_s", "steps", "decode_step_ms_mean", "chunk_step_ms_mean",
+            "ttft_s_median", "token_gap_s_median", "peak_mem_gib",
+            "link_yardstick", "d2h_ms_per_swap", "h2d_ms_per_swap_in",
+            "d2h_gb_s", "h2d_gb_s") + SWAP_KEYS
+    return {k: {n: r[n] for n in keys if n in r} for k, r in runs.items()}
+
+
+def link_yardstick(torch, nbytes: int) -> dict:
+    """A plain pinned copy_ of ``nbytes`` each way, by CUDA events: the
+    device <-> host link's rate beside the swap tier's copies."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        dst.copy_(src, non_blocking=True)              # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        out[name + "_ms"], out[name + "_gb_s"] = ms, nbytes / ms / 1e6
+    return out
+
+
+def serve_swap(torch, counters, card, params) -> tuple[list, list]:
+    """Phase 11a: phase 3's traffic over 100 blocks with a 1 GiB host tier,
+    swap_policy "always", on graphs and eager; "never" (recompute); a pool
+    that never preempts; then the same three over int8 pools at
+    prefill_pack 4. Greedy tokens byte-identical in all, the swap runs'
+    counters and the freed pools checked, the swap copies' times beside a
+    plain pinned copy of the same bytes. Returns (runs, the bf16 no-preempt
+    run's tokens in prompt order)."""
+    from repro_torch.config import get_config
+    from repro_torch.serving import Request
+    from repro_torch.serving.kv_cache import block_bytes
+
+    cfg = get_config("glm4_9b")
+    prompts = phase3_prompts(cfg)
+    runs, want = [], None
+    for kv, pack in (("bf16", 1), ("int8", 4)):
+        prefill = ("paged_prefill_attention" if pack == 1
+                   else "ragged_paged_prefill_attention")
+        expect = (variant(prefill, kv), variant("paged_attention", kv),
+                  "gather")
+        bb = block_bytes(cfg, 16, kv_dtype=kv)
+        toks, res = {}, {}
+        ways = [("swap", True, "always"), ("recompute", True, "never"),
+                ("no_preempt", True, None)]
+        if kv == "bf16":
+            ways.insert(1, ("swap_eager", False, "always"))
+        for label, graphs, policy in ways:
+            kw = dict(kv_dtype=kv)
+            if policy is not None:
+                kw.update(num_blocks=SWAP_BLOCKS, swap_space_bytes=SWAP_SPACE,
+                          swap_policy=policy)
+            eng = glm4_engine(params, graphs, pack, **kw)
+            r, t = serve(torch, counters, eng,
+                         [Request(p.copy(), max_new=32) for p in prompts],
+                         32, expect)
+            r.update({k: eng.stats[k] for k in SWAP_KEYS},
+                     label=f"11a {kv} pack {pack} {label}")
+            check(eng.bm.stats().blocks_in_use == 0
+                  and eng.bm.num_host_free == eng.bm.num_host_blocks,
+                  f"{r['label']}: blocks or host slots left in use")
+            eng.bm.check()
+            toks[label], res[label] = list(t.values()), r
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        s, rc, n = res["swap"], res["recompute"], res["no_preempt"]
+        check(s["swap_preemptions"] >= 2 and s["swap_ins"] >= 2,
+              f"{kv}: {s['swap_preemptions']} swap preemptions, "
+              f"{s['swap_ins']} swap-ins")
+        check(s["swapped_out_bytes"] == s["swapped_out_blocks"] * bb
+              and s["swapped_in_bytes"] == s["swapped_in_blocks"] * bb
+              and 0 < s["swapped_in_blocks"] <= s["swapped_out_blocks"]
+              + s["host_hit_blocks"],
+              f"{kv}: swap counters {dict((k, s[k]) for k in SWAP_KEYS)}")
+        check(rc["swap_preemptions"] == 0 and rc["preemptions"] >= 2
+              and n["preemptions"] == 0,
+              f"{kv}: recompute run {rc['preemptions']} preemptions, "
+              f"no-preempt run {n['preemptions']}")
+        for label in ("swap", "swap_eager"):
+            if label in toks:
+                same_streams(f"{kv} pack {pack}: {label} vs no-preempt",
+                             toks[label], toks["no_preempt"])
+        # recompute replays the generated tokens' KV through the chunk
+        # path's GEMMs (256 or 512 rows, where decode wrote them with 8):
+        # cuBLAS need not round a row alike at both shapes, so the streams
+        # may part, but only at a near-tie (the rule of phases 6 and 10)
+        margins = []
+        rc["recompute_identical"] = sum(
+            near_tie_or_same(torch, params, cfg, p, a, b, TOL, margins)
+            for p, a, b in zip(prompts, toks["recompute"],
+                               toks["no_preempt"]))
+        rc["recompute_margins"] = margins
+        per_swap = s["swapped_out_bytes"] // s["swap_preemptions"]
+        link = link_yardstick(torch, per_swap)
+        s.update(link_yardstick=link,
+                 d2h_ms_per_swap=1e3 * s["swap_d2h_s"] / s["swap_preemptions"],
+                 h2d_ms_per_swap_in=1e3 * s["swap_h2d_s"] / s["swap_ins"],
+                 d2h_gb_s=s["swapped_out_bytes"] / max(s["swap_d2h_s"], 1e-12)
+                 / 1e9,
+                 h2d_gb_s=s["swapped_in_bytes"] / max(s["swap_h2d_s"], 1e-12)
+                 / 1e9)
+        print(f"[serve-swap] {card}: glm4_9b {kv} pools, pack {pack}, "
+              f"{SWAP_BLOCKS - 1} blocks, 1 GiB host tier: swap == "
+              f"no-preempt{' == swap eager' if kv == 'bf16' else ''} byte "
+              f"for byte; recompute == no-preempt on "
+              f"{rc['recompute_identical']}/{len(prompts)} requests, the "
+              f"rest part at a near-tie (step, top-2 margin, limit) "
+              f"{rc['recompute_margins']}; {s['swap_preemptions']} swap "
+              f"preemptions "
+              f"({s['preemptions']} in all), {s['swap_ins']} swap-ins, "
+              f"{s['swapped_out_blocks']} blocks out / "
+              f"{s['swapped_in_blocks']} in ({s['swapped_out_bytes']} / "
+              f"{s['swapped_in_bytes']} bytes); d2h "
+              f"{s['d2h_ms_per_swap']:.3f} ms a swap ({s['d2h_gb_s']:.2f} "
+              f"GB/s), h2d {s['h2d_ms_per_swap_in']:.3f} ms a swap-in "
+              f"({s['h2d_gb_s']:.2f} GB/s); a plain pinned copy of "
+              f"{per_swap} bytes: d2h {link['d2h_ms']:.3f} ms "
+              f"({link['d2h_gb_s']:.2f} GB/s), h2d {link['h2d_ms']:.3f} ms "
+              f"({link['h2d_gb_s']:.2f} GB/s); tok/s swap {s['tok_s']}, "
+              f"recompute {rc['tok_s']}, no-preempt {n['tok_s']}: "
+              f"{json.dumps(brief_swap(res))}", flush=True)
+        runs += list(res.values())
+        if kv == "bf16":
+            want = toks["no_preempt"]
+    return runs, want
+
+
+async def sse_client(port, prompt, max_new, drop_after=None):
+    """POST /generate and read the SSE stream: (tokens, send time, token
+    arrival times, the final rid or None). With ``drop_after`` the client
+    disconnects after that many tokens."""
+    import asyncio
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_new": max_new}).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    t0 = time.monotonic()
+    writer.write((f"POST /generate HTTP/1.1\r\nHost: t\r\nContent-Type: "
+                  f"application/json\r\nContent-Length: {len(body)}\r\n\r\n"
+                  ).encode() + body)
+    await writer.drain()
+    toks, times, rid = [], [], None
+    while True:
+        line = await reader.readline()
+        if not line or line.strip() == b"data: [DONE]":
+            break
+        if not line.startswith(b"data: "):
+            continue
+        ev = json.loads(line[6:])
+        if "token" in ev:
+            toks.append(ev["token"])
+            times.append(time.monotonic())
+            if drop_after is not None and len(toks) == drop_after:
+                break
+        elif ev.get("done"):
+            rid = ev["rid"]
+    writer.close()
+    return toks, t0, times, rid
+
+
+async def http_get(port, path):
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: t\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body.decode()
+
+
+def prometheus_samples(text: str) -> dict:
+    """{sample name with labels: value} of Prometheus text; fails on a
+    line that does not parse."""
+    out = {}
+    for ln in text.strip().split("\n"):
+        if ln.startswith("#"):
+            check(ln.startswith(("# HELP ", "# TYPE ")), f"metrics: {ln}")
+            continue
+        name, _, val = ln.rpartition(" ")
+        try:
+            out[name] = float(val)
+        except ValueError:
+            fail(f"metrics: sample line does not parse: {ln}")
+    return out
+
+
+def serve_abort_http(torch, counters, card, params, want) -> list:
+    """Phase 11b: phase 3's 8 requests through an AsyncEngineDriver over
+    the 11a swap engine; when request 0 has 4 tokens (in the engine
+    thread, between steps) it and one waiting request (a swapped one if
+    any) are aborted: the other 6 streams equal a run without the two,
+    every block and host slot is free. Phase 11c: FrontendServer on
+    127.0.0.1, 8 concurrent SSE clients with phase 3's prompts, one
+    disconnecting after 4 tokens: the other 7 equal ``want`` (the no-
+    preempt run's), one abort, /health 200, /metrics parses with
+    repro_engine_tokens_total == the tokens streamed; TTFT and the token
+    gap as the clients saw them. Returns the runs."""
+    import asyncio
+    from repro_torch.config import get_config
+    from repro_torch.serving import Request
+    from repro_torch.serving.frontend import AsyncEngineDriver, FrontendServer
+
+    cfg = get_config("glm4_9b")
+    prompts = phase3_prompts(cfg)
+    swap_kw = dict(num_blocks=SWAP_BLOCKS, swap_space_bytes=SWAP_SPACE,
+                   swap_policy="always")
+    expect = ("paged_attention", "paged_prefill_attention", "gather")
+    runs = []
+
+    # -- 11b
+    eng = glm4_engine(params, **swap_kw)
+    eng.capture_graphs()
+    drv = AsyncEngineDriver(eng)
+    reqs = [Request(p.copy(), max_new=32, rid=1100 + i)
+            for i, p in enumerate(prompts)]
+    aborted = {}
+
+    async def run_b():
+        streams = [await drv.submit(r) for r in reqs]
+        await drv.start()
+        inner = eng.on_token
+
+        def hook(req, tok, lp=None):
+            inner(req, tok, lp)
+            if req is reqs[0] and len(req.out) == 4 and not aborted:
+                waiting = list(eng.sched.waiting)
+                check(waiting, "11b: no waiting request to abort")
+                other = next((r for r in waiting if eng.bm.is_swapped(r.rid)),
+                             waiting[-1])
+                aborted.update(running=req.rid, other=other.rid,
+                               other_swapped=eng.bm.is_swapped(other.rid))
+                drv.abort(req.rid)
+                drv.abort(other.rid)
+        eng.on_token = hook
+
+        async def pull(s):
+            return [ev.token async for ev in s]
+
+        outs = await asyncio.gather(*(pull(s) for s in streams))
+        await drv.aclose()
+        return outs
+
+    torch.cuda.synchronize()
+    reset_launches(counters)
+    t0 = time.monotonic()
+    outs = asyncio.run(run_b())
+    wall = time.monotonic() - t0
+    launches, replayed = fleet_launches(counters, [eng])
+    check(drv.aborted == 2 and eng.stats["aborts"] == 2,
+          f"11b: driver aborted {drv.aborted}, engine {eng.stats['aborts']}")
+    check(eng.bm.stats().blocks_in_use == 0
+          and eng.bm.num_host_free == eng.bm.num_host_blocks,
+          "11b: blocks or host slots left after the aborts")
+    eng.bm.check()
+    gone = {aborted["running"], aborted["other"]}
+    check(4 <= len(outs[0]) < 32, f"11b: aborted stream has {len(outs[0])}")
+    keep = [i for i, r in enumerate(reqs) if r.rid not in gone]
+    res_b = {"label": "11b abort", "launches": launches,
+             "replayed_launches": replayed, "wall_s": wall,
+             "aborted": aborted, "tokens": eng.stats["tokens"],
+             "swap_preemptions": eng.stats["swap_preemptions"]}
+    del eng, drv
+    gc.collect()
+    twin = glm4_engine(params, **swap_kw)
+    r, t = serve(torch, counters, twin,
+                 [Request(prompts[i].copy(), max_new=32) for i in keep], 32,
+                 expect)
+    same_streams("11b: survivors vs a run without the aborted two",
+                 [outs[i] for i in keep], list(t.values()))
+    r["label"] = "11b twin"
+    runs += [res_b, r]
+    print(f"[serve-abort] {card}: glm4_9b, 8 requests through the driver "
+          f"over the swap engine: aborted running rid {aborted['running']} "
+          f"after {len(outs[0])} tokens and waiting rid {aborted['other']} "
+          f"(swapped: {aborted['other_swapped']}); the 6 others == a run "
+          f"without the two, byte for byte; blocks and host slots all free; "
+          f"{res_b['swap_preemptions']} swap preemptions in the run",
+          flush=True)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11c
+    eng = glm4_engine(params)
+    eng.capture_graphs()
+    drv = AsyncEngineDriver(eng)
+    pushed = {}
+    drop = 5
+
+    async def run_c():
+        await drv.start()
+        inner = eng.on_token
+
+        def count(req, tok, lp=None):
+            pushed[req.rid] = pushed.get(req.rid, 0) + 1
+            inner(req, tok, lp)
+        eng.on_token = count
+        srv = FrontendServer(drv, host="127.0.0.1", port=0)
+        await srv.start()
+        clients = await asyncio.gather(*(
+            sse_client(srv.port, p, 32, 4 if i == drop else None)
+            for i, p in enumerate(prompts)))
+        for _ in range(400):
+            if drv.aborted:
+                break
+            await asyncio.sleep(0.05)
+        health = await http_get(srv.port, "/health")
+        metrics = await http_get(srv.port, "/metrics")
+        await drv.aclose()
+        await srv.aclose()
+        return clients, health, metrics
+
+    torch.cuda.synchronize()
+    reset_launches(counters)
+    t0 = time.monotonic()
+    clients, health, metrics = asyncio.run(run_c())
+    wall = time.monotonic() - t0
+    launches, replayed = fleet_launches(counters, [eng])
+    check(health[0] == 200 and json.loads(health[1])["status"] == "ok",
+          f"11c: /health {health}")
+    check(metrics[0] == 200, f"11c: /metrics status {metrics[0]}")
+    samples = prometheus_samples(metrics[1])
+    done_rids = {c[3] for c in clients if c[3] is not None}
+    check(len(done_rids) == 7 and drv.dropped_streams == 1
+          and drv.aborted == 1 and eng.stats["aborts"] == 1,
+          f"11c: {len(done_rids)} streams completed, dropped "
+          f"{drv.dropped_streams}, aborts {eng.stats['aborts']}")
+    dropped_rid = next(r for r in pushed if r not in done_rids)
+    streamed = sum(len(c[0]) for c in clients if c[3] is not None) \
+        + pushed[dropped_rid]
+    check(samples.get("repro_engine_tokens_total") == streamed
+          == eng.stats["tokens"] and samples.get(
+              "repro_engine_aborts_total") == 1,
+          f"11c: repro_engine_tokens_total "
+          f"{samples.get('repro_engine_tokens_total')} vs streamed "
+          f"{streamed} (engine {eng.stats['tokens']})")
+    same_streams("11c: HTTP streams vs engine.run()",
+                 [c[0] for i, c in enumerate(clients) if i != drop],
+                 [w for i, w in enumerate(want) if i != drop])
+    ttft = [c[2][0] - c[1] for c in clients]
+    gaps = [b - a for c in clients for a, b in zip(c[2], c[2][1:])]
+    res_c = {"label": "11c http", "launches": launches,
+             "replayed_launches": replayed, "wall_s": wall,
+             "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+             "token_gap_s_median": statistics.median(gaps),
+             "token_gap_s_max": max(gaps), "tokens": eng.stats["tokens"],
+             "dropped_after": len(clients[drop][0])}
+    runs.append(res_c)
+    print(f"[serve-http] {card}: glm4_9b behind FrontendServer, 8 SSE "
+          f"clients, one gone after 4 tokens: 7 streams == engine.run(), "
+          f"1 abort, /health 200, /metrics parses "
+          f"(repro_engine_tokens_total {streamed:.0f} == streamed); as the "
+          f"clients saw it: TTFT median {res_c['ttft_s_median']:.3f} s max "
+          f"{res_c['ttft_s_max']:.3f} s, token gap median "
+          f"{1e3 * res_c['token_gap_s_median']:.2f} ms max "
+          f"{1e3 * res_c['token_gap_s_max']:.2f} ms", flush=True)
+    del eng, drv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+class CaptureWatch:
+    """Times every capture and replay of a fleet's engines, so the run can
+    show one replica capturing in the middle of another's run (and that
+    the device lock kept the other's replays out of the capture)."""
+
+    def __init__(self, engines):
+        self.captures, self.replays = [], []
+        for i, eng in enumerate(engines):
+            g = eng.graphs
+            capture, replay = g.capture, g.replay
+
+            def timed_capture(key, i=i, capture=capture):
+                t = time.monotonic()
+                capture(key)
+                self.captures.append((i, key, t, time.monotonic()))
+
+            def timed_replay(key, i=i, replay=replay):
+                self.replays.append((i, time.monotonic()))
+                return replay(key)
+            g.capture, g.replay = timed_capture, timed_replay
+
+    def around(self, mode) -> tuple[int, int, int]:
+        """Replays of the other replicas before, inside and after the
+        captures in ``mode``."""
+        out = [0, 0, 0]
+        for i, key, t0, t1 in self.captures:
+            if key[1] == mode:
+                for j, t in self.replays:
+                    if j != i:
+                        out[(t >= t0) + (t > t1)] += 1
+        return tuple(out)
+
+
+def serve_fleet(torch, counters, card, params, want, dp1_tok_s) -> list:
+    """Phase 11d: ReplicaRouter over 2 glm4 engines on the one card sharing
+    the weights and one SharedPrefixIndex (512 slots), phase 3's 8
+    requests, plus a full-sampling request submitted mid-run (its replica
+    captures the full graphs while the other replays; its tokens and
+    logprobs equal its eager run alone); then disaggregate with one
+    prefill replica. Tokens byte-identical to dp = 1 (``want``), blocks
+    published and adopted across replicas. Returns the runs."""
+    import asyncio
+    from repro_torch.config import get_config
+    from repro_torch.serving import (ReplicaRouter, Request, SamplingParams,
+                                     SharedPrefixIndex)
+    from repro_torch.serving.kv_cache import block_bytes
+
+    cfg = get_config("glm4_9b")
+    prompts = phase3_prompts(cfg)
+    full_sp = SamplingParams(temperature=0.8, top_p=0.9, min_p=0.05,
+                             repetition_penalty=1.1, logprobs=3, seed=7)
+    bb = block_bytes(cfg, 16)
+    runs = []
+    full_out = None
+    for label, rkw in (("dp2", {}), ("disagg", dict(disaggregate=True,
+                                                    n_prefill=1))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shared = SharedPrefixIndex(num_slots=SHARED_SLOTS)
+        engines = [glm4_engine(params, shared_index=shared)
+                   for _ in range(2)]
+        for eng in engines:
+            eng.capture_graphs()
+        check(all(e.params is params for e in engines),
+              f"{label}: replicas do not share the weights")
+        watch = CaptureWatch(engines)
+        timing = {"publish_s": 0.0, "adopt_s": 0.0}
+        for eng in engines:
+            for name, key in (("_flush_shared_publish", "publish_s"),
+                              ("_shared_in", "adopt_s")):
+                fn = getattr(eng, name)
+
+                def timed(*a, fn=fn, key=key):
+                    t = time.monotonic()
+                    fn(*a)
+                    timing[key] += time.monotonic() - t
+                setattr(eng, name, timed)
+        router = ReplicaRouter(engines, **rkw)
+        reqs = [Request(p.copy(), max_new=32, rid=1200 + i)
+                for i, p in enumerate(prompts)]
+        full_req = Request(prompts[3].copy(), max_new=16, sampling=full_sp,
+                           rid=1300)
+
+        async def go():
+            streams = [await router.submit(r) for r in reqs]
+            await router.start()
+            first = await streams[0].__anext__()
+            sfull = None
+            if label == "dp2":               # mid-run: a new (shape, mode)
+                sfull = await router.submit(full_req)
+
+            async def pull(s):
+                evs = [ev async for ev in s]
+                return [e.token for e in evs], [e.logprobs for e in evs]
+
+            outs = await asyncio.gather(*(pull(s) for s in streams))
+            full = await pull(sfull) if sfull is not None else None
+            await router.aclose()
+            return [[first.token] + outs[0][0]] + [o[0] for o in outs[1:]], \
+                full
+
+        torch.cuda.synchronize()
+        reset_launches(counters)
+        t0 = time.monotonic()
+        outs, full = asyncio.run(go())
+        wall = time.monotonic() - t0
+        launches, replayed = fleet_launches(counters, engines)
+        same_streams(f"11d {label} vs dp 1", outs, want)
+        published = sum(e.stats["shared_published_blocks"] for e in engines)
+        adopted = sum(e.stats["shared_hit_blocks"] for e in engines)
+        check(published > 0 and adopted > 0,
+              f"11d {label}: published {published}, adopted {adopted}")
+        shared.check()
+        tokens = sum(e.stats["tokens"] for e in engines)
+        res = {"label": f"11d {label}", "launches": launches,
+               "replayed_launches": replayed, "wall_s": wall,
+               "tok_s": tokens / wall, "routed": list(router.routed),
+               "handoffs": router.handoffs,
+               "published_blocks": published, "adopted_blocks": adopted,
+               "adopted_bytes": adopted * bb, **timing,
+               "shared": shared.stats(),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "captures": [(i, list(k)) for i, k, _, _ in watch.captures]}
+        if full is not None:
+            before, inside, after = watch.around("full")
+            res["other_replays_around_full_captures"] = [before, inside,
+                                                          after]
+            check(before > 0 and after > 0 and inside == 0,
+                  "11d: the full graphs' captures were not in the middle "
+                  "of the other replica's run, or overlapped its replays "
+                  f"(before, inside, after: {before}, {inside}, {after}; "
+                  f"captures {res['captures']})")
+            full_out = full
+        if label == "disagg":
+            check(router.handoffs == 8 and engines[1].stats[
+                "cache_hit_tokens"] > 0, f"11d disagg: {router.handoffs} "
+                "handoffs, the decode replica adopted nothing")
+        runs.append(res)
+        print(f"[serve-fleet] {card}: glm4_9b {label} (2 replicas on one "
+              f"card, shared weights, {SHARED_SLOTS}-slot shared index, "
+              f"{shared.num_slots * bb / 2 ** 20:.0f} MiB pinned): tokens == "
+              f"dp 1 byte for byte; routed {router.routed}, handoffs "
+              f"{router.handoffs}; {published} blocks published, "
+              f"{adopted} adopted across replicas ({adopted * bb} bytes; "
+              f"publish copies {timing['publish_s']:.3f} s, adoption copies "
+              f"{timing['adopt_s']:.3f} s); {res['tok_s']:.1f} tok/s "
+              f"(dp 1: {dp1_tok_s}; one card, not a speed claim); peak "
+              f"{res['peak_mem_gib']:.2f} GiB"
+              + ("; the other replica's replays before, inside and after "
+                 "the mid-run full-sampling captures: "
+                 f"{res['other_replays_around_full_captures']}"
+                 if full is not None else ""), flush=True)
+        del router, engines, shared, watch
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the mid-run full-sampling request against its eager run alone
+    eager = glm4_engine(params, graphs=False)
+    lps = []
+    eager.on_token = lambda r, t, lp: lps.append(lp)
+    got = eager.run([Request(prompts[3].copy(), max_new=16, sampling=full_sp,
+                             rid=1300)])[1300].tolist()
+    check(full_out[0] == got and full_out[1] == lps,
+          f"11d: the full-sampling request on the fleet {full_out[0]} != "
+          f"its eager run {got} (or its logprobs differ)")
+    print(f"[serve-fleet] {card}: the mid-run full-sampling request (t 0.8, "
+          f"top-p 0.9, min-p 0.05, repetition 1.1, logprobs 3): tokens and "
+          f"logprobs == its eager run alone", flush=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_tiers(torch, counters, card, params, parts="abcd") -> list:
+    """Phase 11 (a-d) on phase 3's weights; ``parts`` picks some (a
+    development run: without "a", one no-preempt run gives the tokens the
+    others are held to). Prints the phase's launches by kernel (replay-
+    aware, summed over its runs). Returns the runs."""
+    from repro_torch.serving import Request
+    if "a" in parts:
+        runs, want = serve_swap(torch, counters, card, params)
+        dp1 = next(r for r in runs
+                   if r["label"] == "11a bf16 pack 1 no_preempt")
+    else:
+        from repro_torch.config import get_config
+        dp1, toks = serve(torch, counters, glm4_engine(params),
+                          [Request(p.copy(), max_new=32) for p in
+                           phase3_prompts(get_config("glm4_9b"))], 32, ())
+        runs, want = [dp1], list(toks.values())
+    if "b" in parts or "c" in parts:
+        runs += serve_abort_http(torch, counters, card, params, want)
+    if "d" in parts:
+        runs += serve_fleet(torch, counters, card, params, want,
+                            dp1["tok_s"])
+    launches = {}
+    for r in runs:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"[serve-tiers] {card}: phase 11's launches by kernel "
+          f"(replay-aware): {json.dumps(launches)}", flush=True)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase 6: card vs CPU at smoke size
 # ---------------------------------------------------------------------------
 
@@ -3189,6 +3856,11 @@ def build_report(log: str) -> None:
 
 
 def main() -> int:
+    # a hang anywhere (a driver thread, a capture) prints every thread's
+    # stack and ends the run before its time limit
+    dev_run = sys.argv[1:2] == ["--phase"]
+    faulthandler.dump_traceback_later(420 if dev_run else WATCHDOG_S,
+                                      exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3215,6 +3887,16 @@ def main() -> int:
     if log.exists():
         build_report(log.read_text())
 
+    if dev_run and sys.argv[2].startswith("11"):
+        # a development run: phase 11 (or its parts "11bd", ...) alone, on
+        # fresh phase-3 weights; no summary and no result line
+        from repro_torch.config import get_config
+        from repro_torch.models.api import init_model
+        serve_tiers(torch, KERNELS, card,
+                    init_model(get_config("glm4_9b"), 0, DEV),
+                    sys.argv[2][2:] or "abcd")
+        print("[phase 11] passed (a partial run: no result line)")
+        return 0
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
     del timer
@@ -3226,6 +3908,7 @@ def main() -> int:
                                                     params)
     runs += sampling_runs
     rows["paged_prefill_attention"].update(verify_launches)
+    runs += serve_tiers(torch, counters, card, params)
     del params
     torch.cuda.empty_cache()
     runs += serve_ssm(torch, counters, card)

@@ -1,6 +1,9 @@
-"""Serving driver for the PyTorch port: a synthetic Poisson workload through
-the continuous-batching engine (port of ``repro.launch.serve`` without the
-async front-end, fleets or meshes, which later slices bring).
+"""Serving driver for the PyTorch port (port of ``repro.launch.serve``
+without meshes): a synthetic Poisson workload through the
+continuous-batching engine, through a data-parallel fleet of engines
+behind one ``ReplicaRouter`` (``--dp``, ``--disaggregate``), or a
+long-lived HTTP server (``--http``: SSE token streaming, /health,
+/metrics; SIGINT/SIGTERM drains gracefully).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \\
       --device cpu
@@ -14,6 +17,13 @@ async front-end, fleets or meshes, which later slices bring).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_27b \\
       --smoke --device cpu --prompt-len 40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --num-blocks 8 --max-batch 2 --swap-space-bytes 1048576 \
+      --swap-policy always
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --dp 2 [--disaggregate]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \
+      --device cpu --http 127.0.0.1:8000 [--dp 2] [--ttft-slo-ms 5000]
 
 The default device is the card ("cuda"), where the engine runs its step
 as CUDA graphs, one per (shape, sampling mode); ``--device cpu`` runs the
@@ -23,6 +33,9 @@ plain PyTorch paths instead of the CUDA kernels, eagerly.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import signal
+import time
 
 import numpy as np
 
@@ -90,7 +103,10 @@ def profiled_run(eng, reqs, arrivals, top: int):
     return outs
 
 
-def run_engine(cfg, args):
+def build_engine(cfg, args, shared_index=None, params=None,
+                 draft_params=None):
+    """One engine from the CLI's options; on the card its kernels are
+    built and its greedy step graphs captured before it serves."""
     from repro_torch.serving import InferenceEngine
     draft_cfg = (get_config(args.speculative_draft, smoke=args.smoke)
                  if args.speculative_draft else None)
@@ -102,11 +118,47 @@ def run_engine(cfg, args):
         enable_prefix_caching=not args.no_prefix_caching, seed=args.seed,
         prefill_pack=args.prefill_pack, kv_dtype=args.kv_dtype,
         draft_cfg=draft_cfg,
-        num_speculative_tokens=args.num_speculative_tokens)
+        num_speculative_tokens=args.num_speculative_tokens,
+        swap_space_bytes=args.swap_space_bytes,
+        swap_policy=args.swap_policy, shared_index=shared_index,
+        params=params, draft_params=draft_params)
     if eng.device.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()            # compile before, not inside, the run
         eng.capture_graphs()         # and capture the step graphs
+    return eng
+
+
+def build_fleet(cfg, args):
+    """``--dp`` identical engines around one SharedPrefixIndex, behind a
+    ReplicaRouter. Replica 0 initialises the weights; the others share
+    them by reference (the replicas must be identical for routing to be
+    output-invariant): a speculative engine's target and draft both."""
+    from repro_torch.serving import ReplicaRouter, SharedPrefixIndex
+    shared = SharedPrefixIndex(num_slots=args.shared_slots)
+    first = build_engine(cfg, args, shared_index=shared)
+    if first.draft_cfg is not None:
+        share = dict(params=first.params["tgt"],
+                     draft_params=first.params["dft"])
+    else:
+        share = dict(params=first.params)
+    engines = [first] + [build_engine(cfg, args, shared_index=shared,
+                                      **share)
+                         for _ in range(args.dp - 1)]
+    return ReplicaRouter(engines, admission=build_controller(args, args.dp),
+                         disaggregate=args.disaggregate,
+                         n_prefill=args.n_prefill)
+
+
+def build_controller(args, n_replicas: int = 1):
+    from repro_torch.serving.frontend import AdmissionController
+    slo = args.ttft_slo_ms / 1e3 if args.ttft_slo_ms else None
+    return AdmissionController(ttft_slo_p95_s=slo, max_queue=args.max_queue,
+                               n_replicas=n_replicas)
+
+
+def run_engine(cfg, args):
+    eng = build_engine(cfg, args)
     rng = np.random.default_rng(args.seed)
     reqs = make_requests(cfg, args, rng)
     arrivals = poisson_arrival_steps(len(reqs), args.rate, rng)
@@ -136,11 +188,100 @@ def run_engine(cfg, args):
     print(f"[serve] full_sampling_steps={s['full_sampling_steps']} "
           f"stop_hits={s['stop_hits']} "
           f"mean_accept_len={eng.mean_accept_len:.3f}")
+    if s["swap_space_mib"]:
+        print(f"[serve] swap_space_mib={s['swap_space_mib']} "
+              f"swap_preemptions={s['swap_preemptions']} "
+              f"swap_ins={s['swap_ins']} "
+              f"swapped_out_blocks={s['swapped_out_blocks']} "
+              f"swapped_in_blocks={s['swapped_in_blocks']}")
     print("[serve] sample output ids:", outs[reqs[0].rid][:8].tolist())
     return outs
 
 
-def main(argv=None):
+def run_router(cfg, args):
+    """The synthetic Poisson workload through a data-parallel fleet."""
+    router = build_fleet(cfg, args)
+    rng = np.random.default_rng(args.seed)
+    reqs = make_requests(cfg, args, rng)
+    arrivals = poisson_arrival_steps(len(reqs), args.rate, rng)
+    t0 = time.time()
+    outs = router.run(reqs, arrival_steps=arrivals)
+    dt = time.time() - t0
+    tokens = sum(router.replica_stats("tokens"))
+    shared = router.shared_stats()
+    roles = (f" roles=prefill{router._prefill_ids}/decode"
+             f"{router._decode_ids}" if router.disaggregate else "")
+    print(f"[serve] router: dp={router.dp} "
+          f"disaggregate={router.disaggregate} routed={router.routed} "
+          f"handoffs={router.handoffs} shared_hit_blocks="
+          f"{sum(router.replica_stats('shared_hit_blocks'))} "
+          f"shared_published_blocks={shared['published_blocks']} "
+          f"shared_evicted_blocks={shared['evicted_blocks']}" + roles)
+    print(f"[serve] fleet: {len(reqs)} requests (poisson rate={args.rate}"
+          f"/step), {tokens} tokens in {dt:.2f}s "
+          f"({tokens / max(dt, 1e-9):.1f} tok/s) "
+          f"steps={router.replica_stats('steps')} "
+          f"preemptions={router.replica_stats('preemptions')} "
+          f"cache_hit_tokens={router.replica_stats('cache_hit_tokens')}")
+    ctl = router.admission
+    print(f"[serve] frontend: submitted={ctl.submitted} shed={ctl.shed} "
+          f"completed={ctl.completed} queue_peak={ctl.queue_peak}")
+    print("[serve] sample output ids:", outs[reqs[0].rid][:8].tolist())
+    return outs
+
+
+async def serve_http(driver, host, port, stop=None, on_ready=None):
+    """Serve ``driver`` (an AsyncEngineDriver or a ReplicaRouter) over
+    HTTP until ``stop`` is set (default: SIGINT or SIGTERM), then drain:
+    no new admissions, in-flight requests finish. ``on_ready(server)`` is
+    called once the server listens."""
+    from repro_torch.serving.frontend import FrontendServer
+    await driver.start()
+    srv = FrontendServer(driver, host=host, port=port)
+    await srv.start()
+    ctl = driver.admission
+    slo = ctl.ttft_slo_p95_s
+    engines = getattr(driver, "engines", None) or [driver.engine]
+    print(f"[serve] http listening on {host}:{srv.port} "
+          f"replicas={len(engines)} (POST /generate, GET /health, "
+          f"GET /metrics; ttft_slo_p95={slo if slo is not None else 'off'} "
+          f"max_queue={ctl.max_queue})", flush=True)
+    if on_ready is not None:
+        on_ready(srv)
+    if stop is None:
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    running = sum(len(e.sched.running) for e in engines)
+    print(f"[serve] draining: no new admissions, finishing "
+          f"{running + driver.queue_depth} in-flight request(s)", flush=True)
+    await driver.aclose()
+    await srv.aclose()
+    tokens = sum(e.stats["tokens"] for e in engines)
+    done = sum(e.stats["requests_done"] for e in engines)
+    print(f"[serve] drained cleanly: requests_done={done} tokens={tokens} "
+          f"shed={ctl.shed} aborts={sum(e.stats['aborts'] for e in engines)}",
+          flush=True)
+    return srv
+
+
+def run_http(cfg, args, stop=None):
+    """``--http``: one engine behind an AsyncEngineDriver, or (``--dp``
+    > 1) a fleet behind its router, served until ``stop`` or a signal."""
+    from repro_torch.serving.frontend import AsyncEngineDriver
+    host, _, port = args.http.rpartition(":")
+    if args.dp > 1:
+        driver = build_fleet(cfg, args)
+    else:
+        driver = AsyncEngineDriver(build_engine(cfg, args),
+                                   admission=build_controller(args))
+    return asyncio.run(serve_http(driver, host or "127.0.0.1", int(port),
+                                  stop))
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="glm4_9b",
                     choices=PORTED_ARCHS)
@@ -170,6 +311,39 @@ def main(argv=None):
     ap.add_argument("--prefill-pack", type=int, default=1,
                     help="most prefill chunks packed into one step's flat "
                     "ragged token row (1 = one chunk per step)")
+    ap.add_argument("--swap-space-bytes", type=int, default=0,
+                    help="pinned host memory for swap preemption, bytes (0 "
+                    "= recompute only): a victim's KV moves to the host "
+                    "and back when the cost model prefers it")
+    ap.add_argument("--swap-policy", default="auto",
+                    choices=("auto", "always", "never"),
+                    help="swap or recompute per preemption victim: auto = "
+                    "the measured-rate cost model; always/never force one")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel engine replicas behind one "
+                    "ReplicaRouter (threads in one process, one card; "
+                    "least-outstanding-tokens routing, a shared prefix "
+                    "index)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode roles: the first --n-prefill "
+                    "replicas prefill (a 1-token probe), the rest decode; "
+                    "the KV hands off as hashed blocks through the shared "
+                    "index (needs --dp >= 2)")
+    ap.add_argument("--n-prefill", type=int, default=1,
+                    help="prefill-role replicas under --disaggregate")
+    ap.add_argument("--shared-slots", type=int, default=512,
+                    help="host slots (blocks) of the fleet's "
+                    "SharedPrefixIndex, LRU-evicted")
+    ap.add_argument("--http", default=None, metavar="HOST:PORT",
+                    help="serve over HTTP until SIGINT/SIGTERM instead of "
+                    "the synthetic workload: POST /generate (SSE), GET "
+                    "/health, GET /metrics; port 0 picks a free one")
+    ap.add_argument("--ttft-slo-ms", type=float, default=None,
+                    help="TTFT p95 target in ms; admission sheds (429 + "
+                    "Retry-After) when its projection exceeds it")
+    ap.add_argument("--max-queue", type=int, default=128,
+                    help="front-end queue bound; requests past it are "
+                    "shed")
     ap.add_argument("--rate", type=float, default=0.5,
                     help="poisson arrivals per engine step")
     ap.add_argument("--speculative-draft", default=None,
@@ -210,11 +384,24 @@ def main(argv=None):
                     help="run under torch.profiler and print the N "
                     "kernels with the most device time (0 = off)")
     args = ap.parse_args(argv)
+    if args.disaggregate and args.dp < 2:
+        ap.error("--disaggregate needs --dp >= 2 (prefill + decode roles)")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     import torch
     # decode_logits must be a true fp32 product on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run_engine(get_config(args.arch, smoke=args.smoke), args)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.http:
+        run_http(cfg, args)
+    elif args.dp > 1:
+        run_router(cfg, args)
+    else:
+        run_engine(cfg, args)
 
 
 if __name__ == "__main__":

@@ -16,13 +16,16 @@ step:
         pinned host staging area and uploaded in one copy (the full
         path's parameter rows and (B + S, V_pad) count rows in a second
         area, allocated at the first full step)
+    host copies: the swap-outs' device -> host gather first (on the
+        pre-step pools), then the swap-ins and shared-index adoptions
+        into the pools (before the COW copies, which may read them)
     runner step body: the chunk (if any; with prefill_pack S > 1, up to S
         chunks packed into one flat row), then the max_batch-wide decode
         batch, then the tokens, drawn in the body from jax's threefry
         streams (``serving.prng``)
     one device-to-host copy of the step's tokens (and logprobs); append
         them; retire on EOS / stop sequence / max_new; publish the content
-        hashes of newly full blocks
+        hashes of newly full blocks (with a shared index, also their pages)
 
 On a card the step body runs as a CUDA graph per (shape, mode), each
 captured at its first step (``serving.graphs``), as the JAX engine runs
@@ -44,13 +47,23 @@ KV pools are bf16, int8 or fp8 (``kv_dtype``; the narrow ones with fp32
 per-row scales, dequantized inside the attention kernels); SSM and hybrid
 runners keep bf16 pools and fp32 Mamba state.
 
-What the port refuses, each with the ROADMAP item that brings it: swap
-space, a cross-replica ``shared_index`` and any mesh or tensor
-parallelism.
+On a card the engine runs its steps, copies and captures on a stream of
+its own (``self.stream``) under the process-wide ``graphs.DEVICE_LOCK``,
+so several engines (the data-parallel replicas of ``serving.router``,
+each stepped by its own thread) share one card one step at a time.
+
+The host tiers (``swap_space_bytes``; a cross-replica ``shared_index``)
+move whole blocks between the pools and pinned host tensors allocated
+here, once: 1-byte pools through their ``uint8`` view. The copies write
+the pools in place, so the captured graphs, which hold the pools'
+addresses, read what was copied. ``abort`` cancels a request between
+steps. The port refuses any mesh or tensor parallelism (ROADMAP.md queue
+1 item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from collections import deque
@@ -63,12 +76,12 @@ from repro_torch.models import quant
 from repro_torch.models.api import init_model
 from repro_torch.models.transformer import PAGE_POOLS
 from repro_torch.serving.cache import SlotStateCache, slot_state_bytes
-from repro_torch.serving.graphs import CompiledSteps
+from repro_torch.serving.graphs import DEVICE_LOCK, CompiledSteps
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
 from repro_torch.serving.sampling import SamplingBuffer
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
-                                           StepPlan)
+                                           StepPlan, SwapCostModel)
 from repro_torch.serving.stats import Histogram, SECONDS_BUCKETS, STEP_BUCKETS
 
 __all__ = ["InferenceEngine", "Request", "SamplingParams"]
@@ -242,19 +255,26 @@ def _replay_name(key) -> str:
     return name if mode == "greedy" else f"{name}/{mode}"
 
 
-def _refuse(swap_space_bytes, shared_index, mesh):
-    if swap_space_bytes:
-        raise NotImplementedError(
-            "swap_space_bytes: the host swap tier is not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
-    if shared_index is not None:
-        raise NotImplementedError(
-            "shared_index: cross-replica prefix sharing is not ported yet "
-            "(ROADMAP.md queue 1 item 11)")
+def _refuse(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh: tensor-parallel serving is not ported yet (ROADMAP.md "
             "queue 1 item 12)")
+
+
+def _runs(pairs):
+    """Split (a, b) index pairs into maximal runs consecutive in both:
+    [(a0, b0, n), ...], a run covering (a0 + j, b0 + j) for j < n: one
+    copy of n contiguous rows."""
+    out = []
+    for a, b in pairs:
+        if out:
+            a0, b0, n = out[-1]
+            if a == a0 + n and b == b0 + n:
+                out[-1] = (a0, b0, n + 1)
+                continue
+        out.append((a, b, 1))
+    return out
 
 
 class InferenceEngine:
@@ -268,9 +288,10 @@ class InferenceEngine:
                  draft_cfg: ModelConfig | None = None,
                  num_speculative_tokens: int = 0, draft_params=None,
                  max_logprobs: int = 8, max_stop_len: int = 8,
-                 swap_space_bytes: int = 0, shared_index=None, mesh=None,
+                 swap_space_bytes: int = 0, swap_policy: str = "auto",
+                 shared_index=None, mesh=None,
                  cuda_graphs: bool | None = None):
-        _refuse(swap_space_bytes, shared_index, mesh)
+        _refuse(mesh)
         if kv_dtype not in quant.KV_DTYPES:
             raise ValueError(
                 f"kv_dtype={kv_dtype!r} not in {sorted(quant.KV_DTYPES)}")
@@ -314,8 +335,44 @@ class InferenceEngine:
             prefill_pack = 1
         self.prefill_pack = max(1, prefill_pack)
         self.kv_dtype = kv_dtype
+        # host tiers, sized in device blocks: one block id costs its pages
+        # in every pool set (a speculative engine's draft pools too). Only
+        # pure paged runners qualify: slot state has no block-swap form.
+        self._dev_block_bytes = 0
+        if self.runner.needs_blocks:
+            self._dev_block_bytes = block_bytes(cfg, block_size,
+                                                kv_dtype=kv_dtype)
+            if draft_cfg is not None:
+                self._dev_block_bytes += block_bytes(draft_cfg, block_size,
+                                                     kv_dtype=kv_dtype)
+        swap_capable = self.runner.needs_blocks and not self.runner.needs_slots
+        if swap_space_bytes and not swap_capable:
+            raise ValueError(
+                "swap_space_bytes requires a pure paged-KV runner (slot "
+                "state and encoder caches have no block-swap form)")
+        if shared_index is not None and not swap_capable:
+            raise ValueError(
+                "shared_index (cross-replica prefix sharing) requires a "
+                "pure paged-KV runner — the transfer unit is a hashed "
+                "block, which slot-state and encoder caches don't have")
+        if shared_index is not None and not enable_prefix_caching:
+            raise ValueError(
+                "shared_index requires enable_prefix_caching=True: the "
+                "shared unit is the content-hashed block")
+        if swap_policy not in ("auto", "always", "never"):
+            raise ValueError(f"swap_policy={swap_policy!r} not in "
+                             "('auto', 'always', 'never')")
+        self.shared_index = shared_index
+        num_host_blocks = (swap_space_bytes // self._dev_block_bytes
+                           if swap_space_bytes and self._dev_block_bytes
+                           else 0)
+        self._swap_cost = (SwapCostModel(block_bytes=self._dev_block_bytes,
+                                         policy=swap_policy)
+                           if num_host_blocks > 0 else None)
         # host caches: blocks for paged KV, slots for Mamba state
-        self.bm = (BlockManager(num_blocks, block_size)
+        self.bm = (BlockManager(num_blocks, block_size,
+                                num_host_blocks=num_host_blocks,
+                                shared_index=shared_index)
                    if self.runner.needs_blocks else None)
         self.slot_cache = (SlotStateCache(max_batch)
                            if self.runner.needs_slots else None)
@@ -337,7 +394,8 @@ class InferenceEngine:
                                max_context=-(-max_len // block_size)
                                * block_size, prefill_pack=self.prefill_pack,
                                spec_tokens=spec,
-                               sampling_buffer=self.samp_buf)
+                               sampling_buffer=self.samp_buf,
+                               swap_cost=self._swap_cost)
         self.max_batch = max_batch
         self.debug_invariants = debug_invariants
         if params is None:
@@ -350,6 +408,25 @@ class InferenceEngine:
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
                                             max_batch, self.device, kv_dtype)
+        # the paged pools as the host copies see them, in a fixed order:
+        # 1-byte pools as uint8 (index_copy_ has no fp8 form)
+        self._paged = ([t.view(torch.uint8) if t.element_size() == 1 else t
+                        for pools in self.runner.pool_sets(self.cache)
+                        for name in PAGE_POOLS if name in pools
+                        for t in (pools[name],)]
+                       if self.runner.needs_blocks else [])
+        # the swap tier's host pool: one pinned tensor per paged pool,
+        # slot-major (a slot holds one block of every layer, contiguous)
+        self._host_pool = [torch.zeros((num_host_blocks, p.shape[0])
+                                       + p.shape[2:], dtype=p.dtype,
+                                       pin_memory=on_card)
+                           for p in self._paged] if num_host_blocks else []
+        self._host_block_nbytes = sum(
+            p[:, 0].numel() * p.element_size() for p in self._paged)
+        if shared_index is not None:
+            shared_index.attach_pool(
+                [((p.shape[0],) + p.shape[2:], p.dtype) for p in self._paged],
+                pin=on_card)
         self.inputs = StepInputs(step_input_shapes(
             max_batch, self.chunk_width, self.max_blocks_per_seq,
             self.prefill_pack), self.device)
@@ -361,6 +438,11 @@ class InferenceEngine:
             self.runner.step, self.params, self.cache, self.inputs.dev)
         self.graphs = (CompiledSteps(self.runner_body, self.inputs.null_step,
                                      self.device) if cuda_graphs else None)
+        self.stream = torch.cuda.Stream(self.device) if on_card else None
+        if on_card:
+            # the parameters, pools and inputs were written on the
+            # caller's stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         kv_mib = 0.0
         if self.runner.needs_blocks:
             kv_mib = num_blocks * block_bytes(cfg, block_size,
@@ -379,6 +461,19 @@ class InferenceEngine:
                       "spec_decodes": 0, "spec_emitted": 0,
                       "stop_hits": 0, "full_sampling_steps": 0,
                       "peak_block_utilization": 0.0, "peak_blocks_in_use": 0,
+                      "aborts": 0, "swap_preemptions": 0, "swap_ins": 0,
+                      "host_hit_blocks": 0, "shared_hit_blocks": 0,
+                      "shared_published_blocks": 0,
+                      "swapped_out_blocks": 0, "swapped_in_blocks": 0,
+                      "swapped_out_bytes": 0, "swapped_in_bytes": 0,
+                      "swap_space_mib": round(num_host_blocks
+                                              * self._dev_block_bytes
+                                              / 2 ** 20, 3),
+                      # device -> host and host -> device copy time of the
+                      # swap tier, seconds (CUDA events on a card)
+                      "swap_d2h_s": 0.0, "swap_h2d_s": 0.0,
+                      # no encoder-decoder runner is ported: always 0
+                      "encodes": 0,
                       "latency": {},
                       # the JAX package's total: page pools + slot state
                       "kv_cache_mib": round(kv_mib + slot_mib, 3),
@@ -431,6 +526,145 @@ class InferenceEngine:
                 if name in pools:
                     pool = pools[name]
                     pool[:, dst] = pool[:, src]
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """On a card: the process-wide device lock, and the engine's own
+        stream as the current one, after the caller's current stream (what
+        the caller wrote before is visible)."""
+        if self.stream is None:
+            yield
+            return
+        with DEVICE_LOCK:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                yield
+
+    def _mark(self):
+        """A time mark on the engine's stream: a CUDA event on a card (the
+        device's clock), the host's clock otherwise."""
+        if self.stream is None:
+            return time.monotonic()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    @staticmethod
+    def _seconds(start, end) -> float:
+        """Seconds between two marks, waiting for the second on a card."""
+        if isinstance(start, float):
+            return end - start
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    def _sync(self) -> None:
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def _index(self, ids) -> torch.Tensor:
+        return torch.tensor(ids, dtype=torch.long, device=self.device)
+
+    def _gather_to(self, blocks: list[int], pool: list, slots: list[int]):
+        """Device -> host: block rows ``blocks`` of every paged pool into
+        rows ``slots`` of the host ``pool`` (one tensor per paged pool),
+        on the engine's stream: one gather a pool, then one copy per run
+        of consecutive slots. Asynchronous on a card (pinned pools)."""
+        idx = self._index(blocks)
+        runs = _runs(list(zip(range(len(slots)), slots)))
+        for p, hp in zip(self._paged, pool):
+            g = p.transpose(0, 1).index_select(0, idx)    # (n, NP, ...)
+            for i0, s0, n in runs:
+                hp[s0:s0 + n].copy_(g[i0:i0 + n], non_blocking=True)
+
+    def _scatter_from(self, pool: list, pairs) -> None:
+        """Host -> device: for each (slot, block) of ``pairs``, row
+        ``slot`` of the host ``pool`` into block row ``block`` of every
+        paged pool, in place (the captured graphs hold the pools)."""
+        slots = [s for s, _ in pairs]
+        idx = self._index([b for _, b in pairs])
+        runs = _runs(list(zip(slots, range(len(slots)))))
+        for p, hp in zip(self._paged, pool):
+            buf = torch.empty((len(pairs),) + tuple(hp.shape[1:]),
+                              dtype=hp.dtype, device=self.device)
+            for s0, i0, n in runs:
+                buf[i0:i0 + n].copy_(hp[s0:s0 + n], non_blocking=True)
+            p.transpose(0, 1).index_copy_(0, idx, buf)
+
+    def _issue_swap_out(self, pairs):
+        """Issue the device -> host copies of this step's swap-outs, on the
+        pre-step pools. Returns the token ``_drain_swap_out`` completes."""
+        start = self._mark()
+        self._gather_to([b for b, _ in pairs], self._host_pool,
+                        [s for _, s in pairs])
+        return start, self._mark(), len(pairs)
+
+    def _drain_swap_out(self, token) -> None:
+        """Wait for a swap-out's copies; count them and feed their time to
+        the cost model. The copies are on the engine's stream, ahead of
+        anything that reads their host slots or rewrites their blocks."""
+        start, end, n = token
+        secs = self._seconds(start, end)
+        nbytes = n * self._host_block_nbytes
+        self.stats["swapped_out_blocks"] += n
+        self.stats["swapped_out_bytes"] += nbytes
+        self.stats["swap_d2h_s"] += secs
+        self._swap_cost.observe_swap(nbytes, secs)
+
+    def _swap_in(self, pairs) -> None:
+        """Host -> device: swapped-in and host-hit slots into freshly
+        allocated blocks, before the COW copies (which may read them) and
+        the step."""
+        start = self._mark()
+        self._scatter_from(self._host_pool, pairs)
+        self.stats["swap_h2d_s"] += self._seconds(start, self._mark())
+        self.stats["swapped_in_blocks"] += len(pairs)
+        self.stats["swapped_in_bytes"] += len(pairs) * self._host_block_nbytes
+
+    def _shared_in(self, pairs) -> None:
+        """Host -> device: shared-index slots (blocks another replica
+        published) into freshly allocated blocks, as ``_swap_in`` does. The
+        slots were pinned at admission; they are released once the copies
+        have landed, so no publish can rewrite them under a pending copy."""
+        self._scatter_from(self.shared_index.pool, pairs)
+        self._sync()
+        self.shared_index.release([s for s, _ in pairs])
+
+    def _flush_shared_publish(self) -> None:
+        """Publish this replica's newly hash-registered blocks into the
+        shared index: copy their pages into reserved pool slots, wait for
+        the copies, then commit the hashes (a hash committed before its
+        payload landed would hand another replica stale bytes). Runs at
+        step boundaries and when a request retires, before its stream
+        ends: a request submitted after a producer's stream closed finds
+        every block the producer registered, on any replica."""
+        if self.shared_index is None or self.bm is None:
+            return
+        shared = self.shared_index
+        blocks, slots, hashes = [], [], []
+        for b, h in self.bm.drain_publishable():
+            s = shared.reserve(h)
+            if s is None:
+                continue     # raced with another replica, or pool pinned full
+            blocks.append(b)
+            slots.append(s)
+            hashes.append(h)
+        if not blocks:
+            return
+        self._gather_to(blocks, shared.pool, slots)
+        self._sync()
+        for s, h in zip(slots, hashes):
+            shared.commit(s, h)
+        self.stats["shared_published_blocks"] += len(blocks)
+
+    def abort(self, rid: int) -> bool:
+        """Cancel a request between steps (a client disconnect): its cache
+        resources are released at once (blocks hash-retained, host slots
+        discarded) and it produces no further tokens. False, a no-op, for
+        an unknown or retired rid."""
+        ok = self.sched.abort(rid)
+        if ok:
+            self.stats["aborts"] = self.sched.n_aborts
+        return ok
 
     def _full_inputs(self) -> None:
         """Allocate the full path's input area at its first step (before
@@ -512,9 +746,10 @@ class InferenceEngine:
         for has_chunk in shapes:
             key = (has_chunk, mode)
             if self.graphs is not None and key not in self.graphs:
-                if mode == "full":
-                    self._full_inputs()
-                self.graphs.capture(key)
+                with self._on_stream():
+                    if mode == "full":
+                        self._full_inputs()
+                    self.graphs.capture(key)
                 self.stats["graph_captures"] += 1
 
     def _forward(self, has_chunk: bool, mode: str = "greedy") -> dict:
@@ -633,6 +868,10 @@ class InferenceEngine:
                         del lat[rid]
                         if len(lat) <= LATENCY_RECORD_CAP:
                             break
+            # the stream-close publish barrier: before anyone can see this
+            # request finished, every full block it registered is in the
+            # shared index
+            self._flush_shared_publish()
             self.sched.retire(slot)
             if self.on_finish is not None:
                 self.on_finish(req)
@@ -647,8 +886,17 @@ class InferenceEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One engine iteration. Returns True when any work ran."""
+        with self._on_stream():
+            return self._step()
+
+    def _step(self) -> bool:
         plan = self.sched.schedule()
-        self.stats["preemptions"] = self.sched.n_preemptions
+        sched = self.sched
+        self.stats.update(preemptions=sched.n_preemptions,
+                          swap_preemptions=sched.n_swap_preemptions,
+                          swap_ins=sched.n_swap_ins,
+                          host_hit_blocks=sched.host_hit_blocks,
+                          shared_hit_blocks=sched.shared_hit_blocks)
         self.stats["cache_hit_tokens"] = self.sched.cache_hit_tokens
         self.stats["quantum_dropped_tokens"] = \
             self.sched.quantum_dropped_tokens
@@ -660,16 +908,33 @@ class InferenceEngine:
                 self.stats["peak_blocks_in_use"], st.blocks_in_use)
         if self.debug_invariants:
             self._check_invariants(plan)
+        # host copies, all on the engine's stream in this order: the
+        # swap-outs' gather first, on the pre-step pools (before anything
+        # can rewrite a freed block); then swap-ins and shared adoptions,
+        # before the COW copies (a block copied in this step can already
+        # be a COW source); then the step
+        d2h = self._issue_swap_out(plan.swap_outs) if plan.swap_outs \
+            else None
+        if plan.swap_ins:
+            self._swap_in(plan.swap_ins)
+        if plan.shared_ins:
+            self._shared_in(plan.shared_ins)
         for src, dst in plan.copies:
             self.stats["cow_copies"] += 1
             self._copy_block(src, dst)
         if plan.scheduled_tokens == 0:
             # no compute, but an admission (e.g. a full prefix-cache hit
             # that is immediately decode-ready) is still progress
+            if d2h is not None:
+                self._drain_swap_out(d2h)
+            self._flush_shared_publish()
             if plan.admitted:
                 self.step_count += 1
             return plan.admitted > 0
+        t_step = time.monotonic()
         out = self._run_step(plan)
+        if d2h is not None:
+            self._drain_swap_out(d2h)
         B = self.max_batch
         if "n_acc" in out:
             toks, n_acc = out["tokens"], out["n_acc"]
@@ -709,10 +974,18 @@ class InferenceEngine:
                                    self._req_logprobs(req, chunk_lp, ci))
             else:
                 self.sched.note_progress(req)
+        if self._swap_cost is not None and plan.chunks:
+            # the step's outputs were fetched: this wall time covers its
+            # device work, the recompute rate the cost model weighs
+            self._swap_cost.observe_prefill(sum(n for _, _, n in plan.chunks),
+                                            time.monotonic() - t_step)
+        self._flush_shared_publish()
         self.stats["steps"] += 1
         self.step_count += 1
         if self.debug_invariants and self.bm is not None:
             self.bm.check()
+            if self.shared_index is not None:
+                self.shared_index.check()
         return True
 
     def _check_invariants(self, plan: StepPlan) -> None:

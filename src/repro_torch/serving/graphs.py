@@ -31,6 +31,16 @@ cyclic garbage collector is run before a capture and kept off during it:
 a dead graph it freed there would destroy its executable while the
 stream captures, which invalidates the capture.
 
+Several engines may share a card, each stepped by its own thread (the
+data-parallel replicas of ``serving.router``), and one may meet a new
+(shape, mode) mid-run. Their device work is serialized: each engine
+holds the process-wide ``DEVICE_LOCK`` through a step (and a capture), so
+a capture never runs beside another thread's launches, copies or
+allocations; each engine runs on a stream of its own and captures in the
+thread-local error mode besides. (Two engines stepping freely on one card
+hung there, both threads waiting on the device, in the first runs of
+``chip_smoke.py`` phase 11d.)
+
 Kernel wrappers count launches in Python, which a replay never runs. Each
 capture records the launches its body made (the counters' delta over the
 capture); a run's launches are then the counters' own (warm-up and
@@ -41,6 +51,7 @@ capture) plus, per (shape, mode), replays x launches per capture
 from __future__ import annotations
 
 import gc
+import threading
 from collections import Counter
 
 import torch
@@ -54,6 +65,9 @@ from repro_torch.kernels import ssd as ssd_k
 __all__ = ["CompiledSteps", "KERNELS", "launch_counts", "replayed_launches"]
 
 WARMUP_STEPS = 2
+# one engine's device work at a time in the process (see the module
+# docstring); reentrant: a step captures its graph under it
+DEVICE_LOCK = threading.RLock()
 # every kernel wrapper: ``.launches`` is a Counter by variant (pool dtype
 # or route) or an int
 KERNELS = (pa.paged_attention, pa.paged_prefill_attention,
@@ -113,6 +127,10 @@ class CompiledSteps:
     def capture(self, key) -> None:
         """Warm up on a null step, then capture the key's graph."""
         has_chunk, mode = key
+        with DEVICE_LOCK:
+            self._capture(key, has_chunk, mode)
+
+    def _capture(self, key, has_chunk, mode) -> None:
         gc.collect()
         with torch.cuda.device(self.device), torch.no_grad():
             self.null_step()
@@ -127,7 +145,8 @@ class CompiledSteps:
             before = launch_counts()
             gc.disable()
             try:
-                with torch.cuda.graph(g, pool=self.pool):
+                with torch.cuda.graph(g, pool=self.pool,
+                                      capture_error_mode="thread_local"):
                     out = self.body(has_chunk=has_chunk, sampling=mode)
             finally:
                 gc.enable()
@@ -135,7 +154,7 @@ class CompiledSteps:
             g.instantiate()
             # the null step's upload has finished: the host may refill
             # the staging area
-            torch.cuda.synchronize()
+            main.synchronize()
         self.graphs[key] = g
         self.outputs[key] = out
 

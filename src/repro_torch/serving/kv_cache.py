@@ -17,13 +17,27 @@ hashes (the port's tests drive both with one random walk).
 Block 0 is the *trash block*: idle decode slots and chunk padding rows
 write there, and nothing ever reads it.
 
-Not ported yet: the host swap tier and the cross-replica
-``SharedPrefixIndex`` (ROADMAP.md queue 1 items 7 and 11).
+Two host tiers sit behind the device pools, both in units of one block's
+pages across every paged pool (scales included):
+
+* the **swap tier** (``num_host_blocks``): a swap-preempted request's
+  table moves to host slots it owns until it swaps back in or is
+  aborted; its hashed slots also serve other requests' prefix hits
+  (``match_host`` / ``host_copy_in``);
+* the **shared prefix index** (:class:`SharedPrefixIndex`), one per
+  process, shared by every data-parallel replica's ``BlockManager``:
+  replicas publish hashed blocks into its host pool and adopt each
+  other's, so a prefix is prefilled once per fleet.
+
+The payloads themselves live in pinned host tensors the engine owns
+(swap tier) or the index owns (shared pool); this module keeps only the
+bookkeeping, and the engine performs the copies it returns.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -110,6 +124,189 @@ def block_bytes(cfg: ModelConfig, block_size: int, dtype_bytes: int = 2,
             * row_bytes)
 
 
+class SharedPrefixIndex:
+    """Process-global content-hash index and host payload pool shared by
+    every replica's :class:`BlockManager`.
+
+    Block ids mean nothing outside their replica, so sharing a prefix
+    across replicas needs a payload medium: a pool of host slots (one
+    slot = one block's pages across every paged pool, as the swap tier
+    lays them out) and a ``hash -> slot`` map. Replicas **publish**: the
+    engine reserves a slot for a newly registered full block, copies its
+    pages into the slot, waits for the copy, and commits the hash. Any
+    replica's admission then **adopts**: ``acquire`` resolves the longest
+    committed prefix to (slot, hash) pairs, ``BlockManager.host_copy_in``
+    allocates fresh device blocks, and the engine copies the payload in.
+
+    Every mutator takes ``self._lock`` (replicas step on their own
+    threads):
+
+    * a **reserved** slot (publish in flight) is invisible to ``acquire``
+      and immune to eviction until ``commit`` or ``abandon``;
+    * an **acquired** slot is pinned until ``release`` (after the
+      adopter's copy has landed), so no payload is evicted or rewritten
+      under a pending copy;
+    * a ``reserve`` on a full pool evicts the least recently used
+      unpinned committed slot; ``acquire`` refreshes recency.
+
+    The lock protects bookkeeping, not output equality: adopted KV is a
+    pure function of the token prefix, so a racing miss recomputes the
+    same bytes.
+    """
+
+    def __init__(self, num_slots: int):
+        if num_slots < 1:
+            raise ValueError(f"num_slots={num_slots} must be >= 1")
+        self.num_slots = num_slots
+        self._lock = threading.Lock()
+        self._free = list(range(num_slots - 1, -1, -1))
+        self._slot_of: dict[bytes, int] = {}   # hash -> committed slot
+        self._hash_of: dict[int, bytes] = {}   # committed slot -> hash
+        self._reserved: set[int] = set()       # publish in flight
+        self._pins: dict[int, int] = {}        # slot -> acquire count
+        self._order: list[int] = []            # committed slots, LRU first
+        # the payload pool, one host tensor per paged pool (attach_pool;
+        # allocated once, by the first replica's engine)
+        self.pool: list[torch.Tensor] = []
+        self._pool_key = None
+        self.published_blocks = 0
+        self.adopted_blocks = 0
+        self.evicted_blocks = 0
+
+    # -- payload pool ------------------------------------------------------
+
+    def attach_pool(self, leaf_shapes, pin: bool = False) -> None:
+        """Allocate the shared host pool: one ``(num_slots,) + shape``
+        tensor per ``(shape, dtype)`` of ``leaf_shapes`` (a paged pool's
+        shape without its per-replica block axis, so replicas with pools
+        of different sizes still share), pinned when ``pin``. The first
+        replica allocates; later ones must present the same layout."""
+        key = tuple((tuple(shape), str(dtype)) for shape, dtype in leaf_shapes)
+        with self._lock:
+            if self._pool_key is not None:
+                if key != self._pool_key:
+                    raise ValueError(
+                        "shared prefix pool layout mismatch across "
+                        f"replicas: {key} != {self._pool_key}")
+                return
+            self._pool_key = key
+            self.pool = [torch.zeros((self.num_slots,) + tuple(shape),
+                                     dtype=dtype, pin_memory=pin)
+                         for shape, dtype in leaf_shapes]
+
+    # -- publish (writer side) ---------------------------------------------
+
+    def contains(self, h: bytes) -> bool:
+        with self._lock:
+            return h in self._slot_of
+
+    def reserve(self, h: bytes) -> int | None:
+        """Claim a slot for publishing ``h``; None when the hash is already
+        committed or no slot can be freed (all pinned or reserved). The
+        caller copies the payload in, then ``commit``s."""
+        with self._lock:
+            if h in self._slot_of:
+                return None
+            if not self._free:
+                victim = next((s for s in self._order
+                               if not self._pins.get(s)), None)
+                if victim is None:
+                    return None
+                self._evict_locked(victim)
+            s = self._free.pop()
+            self._reserved.add(s)
+            return s
+
+    def commit(self, slot: int, h: bytes) -> None:
+        with self._lock:
+            assert slot in self._reserved, slot
+            self._reserved.discard(slot)
+            if h in self._slot_of:
+                # two replicas raced the same hash through reserve: the
+                # first commit wins, the loser's copy is dropped
+                self._free.append(slot)
+                return
+            self._slot_of[h] = slot
+            self._hash_of[slot] = h
+            self._order.append(slot)
+            self.published_blocks += 1
+
+    def abandon(self, slot: int) -> None:
+        """Return a reserved slot unused (publish aborted)."""
+        with self._lock:
+            assert slot in self._reserved, slot
+            self._reserved.discard(slot)
+            self._free.append(slot)
+
+    def _evict_locked(self, slot: int) -> None:
+        self._order.remove(slot)
+        h = self._hash_of.pop(slot)
+        del self._slot_of[h]
+        self._free.append(slot)
+        self.evicted_blocks += 1
+
+    # -- adopt (reader side) -----------------------------------------------
+
+    def acquire(self, hashes: list[bytes],
+                limit: int | None = None) -> list[tuple[int, bytes]]:
+        """Longest prefix of ``hashes`` resolving to committed slots, each
+        pinned against eviction until ``release``; ``limit`` caps the match
+        (the adopter's free-block budget)."""
+        out: list[tuple[int, bytes]] = []
+        with self._lock:
+            for h in hashes if limit is None else hashes[:max(limit, 0)]:
+                s = self._slot_of.get(h)
+                if s is None:
+                    break
+                self._pins[s] = self._pins.get(s, 0) + 1
+                self._order.remove(s)          # refresh recency (MRU)
+                self._order.append(s)
+                out.append((s, h))
+            self.adopted_blocks += len(out)
+        return out
+
+    def release(self, slots: list[int]) -> None:
+        """Unpin after the adopter's copies have landed."""
+        with self._lock:
+            for s in slots:
+                n = self._pins[s] - 1
+                if n:
+                    self._pins[s] = n
+                else:
+                    del self._pins[s]
+
+    # -- audit -------------------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"slots": self.num_slots,
+                    "committed": len(self._slot_of),
+                    "pinned": len(self._pins),
+                    "published_blocks": self.published_blocks,
+                    "adopted_blocks": self.adopted_blocks,
+                    "evicted_blocks": self.evicted_blocks}
+
+    def check(self) -> None:
+        """Invariants: the slots partition exactly, the maps agree, and
+        pins sit only on committed (payload-bearing) slots."""
+        with self._lock:
+            committed = set(self._hash_of)
+            free = set(self._free)
+            assert len(free) == len(self._free), "free list duplicates"
+            assert not (free & committed), "free slot holds a hash"
+            assert not (free & self._reserved), "free slot is reserved"
+            assert not (self._reserved & committed), "reserved committed"
+            assert len(free) + len(committed) + len(self._reserved) \
+                == self.num_slots, "slots lost"
+            assert sorted(self._order) == sorted(committed), "order drift"
+            for h, s in self._slot_of.items():
+                assert self._hash_of.get(s) == h, "hash maps disagree"
+            assert len(self._slot_of) == len(self._hash_of)
+            for s, n in self._pins.items():
+                assert n > 0, (s, n)
+                assert s in committed, f"pin on a payload-less slot {s}"
+
+
 @dataclass
 class CacheStats:
     num_blocks: int          # allocatable blocks (excludes the trash block)
@@ -131,18 +328,32 @@ class BlockManager:
     page copy the *caller* must perform.
     """
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int,
+                 num_host_blocks: int = 0,
+                 shared_index: SharedPrefixIndex | None = None):
         if num_blocks < 2 or block_size < 1:
             raise ValueError(f"num_blocks={num_blocks} must be >= 2 and "
                              f"block_size={block_size} >= 1")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        # cross-replica prefix sharing: registered hashes queue for
+        # publication into the process-global index (the engine drains the
+        # queue and copies the payloads at step boundaries)
+        self.shared = shared_index
+        self._publish_q: list[tuple[int, bytes]] = []
         # LIFO free list: recently freed (cache-warm) blocks are reused first
         self._free = list(range(num_blocks - 1, TRASH_BLOCK, -1))
         self._tables: dict[int, list[int]] = {}
         self._ref: dict[int, int] = {}        # block -> refcount (> 0 only)
         self._hash_of: dict[int, bytes] = {}  # block -> content hash
         self._block_of: dict[bytes, int] = {}  # content hash -> block
+        # host tier (swap preemption): a swapped request owns its slots
+        # exclusively until swap_in or swap_discard
+        self.num_host_blocks = num_host_blocks
+        self._host_free = list(range(num_host_blocks - 1, -1, -1))
+        self._swapped: dict[int, list[int]] = {}      # rid -> host slots
+        self._host_hash_of: dict[int, bytes] = {}     # slot -> content hash
+        self._host_block_of: dict[bytes, int] = {}    # content hash -> slot
 
     # -- queries ----------------------------------------------------------
 
@@ -170,12 +381,15 @@ class BlockManager:
     # -- prefix-cache index -----------------------------------------------
 
     def register(self, block: int, h: bytes) -> None:
-        """Publish a *full* block's content hash. First writer wins."""
+        """Publish a *full* block's content hash. First writer wins. With a
+        shared index the block also queues for cross-replica publication."""
         assert block != TRASH_BLOCK
         if h in self._block_of or block in self._hash_of:
             return
         self._hash_of[block] = h
         self._block_of[h] = block
+        if self.shared is not None and not self.shared.contains(h):
+            self._publish_q.append((block, h))
 
     def match(self, hashes: list[bytes]) -> list[int]:
         """Longest prefix of ``hashes`` resolving to cached blocks."""
@@ -193,6 +407,16 @@ class BlockManager:
         h = self._hash_of.pop(block, None)
         if h is not None:
             del self._block_of[h]
+
+    def drain_publishable(self) -> list[tuple[int, bytes]]:
+        """The queued (block, hash) registrations still current: the block
+        still carries that hash, so its pages hold exactly the hashed
+        content. Stale entries (deregistered for an in-place write, or
+        evicted and rewritten since) are dropped. Clears the queue."""
+        out = [(b, h) for b, h in self._publish_q
+               if self._hash_of.get(b) == h]
+        self._publish_q.clear()
+        return out
 
     def _pop_free(self) -> int:
         """Take a free block for new content: prefer the newest free block
@@ -294,9 +518,122 @@ class BlockManager:
         for b in self._tables.pop(rid):
             self._drop(b)
 
+    # -- host tier (swap preemption) ---------------------------------------
+
+    def is_swapped(self, rid: int) -> bool:
+        return rid in self._swapped
+
+    @property
+    def num_host_free(self) -> int:
+        return len(self._host_free)
+
+    def can_swap_out(self, rid: int) -> bool:
+        return len(self._tables.get(rid, ())) <= len(self._host_free)
+
+    def swap_out(self, rid: int) -> list[tuple[int, int]]:
+        """Move rid's table to host slots. Returns the (device_block,
+        host_slot) copies the caller must perform on the *pre-step* pool,
+        before anything can rewrite a freed block. Device blocks follow
+        ``free`` (hash kept while free), so a quick swap-in revives them
+        without a copy; hashed blocks also enter the host index, so other
+        requests' admissions can prefix-hit swapped content."""
+        t = self._tables.pop(rid)
+        pairs, slots = [], []
+        for b in t:
+            s = self._host_free.pop()
+            pairs.append((b, s))
+            slots.append(s)
+            h = self._hash_of.get(b)
+            if h is not None and h not in self._host_block_of:
+                self._host_hash_of[s] = h
+                self._host_block_of[h] = s
+            self._drop(b)
+        self._swapped[rid] = slots
+        return pairs
+
+    def can_swap_in(self, rid: int) -> bool:
+        # at worst every slot needs a fresh device block; hashed slots
+        # whose device twin survived on the free list revive for free
+        return len(self._swapped.get(rid, ())) <= self.num_free
+
+    def _drop_host_hash(self, s: int) -> bytes | None:
+        h = self._host_hash_of.pop(s, None)
+        if h is not None and self._host_block_of.get(h) == s:
+            del self._host_block_of[h]
+        return h
+
+    def swap_in(self, rid: int) -> tuple[list[int], list[tuple[int, int]]]:
+        """Rebuild rid's device table from its host slots. Returns (table,
+        the (host_slot, device_block) copies the caller must perform before
+        the step reads them). A hashed slot whose device twin still sits on
+        the free list (pages are never written while free) revives it in
+        place, with no copy."""
+        if rid in self._tables:
+            raise KeyError(f"request {rid} already has a table")
+        pairs, t = [], []
+        for s in self._swapped.pop(rid):
+            h = self._drop_host_hash(s)
+            b = self._block_of.get(h) if h is not None else None
+            if b is not None:                 # device twin survived: revive
+                if self._ref.get(b, 0) == 0:
+                    self._free.remove(b)
+                self._ref[b] = self._ref.get(b, 0) + 1
+            else:
+                b = self._pop_free()
+                self._ref[b] = 1
+                pairs.append((s, b))
+                if h is not None:
+                    self.register(b, h)
+            t.append(b)
+            self._host_free.append(s)
+        self._tables[rid] = t
+        return self.table(rid), pairs
+
+    def swap_discard(self, rid: int) -> None:
+        """Drop a swapped-out request's host slots without copying them
+        back (abort while swapped); their host hashes go with them."""
+        for s in self._swapped.pop(rid):
+            self._drop_host_hash(s)
+            self._host_free.append(s)
+
+    def match_host(self, hashes: list[bytes]) -> list[int]:
+        """Longest prefix of ``hashes`` resolving to *host* slots: admission
+        extends a device prefix hit with swapped-out content, copied back
+        instead of recomputed."""
+        out = []
+        for h in hashes:
+            s = self._host_block_of.get(h)
+            if s is None:
+                break
+            out.append(s)
+        return out
+
+    def host_copy_in(self, rid: int, slots: list[int],
+                     hashes: list[bytes]) -> tuple[list[int],
+                                                   list[tuple[int, int]]]:
+        """A non-destructive host prefix hit: copy ``slots`` (still owned
+        by their swapped-out request, or shared-index slots) into fresh
+        device blocks appended to rid's table (created if absent:
+        admission adopts the device hits first, then extends them here),
+        registering ``hashes`` on the new blocks. Returns (table, the
+        (host_slot, device_block) copies)."""
+        if len(slots) > self.num_free:
+            raise MemoryError(
+                f"need {len(slots)} blocks, have {self.num_free}")
+        t = self._tables.setdefault(rid, [])
+        pairs = []
+        for s, h in zip(slots, hashes):
+            b = self._pop_free()
+            self._ref[b] = 1
+            t.append(b)
+            pairs.append((s, b))
+            self.register(b, h)
+        return self.table(rid), pairs
+
     def check(self) -> None:
         """Invariants: refcounts == table references, free list exact,
-        hash index consistent, no trash block anywhere."""
+        hash index consistent, no trash block anywhere; host slots owned
+        once, the host free list exact, host hashes only on owned slots."""
         counts: dict[int, int] = {}
         for rid, t in self._tables.items():
             assert len(set(t)) == len(t), f"table {rid} repeats a block"
@@ -312,3 +649,13 @@ class BlockManager:
             assert b != TRASH_BLOCK
             assert self._block_of.get(h) == b, "hash maps disagree"
         assert len(self._block_of) == len(self._hash_of)
+        owned = [s for slots in self._swapped.values() for s in slots]
+        assert len(set(owned)) == len(owned), "host slot double-owned"
+        host_free = set(self._host_free)
+        assert len(host_free) == len(self._host_free), "host free dups"
+        assert not (host_free & set(owned)), "host free overlaps swapped"
+        assert len(owned) + len(self._host_free) == self.num_host_blocks
+        for s, h in self._host_hash_of.items():
+            assert s not in host_free, "hashed host slot is free"
+            assert self._host_block_of.get(h) == s, "host hash disagree"
+        assert len(self._host_block_of) == len(self._host_hash_of)

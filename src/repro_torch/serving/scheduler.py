@@ -31,11 +31,18 @@ A ``sampling_buffer`` (``sampling.SamplingBuffer``) validates each
 request's sampling parameters and is bound and released beside the slot
 cache.
 
+With a host tier (the block manager's ``num_host_blocks`` and a
+``SwapCostModel``) a preemption victim may be *swapped* instead: its
+blocks move to host slots (the plan's ``swap_outs``), its progress
+survives, and it returns from the front of the queue by ``swap_ins``
+rather than a recompute chunk. Admission extends a device prefix hit with
+host-resident blocks of swapped requests and, with a shared index, with
+blocks another replica published (``shared_ins``). ``abort`` cancels a
+request wherever it lives; ``drain`` refuses new submissions; an
+``on_admit(slot, req)`` hook sees every waiting -> running move.
+
 Pure host logic: the same requests give the same plans as the JAX
 package's scheduler (the port's tests compare them step by step).
-
-Not ported yet: swap preemption, cross-replica prefix adoption and the
-encoder cache (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -84,6 +91,45 @@ class SamplingParams:
                 or self.presence_penalty != 0.0
                 or self.frequency_penalty != 0.0
                 or self.logprobs > 0)
+
+
+@dataclass
+class SwapCostModel:
+    """Swap-or-recompute for one preemption victim.
+
+    Swapping moves ``2 * n_blocks * block_bytes`` over the device <-> host
+    link (out now, back later); recomputing replays ``num_computed``
+    prefill tokens through the model. Both rates start at conservative
+    defaults and follow the engine's measurements (EMA). ``policy``
+    "always" / "never" fixes the choice (byte-identity tests); "auto"
+    decides from the rates, so which victim swaps depends on the machine.
+    """
+
+    block_bytes: int                 # device bytes one block id costs
+    policy: str = "auto"             # "always" | "never" | "auto"
+    bytes_per_s: float = 4.0e9       # d2h + h2d bandwidth EMA
+    prefill_tok_s: float = 2.0e4     # recompute throughput EMA
+    ema_alpha: float = 0.2
+
+    def prefer_swap(self, n_blocks: int, n_recompute_tokens: int) -> bool:
+        if self.policy == "always":
+            return True
+        if self.policy == "never":
+            return False
+        move_s = 2.0 * n_blocks * self.block_bytes \
+            / max(self.bytes_per_s, 1.0)
+        recompute_s = n_recompute_tokens / max(self.prefill_tok_s, 1.0)
+        return move_s < recompute_s
+
+    def observe_swap(self, nbytes: int, seconds: float) -> None:
+        if nbytes > 0 and seconds > 0:
+            self.bytes_per_s += self.ema_alpha * (nbytes / seconds
+                                                  - self.bytes_per_s)
+
+    def observe_prefill(self, n_tokens: int, seconds: float) -> None:
+        if n_tokens > 0 and seconds > 0:
+            self.prefill_tok_s += self.ema_alpha * (n_tokens / seconds
+                                                    - self.prefill_tok_s)
 
 
 @dataclass
@@ -143,6 +189,15 @@ class StepPlan:
     admitted: int = 0                             # waiting -> running joins
     # speculative lookahead: each decode costs 1 + spec_tokens positions
     spec_tokens: int = 0
+    # host copies around the step: swap_outs are (device_block, host_slot)
+    # copies of *pre-step* pool content (issued before anything can
+    # rewrite a freed block); swap_ins are (host_slot, device_block)
+    # copies that land before the step and before COW copies (which may
+    # read them); shared_ins are (shared_index_slot, device_block) copies
+    # out of the SharedPrefixIndex pool, with the swap_ins' contract
+    swap_outs: list[tuple[int, int]] = field(default_factory=list)
+    swap_ins: list[tuple[int, int]] = field(default_factory=list)
+    shared_ins: list[tuple[int, int]] = field(default_factory=list)
 
     @property
     def chunk(self) -> tuple[int, Request, int] | None:
@@ -169,7 +224,8 @@ class Scheduler:
                  chunk_width: int, *, enable_prefix_caching: bool = True,
                  chunk_quantum: int = 1, slot_cache=None,
                  max_context: int | None = None, prefill_pack: int = 1,
-                 spec_tokens: int = 0, sampling_buffer=None):
+                 spec_tokens: int = 0, sampling_buffer=None,
+                 swap_cost: SwapCostModel | None = None):
         if max_num_batched_tokens <= max_batch * (1 + spec_tokens):
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
@@ -197,18 +253,39 @@ class Scheduler:
             max_context = max_blocks_per_seq * bm.block_size
         self.max_context = max_context           # None: no horizon (slots)
         self.enable_prefix_caching = enable_prefix_caching and bm is not None
+        # swap preemption: only with a cost model AND a host tier
+        self.swap_cost = swap_cost
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}      # slot -> request
         self._join_order: list[int] = []           # slots, oldest first
         self.n_preemptions = 0
+        self.n_swap_preemptions = 0
+        self.n_swap_ins = 0
+        self.n_aborts = 0
+        self.host_hit_blocks = 0
+        self.shared_hit_blocks = 0
         self.cache_hit_tokens = 0
         self.quantum_dropped_tokens = 0
+        # copy pairs gathered while the current plan is built
+        self._pending_swap_outs: list[tuple[int, int]] = []
+        self._pending_swap_ins: list[tuple[int, int]] = []
+        self._pending_shared_ins: list[tuple[int, int]] = []
+        # graceful drain: in-flight work finishes, submissions are refused
+        self.draining = False
+        # front-end hook: on_admit(slot, req) at every waiting -> running
+        # move (preemption re-admissions included)
+        self.on_admit = None
 
     # -- queries ----------------------------------------------------------
 
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
+
+    @property
+    def _swap_enabled(self) -> bool:
+        return (self.swap_cost is not None and self.bm is not None
+                and self.bm.num_host_blocks > 0)
 
     def free_slots(self) -> list[int]:
         return [s for s in range(self.max_batch) if s not in self.running]
@@ -231,8 +308,17 @@ class Scheduler:
                 f"exceeds max_len capacity {self.max_context}")
 
     def add(self, req: Request) -> None:
+        if self.draining:
+            raise RuntimeError(
+                f"scheduler is draining: request {req.rid} refused "
+                "(in-flight work finishes; no new admissions)")
         self.validate(req)
         self.waiting.append(req)
+
+    def drain(self) -> None:
+        """Refuse new requests; everything already submitted still runs to
+        retirement. Idempotent."""
+        self.draining = True
 
     # -- the budgeted step ------------------------------------------------
 
@@ -244,6 +330,9 @@ class Scheduler:
         budget and one ``chunk_width``, so packing never starves decodes
         harder than the single-chunk policy."""
         copies: list[tuple[int, int]] = []
+        self._pending_swap_outs = []
+        self._pending_swap_ins = []
+        self._pending_shared_ins = []
         self._ensure_decode_capacity()
         decodes = [(s, r) for s, r in sorted(self.running.items())
                    if r.decode_ready]
@@ -255,6 +344,10 @@ class Scheduler:
                 if not r.decode_ready]
         while (len(pres) < self.prefill_pack and budget_left > 0
                and self.waiting and len(self.running) < self.max_batch):
+            head = self.waiting[0]
+            if (self.bm is not None and self.bm.is_swapped(head.rid)
+                    and not self.bm.can_swap_in(head.rid)):
+                break           # FCFS: wait for device blocks to free up
             slot, req = self._admit_one(copies)
             admitted += 1
             if not req.decode_ready:   # else: full cache hit minus one —
@@ -284,8 +377,15 @@ class Scheduler:
                 budget_left -= n
                 width_left -= n
         self.quantum_dropped_tokens += pending_q_loss
-        return StepPlan(decodes=decodes, chunks=chunks, copies=copies,
-                        admitted=admitted, spec_tokens=self.spec_tokens)
+        plan = StepPlan(decodes=decodes, chunks=chunks, copies=copies,
+                        admitted=admitted, spec_tokens=self.spec_tokens,
+                        swap_outs=self._pending_swap_outs,
+                        swap_ins=self._pending_swap_ins,
+                        shared_ins=self._pending_shared_ins)
+        self._pending_swap_outs = []
+        self._pending_swap_ins = []
+        self._pending_shared_ins = []
+        return plan
 
     def _quantize(self, n: int, remaining: int) -> int:
         """Round a non-final chunk down to the chunk quantum. A prompt's
@@ -339,35 +439,80 @@ class Scheduler:
     def _admit_one(self, copies: list[tuple[int, int]]) -> \
             tuple[int, Request]:
         """FCFS admission with prefix-cache sharing: the new table starts
-        as the matched cached blocks; fresh blocks arrive chunk by chunk.
-        The request's slot-state row (if any) is bound to its slot."""
+        as the matched cached blocks, extended by host-resident blocks of
+        swapped requests and then by blocks another replica published
+        (both copied in, not recomputed); fresh blocks arrive chunk by
+        chunk. A swap-preempted victim returns by swap-in, with no
+        recompute chunk at all. The request's slot-state row (if any) is
+        bound to its slot."""
         req = self.waiting.popleft()
         if self.bm is None:
+            return self._bind_slot(req)
+        if self.bm.is_swapped(req.rid):
+            # its KV rows come back from the host tier byte for byte and
+            # num_computed survived (hashed blocks whose device twin is
+            # still cached revive without a copy)
+            _, pairs = self.bm.swap_in(req.rid)
+            self._pending_swap_ins.extend(pairs)
+            self.n_swap_ins += 1
             return self._bind_slot(req)
         bs = self.bm.block_size
         total = req.context_len
         hits: list[int] = []
+        hashes: list = []
         if self.enable_prefix_caching:
-            hits = self.bm.match(extend_chain_hashes(
-                req.hash_chain, req.prefill_tokens(), bs))
-        n_cached = len(hits) * bs
+            hashes = extend_chain_hashes(req.hash_chain,
+                                         req.prefill_tokens(), bs)
+            hits = self.bm.match(hashes)
+
+        def avail(extra=0):
+            # free blocks left once adoption revives the cached-free hits
+            n_revived = sum(1 for b in hits if self.bm.refcount(b) == 0)
+            return max(0, self.bm.num_free - n_revived - extra)
+
+        host_ext: list[int] = []
+        if hashes and self._swap_enabled:
+            hh = self.bm.match_host(hashes)
+            if len(hh) > len(hits):
+                host_ext = hh[len(hits):len(hits) + avail()]
+        shared_pairs: list[tuple[int, bytes]] = []
+        n_local = len(hits) + len(host_ext)
+        if hashes and self.bm.shared is not None and n_local < len(hashes):
+            shared_pairs = self.bm.shared.acquire(
+                hashes[n_local:], limit=avail(len(host_ext)))
+        n_cached = (n_local + len(shared_pairs)) * bs
         cow_idx = None
         if n_cached > total - 1:
             # Whole stream cached: recompute the last token for its logits.
             # Its KV write lands inside the final shared block — COW it, or
             # drop that hit when no spare block remains after adoption
-            # revives the matched cached-free blocks.
+            # revives the matched cached-free blocks. A final block copied
+            # from a host tier is fresh (refcount 1): always writable in
+            # place after the deregister below.
             n_cached = total - 1
             cow_idx = n_cached // bs
-            n_revived = sum(1 for b in hits if self.bm.refcount(b) == 0)
-            if self.bm.refcount(hits[-1]) >= 1 \
-                    and self.bm.num_free - n_revived < 1:
+            if (not host_ext and not shared_pairs
+                    and self.bm.refcount(hits[-1]) >= 1 and avail() < 1):
                 hits = hits[:-1]
                 n_cached = len(hits) * bs
                 cow_idx = None
         self.bm.adopt(req.rid, hits)
+        if host_ext:
+            _, pairs = self.bm.host_copy_in(
+                req.rid, host_ext,
+                hashes[len(hits):len(hits) + len(host_ext)])
+            self._pending_swap_ins.extend(pairs)
+            self.host_hit_blocks += len(host_ext)
+        if shared_pairs:
+            # the same path, sourced from the shared pool; its slots stay
+            # pinned until the engine's copies have landed (it releases)
+            _, pairs = self.bm.host_copy_in(
+                req.rid, [s for s, _ in shared_pairs],
+                [h for _, h in shared_pairs])
+            self._pending_shared_ins.extend(pairs)
+            self.shared_hit_blocks += len(shared_pairs)
         req.num_computed = n_cached
-        req.n_published = len(hits)               # all registered
+        req.n_published = len(hits) + len(host_ext) + len(shared_pairs)
         self.cache_hit_tokens += n_cached
         if cow_idx is not None:
             src = self.bm.table(req.rid)[cow_idx]
@@ -375,9 +520,11 @@ class Scheduler:
             if dst is not None:
                 copies.append((src, dst))
             else:
-                # refcount was 1 (a revived cached block): the recompute
-                # writes its last position in place, so pull it from the
-                # index first; it re-registers after the write
+                # refcount was 1 (a revived cached block, or a fresh host
+                # copy): the recompute writes its last position in place,
+                # so pull it from the index first (a concurrent admission
+                # must not adopt a block with a pending write); it
+                # re-registers after the write
                 self.bm.deregister(src)
                 req.n_published = cow_idx
         return self._bind_slot(req)
@@ -390,6 +537,8 @@ class Scheduler:
             self.sampling_buffer.bind(req, slot)
         if self.slot_cache is not None:
             self.slot_cache.allocate(req.rid, slot)
+        if self.on_admit is not None:
+            self.on_admit(slot, req)
         return slot, req
 
     # -- progress / bookkeeping -------------------------------------------
@@ -415,8 +564,11 @@ class Scheduler:
                 return slot
         return None
 
-    def _release(self, req: Request) -> None:
-        if self.bm is not None:
+    def _release(self, req: Request, blocks: bool = True) -> None:
+        """Release everything a running request holds: its block table
+        (unless ``blocks`` is off: a swap-out moved it to the host), its
+        slot-state row and its sampling row."""
+        if blocks and self.bm is not None:
             self.bm.free(req.rid)
         if self.slot_cache is not None:
             self.slot_cache.free(req.rid)
@@ -424,17 +576,46 @@ class Scheduler:
             self.sampling_buffer.free(req.rid)
 
     def _preempt(self, slot: int) -> Request:
-        """Evict one running request: blocks freed hash-retained, its slot
-        released, the prompt + generated tokens replay on re-admission."""
+        """Evict one running request. With a host tier the cost model picks
+        swap (its KV moves to host slots and ``num_computed`` survives) or
+        recompute (blocks freed hash-retained; the prompt + generated
+        tokens replay on re-admission) per victim."""
         req = self.running.pop(slot)
         self._join_order.remove(slot)
-        self._release(req)
-        req.num_computed = 0
-        req.n_published = 0
+        if (self._swap_enabled and req.num_computed > 0
+                and self.bm.can_swap_out(req.rid)
+                and self.swap_cost.prefer_swap(
+                    len(self.bm.table(req.rid)), req.num_computed)):
+            self._pending_swap_outs.extend(self.bm.swap_out(req.rid))
+            self._release(req, blocks=False)
+            self.n_swap_preemptions += 1
+        else:
+            self._release(req)
+            req.num_computed = 0
+            req.n_published = 0
         req.n_preempted += 1
         self.n_preemptions += 1
         self.waiting.appendleft(req)
         return req
+
+    def abort(self, rid: int) -> bool:
+        """Cancel a request wherever it lives: waiting (dropping any
+        host-swapped KV) or running (released as at retirement: blocks
+        freed hash-retained, slot and sampling rows freed). False for an
+        unknown rid (already retired or never submitted), a no-op."""
+        for i, r in enumerate(self.waiting):
+            if r.rid == rid:
+                del self.waiting[i]
+                if self.bm is not None and self.bm.is_swapped(rid):
+                    self.bm.swap_discard(rid)
+                self.n_aborts += 1
+                return True
+        for slot, r in list(self.running.items()):
+            if r.rid == rid:
+                self.retire(slot)
+                self.n_aborts += 1
+                return True
+        return False
 
     def retire(self, slot: int) -> Request:
         req = self.running.pop(slot)

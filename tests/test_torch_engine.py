@@ -8,8 +8,10 @@ bf16 tolerance (the two frameworks round bf16 activations at other
 places); after that the streams legitimately part.
 
 Inside the port: the JAX package's own invariants hold (chunked ==
-monolithic, preempted == uninterrupted, prefix-hit == cold), and what this
-slice does not serve is refused by name."""
+monolithic, preempted == uninterrupted, prefix-hit == cold). The
+constructor raises the reference's ValueErrors for the host tiers on a
+runner with slot state and for a shared index without prefix caching,
+and refuses a mesh by name (ROADMAP.md queue 1 item 12)."""
 
 import jax
 import jax.numpy as jnp
@@ -186,12 +188,22 @@ def test_latency_records_stay_bounded(setup, monkeypatch):
     assert eng.hist["e2e_steps"].count == len(reqs)
 
 
-@pytest.mark.parametrize("kw", [
-    {"swap_space_bytes": 1 << 20},
-    {"shared_index": object()}, {"mesh": object()}])
-def test_engine_refuses_unported_options(setup, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(setup, **kw)
+@pytest.mark.parametrize("arch,kw,exc,match", [
+    ("mamba2_370m", {"swap_space_bytes": 1 << 20}, ValueError,
+     "pure paged-KV runner"),
+    ("zamba2_2p7b", {"shared_index": object()}, ValueError,
+     "pure paged-KV runner"),
+    ("glm4_9b", {"shared_index": object(), "enable_prefix_caching": False},
+     ValueError, "enable_prefix_caching=True"),
+    ("glm4_9b", {"swap_policy": "sometimes"}, ValueError, "swap_policy"),
+    ("glm4_9b", {"mesh": object()}, NotImplementedError,
+     "ROADMAP.md queue 1 item 12")])
+def test_engine_refuses_unported_options(arch, kw, exc, match):
+    """The reference's ValueErrors: no host tier for a runner with slot
+    state (its state has no block-swap form), no shared index without
+    prefix caching; an unknown swap policy; a mesh is not ported."""
+    with pytest.raises(exc, match=match):
+        InferenceEngine(get_config(arch, smoke=True), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("target,draft,k,match", [
