@@ -75,12 +75,27 @@ Phases, each of which raises on failure:
         gemma2's 6144-token prompt (window, cap, scale) and causal S=2048
         at the other two, and at phase 10's static prefill shapes (B=8,
         S=512 for each; B=2, S=6000 for gemma2, a partial last row tile),
-        gemma2 also with its global layers' options: o within 1e-2 of
-        dense_attention, lse within 1e-3 of the plain one, two launches
-        bit-equal; beside SDPA where SDPA computes the same function (no
+        gemma2 also with its global layers' options: o within 1e-2 of the
+        plain version (fp32, one rounding; each value, and each row) and
+        each row within 1e-2 of dense_attention's, lse within 1e-3 of the
+        plain one, two launches bit-equal; beside SDPA where SDPA computes the same function (no
         softcap: for gemma2 SDPA's causal time is a yardstick); the gather at each member's table (256000 x 4608,
         152064 x 5120, 49152 x 3072). Under "<member>_" keys of each
         kernel's row.
+     g. this slice's shapes: the flash forward's hd-64 route ("mma64", a
+        row of its own: "flash_attention_mma64") at whisper's heads (H = K
+        = 20): the encoder's non-causal 1500 x 1500 (B 1 and 8), a
+        chunk's cross attention (256 x 1500) and causal S 512 (B 8), each
+        o held as in 2f, lse within 1e-3, two launches bit-equal; all but
+        the static encoder timed beside SDPA (the same function), the
+        first against its plain version too; decode, a 256-row
+        chunk (decode == chunk(C=1) bit for bit, padding rows zero) at
+        whisper's hd 64, G 1, and decode, chunk and packed at qwen3_moe's
+        (H 32, K 4) and grok1's (48, 8, cap 30) heads; the flash forward
+        at qwen3_moe's and qwen2_vl's (12, 2) static prefill shapes; the
+        gather at the four tables (152064 x 2048, 131072 x 6144, 51968 x
+        1280, 152064 x 1536). Under "qwen3_moe_", "grok1_", "whisper_",
+        "qwen2_vl_" keys.
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -220,6 +235,37 @@ Phases, each of which raises on failure:
      Each run's launches go into the kernels' rows, replay-aware.
      ``python3 chip_smoke.py --phase 11`` runs the build and phase 11
      alone (a development run: no result line).
+  12. mixture of experts, the encoder-decoder and M-RoPE at full width
+     (run last; random weights from seed 0; one model at a time, each
+     freed before the next; "[serve-slice]", "[static]" lines):
+     a. qwen3_moe_30b_a3b (48 layers): phase 3's traffic on graphs and
+        eager (byte-identical), a prefill_pack 4 run over int8 pools (4
+        new; the MoE block at T = 512); at capacity factor 16 (no drops)
+        and 4 of the 48 layers (at 48 the fp32 reading no longer tells
+        the two bf16 paths apart) an eager engine run (8 new) recording
+        each row's experts, and the static path held against the fp32
+        reading as in phase 10, every run there replaying the engine's
+        routing (``RouteLog``: bf16 rounding sends some rows to other
+        experts on each path, which moves their outputs by far more than
+        a rounding; the distances without the replay are printed
+        beside).
+     b. grok1_314b at full width with 4 of its 64 layers: phase 3's
+        traffic, 16 new, graphs == eager.
+     c. whisper_large_v3 (32 + 32 layers): 8 requests of 128 tokens with
+        distinct seeded frames (1500 x 1280), 32 new, graphs == eager; the
+        static path's tokens == the engine's up to a near-tie; a 41-block
+        pool that preempts (encodes >= 8 + preemptions, tokens == the
+        roomy run's up to a near-tie); the encode's device time.
+     d. qwen2_vl_2b (28 layers), static path: B 8 x S 512 with distinct
+        M-RoPE planes (a 16 x 16 image grid, then text), 32 new; prefill
+        logits 4 times closer to the fp32 reading at those planes than
+        the fp32 reading at 1-D positions is, first tokens == the fp32
+        reading's up to a near-tie.
+     Per run: tok/s, decode step ms (wall, device) beside its bytes floor
+     (a MoE decode reads every expert), peak GiB; each member's launches
+     per kernel ("<member>_launches"). ``python3 chip_smoke.py --phase
+     12`` runs the build and phase 12 alone, ``--phase 2g`` the build and
+     phase 2g (development runs: no result line).
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
 
@@ -231,6 +277,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import gc
 import json
@@ -1466,15 +1513,16 @@ FAMILY = {"gemma2": ("gemma2_27b", 32, 16,
           "qwen3": ("qwen3_32b", 64, 8, {}),
           "starcoder2": ("starcoder2_3b", 24, 2, {})}
 # decode contexts (8 sequences, one inactive) and the chunk's end: past
-# gemma2's window, glm4's lengths for the others
-FAMILY_CTX = {"gemma2": ([6144, 6000, 4097, 4095, 5000, 1, 0, 300], 6144),
-              "qwen3": ([2048, 1536, 1024, 777, 2000, 1, 0, 300], 2048),
-              "starcoder2": ([2048, 1536, 1024, 777, 2000, 1, 0, 300], 2048)}
+# gemma2's window, glm4's lengths for the others (MEMBER_CTX: phase 2g's)
+GLM4_CTX = ([2048, 1536, 1024, 777, 2000, 1, 0, 300], 2048)
+# gemma2's past its window; whisper's (phase 12c: 128-token prompts, 32
+# new) and a chunk across its 256-key segment edge
+MEMBER_CTX = {"gemma2": ([6144, 6000, 4097, 4095, 5000, 1, 0, 300], 6144),
+              "whisper": ([160, 150, 140, 129, 257, 1, 0, 65], 300)}
 # packed: phase 2b's q_lens at these contexts (gemma2's first past the
 # window)
-FAMILY_PACKED = {"gemma2": [6144, 96, 4700, 5000],
-                 "qwen3": [2048, 96, 700, 1000],
-                 "starcoder2": [2048, 96, 700, 1000]}
+GLM4_PACKED = [2048, 96, 700, 1000]
+MEMBER_PACKED = {"gemma2": [6144, 96, 4700, 5000]}
 # flash: (B, S) per family member, the member's layer options. The first
 # is the row's timed shape (gemma2 at a long prompt past its window, the
 # others causal at 2048); the rest are the shapes phase 10's static path
@@ -1482,7 +1530,9 @@ FAMILY_PACKED = {"gemma2": [6144, 96, 4700, 5000],
 # prompts (a partial last 128-row tile)
 FAMILY_FLASH = {"gemma2": [(1, 6144), (8, 512), (2, 6000)],
                 "qwen3": [(1, 2048), (8, 512)],
-                "starcoder2": [(1, 2048), (8, 512)]}
+                "starcoder2": [(1, 2048), (8, 512)],
+                "qwen3_moe": [(1, 2048), (8, 512)],
+                "qwen2_vl": [(1, 2048), (8, 512)]}
 
 
 def visible_keys(pos: int, window) -> int:
@@ -1496,11 +1546,29 @@ def family_row(rows, kernel, prefix, **kw) -> None:
     rows[kernel].update({prefix + k: v for k, v in kw.items()})
 
 
+def check_flash_o(name, o_k, q, k, v, fo, ref, dense_attention):
+    """The flash kernel's o at the family and hd-64 shapes: within TOL of
+    its plain version (``ref.flash_attention_fwd_plain``: fp32 throughout,
+    one rounding), row by row and value by value (``check_close``), and
+    every row within TOL relative of ``dense_attention``. The value cap is
+    not held against ``dense_attention``: it rounds p to bf16 after
+    normalizing and the kernel before, so one value of each can sit a bf16
+    ulp on either side of the exact one, two ulps apart, past the cap
+    between 1 and 1.56 in magnitude. Returns (max abs err, max row
+    relative err) against the plain version."""
+    e, rel = check_close(f"{name} vs the plain version", o_k,
+                         ref.flash_attention_fwd_plain(q, k, v, **fo)[0])
+    r_dense = row_err(o_k, dense_attention(q, k, v, **fo))
+    check(r_dense <= TOL, f"{name} vs dense_attention: max row relative "
+          f"err {r_dense} (limit {TOL})")
+    return e, rel
+
+
 def check_family_flash(torch, timer, gen, arch, H, K, hd, variants, B, S,
                        F, fa, ref, dense_attention) -> dict:
     """The flash forward at one family shape, for each of the member's
     layer options (``variants``; the first is timed): two launches
-    bit-equal, o within TOL of dense_attention, lse within LSE_TOL of the
+    bit-equal, o held by ``check_flash_o``, lse within LSE_TOL of the
     plain one; the first's times (SDPA's where SDPA computes the same
     function) and bound."""
     q = torch.randn((B, S, H, hd), generator=gen, device=DEV).bfloat16()
@@ -1513,9 +1581,8 @@ def check_family_flash(torch, timer, gen, arch, H, K, hd, variants, B, S,
         check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
               f"flash {arch} B={B} S={S} {o}: two launches differ")
         del o_2, lse_2
-        e, rel = check_close(f"flash {arch} B={B} S={S} {o} vs "
-                             "dense_attention", o_k,
-                             dense_attention(q, k, v, **fo))
+        e, rel = check_flash_o(f"flash {arch} B={B} S={S} {o}", o_k, q, k,
+                               v, fo, ref, dense_attention)
         e_lse = err(lse_k, ref.flash_attention_fwd_plain(q, k, v, **fo)[1])
         check(e_lse <= LSE_TOL, f"flash {arch} B={B} S={S} {o}: lse max abs "
               f"err {e_lse} (limit {LSE_TOL})")
@@ -1547,17 +1614,17 @@ def check_family_flash(torch, timer, gen, arch, H, K, hd, variants, B, S,
         **lib, **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
 
 
-def check_family(torch, timer, gen, rows):
-    """Phase 2f: decode, chunk and packed kernels at each member's (H, K)
-    over bf16 pools with its windowed layers' options (and gemma2's global
-    layers without the window): within TOL of the plain versions, decode
-    == chunk(C=1), packed S=1 == chunk, packed == unpacked, fused write ==
-    scatter, bit for bit; the flash forward vs dense_attention (its lse
-    vs the plain one) at the member's long prompt and at phase 10's static
-    prefill shapes, beside SDPA where SDPA computes the same function; the
-    gather == table[ids] at each member's embedding table.
-    Times, bounds and errors go into each kernel's row under the member's
-    prefix ("gemma2_", "qwen3_", "starcoder2_")."""
+def check_member(torch, timer, gen, rows, name, arch, H, K, opts, parts):
+    """One member's kernels at its heads (hd from its config), bf16
+    pools, its windowed layers' options (and gemma2's global layers
+    without the window): decode ("d") and a 256-row chunk ("c") within TOL
+    of the plain versions, decode == chunk(C=1) bit for bit, padding rows
+    zero; the packed kernel ("p": packed S=1 == chunk, packed == unpacked,
+    fused write == scatter, bit for bit); the flash forward ("f") vs
+    dense_attention (its lse vs the plain one) at the member's shapes,
+    beside SDPA where SDPA computes the same function; the gather ("g")
+    == table[ids] at the member's embedding table. Times, bounds and
+    errors go into each kernel's row under the member's prefix."""
     import torch.nn.functional as F
     from repro_torch.config import get_config
     from repro_torch.kernels import embedding as emb
@@ -1568,30 +1635,29 @@ def check_family(torch, timer, gen, rows):
                                               paged_chunk_attention_xla,
                                               ragged_chunk_attention_xla)
 
-    hd, bs = 128, 16
-    for name, (arch, H, K, opts) in FAMILY.items():
-        p = name + "_"
-        window = opts.get("window")
-        ctx, c_end = FAMILY_CTX[name]
+    c = get_config(arch)
+    hd, bs, p = c.head_dim, 16, name + "_"
+    window = opts.get("window")
+    # gemma2's global layers: cap and scale, no window (checked only)
+    variants = [opts] + ([{k: v for k, v in opts.items()
+                           if k != "window"}] if window else [])
+    ctx, c_end = MEMBER_CTX.get(name, GLM4_CTX)
+    if "d" in parts:
         B, nb = len(ctx), -(-max(ctx) // bs)
         q, kp, vp, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs, nb,
                                          ctx)
         ones = torch.ones(B, dtype=torch.int32, device=DEV)
-        # gemma2's global layers: cap and scale, no window (checked only)
-        variants = [opts] + ([{k: v for k, v in opts.items()
-                               if k != "window"}] if window else [])
         for o in variants:
             o_k = pa.paged_attention(q, kp, vp, bt, ctxt, **o)
-            e, rel = check_close(f"paged_attention {name} {o} vs plain", o_k,
-                                 ref.paged_attention_ref(q, kp, vp, bt, ctxt,
-                                                         **o))
+            check_close(f"paged_attention {name} {o} vs plain", o_k,
+                        ref.paged_attention_ref(q, kp, vp, bt, ctxt, **o))
             check(bool((o_k[ctx.index(0)] == 0).all()),
                   f"paged_attention {name}: ctx=0 row not zero")
             o_c = pa.paged_prefill_attention(q[:, None].contiguous(), kp, vp,
                                              bt, ctxt, ones, **o)
             check(torch.equal(o_c[:, 0], o_k),
                   f"{name} {o}: chunk(C=1) != decode bitwise")
-        keys = sum(visible_keys(c - 1, window) for c in ctx if c)
+        keys = sum(visible_keys(x - 1, window) for x in ctx if x)
         b_dec = (2 * q.numel() * 2 + 2 * keys * kv_row_bytes("bf16", K, hd)
                  + bt.numel() * 4 + B * 4)
         e, rel = check_close(f"paged_attention {name} vs plain",
@@ -1609,17 +1675,18 @@ def check_family(torch, timer, gen, rows):
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(b_dec, 4.0 * keys * H * hd))))
 
+    if "c" in parts:
         # a 256-row chunk, 200 rows valid, ending at c_end
         C, qlen = 256, 200
+        nb = -(-c_end // bs)
         q, kp, vp, bt, ctxt = paged_case(torch, gen, 1, H, K, hd, bs, nb,
                                          [c_end], C=C)
         ql = torch.tensor([qlen], dtype=torch.int32, device=DEV)
         for o in variants:
             o_k = pa.paged_prefill_attention(q, kp, vp, bt, ctxt, ql, **o)
-            e, rel = check_close(
-                f"paged_prefill_attention {name} {o} vs plain",
-                o_k[:, :qlen], paged_chunk_attention_xla(
-                    q, kp, vp, bt, ctxt, ql, **o)[:, :qlen])
+            check_close(f"paged_prefill_attention {name} {o} vs plain",
+                        o_k[:, :qlen], paged_chunk_attention_xla(
+                            q, kp, vp, bt, ctxt, ql, **o)[:, :qlen])
             check(bool((o_k[:, qlen:] == 0).all()),
                   f"{name}: chunk padding rows not zero")
         pos0 = c_end - qlen
@@ -1645,8 +1712,10 @@ def check_family(torch, timer, gen, rows):
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(b_chk, 4.0 * pairs * H * hd))))
 
+    if "p" in parts:
         # packed: T = 512 rows of 4 sequences, with the fused KV write
-        T, q_lens, pctx = 512, [200, 96, 150, 40], FAMILY_PACKED[name]
+        T, q_lens = 512, [200, 96, 150, 40]
+        pctx = MEMBER_PACKED.get(name, GLM4_PACKED)
         inp = ragged_inputs(torch, gen, H, K, hd, bs, T, q_lens, pctx)
         r = [ragged_checks(torch, inp, "bf16", f"ragged {name} {o}", o)
              for o in variants][0]
@@ -1660,10 +1729,10 @@ def check_family(torch, timer, gen, rows):
             update_paged_cache_ragged(v2, vn[None], *seqs, seq)
             return ragged_chunk_attention_xla(qr, k2, v2, *seqs, seq, **opts)
 
-        pairs = sum(visible_keys(c - n + i, window)
-                    for n, c in zip(q_lens, pctx) for i in range(n))
-        span = sum(c - (0 if window is None else max(0, c - n - window + 1))
-                   for n, c in zip(q_lens, pctx))
+        pairs = sum(visible_keys(x - n + i, window)
+                    for n, x in zip(q_lens, pctx) for i in range(n))
+        span = sum(x - (0 if window is None else max(0, x - n - window + 1))
+                   for n, x in zip(q_lens, pctx))
         qb, rb, meta = 2 * qr.numel() * 2, kv_row_bytes("bf16", K, hd), \
             seqs[0].numel() * 4 + 3 * len(q_lens) * 4
         b_write = qb + 2 * span * rb + 2 * sum(q_lens) * rb + meta
@@ -1677,33 +1746,37 @@ def check_family(torch, timer, gen, rows):
                     plain_fused),
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(b_write, 4.0 * pairs * H * hd))))
-        print(f"[kernels] {name} (H={H} K={K} G={H // K} hd={hd}, "
-              f"{opts or 'causal'}): decode == chunk(C=1), packed S=1 == "
-              "chunk, packed == unpacked, fused write == scatter (bit for "
-              f"bit); within {TOL} of plain", flush=True)
         del inp, r, k1, v1, k2, v2
+    if parts & set("dcp"):
+        bits = (["decode == chunk(C=1)"] if "d" in parts else []) + (
+            ["packed S=1 == chunk, packed == unpacked, fused write == "
+             "scatter"] if "p" in parts else [])
+        print(f"[kernels] {name} (H={H} K={K} G={H // K} hd={hd}, "
+              f"{opts or 'causal'}): {', '.join(bits)} (bit for bit); "
+              f"within {TOL} of plain", flush=True)
 
-        # the flash forward at the member's shapes
-        for case, (Bf, S) in enumerate(FAMILY_FLASH[name]):
-            d = check_family_flash(torch, timer, gen, arch, H, K, hd,
-                                   variants, Bf, S, F, fa, ref,
-                                   dense_attention)
-            if case == 0:
-                family_row(rows, "flash_attention", p, **d)
-            else:
-                rows["flash_attention"].setdefault(
-                    p + "serving_shapes", []).append(d)
-            print(f"[kernels] flash {name} at B={Bf} S={S}: {d['ms']:.4f} ms "
-                  f"({d['tflops']:.0f} TFLOP/s), device "
-                  f"{d['device_ms']:.4f}, SDPA "
-                  f"{d.get('library_ms') or d.get('sdpa_causal_no_cap_ms')}"
-                  f" ms{' (causal, no cap: a yardstick)' if opts else ''}; o "
-                  f"max row rel err {d['max_row_rel_err']:.3g}, lse "
-                  f"{d['lse_max_abs_err']:.3g}; two launches bit-equal",
-                  flush=True)
+    # the flash forward at the member's shapes
+    for case, (Bf, S) in enumerate(FAMILY_FLASH.get(name, []) if "f" in parts
+                                   else []):
+        d = check_family_flash(torch, timer, gen, arch, H, K, hd,
+                               variants, Bf, S, F, fa, ref,
+                               dense_attention)
+        if case == 0:
+            family_row(rows, "flash_attention", p, **d)
+        else:
+            rows["flash_attention"].setdefault(
+                p + "serving_shapes", []).append(d)
+        print(f"[kernels] flash {name} at B={Bf} S={S}: {d['ms']:.4f} ms "
+              f"({d['tflops']:.0f} TFLOP/s), device "
+              f"{d['device_ms']:.4f}, SDPA "
+              f"{d.get('library_ms') or d.get('sdpa_causal_no_cap_ms')}"
+              f" ms{' (causal, no cap: a yardstick)' if opts else ''}; o "
+              f"max row rel err {d['max_row_rel_err']:.3g}, lse "
+              f"{d['lse_max_abs_err']:.3g}; two launches bit-equal",
+              flush=True)
 
+    if "g" in parts:
         # the gather at the member's embedding table
-        c = get_config(arch)
         V, d = c.padded_vocab_size, c.d_model
         table = torch.randn((V, d), generator=gen, device=DEV).bfloat16()
         for n in (8, 256):
@@ -1726,7 +1799,120 @@ def check_family(torch, timer, gen, rows):
               f"{rows['gather'][p + 'ms']:.4f} ms, index_select "
               f"{rows['gather'][p + 'library_ms']:.4f}", flush=True)
         del table
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+
+def check_family(torch, timer, gen, rows):
+    """Phase 2f: every kernel of the dense family's serving path at each
+    member's heads and table (``check_member``), under the prefixes
+    "gemma2_", "qwen3_", "starcoder2_"."""
+    for name, (arch, H, K, opts) in FAMILY.items():
+        check_member(torch, timer, gen, rows, name, arch, H, K, opts,
+                     set("dcpfg"))
+
+
+# phase 2g: this slice's members: name -> (arch, H, K, layer options, the
+# kernels of its path: d(ecode), c(hunk), p(acked), f(lash), g(ather)).
+# qwen3_moe and grok1 (G 8 and 6; grok's attention softcap 30) serve
+# through the paged kernels, packed included; whisper's decoder self
+# attention (hd 64, G 1) through decode and chunk only (no packed
+# prefill), its flash shapes in check_hd64_flash; qwen2_vl's static path
+# through flash (G 6) and the gather
+SLICE = {"qwen3_moe": ("qwen3_moe_30b_a3b", 32, 4, {}, "dcpfg"),
+         "grok1": ("grok1_314b", 48, 8, dict(cap=30.0), "dcpg"),
+         "whisper": ("whisper_large_v3", 20, 20, {}, "dcg"),
+         "qwen2_vl": ("qwen2_vl_2b", 12, 2, {}, "fg")}
+# hd-64 flash shapes (name, B, Sq, Skv, causal, timed): the encoder at
+# admission (one request) and in the static path (8), a chunk's cross
+# attention, the static prefill's causal self attention at S 512. The
+# timed ones are timed beside SDPA; the first is the row's shape, whose
+# plain version and profiler device times are taken too
+HD64_FLASH = [("encoder 1500 x 1500", 1, 1500, 1500, False, True),
+              ("static encoder B=8", 8, 1500, 1500, False, False),
+              ("chunk cross 256 x 1500", 1, 256, 1500, False, True),
+              ("causal S 512", 8, 512, 512, True, True)]
+
+
+def check_hd64_flash(torch, timer, gen, rows):
+    """The flash forward's hd-64 route (whisper: H = K = 20) at
+    HD64_FLASH's shapes: o held by ``check_flash_o``, lse within LSE_TOL
+    of the plain one, two launches bit-equal; the timed ones beside SDPA,
+    which computes the same function at these shapes. The first shape is
+    the row's ("flash_attention_mma64"), the others its "cases"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import dense_attention
+
+    H = K = 20
+    hd = 64
+    cases = []
+    for label, B, Sq, Skv, causal, timed_case in HD64_FLASH:
+        check(fa.route(hd) == "mma64", "hd 64 is not the mma64 route")
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).bfloat16()
+        k = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
+        v = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
+        o_k, lse_k = fa.flash_attention(q, k, v, causal=causal)
+        o_2, lse_2 = fa.flash_attention(q, k, v, causal=causal)
+        check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
+              f"flash hd 64 {label}: two launches differ")
+        del o_2, lse_2
+        e, rel = check_flash_o(f"flash hd 64 {label}", o_k, q, k, v,
+                               dict(causal=causal), ref, dense_attention)
+        e_lse = err(lse_k, ref.flash_attention_fwd_plain(
+            q, k, v, causal=causal)[1])
+        check(e_lse <= LSE_TOL, f"flash hd 64 {label}: lse max abs err "
+              f"{e_lse} (limit {LSE_TOL})")
+        pairs = causal_pairs(Sq, Skv, causal, None, 0)
+        flops = 4.0 * B * H * hd * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            + 4 * lse_k.numel()
+        d = dict(
+            kernel="flash_attention", source=FLASH_SRC, kernel_route="mma64",
+            max_abs_err=e, max_row_rel_err=rel, lse_max_abs_err=e_lse,
+            shape=f"whisper {label}: B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
+                  f"hd={hd} {'causal' if causal else 'non-causal'} "
+                  f"({pairs} row-key pairs per batch row)",
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
+        line = "not timed"
+        if timed_case:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+
+            def kernel():
+                return fa.flash_attention(q, k, v, causal=causal)
+
+            d.update(ms=timer(kernel), library_ms=timer(sdpa))
+            d["tflops"] = flops / d["ms"] * 1e-9
+            line = (f"{d['ms']:.4f} ms ({d['tflops']:.0f} TFLOP/s; bound "
+                    f"{d['bound_ms']:.4f}), SDPA {d['library_ms']:.4f} ms")
+            if not cases:
+                d.update(device_ms=timer.device(kernel),
+                         library_device_ms=timer.device(sdpa),
+                         plain_ms=timer(
+                             lambda: ref.flash_attention_fwd_plain(
+                                 q, k, v, causal=causal), iters=5))
+                line += f", plain {d['plain_ms']:.4f}"
+            del qt, kt, vt
+        print(f"[kernels] flash hd 64 (route mma64) {label}: {line}; o max "
+              f"row rel err {rel:.3g}, lse {e_lse:.3g}; two launches "
+              "bit-equal", flush=True)
+        cases.append(d)
+        del q, k, v, o_k, lse_k
+    rows["flash_attention_mma64"] = dict(cases[0], cases=cases[1:])
+    torch.cuda.empty_cache()
+
+
+def check_slice(torch, timer, gen, rows):
+    """Phase 2g: the kernels at this slice's shapes (SLICE, HD64_FLASH),
+    under the member prefixes and the "flash_attention_mma64" row."""
+    check_hd64_flash(torch, timer, gen, rows)
+    for name, (arch, H, K, opts, parts) in SLICE.items():
+        check_member(torch, timer, gen, rows, name, arch, H, K, opts,
+                     set(parts))
 
 
 def check_kernels(torch, timer):
@@ -1742,6 +1928,7 @@ def check_kernels(torch, timer):
     check_flash(torch, timer, gen, rows)
     check_sampled_softmax(torch, timer, gen, rows)
     check_family(torch, timer, gen, rows)
+    check_slice(torch, timer, gen, rows)
     for name, r in rows.items():
         extra = ""
         if "no_write_ms" in r:
@@ -1812,8 +1999,16 @@ def run_launches(counters, eng) -> tuple[dict, dict]:
 
 def weight_bytes(eng) -> int:
     """Bytes one decode step must read at least: every parameter once and
-    the runner's fp32 copy of the logits table."""
-    n = sum(t.numel() * t.element_size() for t in leaves(eng.params))
+    the runner's fp32 copy of the logits table (all of a MoE layer's
+    experts: the dispatch multiplies every expert's capacity rows). An
+    encoder-decoder's decode reads its decoder and every slot's cross K/V,
+    not its encoder."""
+    p = eng.params
+    if "encoder" in p:
+        p = {k: v for k, v in p.items()
+             if k not in ("encoder", "enc_final_norm")}
+        p["cross"] = eng.cache["cross"]
+    n = sum(t.numel() * t.element_size() for t in leaves(p))
     return n + eng.runner.head.numel() * eng.runner.head.element_size()
 
 
@@ -1991,11 +2186,27 @@ def serve(torch, counters, eng, reqs, max_new, expect, modes=("greedy",),
     return res, {r.rid: outs[r.rid].tolist() for r in reqs}
 
 
+def decode_profile(torch, eng, top: int = 8) -> dict:
+    """One eager decode body of ``eng`` (its last step's inputs) under
+    torch.profiler, the L2 flushed: device ms by kernel, the ``top``
+    largest and the total."""
+    timer = Timer(torch)
+    with torch.no_grad():
+        by_kernel = timer.kernels(lambda: eng.runner_body(
+            has_chunk=False, sampling="greedy"), iters=3)
+    del timer
+    order = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    return {"total_ms": sum(by_kernel.values()),
+            "top": [(k[:80], v) for k, v in order[:top]]}
+
+
 def serve_ab(torch, counters, card, label, make_engine, make_reqs, max_new,
-             expect):
+             expect, profile=False):
     """Phases 3-5's A/B: the same requests through a graph engine (the
     card's default) and an eager one (``cuda_graphs=False``), same
-    weights; greedy tokens byte-identical. Returns (graph run, eager
+    weights; greedy tokens byte-identical. With ``profile`` the eager
+    engine's decode body is profiled after its run (``decode_profile``,
+    into the eager run's "decode_profile"). Returns (graph run, eager
     run, the greedy tokens in request order)."""
     runs = {}
     toks = {}
@@ -2005,6 +2216,12 @@ def serve_ab(torch, counters, card, label, make_engine, make_reqs, max_new,
               f"{label}: cuda_graphs={graphs} not honoured")
         runs[graphs], toks[graphs] = serve(torch, counters, eng,
                                            make_reqs(), max_new, expect)
+        if profile and not graphs:
+            runs[graphs]["decode_profile"] = prof = decode_profile(torch,
+                                                                   eng)
+            print(f"[serve-ab] {label}: one eager decode body, device ms "
+                  f"{prof['total_ms']:.3f}, by kernel: {prof['top']}",
+                  flush=True)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2249,18 +2466,21 @@ def graph_replay_ms(torch, graph, iters=50):
 
 
 def near_tie_or_same(torch, params, cfg, prompt, ours, ref, limit=TOL,
-                     margins=None) -> bool:
+                     margins=None, before=None) -> bool:
     """Equal greedy streams (True), or a first difference whose top-2
     margin (the card's logits after the common prefix, one monolithic
-    chunk) is below ``limit``, the bf16 tolerance by default (False);
-    anything else fails. ``margins`` collects (step, margin, limit)."""
+    chunk) is below ``limit``, the bf16 tolerance by default, with the
+    two tokens the top two (False); anything else fails. ``margins``
+    collects (step, margin, limit). ``before(n)`` runs before the reading
+    of n tokens (a ``RouteLog`` naming its rows)."""
     import numpy as np
     if ours == ref:
         return True
     i = next(j for j, (x, y) in enumerate(zip(ours, ref)) if x != y)
-    lg = last_logits(torch, params, cfg,
-                     np.concatenate([prompt, np.asarray(ours[:i], np.int32)]),
-                     "bf16", device=DEV)
+    tokens = np.concatenate([prompt, np.asarray(ours[:i], np.int32)])
+    if before is not None:
+        before(len(tokens))
+    lg = last_logits(torch, params, cfg, tokens, "bf16", device=DEV)
     top = torch.topk(lg, 2)
     margin = float(top.values[0] - top.values[1])
     if margins is not None:
@@ -2269,6 +2489,102 @@ def near_tie_or_same(torch, params, cfg, prompt, ours, ref, limit=TOL,
           f"greedy streams differ at step {i} with top-2 margin {margin} "
           f"(limit {limit})")
     return False
+
+
+def seq_rows(reqs, S: int, start: int = 0) -> list:
+    """(row, request, position) of S-row sequences laid end to end, one
+    for each of ``reqs``, their positions from ``start``."""
+    return [(i * S + t, r, start + t) for i, r in enumerate(reqs)
+            for t in range(S)]
+
+
+class RouteLog:
+    """The experts a MoE run routes each of its rows to, and their replay.
+    ``record()`` logs ``events[(request, position, layer)]``, the row's
+    top k in the run's order; ``replay()`` makes the runs inside it route
+    the same rows to the same experts, their weights renormalised from
+    the run's own probabilities, counting the rows replayed and those
+    whose own choice was another set of experts (``replayed``,
+    ``rerouted``). ``step(rows)`` names the rows of the calls to come:
+    {T: [(row, request, position), ...]} for each call width T, the
+    layers of one width in order. A host read per call: eager runs
+    only."""
+
+    def __init__(self):
+        self.rows, self.layer, self.events = {}, {}, {}
+        self.replayed = self.rerouted = 0
+
+    def step(self, rows):
+        self.rows, self.layer = rows, {}
+
+    def _layer(self, T: int) -> int:
+        check(T in self.rows, f"a MoE call of {T} rows the log was not "
+              "told of")
+        layer = self.layer.get(T, 0)
+        self.layer[T] = layer + 1
+        return layer
+
+    @contextlib.contextmanager
+    def _patched(self, spy):
+        from repro_torch.models import moe
+        route = moe._route
+        moe._route = lambda x, router, k: spy(route, x, router, k)
+        try:
+            yield self
+        finally:
+            moe._route = route
+
+    def record(self):
+        def spy(route, x, router, k):
+            w, idx, probs = route(x, router, k)
+            layer, ids = self._layer(idx.shape[0]), idx.tolist()
+            for row, req, pos in self.rows[idx.shape[0]]:
+                check((req, pos, layer) not in self.events,
+                      f"row {(req, pos, layer)} routed twice")
+                self.events[(req, pos, layer)] = tuple(ids[row])
+            return w, idx, probs
+        return self._patched(spy)
+
+    def replay(self):
+        import torch
+
+        def spy(route, x, router, k):
+            _, idx, probs = route(x, router, k)
+            layer, ids = self._layer(idx.shape[0]), idx.tolist()
+            for row, req, pos in self.rows[idx.shape[0]]:
+                want = self.events.get((req, pos, layer))
+                check(want is not None, f"row {(req, pos, layer)} was not "
+                      "logged")
+                self.replayed += 1
+                self.rerouted += set(want) != set(ids[row])
+                ids[row] = list(want)
+            idx = torch.tensor(ids, dtype=idx.dtype, device=idx.device)
+            w = probs.gather(1, idx)
+            return w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9), idx, \
+                probs
+        return self._patched(spy)
+
+    def follow_engine(self, eng, reqs):
+        """Name the rows of each of ``eng``'s plans (prefill_pack 1: the
+        decode rows by slot, the chunk's rows in order), requests numbered
+        by their place in ``reqs``."""
+        schedule = eng.sched.schedule
+        index = {r.rid: n for n, r in enumerate(reqs)}
+        B, W = eng.max_batch, eng.chunk_width
+        check(eng.prefill_pack == 1 and W != B,
+              "RouteLog needs one chunk row wider or narrower than the "
+              "decode batch")
+
+        def wrapped():
+            plan = schedule()
+            rows = {B: [(s, index[r.rid], r.num_computed)
+                        for s, r in plan.decodes], W: []}
+            for _, r, n in plan.chunks:
+                rows[W] += [(i, index[r.rid], r.num_computed + i)
+                            for i in range(n)]
+            self.step(rows)
+            return plan
+        eng.sched.schedule = wrapped
 
 
 def serve_sampling(torch, counters, card, params):
@@ -2647,14 +2963,30 @@ def check_fits(torch, arch, cfg) -> None:
 FP32_ROWS = 512
 
 
-def fp32_logits(torch, params, cfg, tokens, head):
+def fp32_logits(torch, params, cfg, tokens, head, positions=None,
+                groups=1, before=None):
     """The last position's logits (B, V_pad) of the same bf16 weights
     computed in fp32: the bf16 embedding's output cast up, each layer's
     weights cast up in turn (one layer's fp32 copy alive at a time),
     activations in fp32, attention by the plain ``dense_attention`` in fp32
     (FP32_ROWS query rows at a time), the fp32 head. Neither the flash nor
     a paged kernel takes part: an independent reading of the function both
-    serving paths compute in bf16."""
+    serving paths compute in bf16. ``positions``: (3, B, S) M-RoPE planes
+    (default: 0 .. S - 1). ``groups`` > 1 reads the sequences in that many
+    groups (a MoE model without drops: each token's output does not
+    depend on the others', and the dispatch shrinks with T). ``before(i0,
+    i1)`` runs before the reading of sequences i0 .. i1 - 1."""
+    if groups > 1 or before is not None:
+        n = -(-tokens.shape[0] // groups)
+        out = []
+        for i in range(0, tokens.shape[0], n):
+            j = min(i + n, tokens.shape[0])
+            if before is not None:
+                before(i, j)
+            out.append(fp32_logits(
+                torch, params, cfg, tokens[i:j], head,
+                None if positions is None else positions[:, i:j]))
+        return torch.cat(out)
     from repro_torch.models.attention import (attention_scale,
                                               dense_attention, project_kv,
                                               project_q)
@@ -2667,8 +2999,10 @@ def fp32_logits(torch, params, cfg, tokens, head):
 
     B, S = tokens.shape
     x = embed(params["embed"]["table"], tokens, cfg).float()
-    cos_sin = _rope(cfg, torch.arange(S, dtype=torch.int32,
-                                      device=tokens.device)[None].expand(B, S))
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    cos_sin = _rope(cfg, positions)
 
     def attend(ap, h, pools, window):
         q = project_q(ap, h, cfg, cos_sin)
@@ -2685,7 +3019,7 @@ def fp32_logits(torch, params, cfg, tokens, head):
 
 
 def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
-                     label) -> dict:
+                     label, groups=1, routes=None) -> dict:
     """The static path (``api.generate_static``: the flash kernel for the
     prefill, plain decode attention over dense caches) on the same
     prompts. Both paths' logits after each prompt (the static prefill's;
@@ -2696,49 +3030,121 @@ def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
     show). Its greedy tokens then equal the engine's ``ref`` tokens, or
     part at a near-tie: a top-2 margin below the sum of the two paths'
     measured distances from the fp32 reading (the largest gap those
-    readings allow between them), or TOL if that is larger. Counts its
-    flash launches. Returns the readings."""
+    readings allow between them), or TOL if that is larger. ``routes``
+    (a MoE model: the engine run's recorded ``RouteLog``) is replayed in
+    every run here (the static path, each reading), so that all route
+    each row as the engine did: bf16 rounding, which the paths do at
+    other places, sends some rows to other experts, and a row's output
+    then moves by far more than a rounding. The readings are also taken
+    without the replay (not held to anything). Counts its flash launches.
+    ``groups``: see ``fp32_logits``. Returns the readings."""
     import numpy as np
-    from repro_torch.models.api import generate_static
+    from repro_torch.models import api
     from repro_torch.models.embedding import head_table
     from repro_torch.models.transformer import prefill_logits
 
     V = cfg.vocab_size
     head = head_table(params["embed"], cfg).float()
     tokens = torch.from_numpy(np.stack(prompts)).to(DEV)
+    B, S = tokens.shape
+    log = routes if routes is not None else RouteLog()
+    prefill, decode, step = api.prefill_fn, api.decode_fn, [0]
+
+    def logged_prefill(*a, **kw):
+        log.step({B * S: seq_rows(range(B), S)})
+        return prefill(*a, **kw)
+
+    def logged_decode(*a, **kw):
+        step[0] += 1
+        log.step({B: [(b, b, S + step[0] - 1) for b in range(B)]})
+        return decode(*a, **kw)
+
+    def readings():
+        """(static prefill, engine path, fp32) logits after the prompts."""
+        log.step({B * S: seq_rows(range(B), S)})
+        static = prefill_logits(params, {"tokens": tokens}, cfg,
+                                head)[1][:, :V]
+        engine = []
+        for n, p in enumerate(prompts):
+            log.step({len(p): seq_rows([n], len(p))})
+            engine.append(last_logits(torch, params, cfg, p, "bf16",
+                                      device=DEV))
+        t0 = time.monotonic()
+        exact = fp32_logits(torch, params, cfg, tokens, head, groups=groups,
+                            before=lambda i, j: log.step(
+                                {(j - i) * S: seq_rows(range(i, j), S)}))
+        torch.cuda.synchronize()
+        return static, torch.stack(engine), exact[:, :V], \
+            time.monotonic() - t0
+
+    own = {}
+    if routes is not None:
+        with torch.no_grad():
+            static, engine, exact, _ = readings()
+        own = {"fp32_err_static_own_routing": err(static, exact),
+               "fp32_err_engine_own_routing": err(engine, exact)}
+        del static, engine, exact
+    replay = routes.replay() if routes is not None \
+        else contextlib.nullcontext()
+    counts = []
+
+    def count():
+        if routes is not None:
+            counts.append((routes.replayed, routes.rerouted))
+
     reset_launches(counters)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with torch.no_grad():
-        out = generate_static(params, tokens, cfg, max_new, head=head)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = read_launches(counters)
-    check(launches.get("flash_attention", 0) == cfg.num_layers,
-          f"{label}: static prefill made {launches.get('flash_attention')} "
-          f"flash launches, not {cfg.num_layers}")
-    with torch.no_grad():
-        static = prefill_logits(params, {"tokens": tokens}, cfg,
-                                head)[1][:, :V]
-        engine = torch.stack([last_logits(torch, params, cfg, p, "bf16",
-                                          device=DEV) for p in prompts])
-        t0 = time.monotonic()
-        exact = fp32_logits(torch, params, cfg, tokens, head)[:, :V]
-        torch.cuda.synchronize()
-        fp32_s = time.monotonic() - t0
+    with torch.no_grad(), replay:
+        api.prefill_fn, api.decode_fn = logged_prefill, logged_decode
+        try:
+            count()
+            out = api.generate_static(params, tokens, cfg, max_new,
+                                      head=head)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            count()
+        finally:
+            api.prefill_fn, api.decode_fn = prefill, decode
+        launches = read_launches(counters)
+        static, engine, exact, fp32_s = readings()
+        count()
+        e_static, e_engine = err(static, exact), err(engine, exact)
+        delta = err(static, engine)
+        std = float(exact.std())
+        check(launches.get("flash_attention", 0) == cfg.num_layers,
+              f"{label}: static prefill made "
+              f"{launches.get('flash_attention')} flash launches, not "
+              f"{cfg.num_layers}")
+        check(e_static <= 2 * e_engine,
+              f"{label}: the static prefill's logits are {e_static:.4g} "
+              f"from the fp32 reading, more than twice the engine path's "
+              f"{e_engine:.4g}")
+        limit = max(TOL, e_static + e_engine)
+        margins = []
+        same = [near_tie_or_same(
+            torch, params, cfg, p, o.tolist(), r, limit, margins,
+            lambda m, n=n: log.step({m: seq_rows([n], m)}))
+            for n, (p, o, r) in enumerate(zip(prompts, out.cpu(), ref))]
+        count()
     del head
-    e_static, e_engine = err(static, exact), err(engine, exact)
-    delta = err(static, engine)
-    std = float(exact.std())
-    check(e_static <= 2 * e_engine,
-          f"{label}: the static prefill's logits are {e_static:.4g} from "
-          f"the fp32 reading, more than twice the engine path's "
-          f"{e_engine:.4g}")
-    limit = max(TOL, e_static + e_engine)
-    margins = []
-    same = [near_tie_or_same(torch, params, cfg, p, o.tolist(), r, limit,
-                             margins)
-            for p, o, r in zip(prompts, out.cpu(), ref)]
+    res = {"wall_s": wall, "identical": sum(same), "requests": len(same),
+           "margins": margins, "logit_delta": delta,
+           "fp32_err_static": e_static, "fp32_err_engine": e_engine,
+           "fp32_logit_std": std, "fp32_s": fp32_s, "launches": launches,
+           **own}
+    extra = ""
+    if routes is not None:
+        (a0, b0), (a1, b1), (a2, b2), (a3, b3) = counts
+        res["rerouted_rows"] = {"static_path": [b1 - b0, a1 - a0],
+                                "readings": [b2 - b1, a2 - a1],
+                                "near_tie_readings": [b3 - b2, a3 - a2]}
+        extra = (f"; every run routing each row as the engine run did "
+                 f"(rows whose own choice differed, of those replayed: "
+                 f"{res['rerouted_rows']}; without the replay, static "
+                 f"{own['fp32_err_static_own_routing']:.4g} and engine "
+                 f"{own['fp32_err_engine_own_routing']:.4g} from the fp32 "
+                 "reading)")
     print(f"[static] {label}: generate_static (prefill through the flash "
           f"kernel, {max_new - 1} decode steps) in {wall:.2f} s; logits "
           f"after the prompts: max abs distance from the fp32 reading "
@@ -2746,11 +3152,8 @@ def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
           f"{e_engine:.4g}; static vs engine {delta:.4g}; "
           f"{sum(same)}/{len(same)} requests token-identical to the engine, "
           f"the rest part at a near-tie: (step, top-2 margin, limit) "
-          f"{margins}", flush=True)
-    return {"wall_s": wall, "identical": sum(same), "requests": len(same),
-            "margins": margins, "logit_delta": delta,
-            "fp32_err_static": e_static, "fp32_err_engine": e_engine,
-            "fp32_logit_std": std, "fp32_s": fp32_s, "launches": launches}
+          f"{margins}{extra}", flush=True)
+    return res
 
 
 # the numbers of a serving run that phase 10's summary line carries
@@ -2883,6 +3286,441 @@ def serve_family(torch, counters, card, rows) -> list:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: mixture of experts, the encoder-decoder and M-RoPE at full width
+# ---------------------------------------------------------------------------
+
+# the kernels of each member's serving path, whose rows carry its launches
+SLICE_KERNELS = ("paged_attention", "paged_prefill_attention",
+                 "ragged_paged_prefill_attention", "flash_attention",
+                 "flash_attention_mma64", "gather")
+# grok-1's depth on one card: 4 of its 64 layers (9.8 GB of bf16 each)
+GROK_LAYERS = 4
+# qwen3_moe's static path against the engine (12a). At all 48 layers the
+# two bf16 paths lie as far from the fp32 reading as from each other,
+# even with the routing replayed: the random expert weights (fan-in E, as
+# the reference draws them) amplify rounding from layer to layer
+MOE_STATIC_LAYERS = 4
+
+
+def phase3_traffic(cfg, seed=0):
+    """Phase 3's prompts: 8 of 512 tokens sharing a 256-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+    return [np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, 256).astype(np.int32)])
+        for _ in range(8)]
+
+
+def member_launches(rows, name, runs) -> None:
+    """A member's launches per kernel, replay-aware, into the rows."""
+    for kernel in SLICE_KERNELS:
+        if kernel in rows:
+            rows[kernel][name + "_launches"] = sum(
+                r["launches"].get(kernel, 0) for r in runs)
+            rows[kernel][name + "_replayed_launches"] = sum(
+                r.get("replayed_launches", {}).get(kernel, 0) for r in runs)
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def report(card, tag, cfg, g, e=None, extra="") -> None:
+    print(f"[serve-slice] {card}: {tag}: {cfg.num_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B params), CUDA graphs "
+          f"{g['tok_s']} tok/s"
+          + (f" (eager {e['tok_s']})" if e is not None else "")
+          + f", decode step {g['decode_step_ms_mean']:.2f} ms (device "
+          f"{g['decode_body_device_ms_mean']:.2f}; bytes floor "
+          f"{g['decode_floor_ms']:.2f}), chunk step "
+          f"{g['chunk_step_ms_mean']:.2f} ms (device "
+          f"{g['chunk_body_device_ms_mean']:.2f}), busy share "
+          f"{g['busy_share_events']:.3f}, TTFT median "
+          f"{g['ttft_s_median']:.3f} s, peak {g['peak_mem_gib']:.2f} GiB"
+          f"{extra}: {json.dumps({k: v for k, v in g.items() if k in BRIEF})}",
+          flush=True)
+
+
+def moe_card_vs_cpu(torch, params, cfg, T: int = 256) -> dict:
+    """Layer 0's MoE block at full width on T random tokens: on the card
+    and on the CPU in fp32 (the card's sort, dispatch and gathers against
+    the CPU's; fp32 products, no TF32), within 1e-4 of the output's
+    largest value; and how often bf16 activations route otherwise than
+    fp32 ones (the share of (token, expert) choices that differ, and the
+    top-k boundary gaps below 1e-3), which is what parts two bf16 paths."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    x = torch.randn((T, cfg.d_model), generator=gen, device=DEV)
+    p = {k: v.float() for k, v in params["layers"][0]["moe"].items()}
+    with torch.no_grad():
+        y_card = moe.moe_local(x, p, cfg)
+        y_cpu = moe.moe_local(x.cpu(), {k: v.cpu() for k, v in p.items()},
+                              cfg)
+        rel = err(y_card.cpu(), y_cpu) / float(y_cpu.abs().max())
+        k = cfg.moe.experts_per_token
+        _, i32, probs = moe._route(x, p["router"], k)
+        _, i16, _ = moe._route(x.bfloat16(), p["router"].bfloat16(), k)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        gaps = srt[:, k - 1] - srt[:, k]
+        same = (torch.sort(i32, dim=-1).values
+                == torch.sort(i16, dim=-1).values).all(-1)
+    check(rel <= 1e-4, f"{cfg.name}: the MoE block on the card is {rel:.3g} "
+          "(of its largest value) from the CPU's in fp32")
+    res = {"fp32_rel_err": rel, "tokens_routed_alike": float(
+        same.float().mean()), "gaps_below_1e-3": float(
+        (gaps < 1e-3).float().mean()), "median_gap": float(gaps.median())}
+    print(f"[serve-slice] {cfg.name}: layer 0's MoE block, card vs CPU in "
+          f"fp32 over {T} tokens: {rel:.3g} of the largest value; bf16 "
+          f"activations route {res['tokens_routed_alike']:.3f} of the tokens "
+          f"as fp32 ones do (top-k boundary gap median "
+          f"{res['median_gap']:.3g}, {res['gaps_below_1e-3']:.3f} below "
+          "1e-3)", flush=True)
+    return res
+
+
+def serve_moe(torch, counters, card, rows) -> list:
+    """12a qwen3_moe_30b_a3b (48 layers) and 12b grok1_314b (GROK_LAYERS
+    of 64), random weights from seed 0, one at a time."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import InferenceEngine, Request
+
+    runs = []
+    for name, arch, layers, max_new in (("qwen3_moe", "qwen3_moe_30b_a3b",
+                                         None, 32),
+                                        ("grok1", "grok1_314b", GROK_LAYERS,
+                                         16)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        free(torch)
+        check_fits(torch, arch, cfg)
+        t0 = time.monotonic()
+        params = init_model(cfg, 0, DEV)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        prompts = phase3_traffic(cfg)
+        tag = f"{arch} 8x512 ({cfg.num_layers} layers)"
+
+        def make_engine(graphs, pack=1, kv="bf16", c=cfg):
+            # phase 3's 256-row chunk row, phase 4's 512 when packed
+            return InferenceEngine(
+                c, device=DEV, params=params, max_batch=8, block_size=16,
+                max_len=1024, max_num_batched_tokens=8 + (256 if pack == 1
+                                                          else 512),
+                seed=0, prefill_pack=pack, kv_dtype=kv, cuda_graphs=graphs)
+
+        def make_reqs(n=max_new):
+            return [Request(p.copy(), max_new=n) for p in prompts]
+
+        g, e, toks = serve_ab(torch, counters, card, tag, make_engine,
+                              make_reqs, max_new,
+                              ("paged_attention", "paged_prefill_attention",
+                               "gather"), profile=True)
+        mine = [g, e]
+        report(card, tag, cfg, g, e, f"; init {init_s:.1f} s")
+        g["moe_check"] = moe_card_vs_cpu(torch, params, cfg)
+        if name == "qwen3_moe":
+            # packed prefill over int8 pools: the MoE block at T = 512
+            eng = make_engine(True, pack=4, kv="int8")
+            packed, _ = serve(torch, counters, eng, make_reqs(4), 4,
+                              ("ragged_paged_prefill_attention_int8",
+                               "paged_attention_int8", "gather"))
+            del eng
+            free(torch)
+            check(packed["most_chunks_in_a_step"] >= 2,
+                  f"{tag}: no step carried two packed chunks")
+            report(card, f"{tag} int8 pack 4", cfg, packed)
+            # the static path at capacity factor 16 (no drops, so neither
+            # path's tokens depend on how the other batches them) and
+            # MOE_STATIC_LAYERS layers: an eager engine run recording its
+            # routing (no prefix caching, so every request routes its own
+            # rows), then the static path on the same prompts, every run
+            # replaying that routing
+            cfg16 = dataclasses.replace(
+                cfg, num_layers=MOE_STATIC_LAYERS, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=16.0))
+            p16 = dict(params, layers=params["layers"][:MOE_STATIC_LAYERS])
+            eng = InferenceEngine(
+                cfg16, device=DEV, params=p16, max_batch=8, block_size=16,
+                max_len=1024, max_num_batched_tokens=8 + 256, seed=0,
+                cuda_graphs=False, enable_prefix_caching=False)
+            routes, reqs = RouteLog(), make_reqs(8)
+            routes.follow_engine(eng, reqs)
+            with routes.record():
+                r16, t16 = serve(torch, counters, eng, reqs, 8,
+                                 ("paged_attention",
+                                  "paged_prefill_attention"))
+            del eng
+            free(torch)
+            static = static_vs_engine(
+                torch, counters, p16, cfg16, prompts, 8,
+                [t16[r.rid] for r in reqs],
+                f"{arch} 8x512 ({MOE_STATIC_LAYERS} of 48 layers) cf 16",
+                groups=2, routes=routes)
+            del routes, p16
+            mine += [packed, r16, static]
+        member_launches(rows, name, mine)
+        runs += mine
+        del params
+        free(torch)
+    return runs
+
+
+def encdec_logits(torch, params, cfg, frames, tokens):
+    """fp32 logits (V,) after ``tokens`` of one whisper request on the
+    card, by one monolithic paged chunk against its encoded frames."""
+    from repro_torch.models import encdec
+    from repro_torch.serving.runners import make_runner
+
+    n = len(tokens)
+    nb = -(-n // 16)
+    runner = make_runner(cfg)
+    cache = runner.init_cache(nb + 1, 16, 1, DEV)
+    runner.encode(params, cache, 0, frames)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32,  # noqa: E731
+                                 device=DEV)
+    batch = {"tokens": i32([list(tokens)]), "q_start": i32([0]),
+             "q_lens": i32([n]), "block_tables": i32([list(range(1, nb + 1))]),
+             "ctx_lens": i32([n])}
+    with torch.no_grad():
+        lg, _ = encdec.prefill_chunk_paged(params, cache, batch, cfg)
+    return lg[0, :cfg.vocab_size]
+
+
+def encdec_near_tie(torch, params, cfg, frames, prompt, ours, ref, label,
+                    margins) -> bool:
+    """Equal streams (True), or a first difference at a top-2 margin
+    below TOL on the card's reading (``encdec_logits``) (False)."""
+    import numpy as np
+    if ours == ref:
+        return True
+    i = next(j for j, (x, y) in enumerate(zip(ours, ref)) if x != y)
+    lg = encdec_logits(torch, params, cfg, frames, np.concatenate(
+        [prompt, np.asarray(ours[:i], np.int32)]))
+    top = torch.topk(lg, 2)
+    margin = float(top.values[0] - top.values[1])
+    margins.append((i, margin))
+    check(margin < TOL and {ours[i], ref[i]} == set(top.indices.tolist()),
+          f"{label}: streams differ at step {i} with top-2 margin {margin}")
+    return False
+
+
+def serve_whisper(torch, counters, card, rows) -> list:
+    """12c whisper_large_v3 (32 + 32 layers), random weights from seed 0:
+    8 requests with distinct seeded frames (1500 x 1280) and 128-token
+    prompts, 32 new tokens, on graphs and eager (byte-identical); the
+    static path (``generate_static``) on the same requests (== the
+    engine's tokens up to a near-tie); a pool of 41 blocks (each request
+    needs 10) that preempts: encodes >= 8 + preemptions, tokens == the
+    roomy run's up to a near-tie; the encode's device time."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import generate_static, init_model
+    from repro_torch.serving import InferenceEngine, Request
+
+    cfg = get_config("whisper_large_v3")
+    free(torch)
+    check_fits(torch, "whisper_large_v3", cfg)
+    params = init_model(cfg, 0, DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+               for _ in range(8)]
+    frames = [rng.normal(0, 1, (cfg.encoder_seq_len, cfg.d_model)).astype(
+        np.float32) for _ in range(8)]
+    max_new, tag = 32, "whisper_large_v3 8x128 + 1500 frames"
+
+    def make_engine(graphs, num_blocks=None):
+        return InferenceEngine(cfg, device=DEV, params=params, max_batch=8,
+                               block_size=16, max_len=256,
+                               num_blocks=num_blocks,
+                               max_num_batched_tokens=8 + 256, seed=0,
+                               cuda_graphs=graphs)
+
+    def make_reqs():
+        return [Request(p.copy(), max_new=max_new, frames=f)
+                for p, f in zip(prompts, frames)]
+
+    g, e, toks = serve_ab(torch, counters, card, tag, make_engine, make_reqs,
+                          max_new, ("paged_attention",
+                                    "paged_prefill_attention", "gather",
+                                    "flash_attention_mma64"), profile=True)
+    # the encode pass alone: one request's frames, CUDA events
+    fr = torch.from_numpy(frames[0]).to(DEV, torch.bfloat16)[None]
+    timer = Timer(torch)
+    with torch.no_grad():
+        encode_ms = timer(lambda: encdec.encode_cross_kv(params, fr, cfg),
+                          iters=5)
+    del timer
+    report(card, tag, cfg, g, e, f"; encode {encode_ms:.2f} ms a request")
+    g["encode_ms"] = encode_ms
+
+    # the static path on the same requests
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        out = generate_static(
+            params, torch.from_numpy(np.stack(prompts)).to(DEV), cfg,
+            max_new, frames=torch.from_numpy(np.stack(frames)).to(
+                DEV, torch.bfloat16))
+    torch.cuda.synchronize()
+    static = {"wall_s": time.monotonic() - t0,
+              "launches": read_launches(counters)}
+    check(static["launches"].get("flash_attention_mma64", 0)
+          == cfg.encoder_layers + 2 * cfg.num_layers,
+          f"{tag}: static prefill made "
+          f"{static['launches'].get('flash_attention_mma64')} hd-64 flash "
+          f"launches, not {cfg.encoder_layers + 2 * cfg.num_layers}")
+    margins = []
+    static["identical"] = sum(
+        encdec_near_tie(torch, params, cfg, torch.from_numpy(f).to(
+            DEV, torch.bfloat16), p, o.tolist(), r, f"{tag} static",
+            margins)
+        for p, f, o, r in zip(prompts, frames, out.cpu(), toks))
+    static["margins"] = margins
+    print(f"[static] {tag}: generate_static in {static['wall_s']:.2f} s; "
+          f"{static['identical']}/8 requests token-identical to the engine, "
+          f"the rest part at a near-tie: (step, top-2 margin) {margins}",
+          flush=True)
+
+    # a pool that preempts
+    eng = make_engine(True, num_blocks=42)
+    tight, ttoks = serve(torch, counters, eng, make_reqs(), max_new,
+                         ("paged_attention", "paged_prefill_attention"))
+    s = eng.stats
+    check(s["preemptions"] >= 1, f"{tag}: the 41-block pool did not preempt")
+    check(s["encodes"] >= 8 + s["preemptions"],
+          f"{tag}: {s['encodes']} encodes for 8 requests and "
+          f"{s['preemptions']} preemptions")
+    tight.update(preemptions=s["preemptions"], encodes=s["encodes"])
+    del eng
+    free(torch)
+    margins = []
+    tight["identical"] = sum(
+        encdec_near_tie(torch, params, cfg, torch.from_numpy(f).to(
+            DEV, torch.bfloat16), p, o, r, f"{tag} preempted", margins)
+        for p, f, o, r in zip(prompts, frames, ttoks.values(), toks))
+    tight["margins"] = margins
+    print(f"[serve-slice] {card}: {tag}: 41 blocks: {s['preemptions']} "
+          f"preemptions, {s['encodes']} encodes; {tight['identical']}/8 "
+          f"requests token-identical to the roomy run, the rest part at a "
+          f"near-tie {margins}; {tight['tok_s']} tok/s", flush=True)
+    mine = [g, e, static, tight]
+    member_launches(rows, "whisper", mine)
+    del params
+    free(torch)
+    return mine
+
+
+def mrope_positions(np, B: int, S: int, grid=(1, 16, 16)):
+    """(3, B, S) int32: an image's t x h x w grid ids first, then text
+    continuing past the grid's largest id on all three planes; sequence b
+    shifted by b."""
+    t, h, w = np.meshgrid(*(np.arange(n) for n in grid), indexing="ij")
+    img = np.stack([t.ravel(), h.ravel(), w.ravel()])
+    n = img.shape[1]
+    pos = np.zeros((3, B, S), np.int32)
+    for b in range(B):
+        pos[:, b, :n] = img + b
+        pos[:, b, n:] = np.arange(img.max() + 1, img.max() + 1 + S - n) + b
+    return pos
+
+
+def serve_vlm(torch, counters, card, rows) -> list:
+    """12d qwen2_vl_2b (28 layers), static path, random weights from seed
+    0: B 8 x S 512 with distinct M-RoPE planes (a 16 x 16 image grid, then
+    text), 32 new tokens. Its prefill logits are held against the fp32
+    reading at the same planes: closer to it than to the fp32 reading at
+    1-D positions by a factor of 4, and the first token equal to the fp32
+    reading's or at a top-2 margin below twice the distance."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.models.api import generate_static, init_model
+    from repro_torch.models.embedding import head_table
+    from repro_torch.models.transformer import prefill_logits
+
+    cfg = get_config("qwen2_vl_2b")
+    free(torch)
+    check_fits(torch, "qwen2_vl_2b", cfg)
+    params = init_model(cfg, 0, DEV)
+    B, S, max_new = 8, 512, 32
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(DEV)
+    pos = torch.from_numpy(mrope_positions(np, B, S)).to(DEV)
+    head = head_table(params["embed"], cfg).float()
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        out = generate_static(params, tokens, cfg, max_new, head=head,
+                              positions=pos)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches(counters)
+    check(launches.get("flash_attention", 0) == cfg.num_layers,
+          f"qwen2_vl: static prefill made {launches.get('flash_attention')} "
+          f"flash launches, not {cfg.num_layers}")
+    V = cfg.vocab_size
+    with torch.no_grad():
+        static = prefill_logits(params, {"tokens": tokens, "positions": pos},
+                                cfg, head)[1][:, :V]
+        exact = fp32_logits(torch, params, cfg, tokens, head,
+                            positions=pos)[:, :V]
+        flat = fp32_logits(torch, params, cfg, tokens, head)[:, :V]
+    e_static, e_planes = err(static, exact), err(flat, exact)
+    check(4 * e_static < e_planes,
+          f"qwen2_vl: the static prefill's logits are {e_static:.4g} from "
+          f"the fp32 reading, not a quarter of the 1-D positions' "
+          f"{e_planes:.4g}")
+    top = torch.topk(exact, 2, dim=-1)
+    first = out[:, 0].long()
+    same = first == top.indices[:, 0]
+    margin = top.values[:, 0] - top.values[:, 1]
+    check(bool((same | ((margin < 2 * e_static) & (first == top.indices[
+        :, 1]))).all()), f"qwen2_vl: first tokens {first.tolist()} vs the "
+          f"fp32 reading's {top.indices[:, 0].tolist()} (margins "
+          f"{margin.tolist()})")
+    res = {"wall_s": wall, "tok_s": B * max_new / wall,
+           "fp32_err_static": e_static, "fp32_err_1d_positions": e_planes,
+           "first_tokens_equal": int(same.sum()),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    print(f"[static] {card}: qwen2_vl_2b B={B} S={S} ({cfg.num_layers} "
+          f"layers, M-RoPE planes distinct): generate_static, {max_new} new "
+          f"tokens, in {wall:.2f} s ({res['tok_s']:.1f} tok/s); prefill "
+          f"logits {e_static:.4g} from the fp32 reading (1-D positions "
+          f"{e_planes:.4g}); {res['first_tokens_equal']}/{B} first tokens "
+          f"== the fp32 reading's; peak {res['peak_mem_gib']:.2f} GiB",
+          flush=True)
+    member_launches(rows, "qwen2_vl", [res])
+    del params, head
+    free(torch)
+    return [res]
+
+
+def serve_slice(torch, counters, card, rows) -> list:
+    """Phase 12: 12a-b (``serve_moe``), 12c (``serve_whisper``), 12d
+    (``serve_vlm``), each part's wall time printed."""
+    runs, t0 = [], time.monotonic()
+    for part, fn in (("12a-b", serve_moe), ("12c", serve_whisper),
+                     ("12d", serve_vlm)):
+        runs += fn(torch, counters, card, rows)
+        print(f"[time] phase {part}: {time.monotonic() - t0:.1f} s",
+              flush=True)
+        t0 = time.monotonic()
     return runs
 
 
@@ -3859,7 +4697,7 @@ def main() -> int:
     # a hang anywhere (a driver thread, a capture) prints every thread's
     # stack and ends the run before its time limit
     dev_run = sys.argv[1:2] == ["--phase"]
-    faulthandler.dump_traceback_later(420 if dev_run else WATCHDOG_S,
+    faulthandler.dump_traceback_later(600 if dev_run else WATCHDOG_S,
                                       exit=True)
     import torch
     if not torch.cuda.is_available():
@@ -3887,6 +4725,24 @@ def main() -> int:
     if log.exists():
         build_report(log.read_text())
 
+    if dev_run and sys.argv[2] in ("12", "2g"):
+        # a development run: phase 12 or phase 2g alone; no summary and no
+        # result line
+        rows = {}
+        if sys.argv[2] == "2g":
+            timer = Timer(torch)
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(0)
+            rows = {k: {} for k in ("paged_attention",
+                                    "paged_prefill_attention",
+                                    "ragged_paged_prefill_attention",
+                                    "flash_attention", "gather")}
+            check_slice(torch, timer, gen, rows)
+            print(f"[kernels] phase 2g: {json.dumps(rows)}")
+        else:
+            serve_slice(torch, KERNELS, card, rows)
+        print(f"[phase {sys.argv[2]}] passed (a partial run: no result line)")
+        return 0
     if dev_run and sys.argv[2].startswith("11"):
         # a development run: phase 11 (or its parts "11bd", ...) alone, on
         # fresh phase-3 weights; no summary and no result line
@@ -3897,25 +4753,38 @@ def main() -> int:
                     sys.argv[2][2:] or "abcd")
         print("[phase 11] passed (a partial run: no result line)")
         return 0
+    def lap(phase):
+        print(f"[time] phase {phase} done at {time.monotonic() - t0:.1f} s "
+              "(since the build started)", flush=True)
+
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
+    lap(2)
     counters = KERNELS            # every kernel wrapper and its counter
     res, params = serve_full(torch, counters, card)
     runs = [res] + serve_packed(torch, counters, card, params)
+    lap("3-4")
     sampling_runs, verify_launches = serve_sampling(torch, counters, card,
                                                     params)
     runs += sampling_runs
     rows["paged_prefill_attention"].update(verify_launches)
+    lap(9)
     runs += serve_tiers(torch, counters, card, params)
+    lap(11)
     del params
     torch.cuda.empty_cache()
     runs += serve_ssm(torch, counters, card)
     card_vs_cpu(torch)
+    lap("5-6")
     runs.append(train_full(torch, counters, card))
     train_card_vs_cpu(torch)
+    lap("7-8")
     runs += serve_family(torch, counters, card, rows)
+    lap(10)
+    runs += serve_slice(torch, counters, card, rows)
+    lap(12)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}
@@ -3936,7 +4805,8 @@ def main() -> int:
                                         "zamba2_", "verify_",
                                         "plain_device_ms",
                                         "library_device_ms")
-                                       + tuple(f"{m}_" for m in FAMILY))})
+                                       + tuple(f"{m}_" for m in
+                                               (*FAMILY, *SLICE)))})
                for name, r in rows.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,10 @@
 
 It imports torch and never jax, and nothing of ``repro``; only its tests
 import both packages, to hold the port against the reference. Slices land
-in the order of ROADMAP.md; so far the continuous-batching engine serves
-dense GQA decoders (glm4_9b), pure Mamba2 (mamba2_370m) and zamba2's
-hybrid (zamba2_2p7b), with hand-written CUDA kernels for paged attention,
-the embedding gather and the chunked SSD scan.
+in the order of ROADMAP.md; the continuous-batching engine serves every
+architecture the JAX package's engine serves (dense GQA decoders,
+mixture-of-experts decoders, pure Mamba2, zamba2's hybrid and whisper's
+encoder-decoder; qwen2_vl through the static path), with hand-written
+CUDA kernels for paged and flash attention, the embedding gather, the
+chunked SSD scan and the sampled-softmax loss.
 """

@@ -14,12 +14,20 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Any
 
 # Layer kinds used by block patterns.
 ATTN = "attn"            # full global attention block
 LOCAL_ATTN = "local"     # sliding-window attention block
 MAMBA = "mamba"          # Mamba2 (SSD) block
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    experts_per_token: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -66,8 +74,8 @@ class ModelConfig:
     post_block_norm: bool = False
     tie_embeddings: bool = False
     embedding_scale: bool = False
-    # --- mixture / ssm (mixture of experts not ported yet: ROADMAP queue 1) --
-    moe: Any = None
+    # --- mixture / ssm -----------------------------------------------------
+    moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     # --- encoder-decoder ----------------------------------------------------
     encoder_layers: int = 0
@@ -99,13 +107,12 @@ class ModelConfig:
         return (pat * reps)[: self.num_layers]
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head) of dense,
-        SSM and hybrid decoders, counted as the JAX package counts."""
+        """Analytic parameter count (embedding + blocks + head), counted
+        as the JAX package counts."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        mats = 2 if self.mlp_activation == "gelu_mlp" else 3
-        mlp = mats * d * self.d_ff
+        mlp = self._mlp_params()
         for kind in self.layer_kinds():
             if kind in (ATTN, LOCAL_ATTN):
                 n += attn + mlp + 2 * d
@@ -113,7 +120,29 @@ class ModelConfig:
                 n += self._mamba_params() + d
         if self.shared_attn_period:
             n += attn + mlp + 2 * d
+        if self.encoder_layers:
+            # encoder self-attention + MLP blocks, and each decoder
+            # layer's cross attention
+            n += self.encoder_layers * (attn + mlp + 2 * d)
+            n += self.num_layers * (attn + d)
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.num_experts - m.experts_per_token) * (
+            3 * self.d_model * m.d_ff_expert)
+        return self.param_count() - self.num_layers * inactive
+
+    def _mlp_params(self) -> int:
+        if self.moe is not None:
+            m = self.moe
+            return self.d_model * m.num_experts + (
+                m.num_experts * 3 * self.d_model * m.d_ff_expert)
+        mats = 2 if self.mlp_activation == "gelu_mlp" else 3
+        return mats * self.d_model * self.d_ff
 
     def _mamba_params(self) -> int:
         s = self.ssm
@@ -195,20 +224,11 @@ _ALIASES = {
     "mamba2-370m": "mamba2_370m",
 }
 
-# The architectures whose configs the port carries so far.
-PORTED_ARCHS: tuple[str, ...] = ("glm4_9b", "qwen3_32b", "starcoder2_3b",
-                                  "gemma2_27b", "mamba2_370m",
-                                  "zamba2_2p7b")
-
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     """Resolve an architecture id to its full-size or smoke config."""
     arch = _ALIASES.get(arch, arch)
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCHS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ported: "
-            f"{PORTED_ARCHS}); see ROADMAP.md queue 1 item 10")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.CONFIG

@@ -48,9 +48,13 @@
 //  * the output is scaled by 1 / l, staged in the warpgroup's own rows of
 //    the Q tile (swizzled as the boxes are) and written by TMA, which
 //    leaves out rows past Sq.
-// Route "mma" (hd 16, the smoke configs): 4 warps own 64 rows, each
-// 64-key tile is copied to shared memory with 16-byte loads, and both
-// products are mma.sync m16n8k16 with fp32 accumulation.
+// Routes "mma" (hd 16, the smoke configs) and "mma64" (hd 64, whisper's
+// encoder, cross and static prefill attention): one template, 4 warps own
+// 64 rows, each 64-key tile is copied to shared memory with 16-byte loads
+// (one plain load, no ring: a simple first kernel for hd 64), and both
+// products are mma.sync m16n8k16 with fp32 accumulation. At whisper's
+// non-causal 1500 x 1500 the work is 4 hd flops per (row, key) pair, so
+// this route too is bound by operations on the card.
 // In both, every sum has one fixed order (no atomics, no split over keys),
 // so two launches on the same inputs give the same bits: remat's
 // recompute of the forward reproduces it exactly.
@@ -70,7 +74,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// route "mma": hd 16
+// routes "mma" (hd 16) and "mma64" (hd 64)
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;          // query rows per block, 16 per warp
@@ -661,11 +665,29 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
 
 }  // namespace hop
 
+// The mma.sync routes on `stream`.
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Sq, int Skv, int H, int K, float scale,
+               float cap, int causal, int window, int q_offset,
+               void* stream) {
+  if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  flash_fwd_kernel<HD><<<grid, THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, K, scale, cap, causal, window,
+      q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Both entry points: q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16 contiguous
+// The entry points: q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16 contiguous
 // -> o (B, Sq, H, hd) bf16, lse (B, Sq, H) fp32; cap <= 0 means no
 // softcap, window <= 0 no window. They return cudaGetLastError() after the
 // launch.
@@ -675,16 +697,18 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int Sq, int Skv, int H,
                             int K, float scale, float cap, int causal,
                             int window, int q_offset, void* stream) {
-  if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flash_fwd_kernel<16><<<grid, THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Sq, Skv, H, K, scale, cap, causal, window,
-      q_offset);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mma<16>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
+                        causal, window, q_offset, stream);
+}
+
+// Route "mma64", hd 64.
+int flash_attention_fwd_mma64(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int B, int Sq, int Skv,
+                              int H, int K, float scale, float cap,
+                              int causal, int window, int q_offset,
+                              void* stream) {
+  return launch_mma<64>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
+                        causal, window, q_offset, stream);
 }
 
 // Route "wgmma", hd 128; Skv >= 1 (a tensor map needs a non-empty tensor).

@@ -743,9 +743,11 @@ cudaError_t launch_hd(Args a, int n_seqs, int rows, cudaStream_t stream) {
 template <typename T, int MODE>
 cudaError_t launch_type(const Args& a, int n_seqs, int rows, int hd,
                         cudaStream_t stream) {
-  switch (hd) {     // glm4_9b: 128; zamba2_2p7b: 80; smoke sizes: 16
+  switch (hd) {     // glm4_9b: 128; zamba2_2p7b: 80; whisper: 64; smoke: 16
     case 16:
       return launch_hd<T, MODE, 16>(a, n_seqs, rows, stream);
+    case 64:
+      return launch_hd<T, MODE, 64>(a, n_seqs, rows, stream);
     case 80:
       return launch_hd<T, MODE, 80>(a, n_seqs, rows, stream);
     case 128:

@@ -26,8 +26,9 @@ Layouts are the JAX package's: q (B, H, hd), (B, C, H, hd) or flat
 fp8 e4m3; for int8/fp8 pools, fp32 scale pools (num_blocks, block_size,
 K, 1), dequantized in-tile; block tables (n_seqs, nb) int32; ctx_lens,
 q_lens, starts and ends (n_seqs,) int32. The kernels take bf16 queries,
-block_size up to 32 and head_dim 128 (glm4_9b), 80 (zamba2_2p7b's shared
-attention) or 16 (their smoke sizes).
+block_size up to 32 and head_dim 128 (glm4_9b and the other decoders),
+80 (zamba2_2p7b's shared attention), 64 (whisper_large_v3's decoder) or
+16 (the smoke sizes).
 
 Each wrapper counts its launches by pool dtype name in ``.launches``.
 """
@@ -43,7 +44,7 @@ from repro_torch.kernels import build
 from repro_torch.models.quant import kv_dtype_name
 
 MAX_BLOCK_SIZE = 32
-HEAD_DIMS = (16, 80, 128)
+HEAD_DIMS = (16, 64, 80, 128)
 POOL_CODES = {"bf16": 0, "int8": 1, "fp8": 2}   # csrc's PoolType
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 

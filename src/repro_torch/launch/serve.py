@@ -17,6 +17,10 @@ long-lived HTTP server (``--http``: SSE token streaming, /health,
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_27b \\
       --smoke --device cpu --prompt-len 40
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --no-smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_large_v3 \\
+      --smoke --device cpu --prompt-len 8 --max-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --num-blocks 8 --max-batch 2 --swap-space-bytes 1048576 \
       --swap-policy always
@@ -39,7 +43,7 @@ import time
 
 import numpy as np
 
-from repro_torch.config import PORTED_ARCHS, get_config
+from repro_torch.config import ARCHS, get_config
 
 
 def poisson_arrival_steps(n: int, rate: float, rng) -> list[int]:
@@ -66,10 +70,15 @@ def make_requests(cfg, args, rng):
                             presence_penalty=args.presence_penalty,
                             frequency_penalty=args.frequency_penalty,
                             logprobs=args.logprobs, stop=stop)
+        frames = None
+        if cfg.frontend == "audio":
+            # the stub frontend's frame embeddings, one set per request
+            frames = rng.normal(0, 1, (cfg.encoder_seq_len, cfg.d_model)
+                                ).astype(np.float32)
         reqs.append(Request(
             rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
             max_new=max_new, sampling=sp, eos_id=args.eos_id,
-            min_new=min(args.min_new, max_new)))
+            min_new=min(args.min_new, max_new), frames=frames))
     return reqs
 
 
@@ -185,7 +194,8 @@ def run_engine(cfg, args):
           f"ttft_p95={eng.hist['ttft_steps'].percentile(95):.0f}steps "
           f"graph_captures={s['graph_captures']} "
           f"graph_replays={s['graph_replays']}")
-    print(f"[serve] full_sampling_steps={s['full_sampling_steps']} "
+    print(f"[serve] encodes={s['encodes']} "
+          f"full_sampling_steps={s['full_sampling_steps']} "
           f"stop_hits={s['stop_hits']} "
           f"mean_accept_len={eng.mean_accept_len:.3f}")
     if s["swap_space_mib"]:
@@ -284,7 +294,7 @@ def run_http(cfg, args, stop=None):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="glm4_9b",
-                    choices=PORTED_ARCHS)
+                    choices=ARCHS)
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="smoke-size config (default; --no-smoke for full)")

@@ -1,1 +1,2 @@
-"""Model code: layers, attention, embedding, the dense serving forward."""
+"""Model code: layers, attention, embedding, mixture of experts, the
+decoder (``transformer``) and encoder-decoder (``encdec``) forwards."""

@@ -9,10 +9,14 @@ the ``init_*`` functions): truncated normal on [-2, 2] scaled by
 at 1, LayerNorm biases and ``dt_bias`` at 0, ``A_log = log(linspace(1,
 16, nh))``. The numbers differ from ``jax.random``'s; tests that compare
 the two packages convert the JAX tree with ``params_from_jax`` instead.
+Each leaf is drawn in fp32 and stored in its dtype at once, an expert
+leaf ``(E, d, f)`` one expert at a time (its fan-in is E, the JAX
+package's ``shape[0]`` rule), so a model's fp32 draw never exists whole.
 
 The static path's entry points (``prefill_fn``, ``decode_fn``,
 ``init_cache``) and ``generate_static``, the static server's greedy loop
-over them, serve dense decoders.
+over them, serve dense, MoE and M-RoPE decoders (``models.transformer``)
+and the encoder-decoder (``models.encdec``), dispatched on the config.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import MAMBA, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -37,11 +41,16 @@ def _trunc_normal(shape, scale, gen, device):
     return x.clamp_(-2.0, 2.0).mul_(scale)
 
 
+def is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.encoder_layers > 0
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
-    """Random parameters for a dense, SSM or hybrid decoder, drawn on
-    ``device`` in fp32 and stored in ``dtype``: ``cfg.dtype`` by default
-    (every leaf, as the serving engines cast the whole tree), or
-    ``torch.float32`` for the training masters (the draw itself)."""
+    """Random parameters for a dense, MoE, M-RoPE, SSM or hybrid decoder
+    or an encoder-decoder, drawn on ``device`` in fp32 and stored in
+    ``dtype``: ``cfg.dtype`` by default (every leaf, as the serving
+    engines cast the whole tree), or ``torch.float32`` for the training
+    masters (the draw itself)."""
     dt = _DTYPES[cfg.dtype] if dtype is None else dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -52,6 +61,15 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     def dense(shape, scale=None):
         scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
         return _trunc_normal(shape, scale, gen, device).to(dt)
+
+    def experts(shape):
+        """An (E, ...) expert leaf, fan-in E, one expert's fp32 draw at a
+        time."""
+        out = torch.empty(shape, dtype=dt, device=device)
+        for e in range(shape[0]):
+            out[e] = _trunc_normal(shape[1:], 1.0 / math.sqrt(shape[0]), gen,
+                                   device)
+        return out
 
     def norm():
         p = {"scale": torch.ones(d, dtype=dt, device=device)}
@@ -78,12 +96,29 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
             p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
         return p
 
+    def moe():
+        E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        return {"router": dense((d, E)), "w_gate": experts((E, d, fe)),
+                "w_in": experts((E, d, fe)), "w_out": experts((E, fe, d))}
+
     def attn_block(shared=False):
-        p = {"norm": norm(), "attn": attention(), "norm2": norm(),
-             "mlp": mlp()}
+        p = {"norm": norm(), "attn": attention(), "norm2": norm()}
+        if cfg.moe is not None and not shared:
+            p["moe"] = moe()
+        else:
+            p["mlp"] = mlp()
         if cfg.post_block_norm and not shared:
             p["post_norm"], p["post_norm2"] = norm(), norm()
         return p
+
+    if is_encdec(cfg):
+        def dec_block():
+            return {"norm": norm(), "attn": attention(), "xnorm": norm(),
+                    "xattn": attention(), "norm2": norm(), "mlp": mlp()}
+        return {"embed": embed,
+                "encoder": [attn_block() for _ in range(cfg.encoder_layers)],
+                "decoder": [dec_block() for _ in range(cfg.num_layers)],
+                "enc_final_norm": norm(), "final_norm": norm()}
 
     def mamba_block():
         s = cfg.ssm
@@ -117,34 +152,52 @@ def loss_fn(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
     return transformer.forward_loss(params, batch, cfg, pcfg, sampled_ids)
 
 
+def _static(cfg: ModelConfig):
+    return encdec if is_encdec(cfg) else transformer
+
+
 def prefill_fn(params, batch, cfg: ModelConfig, head=None, max_len=None):
-    """The static path's prefill (dense decoders; see
-    ``transformer.prefill``): (cache of ``max_len`` positions (default the
-    prompts' S), greedy next token (B,))."""
-    return transformer.prefill(params, batch, cfg, head, max_len)
+    """The static path's prefill (``transformer.prefill``, or
+    ``encdec.prefill``, whose batch carries ``frames``): (cache of
+    ``max_len`` self positions (default the prompts' S), greedy next token
+    (B,))."""
+    return _static(cfg).prefill(params, batch, cfg, head, max_len)
 
 
 def decode_fn(params, cache, batch, cfg: ModelConfig, head=None):
-    """The static path's decode step (see ``transformer.decode_step``):
-    (greedy next token (B,), cache)."""
-    return transformer.decode_step(params, cache, batch, cfg, head)
+    """The static path's decode step (``transformer.decode_step`` or
+    ``encdec.decode_step``): (greedy next token (B,), cache)."""
+    return _static(cfg).decode_step(params, cache, batch, cfg, head)
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda"):
     """Zero static cache for B sequences of S positions."""
-    return transformer.init_cache(cfg, B, S, device)
+    return _static(cfg).init_cache(cfg, B, S, device)
 
 
 def generate_static(params, tokens, cfg: ModelConfig, max_new: int,
-                    max_len: int | None = None, head=None):
+                    max_len: int | None = None, head=None, frames=None,
+                    positions=None):
     """Greedy tokens of the static path, as the JAX package's static
     server makes them (``tests/helpers.StaticServerOracle``): one
     ``prefill_fn`` over equal-length prompts tokens (B, S) into caches of
     ``max_len`` positions (default S + max_new), then max_new - 1
-    ``decode_fn`` steps. Returns (B, max_new) int32."""
+    ``decode_fn`` steps. An encoder-decoder takes ``frames`` (B, T_enc,
+    d_model) (zeros when None, as the oracle feeds them); an M-RoPE model
+    may take ``positions`` (3, B, S), and its decode steps then continue
+    at S on all three planes, as the oracle's do. Returns (B, max_new)
+    int32."""
     B, S = tokens.shape
     max_len = S + max_new if max_len is None else max_len
-    cache, tok = prefill_fn(params, {"tokens": tokens}, cfg, head, max_len)
+    batch = {"tokens": tokens}
+    if is_encdec(cfg):
+        if frames is None:
+            frames = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model),
+                                 device=tokens.device)
+        batch["frames"] = frames
+    if positions is not None:
+        batch["positions"] = positions
+    cache, tok = prefill_fn(params, batch, cfg, head, max_len)
     outs = [tok]
     pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     for _ in range(max_new - 1):
@@ -173,13 +226,24 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     is ``sub{i}[p]`` (P kinds per period). The leaves are split per layer
     in that order (gemma2's ("local", "attn") period: even layers from
     ``sub0``, odd ones from ``sub1``); the hybrid's unstacked ``shared``
-    block is carried as it is; einsum layouts are kept."""
-    P = len(tree["blocks"])
+    block is carried as it is; einsum layouts are kept (a MoE layer's
+    ``moe`` leaves too). An encoder-decoder's ``encoder`` and ``decoder``
+    stacks split into per-layer lists."""
 
     def conv(t, index=None):
         if isinstance(t, dict):
             return {k: conv(v, index) for k, v in t.items()}
         return _to_torch(t if index is None else np.asarray(t)[index], device)
+
+    if is_encdec(cfg):
+        return {"embed": conv(tree["embed"]),
+                "encoder": [conv(tree["encoder"], i)
+                            for i in range(cfg.encoder_layers)],
+                "decoder": [conv(tree["decoder"], i)
+                            for i in range(cfg.num_layers)],
+                "enc_final_norm": conv(tree["enc_final_norm"]),
+                "final_norm": conv(tree["final_norm"])}
+    P = len(tree["blocks"])
 
     params = {"embed": conv(tree["embed"]),
               "layers": [conv(tree["blocks"][f"sub{layer % P}"], layer // P)

@@ -84,8 +84,9 @@ def dense_attention(q, k, v, *, causal=True, window=None, cap=None,
 
 def sharded_attention(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
                       cap=None, scale=None):
-    """Full-sequence attention (train / prefill), one-device form of the
-    JAX package's ``sharded_attention``: with no "model" axis there is no
+    """Full-sequence attention (train / prefill; ``causal=False`` for
+    whisper's encoder and cross attention), one-device form of the JAX
+    package's ``sharded_attention``: with no "model" axis there is no
     sequence-parallel fallback, only ``ops.flash_attention``."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                cap=cap, scale=scale)
@@ -130,6 +131,16 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, cap=None,
     o = torch.einsum("bgks,bskh->bgkh", (p / sm).to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_local(q, k_cache, v_cache, pos, *, window=None,
+                           cap=None, scale=None):
+    """The JAX package's unsharded decode attention (its whisper decode's
+    cross attention, against all T_enc keys with ``pos = T_enc - 1``).
+    On one device it is ``decode_attention``: both are
+    ``_decode_attn_local`` over the whole cache."""
+    return decode_attention(q, k_cache, v_cache, pos, window=window,
+                            cap=cap, scale=scale)
 
 
 def _scatter(pages, blk, slot, rows):

@@ -40,10 +40,24 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def rope_cos_sin(positions, head_dim: int, theta: float):
-    """cos/sin tables (B, S, hd/2) fp32 for (B, S) integer positions."""
+def rope_cos_sin(positions, head_dim: int, theta: float,
+                 sections: tuple[int, ...] | None = None):
+    """cos/sin tables (B, S, hd/2) fp32. positions: (B, S) integers, or
+    (3, B, S) for M-RoPE (qwen2-vl), whose planes are the temporal,
+    height and width position ids: the hd/2 frequency slots are split into
+    ``sections`` groups (sizes in half-dim units), group i indexed by
+    plane i. (B, S) positions take the 1-D tables whatever ``sections``."""
     inv = rope_freqs(head_dim, theta, positions.device)
-    ang = positions[..., None].float() * inv
+    ang = positions[..., None].float() * inv          # (B,S | 3,B,S, hd/2)
+    if positions.dim() == 3:
+        if sections is None or sum(sections) != head_dim // 2:
+            raise ValueError(f"M-RoPE: sections {sections} must sum to "
+                             f"head_dim / 2 = {head_dim // 2}")
+        parts, start = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(ang[i, :, :, start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

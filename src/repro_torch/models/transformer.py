@@ -3,19 +3,23 @@ paged serving trio ``decode_step_paged``, ``prefill_chunk_paged`` and
 ``prefill_chunk_ragged``, for dense GQA decoders (glm4, qwen3's qk-norm,
 starcoder2's LayerNorm and ungated MLP, gemma2's alternating local and
 global layers with softcaps, post-block norms and the embedding scale),
-pure Mamba2 models and zamba2's hybrid (Mamba2 layers with one shared
-attention + MLP block applied after every ``shared_attn_period``
-layers); the static path ``init_cache`` / ``prefill`` / ``decode_step``
-and the training loss ``forward_loss``, for dense decoders.
+mixture-of-experts decoders (qwen3-moe, grok-1: ``models.moe`` in place
+of the MLP), pure Mamba2 models and zamba2's hybrid (Mamba2 layers with
+one shared attention + MLP block applied after every
+``shared_attn_period`` layers); the static path ``init_cache`` /
+``prefill`` / ``decode_step`` for dense, MoE and M-RoPE (qwen2-vl)
+decoders; the training loss ``forward_loss`` for dense decoders. The
+encoder-decoder (whisper) is ``models.encdec``.
 
 A Python loop over layers replaces ``lax.scan``. Parameters are a dict:
 ``{"embed": {"table"[, "head"]}, "layers": [per-layer dict, ...],
 "final_norm": {"scale"}[, "shared": {...}]}``, where each per-layer dict is
 one slice of the JAX package's stacked ``blocks/sub{i}`` trees: ``norm``,
 ``attn/{wq,wk,wv,wo[,q_norm,k_norm]}``, ``norm2``,
-``mlp/{w_gate,w_in,w_out}`` [, ``post_norm``, ``post_norm2``] for an
-attention layer, ``norm``, ``mamba/{...}`` for a mamba layer (a
-LayerNorm carries ``bias`` beside ``scale``); ``shared``
+``mlp/{w_gate,w_in,w_out}`` (a MoE layer: ``moe/{router,w_gate,w_in,
+w_out}``) [, ``post_norm``, ``post_norm2``] for an attention layer,
+``norm``, ``mamba/{...}`` for a mamba layer (a LayerNorm carries
+``bias`` beside ``scale``); ``shared``
 is the hybrid's one unstacked attention block (``norm``, ``attn``,
 ``norm2``, ``mlp``).
 
@@ -42,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LOCAL_ATTN, MAMBA, ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import quant
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_scale, decode_attention,
@@ -67,9 +72,14 @@ def _post_norm(lp, name, y, cfg: ModelConfig):
 
 
 def _mlp_part(lp, x, cfg: ModelConfig, post: bool = True):
-    """The MLP half of a block. The hybrid's shared block has no
-    ``post_norm2`` (``post=False``), as in the JAX package."""
-    y = apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    """The MLP half of a block: the MLP, or a MoE layer's ``moe`` block.
+    The hybrid's shared block has no ``post_norm2`` (``post=False``), as
+    in the JAX package."""
+    h = apply_norm(lp["norm2"], x, cfg)
+    if "moe" in lp:
+        y = moe_mod.moe_block(lp["moe"], h, cfg)
+    else:
+        y = apply_mlp(lp["mlp"], h, cfg)
     return x + (_post_norm(lp, "post_norm2", y, cfg) if post else y)
 
 
@@ -77,16 +87,11 @@ PAGE_POOLS = ("k", "v", "k_scale", "v_scale")
 MOE_AUX_COEF = 0.01
 
 
-def unported(cfg: ModelConfig) -> str | None:
-    """Which features of ``cfg`` no forward here runs (plural, naming the
-    ROADMAP item), or None."""
-    if cfg.encoder_layers:
-        return "encoder-decoder models (ROADMAP.md queue 1 item 10)"
-    if cfg.moe is not None:
-        return "mixture-of-experts models (ROADMAP.md queue 1 item 10)"
-    if cfg.frontend is not None or cfg.rope_sections is not None:
-        return "modality frontends and M-RoPE (ROADMAP.md queue 1 item 10)"
-    return None
+def _refuse_mrope(cfg: ModelConfig, what: str) -> None:
+    """The reference's refusal: M-RoPE takes per-request position streams,
+    which a paged chunk does not carry."""
+    if cfg.rope_sections is not None:
+        raise ValueError(f"{cfg.name}: {what}: no M-RoPE frontends")
 
 
 def period_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -140,10 +145,12 @@ def _layers(params, cache, cfg: ModelConfig, x, attend, mamba=None):
 
 
 def _rope(cfg: ModelConfig, positions):
-    """Rope tables, or None for an attention-free model."""
+    """Rope tables for (B, S) or, with M-RoPE, (3, B, S) positions; None
+    for an attention-free model."""
     if not cfg.num_heads:
         return None
-    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                        cfg.rope_sections)
 
 
 def _store_kv(pools, k, v, update, *args):
@@ -217,6 +224,7 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None,
     V_pad): the speculative verify step scores all k + 1 candidate
     positions in one widened pass.
     """
+    _refuse_mrope(cfg, "chunked prefill")
     tokens = batch["tokens"]
     B, C = tokens.shape
     x = embed(params["embed"]["table"], tokens, cfg)
@@ -271,6 +279,7 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
     if cfg.ssm is not None or cfg.shared_attn_period:
         raise ValueError(f"{cfg.name}: packed prefill is attention-only "
                          "(SSM blocks need per-row chunk state)")
+    _refuse_mrope(cfg, "packed prefill")
     tokens = batch["tokens"]
     T = tokens.shape[1]
     x = embed(params["embed"]["table"], tokens, cfg)
@@ -300,11 +309,12 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
 
 
 def check_static(cfg: ModelConfig) -> None:
-    """Raise, naming ROADMAP, for a model the static path does not run:
-    it serves dense decoders only."""
-    why = unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    """Raise, naming ROADMAP, for a model this static path does not run:
+    it serves dense, MoE and M-RoPE decoders (``models.encdec`` has the
+    encoder-decoder's)."""
+    if cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's static path "
+                         "is models.encdec's (models.api dispatches)")
     if cfg.ssm is not None or cfg.shared_attn_period:
         raise NotImplementedError(
             f"{cfg.name}: the static prefill / decode path of SSM and "
@@ -323,10 +333,11 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda",
 
 def prefill(params, batch, cfg: ModelConfig, head=None, max_len=None):
     """Process equal-length prompts: batch tokens (B, S) [, positions (B,
-    S)]. Every layer attends through ``sharded_attention`` (the flash
-    kernel on the card). Returns (cache {"k", "v"} (num_layers, B,
-    max_len, K, hd) holding the prompts' K/V in positions [0, S) and zeros
-    after them (``max_len`` defaults to S), greedy next token (B,) int32).
+    S), or (3, B, S) for M-RoPE]. Every layer attends through
+    ``sharded_attention`` (the flash kernel on the card). Returns (cache
+    {"k", "v"} (num_layers, B, max_len, K, hd) holding the prompts' K/V in
+    positions [0, S) and zeros after them (``max_len`` defaults to S),
+    greedy next token (B,) int32).
     ``head`` overrides the logits table, as in ``decode_step_paged``."""
     cache, logits = prefill_logits(params, batch, cfg, head, max_len)
     return cache, logits.argmax(dim=-1).to(torch.int32)
@@ -368,8 +379,11 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     token (B,) int32, cache)."""
     check_static(cfg)
     pos = batch["pos"]
+    B = pos.shape[0]
     x = embed(params["embed"]["table"], batch["token"], cfg)
-    cos_sin = _rope(cfg, pos[:, None])
+    # M-RoPE: the new token's id on all three planes
+    cos_sin = _rope(cfg, pos[None, :, None].expand(3, B, 1)
+                    if cfg.rope_sections is not None else pos[:, None])
 
     def attend(ap, h, pools, window):
         q = project_q(ap, h, cfg, cos_sin)
@@ -407,9 +421,17 @@ def check_trainable(cfg: ModelConfig, pcfg) -> None:
     """Raise, naming ROADMAP, for a model or remat mode this training
     forward does not run: dense decoders with remat "full" or "none"
     only (the ssd kernel has no backward, here or in the JAX package)."""
-    why = unported(cfg)
+    why = None
+    if cfg.encoder_layers:
+        why = "encoder-decoder"
+    elif cfg.moe is not None:
+        why = "mixture-of-experts"
+    elif cfg.frontend is not None or cfg.rope_sections is not None:
+        why = "modality frontend and M-RoPE"
     if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: {why} training is not ported yet (ROADMAP.md "
+            "queue 1 item 13)")
     if cfg.ssm is not None or cfg.shared_attn_period:
         raise NotImplementedError(
             f"{cfg.name}: SSM and hybrid training needs an ssd backward "

@@ -1,23 +1,21 @@
-"""Per-slot state cache (port of the slot-state half of
-``repro.serving.cache``).
+"""Per-slot state caches (port of ``repro.serving.cache``).
 
 Besides paged KV (``kv_cache.BlockManager``: growing, block-granular,
 shareable), the engine manages **slot state**: constant-size per-request
-state, a Mamba block's (conv_tail, ssm_state). One slot per running
-request; nothing grows, nothing is shared, and there is no block horizon.
-:class:`SlotStateCache` is the host half, pure bookkeeping of which slot
-belongs to which request: the scheduler binds a slot at admission and
-frees it on preemption and retirement. The device half
-(``init_slot_state``) is one tensor pair with a slot axis, which the
-runner reads and writes in place.
+state, a Mamba block's (conv_tail, ssm_state), or an encoder-decoder's
+cross-attention K/V. One slot per running request; nothing grows, nothing
+is shared, and there is no block horizon. :class:`SlotStateCache` is the
+host half, pure bookkeeping of which slot belongs to which request: the
+scheduler binds a slot at admission and frees it on preemption and
+retirement. The device half (``init_slot_state``, ``init_encoder_cache``)
+is one tensor pair with a slot axis, which the runner reads and writes in
+place. :class:`EncoderCache` is the same bookkeeping for state that only
+the admission-time encode pass writes.
 
 Invariants ``check()`` enforces (the port's tests drive it and the JAX
 package's cache with one random walk): the rid->slot and slot->rid maps
 are mutually inverse, every bound slot is in range, and a slot is held by
 at most one request for its whole residence.
-
-Not ported yet: the encoder cache of encoder-decoder models (ROADMAP.md
-queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -28,8 +26,9 @@ import torch
 
 from repro_torch.config import MAMBA, ModelConfig
 
-__all__ = ["SlotStateCache", "SlotCacheStats", "init_slot_state",
-           "slot_state_bytes"]
+__all__ = ["SlotStateCache", "SlotCacheStats", "EncoderCache",
+           "init_slot_state", "init_encoder_cache", "slot_state_bytes",
+           "encoder_cache_bytes"]
 
 
 @dataclass
@@ -106,6 +105,15 @@ class SlotStateCache:
             assert self._rid_of.get(slot) == rid, "slot maps disagree"
 
 
+class EncoderCache(SlotStateCache):
+    """Per-slot *read-only* encoder state (cross-attention K/V).
+
+    The slot discipline of :class:`SlotStateCache`; only the encode pass
+    at admission writes a slot's row, never a step, so the row is fixed
+    for the bound request's whole residence (a preempted request is
+    encoded again when it returns)."""
+
+
 def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
     """(mamba layers, conv-tail width, per-slot ssm state elements)."""
     s = cfg.ssm
@@ -135,3 +143,21 @@ def slot_state_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
     n_mamba, width, h_elems = _mamba_dims(cfg)
     tail = (cfg.ssm.conv_kernel - 1) * width * dtype_bytes
     return n_mamba * (tail + h_elems * 4)
+
+
+def init_encoder_cache(cfg: ModelConfig, n_slots: int, device="cuda",
+                       dtype=torch.bfloat16):
+    """Zero per-slot cross-attention K/V: {"xk", "xv"} each (L, n_slots,
+    T_enc, K, hd), the layout of ``encdec.encode_cross_kv``."""
+    shape = (cfg.num_layers, n_slots, cfg.encoder_seq_len,
+             cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("xk", "xv")}
+
+
+def encoder_cache_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
+    """Device bytes of one slot's cross-attention K/V."""
+    if not cfg.encoder_layers:
+        return 0
+    return (2 * cfg.num_layers * cfg.encoder_seq_len * cfg.num_kv_heads
+            * cfg.head_dim * dtype_bytes)

@@ -1,13 +1,16 @@
 """Continuous-batching inference engine (port of
-``repro.serving.engine`` for dense, SSM and hybrid decoders).
+``repro.serving.engine`` for dense, MoE, SSM and hybrid decoders and the
+encoder-decoder).
 
 One ``InferenceEngine`` owns the model parameters, a runner, the device
 cache, the host caches the runner needs (a ``BlockManager`` for paged KV,
-a ``SlotStateCache`` for Mamba state), the per-slot sampling state (a
-``SamplingBuffer``) and a ``Scheduler``. Every iteration is one budgeted
-step:
+a ``SlotStateCache`` for Mamba state, an ``EncoderCache`` for the cross
+K/V), the per-slot sampling state (a ``SamplingBuffer``) and a
+``Scheduler``. Every iteration is one budgeted step:
 
     plan = scheduler.schedule()      # decodes (1 token each) + chunks
+    the encode passes of the step's enc-dec admissions (eager: each
+        writes its slot's cross K/V row in place)
     apply COW page copies
     pick the step's sampling mode on the host: "greedy" (every scheduled
         request greedy), "plain" (temperature / top-k) or "full" (some
@@ -44,8 +47,8 @@ unit, so runs are deterministic. Everything runs on ``device`` ("cuda"
 unless the caller asks for "cpu"); there is no fallback between the two.
 
 KV pools are bf16, int8 or fp8 (``kv_dtype``; the narrow ones with fp32
-per-row scales, dequantized inside the attention kernels); SSM and hybrid
-runners keep bf16 pools and fp32 Mamba state.
+per-row scales, dequantized inside the attention kernels); SSM, hybrid
+and enc-dec runners keep bf16 pools (fp32 Mamba state; bf16 cross K/V).
 
 On a card the engine runs its steps, copies and captures on a stream of
 its own (``self.stream``) under the process-wide ``graphs.DEVICE_LOCK``,
@@ -75,7 +78,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.api import init_model
 from repro_torch.models.transformer import PAGE_POOLS
-from repro_torch.serving.cache import SlotStateCache, slot_state_bytes
+from repro_torch.serving.cache import (EncoderCache, SlotStateCache,
+                                      encoder_cache_bytes, slot_state_bytes)
 from repro_torch.serving.graphs import DEVICE_LOCK, CompiledSteps
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager, block_bytes
 from repro_torch.serving.runners import make_runner
@@ -345,7 +349,9 @@ class InferenceEngine:
             if draft_cfg is not None:
                 self._dev_block_bytes += block_bytes(draft_cfg, block_size,
                                                      kv_dtype=kv_dtype)
-        swap_capable = self.runner.needs_blocks and not self.runner.needs_slots
+        swap_capable = (self.runner.needs_blocks
+                        and not self.runner.needs_slots
+                        and not self.runner.needs_encoder)
         if swap_space_bytes and not swap_capable:
             raise ValueError(
                 "swap_space_bytes requires a pure paged-KV runner (slot "
@@ -376,6 +382,8 @@ class InferenceEngine:
                    if self.runner.needs_blocks else None)
         self.slot_cache = (SlotStateCache(max_batch)
                            if self.runner.needs_slots else None)
+        self.encoder_cache = (EncoderCache(max_batch)
+                              if self.runner.needs_encoder else None)
         # prefix caching needs KV that is a pure function of the token
         # prefix: only the paged transformer qualifies
         enable_prefix_caching = (enable_prefix_caching
@@ -395,7 +403,8 @@ class InferenceEngine:
                                * block_size, prefill_pack=self.prefill_pack,
                                spec_tokens=spec,
                                sampling_buffer=self.samp_buf,
-                               swap_cost=self._swap_cost)
+                               swap_cost=self._swap_cost,
+                               encoder_cache=self.encoder_cache)
         self.max_batch = max_batch
         self.debug_invariants = debug_invariants
         if params is None:
@@ -453,6 +462,8 @@ class InferenceEngine:
             kv_mib /= 2 ** 20
         slot_mib = (max_batch * slot_state_bytes(cfg) / 2 ** 20
                     if self.runner.needs_slots else 0.0)
+        enc_mib = (max_batch * encoder_cache_bytes(cfg) / 2 ** 20
+                   if self.runner.needs_encoder else 0.0)
         self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
                       "tokens": 0, "prefill_tokens": 0,
                       "quantum_dropped_tokens": 0,
@@ -472,11 +483,12 @@ class InferenceEngine:
                       # device -> host and host -> device copy time of the
                       # swap tier, seconds (CUDA events on a card)
                       "swap_d2h_s": 0.0, "swap_h2d_s": 0.0,
-                      # no encoder-decoder runner is ported: always 0
+                      # admission-time encoder passes (enc-dec runners)
                       "encodes": 0,
                       "latency": {},
                       # the JAX package's total: page pools + slot state
-                      "kv_cache_mib": round(kv_mib + slot_mib, 3),
+                      # + the encoder cache
+                      "kv_cache_mib": round(kv_mib + slot_mib + enc_mib, 3),
                       "slot_state_mib": round(slot_mib, 3),
                       "kv_dtype": kv_dtype,
                       "graph_captures": 0,
@@ -665,6 +677,20 @@ class InferenceEngine:
         if ok:
             self.stats["aborts"] = self.sched.n_aborts
         return ok
+
+    def _run_encodes(self, plan: StepPlan) -> None:
+        """The admission-time encode passes: each new enc-dec request's
+        cross K/V into its slot row (zero frames when it has none), before
+        any step reads the row. Eager, on the engine's stream."""
+        for slot, req in plan.encodes:
+            frames = req.frames
+            if frames is None:
+                frames = np.zeros((self.cfg.encoder_seq_len,
+                                   self.cfg.d_model), np.float32)
+            frames = torch.as_tensor(np.asarray(frames, np.float32)).to(
+                self.device, torch.bfloat16)
+            self.runner.encode(self.params, self.cache, slot, frames)
+            self.stats["encodes"] += 1
 
     def _full_inputs(self) -> None:
         """Allocate the full path's input area at its first step (before
@@ -912,13 +938,14 @@ class InferenceEngine:
         # swap-outs' gather first, on the pre-step pools (before anything
         # can rewrite a freed block); then swap-ins and shared adoptions,
         # before the COW copies (a block copied in this step can already
-        # be a COW source); then the step
+        # be a COW source); then the encodes; then the step
         d2h = self._issue_swap_out(plan.swap_outs) if plan.swap_outs \
             else None
         if plan.swap_ins:
             self._swap_in(plan.swap_ins)
         if plan.shared_ins:
             self._shared_in(plan.shared_ins)
+        self._run_encodes(plan)
         for src, dst in plan.copies:
             self.stats["cow_copies"] += 1
             self._copy_block(src, dst)
@@ -993,6 +1020,11 @@ class InferenceEngine:
             self.slot_cache.check()
             for slot, req in self.sched.running.items():
                 assert self.slot_cache.slot(req.rid) == slot, (req.rid, slot)
+        if self.encoder_cache is not None:
+            self.encoder_cache.check()
+            for slot, req in self.sched.running.items():
+                assert self.encoder_cache.slot(req.rid) == slot, (req.rid,
+                                                                  slot)
         assert plan.scheduled_tokens <= self.max_num_batched_tokens
         if self.bm is None:
             return

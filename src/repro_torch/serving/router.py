@@ -115,7 +115,8 @@ def _phase1(req: Request) -> Request:
         sampling = req.sampling
         min_new = req.min_new
     return Request(req.prompt, max_new=1, sampling=sampling,
-                   eos_id=req.eos_id, min_new=min_new, rid=req.rid)
+                   eos_id=req.eos_id, min_new=min_new, frames=req.frames,
+                   rid=req.rid)
 
 
 def _phase2(req: Request, t1: int, stop_hit: bool) -> Request:
@@ -125,7 +126,8 @@ def _phase2(req: Request, t1: int, stop_hit: bool) -> Request:
     counters continue at len(out); speculative recompute stops one short
     so the verify window realigns)."""
     cont = Request(req.prompt, max_new=req.max_new, sampling=req.sampling,
-                   eos_id=req.eos_id, min_new=req.min_new, rid=req.rid)
+                   eos_id=req.eos_id, min_new=req.min_new,
+                   frames=req.frames, rid=req.rid)
     cont.out = [int(t1)]
     cont.stop_hit = stop_hit
     return cont

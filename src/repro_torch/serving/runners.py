@@ -25,11 +25,14 @@ so the engine can capture each (shape, mode) as a CUDA graph
 
 Runners:
 
-* :class:`TransformerRunner`: dense decoders, everything paged KV.
+* :class:`TransformerRunner`: dense and mixture-of-experts decoders,
+  everything paged KV.
 * :class:`SSMRunner`: pure Mamba2, slot state only (no blocks, no
   horizon).
 * :class:`HybridRunner`: zamba2, slot state for the mamba layers and paged
   KV for the shared attention block, one block table per sequence.
+* :class:`EncDecRunner`: whisper, paged decoder self-KV and per-slot
+  read-only cross K/V, written by an encode pass at admission.
 * :class:`SpeculativeRunner`: draft-and-verify speculative decoding over
   two dense decoders, one block table indexing a target and a draft pool
   set.
@@ -41,9 +44,10 @@ decode slot keeps its state (decode writes back active rows only). The
 chunk's slot and freshness are device values (``c_slot``, ``c_start ==
 0``), as in the JAX package's runner.
 
-``make_runner`` refuses the other families, naming the ROADMAP item, and
-a speculative pair the reference refuses (a non-transformer target or
-draft, or a vocabulary mismatch).
+``make_runner`` refuses what the reference refuses: a modality frontend
+that needs per-request position streams (qwen2-vl's vision: its static
+path serves it) and a speculative pair with a non-transformer target or
+draft, or a vocabulary mismatch.
 """
 
 from __future__ import annotations
@@ -51,9 +55,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import MAMBA, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.embedding import head_table
-from repro_torch.serving.cache import init_slot_state
+from repro_torch.serving.cache import init_encoder_cache, init_slot_state
 from repro_torch.serving.kv_cache import init_paged_cache
 from repro_torch.serving.sampling import (SP_KEYS, greedy_verify, one_hot,
                                           propose_tokens,
@@ -63,8 +67,8 @@ from repro_torch.serving.sampling import (SP_KEYS, greedy_verify, one_hot,
                                           speculative_verify_full)
 
 __all__ = ["ModelRunner", "TransformerRunner", "SSMRunner", "HybridRunner",
-           "SpeculativeRunner", "SAMPLING_MODES", "make_runner",
-           "sample_rows"]
+           "EncDecRunner", "SpeculativeRunner", "SAMPLING_MODES",
+           "make_runner", "sample_rows"]
 
 SAMPLING_MODES = ("greedy", "plain", "full")
 
@@ -91,6 +95,7 @@ class ModelRunner:
 
     needs_blocks: bool = False        # paged KV pools + block tables
     needs_slots: bool = False         # constant-size per-slot SSM state
+    needs_encoder: bool = False       # read-only per-slot cross K/V
     supports_prefix_caching: bool = False
     # can run multi-chunk (ragged packed-prefill) plans in one flat row
     supports_packed_prefill: bool = False
@@ -166,8 +171,11 @@ class ModelRunner:
 
 
 class TransformerRunner(ModelRunner):
-    """Dense decoder-only attention models: everything is paged KV, and
-    prefix caching applies (KV depends only on the token prefix)."""
+    """Dense and mixture-of-experts decoders: everything is paged KV, and
+    prefix caching applies (KV depends only on the token prefix; a MoE
+    layer's capacity drops depend on the step's batch, so at the default
+    capacity a prefix hit need not reproduce the cold run's tokens, as in
+    the reference)."""
 
     needs_blocks = True
     supports_prefix_caching = True
@@ -247,6 +255,53 @@ class HybridRunner(SSMRunner):
     preempted request recomputes from zeroed slot state."""
 
     needs_blocks = True
+
+
+class EncDecRunner(ModelRunner):
+    """whisper: paged decoder self-KV and read-only per-slot cross K/V,
+    written by ``encode`` at admission. bf16 pools only (the cross K/V is
+    per slot, not paged); prefix caching is off (the decoder KV depends on
+    the request's encoder output, so equal token prefixes do not give
+    equal KV), and so is packed prefill (the chunk selects its slot's
+    cross row). The chunk reads its slot's cross row by the device index
+    ``c_slot``; decode reads every slot's row."""
+
+    needs_blocks = True
+    needs_encoder = True
+
+    def init_cache(self, num_blocks, block_size, max_batch, device,
+                   kv_dtype="bf16"):
+        if kv_dtype != "bf16":
+            raise ValueError(
+                f"kv_dtype={kv_dtype}: the enc-dec runner keeps bf16 pools "
+                "(cross K/V is per-slot, not paged)")
+        return {"self": init_paged_cache(self.cfg, num_blocks, block_size,
+                                         device),
+                "cross": init_encoder_cache(self.cfg, max_batch, device)}
+
+    def pool_sets(self, cache):
+        return [cache["self"]]
+
+    def encode(self, params, cache, slot: int, frames) -> None:
+        """The admission pass: the request's cross K/V (frames (T_enc,
+        d_model) in the activation dtype) into row ``slot`` of the
+        encoder cache, in place (the captured graphs hold its address)."""
+        kv = encdec.encode_cross_kv(params, frames[None], self.cfg)
+        for name in ("xk", "xv"):
+            cache["cross"][name][:, slot] = kv[name][:, 0]
+
+    def step(self, params, cache, a, *, has_chunk, sampling="greedy"):
+        logits_c = None
+        if has_chunk:
+            slot = a["c_slot"].long()
+            cross = {n: t.index_select(1, slot)
+                     for n, t in cache["cross"].items()}
+            logits_c, _ = encdec.prefill_chunk_paged(
+                params, {"self": cache["self"], "cross": cross},
+                self._chunk_batch(a), self.cfg, self.head)
+        logits_d, _ = encdec.decode_step_paged(
+            params, cache, self._decode_batch(a), self.cfg, self.head)
+        return self._outputs(logits_d, logits_c, a, sampling)
 
 
 class SpeculativeRunner(ModelRunner):
@@ -398,11 +453,15 @@ class SpeculativeRunner(ModelRunner):
 def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
                 num_speculative_tokens: int = 0,
                 max_logprobs: int = 8) -> ModelRunner:
-    """Family dispatch; raises NotImplementedError naming the missing slice
-    for everything but dense, SSM and hybrid decoders. A draft config (or
+    """Family dispatch. Raises the reference's ValueError for a vision
+    frontend (it needs per-request position streams). A draft config (or
     k > 0, which drafts with the target's config) gives a
-    :class:`SpeculativeRunner`; target and draft must both be dense
-    decoders (ValueError otherwise, as in the reference)."""
+    :class:`SpeculativeRunner`; target and draft must both be paged
+    transformers (ValueError otherwise, as in the reference)."""
+    if cfg.frontend == "vision":
+        raise ValueError(
+            f"no serving runner for {cfg.name}: modality frontends need "
+            "per-request position streams")
     if num_speculative_tokens and draft_cfg is None:
         draft_cfg = cfg
     if draft_cfg is not None:
@@ -415,9 +474,8 @@ def make_runner(cfg: ModelConfig, *, draft_cfg: ModelConfig | None = None,
                 f"{type(draft).__name__} draft")
         return SpeculativeRunner(cfg, draft_cfg, num_speculative_tokens,
                                  max_logprobs)
-    why = transformer.unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet")
+    if cfg.encoder_layers:
+        return EncDecRunner(cfg, max_logprobs)
     if cfg.ssm is not None:
         if cfg.shared_attn_period or any(k != MAMBA
                                          for k in cfg.block_pattern):

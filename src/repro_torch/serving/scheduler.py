@@ -13,9 +13,11 @@ of the final shared block. When the pool runs dry the newest request is
 preempted and recomputed later (vLLM's recompute strategy), so greedy
 outputs are preemption-invariant. Runners with slot state (SSM, hybrid)
 get a ``slot_cache`` bound at admission and freed on preemption and
-retirement; a pure SSM runner has no block manager at all (``bm=None``):
-no block horizon, no preemption pressure, no prefix cache, admission
-limited by slots only. ``chunk_quantum`` rounds non-final chunks down to
+retirement, and an encoder-decoder an ``encoder_cache`` bound the same
+way, each admission listed in the plan's ``encodes`` for its encode pass
+(a readmitted victim is encoded again); a pure SSM runner has no block
+manager at all (``bm=None``): no block horizon, no preemption pressure,
+no prefix cache, admission limited by slots only. ``chunk_quantum`` rounds non-final chunks down to
 a multiple (SSM runners: the SSD chunk size, so chunked prefill groups
 the scan as a monolithic one does).
 
@@ -149,6 +151,9 @@ class Request:
     n_published: int = 0                    # full blocks hash-registered
     n_preempted: int = 0
     hash_chain: list = field(default_factory=list, repr=False)
+    # enc-dec only: (T_enc, d_model) stub frame embeddings for the
+    # admission-time encode pass (zeros when None)
+    frames: np.ndarray | None = field(default=None, repr=False)
 
     @property
     def done(self) -> bool:
@@ -198,6 +203,8 @@ class StepPlan:
     swap_outs: list[tuple[int, int]] = field(default_factory=list)
     swap_ins: list[tuple[int, int]] = field(default_factory=list)
     shared_ins: list[tuple[int, int]] = field(default_factory=list)
+    # freshly admitted enc-dec requests needing an encode pass this step
+    encodes: list[tuple[int, Request]] = field(default_factory=list)
 
     @property
     def chunk(self) -> tuple[int, Request, int] | None:
@@ -212,7 +219,7 @@ class StepPlan:
 
 class Scheduler:
     """Token-budget scheduler over a paged KV cache (``bm``), slot state
-    (``slot_cache``), or both.
+    (``slot_cache``), or both, and an encoder cache (``encoder_cache``).
 
     ``chunk_quantum`` quantizes non-final prefill chunks down to a
     multiple. Rounding only ever drops tokens from the *last* chunk of a
@@ -225,7 +232,8 @@ class Scheduler:
                  chunk_quantum: int = 1, slot_cache=None,
                  max_context: int | None = None, prefill_pack: int = 1,
                  spec_tokens: int = 0, sampling_buffer=None,
-                 swap_cost: SwapCostModel | None = None):
+                 swap_cost: SwapCostModel | None = None,
+                 encoder_cache=None):
         if max_num_batched_tokens <= max_batch * (1 + spec_tokens):
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
@@ -246,6 +254,7 @@ class Scheduler:
         self.chunk_width = chunk_width
         self.chunk_quantum = chunk_quantum
         self.slot_cache = slot_cache
+        self.encoder_cache = encoder_cache
         self.spec_tokens = spec_tokens
         # per-slot sampling state, bound at admission like the slot cache
         self.sampling_buffer = sampling_buffer
@@ -330,6 +339,7 @@ class Scheduler:
         budget and one ``chunk_width``, so packing never starves decodes
         harder than the single-chunk policy."""
         copies: list[tuple[int, int]] = []
+        encodes: list[tuple[int, Request]] = []
         self._pending_swap_outs = []
         self._pending_swap_ins = []
         self._pending_shared_ins = []
@@ -348,7 +358,7 @@ class Scheduler:
             if (self.bm is not None and self.bm.is_swapped(head.rid)
                     and not self.bm.can_swap_in(head.rid)):
                 break           # FCFS: wait for device blocks to free up
-            slot, req = self._admit_one(copies)
+            slot, req = self._admit_one(copies, encodes)
             admitted += 1
             if not req.decode_ready:   # else: full cache hit minus one —
                 pres.append((slot, req))  # it joins the decode batch next
@@ -378,7 +388,8 @@ class Scheduler:
                 width_left -= n
         self.quantum_dropped_tokens += pending_q_loss
         plan = StepPlan(decodes=decodes, chunks=chunks, copies=copies,
-                        admitted=admitted, spec_tokens=self.spec_tokens,
+                        admitted=admitted, encodes=encodes,
+                        spec_tokens=self.spec_tokens,
                         swap_outs=self._pending_swap_outs,
                         swap_ins=self._pending_swap_ins,
                         shared_ins=self._pending_shared_ins)
@@ -436,18 +447,20 @@ class Scheduler:
         assert ok, "ensure failed after availability check"
         return n
 
-    def _admit_one(self, copies: list[tuple[int, int]]) -> \
+    def _admit_one(self, copies: list[tuple[int, int]],
+                   encodes: list[tuple[int, Request]]) -> \
             tuple[int, Request]:
         """FCFS admission with prefix-cache sharing: the new table starts
         as the matched cached blocks, extended by host-resident blocks of
         swapped requests and then by blocks another replica published
         (both copied in, not recomputed); fresh blocks arrive chunk by
         chunk. A swap-preempted victim returns by swap-in, with no
-        recompute chunk at all. The request's slot-state row (if any) is
-        bound to its slot."""
+        recompute chunk at all. The request's slot-state and encoder rows
+        (if any) are bound to its slot; an encoder row is queued in
+        ``encodes`` for its encode pass."""
         req = self.waiting.popleft()
         if self.bm is None:
-            return self._bind_slot(req)
+            return self._bind_slot(req, encodes)
         if self.bm.is_swapped(req.rid):
             # its KV rows come back from the host tier byte for byte and
             # num_computed survived (hashed blocks whose device twin is
@@ -455,7 +468,7 @@ class Scheduler:
             _, pairs = self.bm.swap_in(req.rid)
             self._pending_swap_ins.extend(pairs)
             self.n_swap_ins += 1
-            return self._bind_slot(req)
+            return self._bind_slot(req, encodes)
         bs = self.bm.block_size
         total = req.context_len
         hits: list[int] = []
@@ -527,9 +540,11 @@ class Scheduler:
                 # re-registers after the write
                 self.bm.deregister(src)
                 req.n_published = cow_idx
-        return self._bind_slot(req)
+        return self._bind_slot(req, encodes)
 
-    def _bind_slot(self, req: Request) -> tuple[int, Request]:
+    def _bind_slot(self, req: Request,
+                   encodes: list[tuple[int, Request]]) -> \
+            tuple[int, Request]:
         slot = self.free_slots()[0]
         self.running[slot] = req
         self._join_order.append(slot)
@@ -537,6 +552,9 @@ class Scheduler:
             self.sampling_buffer.bind(req, slot)
         if self.slot_cache is not None:
             self.slot_cache.allocate(req.rid, slot)
+        if self.encoder_cache is not None:
+            self.encoder_cache.allocate(req.rid, slot)
+            encodes.append((slot, req))
         if self.on_admit is not None:
             self.on_admit(slot, req)
         return slot, req
@@ -567,11 +585,13 @@ class Scheduler:
     def _release(self, req: Request, blocks: bool = True) -> None:
         """Release everything a running request holds: its block table
         (unless ``blocks`` is off: a swap-out moved it to the host), its
-        slot-state row and its sampling row."""
+        slot-state, encoder and sampling rows."""
         if blocks and self.bm is not None:
             self.bm.free(req.rid)
         if self.slot_cache is not None:
             self.slot_cache.free(req.rid)
+        if self.encoder_cache is not None:
+            self.encoder_cache.free(req.rid)
         if self.sampling_buffer is not None:
             self.sampling_buffer.free(req.rid)
 

@@ -159,7 +159,7 @@ def test_kernel_wrapper_refuses_before_launch():
     with pytest.raises(ValueError, match="bf16"):
         tfa.flash_attention(q.float(), kv, kv)
     with pytest.raises(ValueError, match="head dims"):
-        tfa.flash_attention(q[..., :64], kv[..., :64], kv[..., :64])
+        tfa.flash_attention(q[..., :48], kv[..., :48], kv[..., :48])
     with pytest.raises(ValueError, match="no keys"):
         tfa.flash_attention(q, kv[:, :0], kv[:, :0])
     with pytest.raises(ValueError, match="CUDA"):
@@ -167,11 +167,12 @@ def test_kernel_wrapper_refuses_before_launch():
     assert dict(tfa.flash_attention.launches) == before
 
 
-@pytest.mark.parametrize("hd,route", [(128, "wgmma"), (16, "mma")])
+@pytest.mark.parametrize("hd,route", [(128, "wgmma"), (16, "mma"),
+                                      (64, "mma64")])
 def test_kernel_routes_by_head_dim(hd, route):
-    """hd 128 goes to the Hopper kernel (TMA + wgmma), hd 16 to the
-    mma.sync kernel; a CPU tensor of either head dim is refused before the
-    launch, and neither route's counter moves."""
+    """hd 128 goes to the Hopper kernel (TMA + wgmma), hd 16 and 64 to the
+    mma.sync kernel's two instances; a CPU tensor of any of them is
+    refused before the launch, and no route's counter moves."""
     assert tfa.route(hd) == route
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)
@@ -183,11 +184,12 @@ def test_kernel_routes_by_head_dim(hd, route):
     assert dict(tfa.flash_attention.launches) == before
 
 
-@pytest.mark.parametrize("hd", [8, 32, 64, 80, 96, 256])
+@pytest.mark.parametrize("hd", [8, 32, 48, 80, 96, 256])
 def test_kernel_refuses_other_head_dims_by_name(hd):
-    """Every head dim but 16 and 128 is refused by name (no route takes
-    it, and nothing falls back), before either route's counter moves."""
-    with pytest.raises(ValueError, match=r"head dims \(16, 128\)"):
+    """Every head dim but 16, 64 and 128 is refused by name (no route
+    takes it, and nothing falls back), before any route's counter
+    moves."""
+    with pytest.raises(ValueError, match=r"head dims \(16, 64, 128\)"):
         tfa.route(hd)
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 from repro.config import get_config as jax_get_config
-from repro_torch.config import ModelConfig, get_config
+from repro_torch.config import ARCHS, ModelConfig, get_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -55,15 +55,20 @@ CONFIG_CASES = [("glm4_9b", False), ("glm4_9b", True),
                 ("zamba2_2p7b", False), ("zamba2_2p7b", True),
                 ("qwen3_32b", False), ("qwen3_32b", True),
                 ("starcoder2_3b", False), ("starcoder2_3b", True),
-                ("gemma2_27b", False), ("gemma2_27b", True)]
+                ("gemma2_27b", False), ("gemma2_27b", True),
+                ("qwen3_moe_30b_a3b", False), ("qwen3_moe_30b_a3b", True),
+                ("grok1_314b", False), ("grok1_314b", True),
+                ("whisper_large_v3", False), ("whisper_large_v3", True),
+                ("qwen2_vl_2b", False), ("qwen2_vl_2b", True)]
 
 
 @pytest.mark.parametrize(
     "arch,smoke", CONFIG_CASES,
     ids=["False", "True"] + [f"{a}-{s}" for a, s in CONFIG_CASES[2:]])
 def test_glm4_config_equals_reference_field_for_field(arch, smoke):
-    """Every ported arch's config, field for field (the SSM sub-config
-    too: same dataclass fields and values in both packages)."""
+    """Every ported arch's config, field for field (the MoE and SSM
+    sub-configs too: same dataclass fields and values in both packages),
+    and its parameter counts."""
     ours = get_config(arch, smoke=smoke)
     ref = jax_get_config(arch, smoke=smoke)
     names = [f.name for f in dataclasses.fields(ModelConfig)]
@@ -74,20 +79,27 @@ def test_glm4_config_equals_reference_field_for_field(arch, smoke):
             assert [f.name for f in dataclasses.fields(a)] == \
                 [f.name for f in dataclasses.fields(b)], name
             a, b = dataclasses.asdict(a), dataclasses.asdict(b)
-            assert ours.ssm.d_inner(ours.d_model) == \
-                ref.ssm.d_inner(ref.d_model)
-            assert ours.ssm.n_heads(ours.d_model) == \
-                ref.ssm.n_heads(ref.d_model)
         assert a == b, name
+    if ref.ssm is not None:
+        assert ours.ssm.d_inner(ours.d_model) == ref.ssm.d_inner(ref.d_model)
+        assert ours.ssm.n_heads(ours.d_model) == ref.ssm.n_heads(ref.d_model)
     assert ours.padded_vocab_size == ref.padded_vocab_size
     assert ours.layer_kinds() == ref.layer_kinds()
     assert ours.param_count() == ref.param_count()
+    assert ours.active_param_count() == ref.active_param_count()
 
 
 def test_unported_arch_is_refused_by_name():
-    with pytest.raises(NotImplementedError,
-                       match="whisper_large_v3.*queue 1 item 10"):
-        get_config("whisper_large_v3")
+    """Every arch the JAX package knows resolves in the port (full and
+    smoke); an unknown one is refused by name; the dashed aliases
+    resolve."""
+    for arch in ARCHS:
+        for smoke in (False, True):
+            assert get_config(arch, smoke=smoke).name == \
+                jax_get_config(arch, smoke=smoke).name
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no_such_model")
     assert get_config("glm4-9b") == get_config("glm4_9b")
+    assert get_config("grok-1-314b") == get_config("grok1_314b")
+    assert get_config("whisper-large-v3", smoke=True) == \
+        get_config("whisper_large_v3", smoke=True)
