@@ -96,6 +96,16 @@ Phases, each of which raises on failure:
         gather at the four tables (152064 x 2048, 131072 x 6144, 51968 x
         1280, 152064 x 1536). Under "qwen3_moe_", "grok1_", "whisper_",
         "qwen2_vl_" keys.
+     h. the flash forward's hd-80 route ("mma80", a row of its own:
+        "flash_attention_mma80") at zamba2's shared block (H = K = 32):
+        causal B 2 x S 2048 (training) and B 8 x S 512 (phase 14's static
+        prefill), o held as in 2f, lse within 1e-3, two launches
+        bit-equal, each beside SDPA; the SSD autograd function (the
+        kernel forward, the plain recompute backward) at mamba2's and
+        zamba2's widths, b 2 x S 2048, 256-row chunks: its gradients for
+        x, dt, A, B and C against autograd through ssd_chunked, every row
+        within 1e-2 of its norm, its forward and backward times ("mamba2_"
+        and "zamba2_function_" keys of the ssd row).
      Times each kernel, its plain version and the one-call library
      equivalent where there is one, with the L2 cache flushed per call.
   3. serving: glm4_9b at full width and depth (40 layers, random weights
@@ -157,7 +167,14 @@ Phases, each of which raises on failure:
   8. training card vs CPU at smoke size: the same fp32 masters and three
      batches, 2 microbatches, remat full, SGD: losses within 1e-2, grad
      norms within 1e-2 relative, masters within 1e-2 of the largest
-     update.
+     update (glm4); then mamba2, zamba2, qwen3_moe, grok1, whisper (seeded
+     frames) and qwen2_vl (its smoke config at hd 16, sections (2, 3, 3):
+     hd 12 has no flash route), each held to the larger of those limits
+     and twice its noise floor (CPU runs with one-ulp flips in 0.5% of
+     the embedding outputs and of whisper's frames), the masters held
+     leaf by leaf (each leaf's difference over its own update against
+     twice that leaf's floor); a MoE model's CPU runs replay the card's
+     routing.
   9. the sampling surface at glm4_9b's full width and depth (phase 3's
      weights, CUDA graphs; run between phases 4 and 5, while they are on
      the card): a. jax's threefry bits for 64 (seed, rid, counter, tag)
@@ -266,8 +283,41 @@ Phases, each of which raises on failure:
      per kernel ("<member>_launches"). ``python3 chip_smoke.py --phase
      12`` runs the build and phase 12 alone, ``--phase 2g`` the build and
      phase 2g (development runs: no result line).
+  13. training of every family at full width (run after phase 12; each
+     model freed before the next; "[train-family]" lines): mamba2_370m (48
+     layers), zamba2_2p7b (54), qwen3_moe_30b_a3b (4 of 48), whisper (32 +
+     32; 1500 x 1280 seeded frames, 448 tokens), qwen2_vl_2b (28; phase
+     12d's 3-plane positions), B 2 x 2048, seeded fp32 masters, 4 AdamW
+     steps (remat full) on one fixed batch: finite losses, the last below
+     the first; a finite, non-zero gradient on every parameter leaf on
+     step 1; launches: the ssd kernel once per mamba layer per forward
+     and recompute, flash on mma80 / wgmma / mma64 likewise (whisper: its
+     encoder, decoder self and cross attention), the gather once a step;
+     step ms, tok/s, peak GiB (qwen3_moe's aux beside ce); one profiled
+     step of each SSM model (device ms by kernel, the SSD forward's and
+     its plain backward's shares); mamba2 and qwen3_moe one step's loss
+     and gradient under remat none, full and dots (within 1e-6 relative;
+     bitwise equality and each mode's peak printed).
+  14. the SSM static path (inside phase 5, on its weights and 512-token
+     prompts; "[static]", "[static-ssm]" lines): generate_static with 32
+     new tokens at full depth (tok/s, prefill and decode step times,
+     launches: the ssd kernel once per mamba layer, mma80 once per
+     period) held against the engine path by static_vs_engine (the fp32
+     reading, the static path at most twice as far), tokens counted;
+     then at mamba2's first 4 layers and zamba2's first 6 (one period)
+     against an eager engine run there, tokens held to the near-tie rule
+     (deeper, the random weights amplify bf16 rounding past what the
+     fp32 reading resolves).
+  15. checkpoint and resume (inside phase 13's mamba2 run): the state
+     after step 2 saved asynchronously, restored onto the card, step 3
+     rerun: loss, grad norm and every master equal to the uninterrupted
+     step 3, bit for bit; restored onto the CPU with restore_to: equal to
+     the state the card saved, bf16 leaves through their uint16 view.
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
+  ``python3 chip_smoke.py --phase 2h,14,13,8`` runs some phases alone, in
+  the order given (also 2g and 12; "13 ARCH ..." some of phase 13's
+  models): development runs, no result line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -1816,7 +1866,7 @@ def check_family(torch, timer, gen, rows):
 # qwen3_moe and grok1 (G 8 and 6; grok's attention softcap 30) serve
 # through the paged kernels, packed included; whisper's decoder self
 # attention (hd 64, G 1) through decode and chunk only (no packed
-# prefill), its flash shapes in check_hd64_flash; qwen2_vl's static path
+# prefill), its flash shapes in HD64_FLASH; qwen2_vl's static path
 # through flash (G 6) and the gather
 SLICE = {"qwen3_moe": ("qwen3_moe_30b_a3b", 32, 4, {}, "dcpfg"),
          "grok1": ("grok1_314b", 48, 8, dict(cap=30.0), "dcpg"),
@@ -1833,44 +1883,44 @@ HD64_FLASH = [("encoder 1500 x 1500", 1, 1500, 1500, False, True),
               ("causal S 512", 8, 512, 512, True, True)]
 
 
-def check_hd64_flash(torch, timer, gen, rows):
-    """The flash forward's hd-64 route (whisper: H = K = 20) at
-    HD64_FLASH's shapes: o held by ``check_flash_o``, lse within LSE_TOL
-    of the plain one, two launches bit-equal; the timed ones beside SDPA,
-    which computes the same function at these shapes. The first shape is
-    the row's ("flash_attention_mma64"), the others its "cases"."""
+def check_mma_flash(torch, timer, gen, rows, name, H, K, hd, shapes):
+    """The flash forward's mma.sync route for head dim ``hd`` at
+    ``name``'s heads and ``shapes`` ((label, B, Sq, Skv, causal, timed)):
+    o held by ``check_flash_o``, lse within LSE_TOL of the plain one, two
+    launches bit-equal; the timed ones beside SDPA, which computes the
+    same function at these shapes. The first shape is the row's
+    ("flash_attention_<route>"), the others its "cases"."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models.attention import dense_attention
 
-    H = K = 20
-    hd = 64
+    route = fa.route(hd)
+    check(route.startswith("mma"), f"hd {hd} is not an mma.sync route")
     cases = []
-    for label, B, Sq, Skv, causal, timed_case in HD64_FLASH:
-        check(fa.route(hd) == "mma64", "hd 64 is not the mma64 route")
+    for label, B, Sq, Skv, causal, timed_case in shapes:
         q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).bfloat16()
         k = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
         v = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
         o_k, lse_k = fa.flash_attention(q, k, v, causal=causal)
         o_2, lse_2 = fa.flash_attention(q, k, v, causal=causal)
         check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
-              f"flash hd 64 {label}: two launches differ")
+              f"flash hd {hd} {label}: two launches differ")
         del o_2, lse_2
-        e, rel = check_flash_o(f"flash hd 64 {label}", o_k, q, k, v,
+        e, rel = check_flash_o(f"flash hd {hd} {label}", o_k, q, k, v,
                                dict(causal=causal), ref, dense_attention)
         e_lse = err(lse_k, ref.flash_attention_fwd_plain(
             q, k, v, causal=causal)[1])
-        check(e_lse <= LSE_TOL, f"flash hd 64 {label}: lse max abs err "
+        check(e_lse <= LSE_TOL, f"flash hd {hd} {label}: lse max abs err "
               f"{e_lse} (limit {LSE_TOL})")
         pairs = causal_pairs(Sq, Skv, causal, None, 0)
         flops = 4.0 * B * H * hd * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
             + 4 * lse_k.numel()
         d = dict(
-            kernel="flash_attention", source=FLASH_SRC, kernel_route="mma64",
+            kernel="flash_attention", source=FLASH_SRC, kernel_route=route,
             max_abs_err=e, max_row_rel_err=rel, lse_max_abs_err=e_lse,
-            shape=f"whisper {label}: B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
+            shape=f"{name} {label}: B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
                   f"hd={hd} {'causal' if causal else 'non-causal'} "
                   f"({pairs} row-key pairs per batch row)",
             **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
@@ -1897,19 +1947,100 @@ def check_hd64_flash(torch, timer, gen, rows):
                                  q, k, v, causal=causal), iters=5))
                 line += f", plain {d['plain_ms']:.4f}"
             del qt, kt, vt
-        print(f"[kernels] flash hd 64 (route mma64) {label}: {line}; o max "
-              f"row rel err {rel:.3g}, lse {e_lse:.3g}; two launches "
+        print(f"[kernels] flash hd {hd} (route {route}) {label}: {line}; o "
+              f"max row rel err {rel:.3g}, lse {e_lse:.3g}; two launches "
               "bit-equal", flush=True)
         cases.append(d)
         del q, k, v, o_k, lse_k
-    rows["flash_attention_mma64"] = dict(cases[0], cases=cases[1:])
+    rows[f"flash_attention_{route}"] = dict(cases[0], cases=cases[1:])
     torch.cuda.empty_cache()
+
+
+# hd-80 flash shapes (zamba2's shared block, H = K = 32): hybrid training
+# (B 2, causal S 2048) and phase 14's static prefill (B 8, S 512); the
+# first is the row's shape
+HD80_FLASH = [("training causal S 2048", 2, 2048, 2048, True, True),
+              ("static prefill B=8 S=512", 8, 512, 512, True, True)]
+# the SSD autograd function at both models' widths (nh, hp, G, N): b 2, S
+# 2048, 256-row chunks
+SSD_FN_WIDTHS = {"mamba2_370m": (32, 64, 1, 128),
+                 "zamba2_2p7b": (80, 64, 1, 64)}
+
+
+def check_ssd_function(torch, timer, gen, rows):
+    """The SSD autograd function (the kernel forward, the plain recompute
+    backward) at SSD_FN_WIDTHS: its gradients for x, dt, A, B and C
+    against autograd through the plain ``ssd_chunked`` on the same inputs
+    and output gradients, every gradient row (last dim) within TOL of its
+    norm; its forward and backward device times. Under "function_" keys
+    of the ssd row, the widths as "<arch>_" prefixes."""
+    from repro_torch.kernels import ssd as ssd_k
+    from repro_torch.models.ssm import ssd_chunked
+
+    b, S, Q = 2, 2048, 256
+    for arch, (nh, hp, G, N) in SSD_FN_WIDTHS.items():
+        ins = ssd_inputs(torch, gen, b, S, nh, hp, G, N)[:5]
+        gy = torch.randn((b, S, nh, hp), generator=gen, device=DEV)
+        gh = torch.randn((b, nh, hp, N), generator=gen, device=DEV)
+        grads = {}
+        for fn in ("kernel", "plain"):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            if fn == "kernel":
+                y, h = ssd_k.SSD.apply(*leaves, None, Q)
+            else:
+                y, h = ssd_chunked(*leaves, Q)
+            ((y.float() * gy).sum() + (h * gh).sum()).backward()
+            grads[fn] = [t.grad.float() for t in leaves]
+            del y, h, leaves
+        errs = []
+        for name, a, r in zip("x dt A B C".split(), grads["kernel"],
+                              grads["plain"]):
+            e = row_err(a.reshape(-1, a.shape[-1]), r.reshape(-1, r.shape[-1]))
+            check(e <= TOL, f"SSD function {arch}: d{name} max row relative "
+                  f"err {e} (limit {TOL})")
+            errs.append(e)
+        del grads
+        leaves = [t.clone().requires_grad_() for t in ins]
+
+        def fwd():
+            return ssd_k.SSD.apply(*leaves, None, Q)
+
+        y, h = fwd()
+        loss = (y.float() * gy).sum() + (h * gh).sum()
+
+        def bwd():
+            return torch.autograd.grad(loss, leaves, retain_graph=True)
+
+        d = {"function_fwd_ms": timer(fwd, iters=5),
+             "function_fwd_device_ms": timer.device(fwd, iters=3),
+             "function_bwd_ms": timer(bwd, iters=3, warmup=1),
+             "function_bwd_device_ms": timer.device(bwd, iters=2),
+             "function_grad_max_row_rel_err": max(errs)}
+        print(f"[kernels] SSD function {arch} (b {b}, S {S}, nh {nh}, hp "
+              f"{hp}, N {N}, chunk {Q}): gradients vs autograd through "
+              f"ssd_chunked, max row relative err by input (x, dt, A, B, C) "
+              f"{[f'{e:.3g}' for e in errs]}; forward {d['function_fwd_ms']:.3f}"
+              f" ms (device {d['function_fwd_device_ms']:.3f}), plain "
+              f"recompute backward {d['function_bwd_ms']:.3f} ms (device "
+              f"{d['function_bwd_device_ms']:.3f})", flush=True)
+        family_row(rows, "ssd", f"{arch.split('_')[0]}_", **d)
+        del y, h, loss, leaves, ins
+        torch.cuda.empty_cache()
+
+
+def check_hd80(torch, timer, gen, rows):
+    """Phase 2h: the flash forward's hd-80 route (row
+    "flash_attention_mma80") and the SSD autograd function."""
+    check_mma_flash(torch, timer, gen, rows, "zamba2", 32, 32, 80,
+                    HD80_FLASH)
+    check_ssd_function(torch, timer, gen, rows)
 
 
 def check_slice(torch, timer, gen, rows):
     """Phase 2g: the kernels at this slice's shapes (SLICE, HD64_FLASH),
     under the member prefixes and the "flash_attention_mma64" row."""
-    check_hd64_flash(torch, timer, gen, rows)
+    check_mma_flash(torch, timer, gen, rows, "whisper", 20, 20, 64,
+                    HD64_FLASH)                 # whisper: H = K = 20
     for name, (arch, H, K, opts, parts) in SLICE.items():
         check_member(torch, timer, gen, rows, name, arch, H, K, opts,
                      set(parts))
@@ -1929,6 +2060,7 @@ def check_kernels(torch, timer):
     check_sampled_softmax(torch, timer, gen, rows)
     check_family(torch, timer, gen, rows)
     check_slice(torch, timer, gen, rows)
+    check_hd80(torch, timer, gen, rows)
     for name, r in rows.items():
         extra = ""
         if "no_write_ms" in r:
@@ -2487,7 +2619,9 @@ def near_tie_or_same(torch, params, cfg, prompt, ours, ref, limit=TOL,
         margins.append((i, margin, limit))
     check(margin < limit and {ours[i], ref[i]} == set(top.indices.tolist()),
           f"greedy streams differ at step {i} with top-2 margin {margin} "
-          f"(limit {limit})")
+          f"(limit {limit}): tokens {ours[i]} and {ref[i]} at logits "
+          f"{float(lg[ours[i]])} and {float(lg[ref[i]])}; top 5 "
+          f"{torch.topk(lg, 5)}")
     return False
 
 
@@ -2496,6 +2630,53 @@ def seq_rows(reqs, S: int, start: int = 0) -> list:
     for each of ``reqs``, their positions from ``start``."""
     return [(i * S + t, r, start + t) for i, r in enumerate(reqs)
             for t in range(S)]
+
+
+@contextlib.contextmanager
+def patched_route(spy, value=None):
+    """``models.moe._route`` as ``spy(route, x, router, k)`` inside the
+    block (``route`` the real one); yields ``value``."""
+    from repro_torch.models import moe
+    route = moe._route
+    moe._route = lambda x, router, k: spy(route, x, router, k)
+    try:
+        yield value
+    finally:
+        moe._route = route
+
+
+class RouteTape:
+    """The experts each routing call of a run picks, in call order
+    (``record()``), and a later run of the same calls made to pick the
+    same (``replay()``: its weights renormalised from its own
+    probabilities, as ``RouteLog.replay`` does), counting the rows whose
+    own choice was another set (``rerouted``) of those replayed."""
+
+    def __init__(self):
+        self.calls, self.replayed, self.rerouted = [], 0, 0
+
+    def record(self):
+        def spy(route, x, router, k):
+            w, idx, probs = route(x, router, k)
+            self.calls.append(idx.cpu())
+            return w, idx, probs
+        return patched_route(spy, self)
+
+    def replay(self):
+        tape = iter(self.calls)
+
+        def spy(route, x, router, k):
+            _, own, probs = route(x, router, k)
+            idx = next(tape).to(own.device)
+            check(idx.shape == own.shape, "a routing call the tape does "
+                  "not hold")
+            self.replayed += idx.shape[0]
+            self.rerouted += int((own.sort(dim=-1).values
+                                  != idx.sort(dim=-1).values).any(-1).sum())
+            w = probs.gather(1, idx)
+            return w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9), idx, \
+                probs
+        return patched_route(spy, self)
 
 
 class RouteLog:
@@ -2524,15 +2705,8 @@ class RouteLog:
         self.layer[T] = layer + 1
         return layer
 
-    @contextlib.contextmanager
     def _patched(self, spy):
-        from repro_torch.models import moe
-        route = moe._route
-        moe._route = lambda x, router, k: spy(route, x, router, k)
-        try:
-            yield self
-        finally:
-            moe._route = route
+        return patched_route(spy, self)
 
     def record(self):
         def spy(route, x, router, k):
@@ -2839,7 +3013,63 @@ def graph_edge_types(graph) -> dict:
     return types
 
 
-def serve_ssm(torch, counters, card):
+# phase 14's new tokens a request on the static path, and the depth at
+# which its tokens are held (at full depth the random weights amplify
+# bf16 rounding until the fp32 reading no longer tells the bf16 paths
+# apart: mamba2's prompt logits 0.057 from it at 4 layers, 0.19 at 8,
+# 0.33 at 16, logit std 0.56). zamba2 is held over one 6-layer period:
+# at two (12 layers) the two paths' distances from the reading sum to
+# 0.81 (0.43 at 6; logit std 0.89), and a stream parted between two
+# tokens 0.11 and 0.23 below the reading's best with five others above
+# them, which the two-token rule cannot hold (NVIDIA H100 80GB HBM3,
+# 700.00 W). The CPU tests hold two periods.
+STATIC_SSM_NEW = 32
+STATIC_SSM_HELD_LAYERS = {"mamba2_370m": 4, "zamba2_2p7b": 6}
+
+
+def static_ssm(torch, counters, card, arch, params, cfg, prompts,
+               toks) -> list:
+    """Phase 14 on phase 5's weights and 512-token prompts: the static
+    path at full width and depth (``static_vs_engine``: its tok/s, prefill
+    and decode step time, launches, its prompt logits and the engine
+    path's against the fp32 reading, the static one at most twice as far;
+    tokens counted against the engine run's ``toks``), then the same at
+    STATIC_SSM_HELD_LAYERS (the first layers of the same weights) against
+    an eager engine run there, tokens held to the near-tie rule."""
+    import dataclasses
+    from repro_torch.serving import InferenceEngine, Request
+    out = []
+    full = static_vs_engine(
+        torch, counters, params, cfg, prompts, STATIC_SSM_NEW, toks,
+        f"{arch} full width, {cfg.num_layers} layers, 8 x 512 (phase 14)",
+        tokens_held=False)
+    full.update(arch=arch, phase=14, layers=cfg.num_layers)
+    out.append(full)
+    n = STATIC_SSM_HELD_LAYERS[arch]
+    cut = dataclasses.replace(cfg, num_layers=n)
+    cut_params = dict(params, layers=params["layers"][:n])
+    eng = InferenceEngine(cut, params=cut_params, cuda_graphs=False,
+                          device=DEV, max_batch=8, block_size=16,
+                          max_len=1024, max_num_batched_tokens=8 + 256,
+                          seed=0)
+    reqs = [Request(p.copy(), max_new=STATIC_SSM_NEW) for p in prompts]
+    got = eng.run(reqs)
+    ref = [got[r.rid].tolist() for r in reqs]
+    del eng
+    held = static_vs_engine(
+        torch, counters, cut_params, cut, prompts, STATIC_SSM_NEW, ref,
+        f"{arch} full width, {n} layers, 8 x 512 (phase 14, tokens held)")
+    held.update(arch=arch, phase=14, layers=n)
+    out.append(held)
+    for r in out:
+        print(f"[static-ssm] {card}: {arch} {r['layers']} layers: "
+              f"{json.dumps(r)}", flush=True)
+    return out
+SSM_RUNS = (("mamba2_370m", "512", 32), ("mamba2_370m", "300-500", 16),
+            ("zamba2_2p7b", "512", 16))
+
+
+def serve_ssm(torch, counters, card, runs=SSM_RUNS, static=True):
     """Phase 5: mamba2_370m (SSMRunner) and zamba2_2p7b (HybridRunner)
     at full width and depth, random bf16 weights from seed 0, max_batch 8,
     a 264-token budget (256-token chunks, the SSD chunk size). mamba2
@@ -2848,15 +3078,16 @@ def serve_ssm(torch, counters, card):
     zamba2 serves 8 of 512 tokens (16 new each). Each run on graphs, then
     eager (A/B). The ssd kernel launches once per mamba layer and chunk;
     the chunk graph's edges by type say whether its capture kept the
-    scan's programmatic dependent launches."""
+    scan's programmatic dependent launches. Phase 14 (``static``) follows
+    each 512-token run on its weights: the static path
+    (``static_vs_engine``) on the same prompts, STATIC_SSM_NEW new tokens,
+    held against the engine run's tokens (its first ones for zamba2)."""
     import numpy as np
     from repro_torch.config import get_config
     from repro_torch.models.api import init_model
     from repro_torch.serving import InferenceEngine, Request
 
     results = []
-    runs = (("mamba2_370m", "512", 32), ("mamba2_370m", "300-500", 16),
-            ("zamba2_2p7b", "512", 16))
     kw = dict(device=DEV, max_batch=8, block_size=16, max_len=1024,
               max_num_batched_tokens=8 + 256, seed=0)
     params = params_cfg = None
@@ -2898,7 +3129,7 @@ def serve_ssm(torch, counters, card):
         expect = ["ssd", "gather"]
         if cfg.shared_attn_period:
             expect += ["paged_attention", "paged_prefill_attention"]
-        res, eager, _ = serve_ab(
+        res, eager, toks = serve_ab(
             torch, counters, card, f"{arch} prompts of {lens} tokens",
             make_engine,
             lambda: [Request(p.copy(), max_new=max_new) for p in prompts],
@@ -2935,6 +3166,9 @@ def serve_ssm(torch, counters, card):
               f"programmatic) {seen['edges']}: {json.dumps(res)}",
               flush=True)
         results.append(res)
+        if lens == "512" and static:
+            results += static_ssm(torch, counters, card, arch, params,
+                                  cfg, prompts, toks)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2972,7 +3206,8 @@ def fp32_logits(torch, params, cfg, tokens, head, positions=None,
     (FP32_ROWS query rows at a time), the fp32 head. Neither the flash nor
     a paged kernel takes part: an independent reading of the function both
     serving paths compute in bf16. ``positions``: (3, B, S) M-RoPE planes
-    (default: 0 .. S - 1). ``groups`` > 1 reads the sequences in that many
+    (default: 0 .. S - 1). Mamba layers scan with the plain
+    ``ssd_chunked`` in fp32. ``groups`` > 1 reads the sequences in that many
     groups (a MoE model without drops: each token's output does not
     depend on the others', and the dispatch shrinks with T). ``before(i0,
     i1)`` runs before the reading of sequences i0 .. i1 - 1."""
@@ -2987,6 +3222,7 @@ def fp32_logits(torch, params, cfg, tokens, head, positions=None,
                 torch, params, cfg, tokens[i:j], head,
                 None if positions is None else positions[:, i:j]))
         return torch.cat(out)
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.attention import (attention_scale,
                                               dense_attention, project_kv,
                                               project_q)
@@ -3013,16 +3249,41 @@ def fp32_logits(torch, params, cfg, tokens, head, positions=None,
             cap=cfg.attn_logit_softcap, scale=attention_scale(cfg),
             q_offset=r) for r in range(0, S, FP32_ROWS)], dim=1)
 
-    x = _layers({"layers": (up(lp) for lp in params["layers"]),
-                 "final_norm": up(params["final_norm"])}, {}, cfg, x, attend)
+    def mamba(mp, h, m):
+        with plain_ssd():
+            return ssm_mod.mamba_block(mp, h, cfg)[0]
+
+    fp = {"layers": (up(lp) for lp in params["layers"]),
+          "final_norm": up(params["final_norm"])}
+    if "shared" in params:
+        fp["shared"] = up(params["shared"])
+    x = _layers(fp, {}, cfg, x, attend, mamba)
     return decode_logits(x[:, -1:], head, cfg)
 
 
+@contextlib.contextmanager
+def plain_ssd():
+    """``kernels.ops.ssd`` as the plain ``ssd_chunked`` on any device,
+    inside the block: the fp32 reading's scan (the kernel takes bf16
+    x only, and the reading is to be independent of it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import ssd_chunked
+    kernel = ops.ssd
+    ops.ssd = lambda x, dt, A, B, C, *, chunk, h0=None: ssd_chunked(
+        x, dt, A, B, C, chunk=chunk, h0=h0)
+    try:
+        yield
+    finally:
+        ops.ssd = kernel
+
+
 def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
-                     label, groups=1, routes=None) -> dict:
+                     label, groups=1, routes=None, tokens_held=True) -> dict:
     """The static path (``api.generate_static``: the flash kernel for the
-    prefill, plain decode attention over dense caches) on the same
-    prompts. Both paths' logits after each prompt (the static prefill's;
+    prefill's attention and the ssd kernel for its mamba layers, plain
+    decode attention and recurrence over dense caches) on the same
+    prompts; ``ref`` may hold fewer tokens a request than ``max_new``
+    (the first ones are compared). Both paths' logits after each prompt (the static prefill's;
     the engine path's, one paged chunk) are held against the fp32 reading
     (``fp32_logits``): the static path may be at most twice as far from it
     as the engine path (a wrong flash prefill would be far from it; the
@@ -3037,27 +3298,36 @@ def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
     other places, sends some rows to other experts, and a row's output
     then moves by far more than a rounding. The readings are also taken
     without the replay (not held to anything). Counts its flash launches.
-    ``groups``: see ``fp32_logits``. Returns the readings."""
+    ``groups``: see ``fp32_logits``. With ``tokens_held`` off the tokens
+    are compared and counted, not held (a depth where the fp32 reading no
+    longer tells the bf16 paths apart). Returns the readings."""
     import numpy as np
     from repro_torch.models import api
     from repro_torch.models.embedding import head_table
-    from repro_torch.models.transformer import prefill_logits
+    from repro_torch.models.transformer import layer_counts, prefill_logits
 
     V = cfg.vocab_size
     head = head_table(params["embed"], cfg).float()
     tokens = torch.from_numpy(np.stack(prompts)).to(DEV)
     B, S = tokens.shape
     log = routes if routes is not None else RouteLog()
-    prefill, decode, step = api.prefill_fn, api.decode_fn, [0]
+    prefill, decode, step, walls = api.prefill_fn, api.decode_fn, [0], []
+
+    def walled(fn, *a, **kw):
+        t0 = time.monotonic()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        return out
 
     def logged_prefill(*a, **kw):
         log.step({B * S: seq_rows(range(B), S)})
-        return prefill(*a, **kw)
+        return walled(prefill, *a, **kw)
 
     def logged_decode(*a, **kw):
         step[0] += 1
         log.step({B: [(b, b, S + step[0] - 1) for b in range(B)]})
-        return decode(*a, **kw)
+        return walled(decode, *a, **kw)
 
     def readings():
         """(static prefill, engine path, fp32) logits after the prompts."""
@@ -3112,23 +3382,32 @@ def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
         e_static, e_engine = err(static, exact), err(engine, exact)
         delta = err(static, engine)
         std = float(exact.std())
-        check(launches.get("flash_attention", 0) == cfg.num_layers,
-              f"{label}: static prefill made "
-              f"{launches.get('flash_attention')} flash launches, not "
-              f"{cfg.num_layers}")
+        n_attn, n_mamba = layer_counts(cfg)
+        flash = sum(n for k, n in launches.items()
+                    if k.startswith("flash_attention"))
+        check(flash == n_attn and launches.get("ssd", 0) == n_mamba,
+              f"{label}: static prefill made {flash} flash launches and "
+              f"{launches.get('ssd', 0)} ssd launches, not {n_attn} and "
+              f"{n_mamba} (one per attention application and mamba layer)")
         check(e_static <= 2 * e_engine,
               f"{label}: the static prefill's logits are {e_static:.4g} "
               f"from the fp32 reading, more than twice the engine path's "
               f"{e_engine:.4g}")
         limit = max(TOL, e_static + e_engine)
         margins = []
-        same = [near_tie_or_same(
-            torch, params, cfg, p, o.tolist(), r, limit, margins,
-            lambda m, n=n: log.step({m: seq_rows([n], m)}))
-            for n, (p, o, r) in enumerate(zip(prompts, out.cpu(), ref))]
+        if tokens_held:
+            same = [near_tie_or_same(
+                torch, params, cfg, p, o.tolist()[:len(r)], r, limit,
+                margins, lambda m, n=n: log.step({m: seq_rows([n], m)}))
+                for n, (p, o, r) in enumerate(zip(prompts, out.cpu(), ref))]
+        else:
+            same = [o.tolist()[:len(r)] == r for o, r in zip(out.cpu(), ref)]
         count()
     del head
-    res = {"wall_s": wall, "identical": sum(same), "requests": len(same),
+    res = {"wall_s": wall, "tok_s": B * max_new / wall,
+           "prefill_s": walls[0],
+           "decode_step_ms_mean": 1e3 * statistics.mean(walls[1:]),
+           "identical": sum(same), "requests": len(same),
            "margins": margins, "logit_delta": delta,
            "fp32_err_static": e_static, "fp32_err_engine": e_engine,
            "fp32_logit_std": std, "fp32_s": fp32_s, "launches": launches,
@@ -3146,7 +3425,9 @@ def static_vs_engine(torch, counters, params, cfg, prompts, max_new, ref,
                  f"{own['fp32_err_engine_own_routing']:.4g} from the fp32 "
                  "reading)")
     print(f"[static] {label}: generate_static (prefill through the flash "
-          f"kernel, {max_new - 1} decode steps) in {wall:.2f} s; logits "
+          f"and ssd kernels, {max_new - 1} decode steps) in {wall:.2f} s "
+          f"({res['tok_s']:.1f} tok/s; prefill {res['prefill_s']:.3f} s, "
+          f"decode step {res['decode_step_ms_mean']:.2f} ms); logits "
           f"after the prompts: max abs distance from the fp32 reading "
           f"(std {std:.4g}, {fp32_s:.1f} s) static {e_static:.4g}, engine "
           f"{e_engine:.4g}; static vs engine {delta:.4g}; "
@@ -4609,68 +4890,570 @@ def profile_train_step(torch, cfg, pcfg, ocfg, params, state, top=15):
     return out
 
 
+# phase 8's models besides glm4: (arch, config changes); qwen2_vl's smoke
+# head dim 12 has no flash route, so it runs at 16 with sections (2, 3, 3)
+CARD_VS_CPU_TRAIN = (("mamba2_370m", {}), ("zamba2_2p7b", {}),
+                     ("qwen3_moe_30b_a3b", {}), ("grok1_314b", {}),
+                     ("whisper_large_v3", {}),
+                     ("qwen2_vl_2b", dict(head_dim=16,
+                                          rope_sections=(2, 3, 3))))
+
+
 def train_card_vs_cpu(torch):
-    """Phase 8: glm4 smoke on the card and on the CPU from the same fp32
-    masters, the same three batches, two microbatches, remat full, SGD.
-    The card attends through the flash kernel and the plain backward, the
-    CPU through dense_attention under autograd. Losses within TOL per
-    step, grad norms within TOL relative, each fp32 master within TOL of
-    the largest master update."""
+    """Phase 8: smoke models on the card and on the CPU (``
+    train_card_vs_cpu_one``): glm4 on ShardedSource's first three
+    batches, then CARD_VS_CPU_TRAIN's models, the decoders on the same
+    source (qwen2_vl with its 1-D positions on all three planes, as
+    ``make_batch`` gives them), whisper on ``make_batch``'s seeded frames
+    (seeds 0-2)."""
+    import dataclasses
     import numpy as np
-    from repro_torch.config import (OptimizerConfig, ParallelConfig,
-                                    get_config)
+    from repro_torch.config import ShapeConfig, get_config
     from repro_torch.data.pipeline import ShardedSource
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.api import init_model
-    from repro_torch.optim import optimizers as opt
-    from repro_torch.spmd.steps import make_train_step
+    from repro_torch.models import api
+
+    def source_batches(cfg, positions=False):
+        out = []
+        for i in range(3):
+            b = {k: torch.from_numpy(np.array(v)) for k, v in
+                 ShardedSource(cfg, 32, seed=0).batch(i, 4).items()}
+            if positions:
+                b["positions"] = torch.arange(32, dtype=torch.int32)[
+                    None, None].expand(3, 4, 32).contiguous()
+            out.append(b)
+        return out
 
     cfg = get_config("glm4_9b", smoke=True)
+    out = {"glm4_9b": train_card_vs_cpu_one(torch, "glm4 smoke", cfg,
+                                            source_batches(cfg),
+                                            floor=False)}
+    for arch, change in CARD_VS_CPU_TRAIN:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **change)
+        if cfg.frontend == "audio":
+            batches = [api.make_batch(cfg, ShapeConfig("t", 32, 4, "train"),
+                                      i, "cpu") for i in range(3)]
+        else:
+            batches = source_batches(cfg, cfg.frontend == "vision")
+        label = f"{arch} smoke" + (f" {change}" if change else "")
+        out[arch] = train_card_vs_cpu_one(torch, label, cfg, batches)
+    return out
+
+
+# phase 8's noise floor for the families this PR trains: CPU runs whose
+# bf16 residual-stream inputs (the embedding outputs, and whisper's frames)
+# carry one-bf16-ulp flips in FLIP_SHARE of their values, one run per seed.
+# The floor is how far such a run lands from the plain CPU run: bf16
+# rounding differences of any kind, amplified over three SGD steps of a
+# random smoke model.
+FLIP_SHARE = 0.005
+FLIP_SEEDS = (0, 1, 2)
+
+
+@contextlib.contextmanager
+def flipped_embedding(torch, seed: int):
+    """The decoders' and whisper's ``embed``, and whisper's ``encode`` on
+    its frames, with a seeded FLIP_SHARE of their bf16 inputs to the
+    residual stream moved by one ulp, up or down (the gradient passes as
+    the plain one), inside the block."""
+    from repro_torch.models import encdec, transformer
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    plain_embed, plain_encode = transformer.embed, encdec.encode
+
+    def flip(y):
+        bits = y.detach().cpu().view(torch.int16)
+        hit = torch.rand(y.shape, generator=gen) < FLIP_SHARE
+        step = torch.where(torch.rand(y.shape, generator=gen) < 0.5, 1, -1)
+        moved = torch.where(hit, bits + step.to(torch.int16), bits)
+        return y + (moved.view(torch.bfloat16).to(y.device) - y).detach()
+
+    def embed(table, tokens, cfg):
+        return flip(plain_embed(table, tokens, cfg))
+
+    def encode(params, frames, cfg, *args, **kw):
+        return plain_encode(params, flip(frames), cfg, *args, **kw)
+
+    transformer.embed = encdec.embed = embed
+    encdec.encode = encode
+    try:
+        yield
+    finally:
+        transformer.embed = encdec.embed = plain_embed
+        encdec.encode = plain_encode
+
+
+def leaf_paths(tree, prefix=""):
+    """Paths of ``tree``'s leaves, in ``optimizers.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def train_card_vs_cpu_one(torch, label, cfg, batches, floor=True) -> dict:
+    """One smoke model on the card and on the CPU from the same fp32
+    masters, the same batches, two microbatches, remat full, SGD. The
+    card attends through the flash kernel and scans through the ssd
+    kernel (each under its autograd function, with the plain backward),
+    the CPU runs dense_attention and ssd_chunked under autograd. Losses
+    within TOL per step, grad norms within TOL relative, each fp32 master
+    within TOL of the largest master update; the card's launches as
+    ``expected_launches`` counts them (2 forward passes per microbatch).
+    The families this PR trains (``floor``) are held to the larger of
+    these and twice their noise floor (``flipped_embedding``, the largest
+    over FLIP_SEEDS): their bf16 smoke models amplify any rounding
+    difference into several percent of an update within three steps (a
+    plain CPU run against one with a few flipped input bits lands as far
+    from it as the card does), and most in a few elements (the tied
+    table's most frequent rows). So their masters are held leaf by leaf:
+    each leaf's difference over its own update (L2 norms) against the
+    larger of TOL and twice that leaf's floor, so that a small leaf (a
+    router, A_log, dt_bias, D, a conv weight) is held on its own and not
+    inside the embedding table's norm; the largest element's difference
+    over the largest update is printed beside its floor. A MoE model's CPU
+    runs replay the card run's routing (``RouteTape``): bf16 rounding
+    routes some rows to other experts on each side, which moves them by
+    far more than a rounding (phase 12's static check replays for the
+    same reason)."""
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.models.api import init_model
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.serving.graphs import KERNELS
+    from repro_torch.spmd.steps import make_train_step
+
     ocfg = OptimizerConfig(name="sgd", lr=0.1, warmup_steps=0,
                            schedule="constant")
     pcfg = ParallelConfig(remat="full", microbatches=2)
     init = init_model(cfg, seed=0, device="cpu", dtype=torch.float32)
-    src = ShardedSource(cfg, 32, seed=0)
-    batches = [src.batch(i, 4) for i in range(3)]
-    runs = {}
-    for dev in (DEV, "cpu"):
+
+    def run(dev):
         state = opt.init_train_state(ocfg, opt.tree_map(
             lambda t: t.to(dev, copy=True), init))     # updated in place
         params = opt.working_params(state)
         step = make_train_step(cfg, pcfg, ocfg)
-        launches = fa.flash_attention.launches["mma"]
         metrics = []
         for s, b in enumerate(batches):
-            params, state, m = step(params, state, s, {
-                k: torch.from_numpy(np.array(v)).to(dev)
-                for k, v in b.items()})
+            params, state, m = step(params, state, s,
+                                    {k: v.to(dev) for k, v in b.items()})
             metrics.append({k: float(v) for k, v in m.items()})
-        if dev != "cpu":
-            n = fa.flash_attention.launches["mma"] - launches
-            check(n == 3 * 2 * 2 * cfg.num_layers,
-                  "train card-vs-cpu: the flash kernel (route mma, hd "
-                  f"{cfg.head_dim}) did not run every layer of every "
-                  f"microbatch twice on the card ({n} launches)")
-        runs[dev] = (metrics, [t.cpu() for t in opt.tree_leaves(
-            state["master"])])
-    (m_card, w_card), (m_cpu, w_cpu) = runs[DEV], runs["cpu"]
+        return metrics, [t.cpu() for t in opt.tree_leaves(state["master"])]
+
+    tape = RouteTape()
+    reset_launches(KERNELS)
+    with tape.record() if cfg.moe is not None else contextlib.nullcontext():
+        card = run(DEV)
+    launches = read_launches(KERNELS)
+    want = expected_launches(cfg, 2 * 2 * len(batches))
+    check({k: launches.get(k, 0) for k in want} == want
+          and sum(launches.values()) == sum(want.values()),
+          f"train card-vs-cpu {label}: launches {launches}, not {want}")
+
+    def cpu_run():
+        with tape.replay() if cfg.moe is not None \
+                else contextlib.nullcontext():
+            return run("cpu")
+
+    cpu = cpu_run()
     w0 = opt.tree_leaves(init)
-    for a, b in zip(m_card, m_cpu):
-        check(abs(a["loss"] - b["loss"]) <= TOL
-              and abs(a["grad_norm"] - b["grad_norm"]) <= TOL * b["grad_norm"],
-              f"train card-vs-cpu: card {a}, cpu {b}")
-    upd = max(float((b - c).abs().max()) for b, c in zip(w_cpu, w0))
-    diff = max(float((a - b).abs().max()) for a, b in zip(w_card, w_cpu))
-    check(upd > 0, "train card-vs-cpu: the masters did not move")
-    check(diff <= TOL * upd, f"train card-vs-cpu: masters differ by "
-          f"{diff}, {diff / upd} of the largest update {upd}")
-    print(f"[train-card-vs-cpu] glm4 smoke, 3 SGD steps, 2 microbatches: "
-          f"losses card {[m['loss'] for m in m_card]} cpu "
-          f"{[m['loss'] for m in m_cpu]}; grad norms card "
-          f"{[m['grad_norm'] for m in m_card]} cpu "
-          f"{[m['grad_norm'] for m in m_cpu]}; masters within "
-          f"{diff / upd:.3g} of the largest update", flush=True)
-    return {"masters_err_over_update": diff / upd}
+    upd = max(float((b - c).abs().max()) for b, c in zip(cpu[1], w0))
+    check(upd > 0, f"train card-vs-cpu {label}: the masters did not move")
+
+    names = leaf_paths(init)
+
+    def gap(other):
+        """(loss diffs, grad-norm relative diffs by step, worst master
+        diff over the largest update, each leaf's difference over its own
+        update) of a run against the plain CPU run."""
+        (m_a, w_a), (m_b, w_b) = other, cpu
+        return ([abs(a["loss"] - b["loss"]) for a, b in zip(m_a, m_b)],
+                [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(m_a, m_b)],
+                max(float((a - b).abs().max()) for a, b in zip(w_a, w_b))
+                / upd,
+                [float((a - b).norm()) / max(float((b - c).norm()), 1e-30)
+                 for a, b, c in zip(w_a, w_b, w0)])
+
+    losses, norms, masters, leaves = gap(card)
+    res = {"losses_card": [m["loss"] for m in card[0]],
+           "losses_cpu": [m["loss"] for m in cpu[0]],
+           "grad_norms_card": [m["grad_norm"] for m in card[0]],
+           "grad_norms_cpu": [m["grad_norm"] for m in cpu[0]],
+           "masters_err_over_update": masters,
+           "leaf_rel_err_max": max(leaves), "launches": launches}
+    note = ""
+    if cfg.moe is not None:
+        res.update(rows_replayed=tape.replayed, rows_rerouted=tape.rerouted)
+        note = (f"; the CPU runs replayed the card's routing ({tape.rerouted}"
+                f" of {tape.replayed} rows would have routed otherwise)")
+    loss_lim, norm_lim = [TOL] * len(batches), [TOL] * len(batches)
+    if floor:
+        floors = []
+        for seed in FLIP_SEEDS:
+            with flipped_embedding(torch, seed):
+                floors.append(gap(cpu_run()))
+        fl_loss, fl_norm = ([max(f[i][j] for f in floors)
+                             for j in range(len(batches))] for i in (0, 1))
+        fl_masters = max(f[2] for f in floors)
+        fl_leaves = [max(f[3][j] for f in floors) for j in range(len(names))]
+        loss_lim = [max(TOL, 2 * x) for x in fl_loss]
+        norm_lim = [max(TOL, 2 * x) for x in fl_norm]
+        leaf_lim = [max(TOL, 2 * x) for x in fl_leaves]
+        # the leaves nearest their limits, and every SSM and router leaf
+        ranked = sorted(range(len(names)),
+                        key=lambda j: leaves[j] / leaf_lim[j], reverse=True)
+        shown = ranked[:4] + [j for j in ranked[4:] if any(
+            w in names[j] for w in ("A_log", "dt_bias", "/D", "conv",
+                                    "router"))]
+        res.update(floor_loss=fl_loss, floor_grad_norm=fl_norm,
+                   floor_masters=fl_masters,
+                   leaves={names[j]: [leaves[j], fl_leaves[j]]
+                           for j in shown},
+                   leaf_ratio_max=leaves[ranked[0]] / leaf_lim[ranked[0]])
+        note += (f"; noise floor (CPU runs with {FLIP_SHARE} of the "
+                 f"residual-stream inputs one ulp off, the largest of "
+                 f"{len(FLIP_SEEDS)} seeds): losses {fl_loss}, grad norms "
+                 f"{fl_norm}, masters {fl_masters:.3g}; leaves (card, floor) "
+                 + ", ".join(f"{names[j]} {leaves[j]:.3g} {fl_leaves[j]:.3g}"
+                             for j in shown))
+    else:
+        leaf_lim = None
+    print(f"[train-card-vs-cpu] {label}, {len(batches)} SGD steps, 2 "
+          f"microbatches: losses card {res['losses_card']} cpu "
+          f"{res['losses_cpu']}; grad norms card {res['grad_norms_card']} "
+          f"cpu {res['grad_norms_cpu']}; masters within {masters:.3g} of "
+          f"the largest update; the worst leaf {max(leaves):.3g} of its "
+          f"own update{note}; card launches {launches}", flush=True)
+    check(all(a <= b for a, b in zip(losses, loss_lim))
+          and all(a <= b for a, b in zip(norms, norm_lim)),
+          f"train card-vs-cpu {label}: losses differ by {losses}, grad norms "
+          f"by {norms} relative (limits {loss_lim}, {norm_lim})")
+    if leaf_lim is None:
+        check(masters <= TOL, f"train card-vs-cpu {label}: masters differ "
+              f"by {masters} of the largest update (limit {TOL})")
+    else:
+        over = [(names[j], leaves[j], leaf_lim[j]) for j in range(len(names))
+                if leaves[j] > leaf_lim[j]]
+        check(not over, f"train card-vs-cpu {label}: leaves past their "
+              f"limits (leaf, its difference over its own update, limit): "
+              f"{over}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 15: training of every family at full width; checkpoint and
+# resume on the card
+# ---------------------------------------------------------------------------
+
+# (arch, layers or None for the full depth, batch source): B 2; S 2048 for
+# the decoders, 448 decoder tokens over 1500 frames for whisper
+FAMILY_TRAIN = (("mamba2_370m", None, "source"),
+                ("zamba2_2p7b", None, "source"),
+                ("qwen3_moe_30b_a3b", 4, "source"),
+                ("whisper_large_v3", None, "make_batch"),
+                ("qwen2_vl_2b", None, "mrope"))
+FAMILY_STEPS, FAMILY_B, FAMILY_S, WHISPER_S = 4, 2, 2048, 448
+# the archs that also take one step under each remat mode
+REMAT_ARCHS = ("mamba2_370m", "qwen3_moe_30b_a3b")
+REMAT_TOL = 1e-6
+
+
+def family_batch(torch, np, cfg, kind):
+    """Phase 13's fixed batch on the card: ShardedSource's batch 0 for the
+    decoders (with phase 12d's 3-plane positions for qwen2_vl), or
+    ``api.make_batch`` (seeded 1500 x 1280 frames) for whisper."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import ShardedSource
+    from repro_torch.models import api
+    if kind == "make_batch":
+        return api.make_batch(cfg, ShapeConfig("train", WHISPER_S, FAMILY_B,
+                                               "train"), 0, DEV)
+    b = {k: torch.from_numpy(np.array(v)).to(DEV) for k, v in
+         ShardedSource(cfg, FAMILY_S, seed=0).batch(0, FAMILY_B).items()}
+    if kind == "mrope":
+        b["positions"] = torch.from_numpy(mrope_positions(
+            np, FAMILY_B, FAMILY_S)).to(DEV)
+    return b
+
+
+def expected_launches(cfg, passes: int) -> dict:
+    """Kernel launches of ``passes`` forward passes, half of them remat
+    recomputes (remat full): the flash kernel once per attention
+    application on its head dim's route (whisper: its encoder, decoder
+    self and cross attention), the ssd kernel once per mamba layer (one
+    launch scans every chunk), the gather once per forward that is not a
+    recompute (the embedding is outside the remat units)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import layer_counts
+    if cfg.encoder_layers:
+        n_attn, n_mamba = cfg.encoder_layers + 2 * cfg.num_layers, 0
+    else:
+        n_attn, n_mamba = layer_counts(cfg)
+    out = {"gather": passes // 2}
+    if n_attn:
+        out[variant("flash_attention", fa.route(cfg.head_dim))] = \
+            passes * n_attn
+    if n_mamba:
+        out["ssd"] = passes * n_mamba
+    return out
+
+
+def profile_family_step(torch, step, params, state, batch, label, top=12):
+    """One more step under torch.profiler: device ms by kernel, the busy
+    share, and the SSD's split: its kernel forward (the ssd_prep and
+    ssd_main launches) and its plain recompute backward (the device time
+    under the SSDBackward ranges, its backward node's)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, _, m = step(params, state, FAMILY_STEPS, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    avg = prof.key_averages()
+    kernels = sorted((e for e in avg if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    ssd_fwd = sum(e.self_device_time_total for e in kernels
+                  if "ssd_prep" in e.key or "ssd_main" in e.key) / 1e3
+    ssd_bwd = sum(e.device_time_total for e in avg
+                  if e.device_type.name != "CUDA"
+                  and e.key == "SSDBackward") / 1e3
+    out = {"wall_ms": 1e3 * wall, "device_ms": total,
+           "busy_share": total / (1e3 * wall),
+           "ssd_forward_ms": ssd_fwd, "ssd_plain_backward_ms": ssd_bwd,
+           "ssd_forward_share": ssd_fwd / total,
+           "ssd_plain_backward_share": ssd_bwd / total,
+           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                   for e in kernels[:top]]}
+    print(f"[train-family-profile] {label}: one step, device {total:.1f} ms "
+          f"over {1e3 * wall:.1f} ms wall (profiled), busy share "
+          f"{out['busy_share']:.3f}; SSD kernel forward {ssd_fwd:.1f} ms "
+          f"({100 * out['ssd_forward_share']:.1f}%), its plain recompute "
+          f"backward {ssd_bwd:.1f} ms "
+          f"({100 * out['ssd_plain_backward_share']:.1f}%)", flush=True)
+    for name, ms, n in out["top"]:
+        print(f"[train-family-profile] {label} {ms:9.2f} ms "
+              f"{100 * ms / total:5.1f}% {n:6d}x {name}", flush=True)
+    return out
+
+
+def remat_modes(torch, cfg, params, batch, label) -> dict:
+    """The loss and the gradient (a step before its update) from the same
+    working params under remat none, full and dots: losses and grad norms
+    within REMAT_TOL relative; whether they and every gradient are bitwise
+    equal to none's; each mode's peak memory."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt
+    leaves = opt.tree_leaves(params)
+    out, first = {}, None
+    for mode in ("none", "full", "dots"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = api.loss_fn(params, batch, cfg, ParallelConfig(remat=mode))
+        grads = torch.autograd.grad(loss, leaves)
+        gn = opt.global_norm(grads)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if first is None:
+            first = (loss.detach(), [g.clone() for g in grads])
+            bitwise = True
+        else:
+            bitwise = bool(torch.equal(loss, first[0])
+                           and all(torch.equal(a, b)
+                                   for a, b in zip(grads, first[1])))
+        out[mode] = dict(loss=float(loss.detach()), grad_norm=float(gn),
+                         peak_mem_gib=peak, bitwise_equal_to_none=bitwise)
+        del loss, grads
+    del first
+    for mode in ("full", "dots"):
+        for k in ("loss", "grad_norm"):
+            a, b = out[mode][k], out["none"][k]
+            check(abs(a - b) <= REMAT_TOL * abs(b), f"{label} remat {mode}: "
+                  f"{k} {a} vs none's {b}")
+    print(f"[train-remat] {label}: one step's loss and grad norm under "
+          f"remat none / full / dots: {json.dumps(out)}", flush=True)
+    return out
+
+
+def resume_check(torch, step_fn, mgr, spec, saved, batch, uninterrupted,
+                 label):
+    """Phase 15: restore the step-2 checkpoint onto the card and run step
+    3 on the same batch: loss, grad norm and every master equal the
+    uninterrupted run's step 3, bit for bit; the same checkpoint restored
+    onto the CPU (``restore_to``) equals the state the card saved (its
+    host copy ``saved``), bit for bit, the bf16 leaves through their
+    uint16 round trip."""
+    from repro_torch.checkpoint.elastic import restore_to
+    from repro_torch.optim import optimizers as opt
+    loss3, gn3, masters3 = uninterrupted
+    t0 = time.monotonic()
+    step, tree = restore_to(mgr, spec, DEV, step=2)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    check(step == 2, f"{label}: restored step {step}, not 2")
+    params = opt.tree_map(lambda t: t.requires_grad_(), tree["params"])
+    _, state, m = step_fn(params, tree["opt"], 2, batch)
+    same_masters = all(torch.equal(a.cpu(), b) for a, b in zip(
+        opt.tree_leaves(state["master"]), masters3))
+    check(torch.equal(m["loss"], loss3) and torch.equal(m["grad_norm"], gn3)
+          and same_masters, f"{label}: the resumed step 3 differs from "
+          f"the uninterrupted one: loss {float(m['loss'])} vs "
+          f"{float(loss3)}, grad norm {float(m['grad_norm'])} vs "
+          f"{float(gn3)}, masters equal {same_masters}")
+    del params, state, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, cpu_tree = restore_to(mgr, spec, "cpu", step=2)
+    leaves = opt.tree_leaves(cpu_tree)
+    check(len(leaves) == len(saved) and all(
+        a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(leaves, saved)),
+        f"{label}: the checkpoint restored on the CPU differs from the "
+        "state saved on the card")
+    n_bf16 = sum(t.dtype == torch.bfloat16 for t in leaves)
+    check(n_bf16 > 0, f"{label}: no bf16 leaf in the checkpoint")
+    res = dict(restore_s=restore_s, leaves=len(leaves), bf16_leaves=n_bf16,
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    print(f"[train-resume] {label}: step-2 checkpoint ({len(leaves)} leaves, "
+          f"{n_bf16} bf16 through their uint16 view) restored onto the card "
+          f"in {restore_s:.2f} s: step 3's loss {res['loss']:.6f}, grad "
+          f"norm {res['grad_norm']:.6f} and every master equal the "
+          "uninterrupted run's, bit for bit; restored onto the CPU it "
+          "equals the state the card saved, bit for bit", flush=True)
+    return res
+
+
+def train_family(torch, counters, card, arch, layers, kind) -> dict:
+    """One phase-13 model: seeded fp32 masters, FAMILY_STEPS AdamW steps
+    (remat full) on one fixed batch: finite losses, the last below the
+    first; on step 1 a finite, non-zero gradient on every parameter leaf;
+    the launches ``expected_launches`` counts. The SSM models also take a
+    profiled step, REMAT_ARCHS one step's loss and gradient under each
+    remat mode, and mamba2 runs phase 15 around its step 3."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.elastic import save_global
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    get_config)
+    from repro_torch.models.api import init_model
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.spmd.steps import make_train_step
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=FAMILY_STEPS)
+    pcfg = ParallelConfig(remat="full", microbatches=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = opt.init_train_state(ocfg, init_model(cfg, 0, DEV, torch.float32))
+    params = opt.working_params(state)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    batch = family_batch(torch, np, cfg, kind)
+    tokens = batch["tokens"].numel()
+    step = make_train_step(cfg, pcfg, ocfg)
+    grads_seen = []
+
+    def grad_hook(grads):
+        leaves = opt.tree_leaves(grads)
+        grads_seen.append(len(leaves))
+        for i, g in enumerate(leaves):
+            check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                  f"{arch}: parameter leaf {i} {tuple(g.shape)} has a "
+                  "non-finite or all-zero gradient on step 1")
+
+    # phase 15 (mamba2): an async save of the state after step 2; step 3's
+    # loss, grad norm and masters
+    ckpt = tempfile.TemporaryDirectory() if arch == "mamba2_370m" else None
+    metrics, step3 = [], None
+    reset_launches(counters)
+    for s in range(FAMILY_STEPS):
+        t1 = time.monotonic()
+        _, _, m = step(params, state, s, batch,
+                       grad_hook=grad_hook if s == 0 else None)
+        raw = (m["loss"], m["grad_norm"])
+        m = {k: float(v) for k, v in m.items()}
+        ms = 1e3 * (time.monotonic() - t1)
+        metrics.append(dict(step=s, ms=ms, tok_s=tokens / ms * 1e3, **m))
+        if ckpt is not None and s == 1:
+            mgr = CheckpointManager(ckpt.name, keep=2, keep_best=1)
+            spec = {"params": params, "opt": state}
+            t2 = time.monotonic()
+            save_global(mgr, 2, spec, metric=m["loss"])
+            save_s = time.monotonic() - t2
+            saved = [t.detach().to("cpu", copy=True)
+                     for t in opt.tree_leaves(spec)]
+        if ckpt is not None and s == 2:
+            step3 = (*raw, [t.to("cpu", copy=True) for t in
+                            opt.tree_leaves(state["master"])])
+    launches = read_launches(counters)
+    losses = [x["loss"] for x in metrics]
+    check(all(map(math.isfinite, losses)), f"{arch}: losses {losses}")
+    check(losses[-1] < losses[0], f"{arch}: last loss {losses[-1]} is not "
+          f"below the first {losses[0]}")
+    check(grads_seen == [len(opt.tree_leaves(params))],
+          f"{arch}: gradient leaves {grads_seen}")
+    want = expected_launches(cfg, 2 * FAMILY_STEPS)
+    check({k: launches.get(k, 0) for k in want} == want
+          and sum(launches.values()) == sum(want.values()),
+          f"{arch}: launches {launches}, not {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    later = metrics[1:]
+    res = dict(arch=arch, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers, params=cfg.param_count(),
+               batch=FAMILY_B, tokens=tokens, remat="full",
+               optimizer="adamw", init_s=init_s, steps=metrics,
+               losses=losses,
+               step_ms_mean=sum(x["ms"] for x in later) / len(later),
+               tok_s_mean=sum(x["tok_s"] for x in later) / len(later),
+               peak_mem_gib=peak, launches=launches)
+    if cfg.moe is not None:
+        res["ce"] = [x["ce"] for x in metrics]
+        res["aux"] = [x["aux"] for x in metrics]
+    if cfg.ssm is not None:
+        res["profile"] = profile_family_step(torch, step, params, state,
+                                             batch, arch)
+    if ckpt is not None:
+        mgr.wait()
+        res["resume"] = resume_check(torch, step, mgr, spec, saved, batch,
+                                     step3, arch)
+        res["resume"]["save_s"] = save_s
+        del spec, saved, step3
+        ckpt.cleanup()
+    if arch in REMAT_ARCHS:
+        res["remat_modes"] = remat_modes(torch, cfg, params, batch, arch)
+    depth = f"{cfg.num_layers} layers" + (
+        f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+    aux = f" (ce {res['ce']}, aux {res['aux']})" if "aux" in res else ""
+    print(f"[train-family] {card}: {arch} full width, {depth} "
+          f"({res['params'] / 1e9:.2f} B params), B={FAMILY_B} x "
+          f"{batch['tokens'].shape[1]} tokens, remat full, AdamW, one fixed "
+          f"batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}{aux}, step "
+          f"{res['step_ms_mean']:.1f} ms ({res['tok_s_mean']:.0f} tok/s) "
+          f"over steps 2-{FAMILY_STEPS}, peak {peak:.2f} GiB, launches "
+          f"{launches}: {json.dumps(res)}", flush=True)
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_families(torch, counters, card, only=None) -> list:
+    """Phase 13 (with phase 15 in mamba2's run): each of FAMILY_TRAIN in
+    turn, each freed before the next."""
+    return [train_family(torch, counters, card, arch, layers, kind)
+            for arch, layers, kind in FAMILY_TRAIN
+            if only is None or arch in only]
 
 
 def build_report(log: str) -> None:
@@ -4697,8 +5480,7 @@ def main() -> int:
     # a hang anywhere (a driver thread, a capture) prints every thread's
     # stack and ends the run before its time limit
     dev_run = sys.argv[1:2] == ["--phase"]
-    faulthandler.dump_traceback_later(600 if dev_run else WATCHDOG_S,
-                                      exit=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4725,23 +5507,38 @@ def main() -> int:
     if log.exists():
         build_report(log.read_text())
 
-    if dev_run and sys.argv[2] in ("12", "2g"):
-        # a development run: phase 12 or phase 2g alone; no summary and no
-        # result line
-        rows = {}
-        if sys.argv[2] == "2g":
-            timer = Timer(torch)
-            gen = torch.Generator(device=DEV)
-            gen.manual_seed(0)
-            rows = {k: {} for k in ("paged_attention",
-                                    "paged_prefill_attention",
-                                    "ragged_paged_prefill_attention",
-                                    "flash_attention", "gather")}
-            check_slice(torch, timer, gen, rows)
-            print(f"[kernels] phase 2g: {json.dumps(rows)}")
-        else:
-            serve_slice(torch, KERNELS, card, rows)
-        print(f"[phase {sys.argv[2]}] passed (a partial run: no result line)")
+    phases = sys.argv[2].split(",") if dev_run else []
+    if phases and set(phases) <= {"12", "2g", "2h", "8", "13", "14"}:
+        # a development run: some phases alone, in the order given (14:
+        # phase 5's 512-token runs, each followed by phase 14; "13 ARCH
+        # ..." some of its models); no summary and no result line
+        for phase in phases:
+            rows = {}
+            if phase in ("2g", "2h"):
+                timer = Timer(torch)
+                gen = torch.Generator(device=DEV)
+                gen.manual_seed(0)
+                rows = {k: {} for k in ("paged_attention",
+                                        "paged_prefill_attention",
+                                        "ragged_paged_prefill_attention",
+                                        "flash_attention", "gather", "ssd")}
+                (check_slice if phase == "2g" else check_hd80)(
+                    torch, timer, gen, rows)
+                del timer
+                print(f"[kernels] phase {phase}: {json.dumps(rows)}")
+            elif phase == "12":
+                serve_slice(torch, KERNELS, card, rows)
+            elif phase == "8":
+                train_card_vs_cpu(torch)
+            elif phase == "13":
+                train_families(torch, KERNELS, card, sys.argv[3:] or None)
+            else:
+                serve_ssm(torch, KERNELS, card, runs=tuple(
+                    r for r in SSM_RUNS if r[1] == "512"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[phase {phase}] passed at {time.monotonic() - t0:.1f} s "
+                  "(a partial run: no result line)", flush=True)
         return 0
     if dev_run and sys.argv[2].startswith("11"):
         # a development run: phase 11 (or its parts "11bd", ...) alone, on
@@ -4777,7 +5574,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs += serve_ssm(torch, counters, card)
     card_vs_cpu(torch)
-    lap("5-6")
+    lap("5-6, 14")
     runs.append(train_full(torch, counters, card))
     train_card_vs_cpu(torch)
     lap("7-8")
@@ -4785,6 +5582,8 @@ def main() -> int:
     lap(10)
     runs += serve_slice(torch, counters, card, rows)
     lap(12)
+    runs += train_families(torch, counters, card)
+    lap("13, 15")
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}
@@ -4802,7 +5601,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items() if k in SUMMARY_EXTRAS
                        or k.startswith(("no_write", "device_ms", "hd80_",
-                                        "zamba2_", "verify_",
+                                        "zamba2_", "mamba2_", "verify_",
                                         "plain_device_ms",
                                         "library_device_ms")
                                        + tuple(f"{m}_" for m in

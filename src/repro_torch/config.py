@@ -170,8 +170,8 @@ class ShapeConfig:
 class ParallelConfig:
     """The JAX package's parallel configuration, field for field. The port
     runs on one device, where ``zero1`` shards nothing and is a no-op; the
-    trainer refuses ``fsdp``, ``seq_shard_activations`` and
-    ``remat="dots"`` by name (ROADMAP.md queue 1 item 13)."""
+    trainer refuses ``fsdp`` and ``seq_shard_activations`` by name
+    (ROADMAP.md queue 1 item 12)."""
     fsdp: bool = False            # shard params over "data" too
     zero1: bool = True            # shard optimizer state over "data"
     remat: str = "full"           # none | dots | full

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), in two routes by head dim.
+// Flash attention forward for Hopper (sm_90a), in two designs chosen by
+// head dim.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_fwd_kernel, driven by _flash_fwd): dense GQA attention that returns the
@@ -48,14 +49,15 @@
 //  * the output is scaled by 1 / l, staged in the warpgroup's own rows of
 //    the Q tile (swizzled as the boxes are) and written by TMA, which
 //    leaves out rows past Sq.
-// Routes "mma" (hd 16, the smoke configs) and "mma64" (hd 64, whisper's
-// encoder, cross and static prefill attention): one template, 4 warps own
+// Routes "mma" (hd 16, the smoke configs), "mma64" (hd 64, whisper's
+// encoder, cross and static prefill attention) and "mma80" (hd 80,
+// zamba2's shared attention block): one template, 4 warps own
 // 64 rows, each 64-key tile is copied to shared memory with 16-byte loads
-// (one plain load, no ring: a simple first kernel for hd 64), and both
+// (one plain load, no ring: a simple first kernel for hd 64 and 80), and both
 // products are mma.sync m16n8k16 with fp32 accumulation. At whisper's
 // non-causal 1500 x 1500 the work is 4 hd flops per (row, key) pair, so
 // this route too is bound by operations on the card.
-// In both, every sum has one fixed order (no atomics, no split over keys),
+// In every route, every sum has one fixed order (no atomics, no split over keys),
 // so two launches on the same inputs give the same bits: remat's
 // recompute of the forward reproduces it exactly.
 
@@ -74,7 +76,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// routes "mma" (hd 16) and "mma64" (hd 64)
+// routes "mma" (hd 16), "mma64" (hd 64) and "mma80" (hd 80)
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;          // query rows per block, 16 per warp
@@ -708,6 +710,17 @@ int flash_attention_fwd_mma64(const void* q, const void* k, const void* v,
                               int causal, int window, int q_offset,
                               void* stream) {
   return launch_mma<64>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
+                        causal, window, q_offset, stream);
+}
+
+// Route "mma80", hd 80 (zamba2's shared attention block): 5 k-steps of
+// q k^T, 10 eight-column output tiles, 176-byte padded shared rows.
+int flash_attention_fwd_mma80(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int B, int Sq, int Skv,
+                              int H, int K, float scale, float cap,
+                              int causal, int window, int q_offset,
+                              void* stream) {
+  return launch_mma<80>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
                         causal, window, q_offset, stream);
 }
 

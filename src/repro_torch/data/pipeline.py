@@ -14,7 +14,7 @@ import threading
 
 import numpy as np
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 
 
 class ShardedSource:
@@ -84,3 +84,11 @@ class Pipeline:
 
     def close(self):
         self._stop.set()
+
+
+def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                    device="cuda"):
+    """One-shot batch via ``models.api.make_batch`` (smoke tests and the
+    card's training check)."""
+    from repro_torch.models import api
+    return api.make_batch(cfg, shape, seed, device)

@@ -5,9 +5,10 @@ Port of ``repro.kernels.flash_attention.flash_attention`` (a Pallas TPU
 forward kernel under a ``jax.custom_vjp`` whose backward ``_bwd_ref`` is
 plain jnp). The kernels are in ``csrc/flash_attention.cu``, one route per
 head dim: ``"wgmma"`` for hd 128 (TMA loads into a ring of tiles and
-Hopper's warpgroup products; the training path), ``"mma64"`` for hd 64
-(whisper's encoder, cross and static prefill attention) and ``"mma"`` for
-hd 16 (the smoke configs), the last two one ``mma.sync`` template. Their
+Hopper's warpgroup products; the training path), ``"mma80"`` for hd 80
+(zamba2's shared attention block), ``"mma64"`` for hd 64 (whisper's
+encoder, cross and static prefill attention) and ``"mma"`` for hd 16 (the
+smoke configs), the last three one ``mma.sync`` template. Their
 plain version is ``ref.flash_attention_fwd_plain`` (the same (o, lse)).
 ``FlashAttention``
 runs the kernel forward, saves ``(q, k, v, o, lse)`` as ``_vjp_fwd`` does,
@@ -29,7 +30,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-ROUTES = {16: "mma", 64: "mma64", 128: "wgmma"}     # head dim -> kernel
+ROUTES = {16: "mma", 64: "mma64", 80: "mma80", 128: "wgmma"}  # hd -> kernel
 HEAD_DIMS = tuple(ROUTES)
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = ([_VP] * 5 + [_INT] * 5 + [_F, _F] + [_INT] * 3 + [_VP], _INT)
@@ -41,12 +42,13 @@ def _lib():
 
 
 def route(hd: int) -> str:
-    """The kernel that takes head dim ``hd``: "wgmma" (128), "mma64" (64)
-    or "mma" (16). Raises ValueError naming the head dims for any other."""
+    """The kernel that takes head dim ``hd``: "wgmma" (128), "mma80" (80),
+    "mma64" (64) or "mma" (16). Raises ValueError naming the head dims for
+    any other."""
     if hd not in ROUTES:
         raise ValueError(f"flash_attention: the kernel takes head dims "
-                         f"{HEAD_DIMS} (128 -> wgmma, 64 -> mma64, 16 -> "
-                         f"mma), got {hd}")
+                         f"{HEAD_DIMS} (128 -> wgmma, 80 -> mma80, 64 -> "
+                         f"mma64, 16 -> mma), got {hd}")
     return ROUTES[hd]
 
 
@@ -86,8 +88,8 @@ def _check(q, k, v, window, q_offset):
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
                     scale=None, q_offset=0):
     """CUDA flash forward. q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16
-    contiguous on one card, hd 128 (route "wgmma"), 64 ("mma64") or 16
-    ("mma"),
+    contiguous on one card, hd 128 (route "wgmma"), 80 ("mma80"), 64
+    ("mma64") or 16 ("mma"),
     Skv >= 1; query row i sits at absolute position ``q_offset + i``.
     Returns (o (B, Sq, H, hd) bf16, lse (B, Sq, H) fp32)."""
     _check(q, k, v, window, q_offset)

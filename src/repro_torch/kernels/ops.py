@@ -8,7 +8,8 @@ chunked prefill, ``ragged_chunk_attention_xla`` for packed prefill (after
 ``update_paged_cache_ragged`` for the fused write), ``table[ids]`` for the
 gather, ``models.ssm.ssd_chunked`` for the SSD scan,
 ``models.attention.dense_attention`` for flash attention (up to
-``DENSE_ATTN_MAX_KV`` keys, as off the TPU), ``ref.sampled_softmax_loss_ref``
+``DENSE_ATTN_MAX_KV`` keys, the streaming ``block_causal_attention`` /
+``chunked_attention`` beyond, as off the TPU), ``ref.sampled_softmax_loss_ref``
 for the sampled-softmax loss. There is no switch
 between the two other than where the tensors live. ``k_scale``/``v_scale``
 mark int8/fp8 pools, dequantized in-tile by the kernels and after the
@@ -33,20 +34,25 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
                     scale=None, q_offset=0):
     """Full-sequence attention, q (B, Sq, H, hd), k/v (B, Skv, K, hd),
     differentiable. On the card: the flash kernel forward under
-    ``FlashAttention`` (plain recompute backward). On the CPU:
-    ``dense_attention`` under autograd."""
+    ``FlashAttention`` (plain recompute backward). On the CPU, under
+    autograd: ``dense_attention`` up to ``DENSE_ATTN_MAX_KV`` keys, beyond
+    them ``block_causal_attention`` for causal self attention and
+    ``chunked_attention`` otherwise, over 1024-key chunks."""
     if q.is_cuda:
         return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
                                        v.contiguous(), causal, window, cap,
                                        scale, q_offset)
-    if k.shape[1] > DENSE_ATTN_MAX_KV:
-        raise NotImplementedError(
-            f"{k.shape[1]} keys: the plain path beyond {DENSE_ATTN_MAX_KV} "
-            "keys (block_causal_attention / chunked_attention) is not "
-            "ported (ROADMAP.md queue 1 item 13)")
-    from repro_torch.models.attention import dense_attention
-    return dense_attention(q, k, v, causal=causal, window=window, cap=cap,
-                           scale=scale, q_offset=q_offset)
+    from repro_torch.models.attention import (block_causal_attention,
+                                              chunked_attention,
+                                              dense_attention)
+    kw = dict(window=window, cap=cap, scale=scale)
+    if k.shape[1] <= DENSE_ATTN_MAX_KV:
+        return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               **kw)
+    if causal and q_offset == 0 and q.shape[1] == k.shape[1]:
+        return block_causal_attention(q, k, v, **kw)
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             **kw)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -135,13 +141,15 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, *, cap=None):
 
 def ssd(x, dt, A, B, C, *, chunk, h0=None):
     """Chunked SSD scan: x (b, S, nh, hp), dt (b, S, nh) fp32, A (nh,),
-    B, C (b, S, G, N), h0 (b, nh, hp, N) fp32 or None. Returns (y, h_last).
-    B and C go to the kernel as they come, slices of the conv output (it
+    B, C (b, S, G, N), h0 (b, nh, hp, N) fp32 or None. Returns (y, h_last),
+    differentiable: on the card the kernel under ``SSD`` (plain recompute
+    backward), on the CPU ``ssd_chunked`` under autograd. B and C go to the
+    kernel as they come, slices of the conv output (it
     takes their row strides); the other CUDA operands are made contiguous
     (they already are on the model path)."""
     if x.is_cuda:
         x, dt, A = (t.contiguous() for t in (x, dt, A))
-        return ssd_k.ssd(x, dt, A, B, C, chunk=chunk,
-                         h0=None if h0 is None else h0.contiguous())
+        return ssd_k.SSD.apply(x, dt, A, B, C,
+                               None if h0 is None else h0.contiguous(), chunk)
     from repro_torch.models.ssm import ssd_chunked
     return ssd_chunked(x, dt, A, B, C, chunk=chunk, h0=h0)

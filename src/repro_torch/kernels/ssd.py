@@ -14,6 +14,11 @@ the other rows' y unchanged, bit for bit.
 B and C may be strided views (slices of the conv output): the kernel takes
 their batch and row strides; each group's N values must be dense.
 
+``SSD`` is the scan under autograd, which training runs: the kernel
+forward, and a backward that recomputes the plain ``ssd_chunked`` from the
+saved inputs and differentiates it. The JAX package has no SSD backward
+kernel either: off the TPU it differentiates the plain scan.
+
 ``ssd.launches`` counts the calls that launch the kernel.
 """
 
@@ -123,3 +128,37 @@ def ssd(x, dt, A, B, C, *, chunk, h0=None):
 
 
 ssd.launches = 0
+
+
+class SSD(torch.autograd.Function):
+    """(y, h_last) = the scan of (x, dt, A, B, C, h0) through the kernel;
+    gradients by autograd through the plain ``ssd_chunked`` recomputed
+    from the saved inputs. ``None`` for an input that needs none (h0 may
+    be None)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0, chunk):
+        y, h_last = ssd(x, dt, A, B, C, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, A, B, C, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        from repro_torch.models.ssm import ssd_chunked
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(saved, needs)]
+            y, h_last = ssd_chunked(*ins[:5], chunk=ctx.chunk, h0=ins[5])
+            outs = [(o, g) for o, g in ((y, dy), (h_last, dh))
+                    if g is not None]
+            wrt = [t for t, n in zip(ins, needs) if n and t is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in outs], wrt, [g for _, g in outs],
+                allow_unused=True) if outs and wrt else ())
+        out = [next(grads) if n and t is not None else None
+               for t, n in zip(ins, needs)]
+        return (*out, None)

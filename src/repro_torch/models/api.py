@@ -15,8 +15,11 @@ package's ``shape[0]`` rule), so a model's fp32 draw never exists whole.
 
 The static path's entry points (``prefill_fn``, ``decode_fn``,
 ``init_cache``) and ``generate_static``, the static server's greedy loop
-over them, serve dense, MoE and M-RoPE decoders (``models.transformer``)
-and the encoder-decoder (``models.encdec``), dispatched on the config.
+over them, and the training loss ``loss_fn`` serve every decoder (dense,
+MoE, M-RoPE, Mamba2 and the hybrid: ``models.transformer``) and the
+encoder-decoder (``models.encdec``), dispatched on the config.
+``batch_shapes`` and ``make_batch`` give the synthetic batches of the
+JAX package's smoke tests.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.config import MAMBA, ModelConfig
+from repro_torch.config import MAMBA, ModelConfig, ShapeConfig
 from repro_torch.models import encdec, transformer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -147,9 +150,57 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
-    """Training loss and metrics (dense decoders; see
-    ``transformer.forward_loss``)."""
+    """Training loss and metrics {"ce", "aux"}: ``encdec.forward_loss``
+    for the encoder-decoder (its batch carries ``frames``; no sampled
+    softmax there, as in the JAX package), ``transformer.forward_loss``
+    for every decoder."""
+    if is_encdec(cfg):
+        return encdec.forward_loss(params, batch, cfg, pcfg)
     return transformer.forward_loss(params, batch, cfg, pcfg, sampled_ids)
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """name -> (shape, dtype) of every model input but the cache: tokens
+    [and labels] for "train" and "prefill" shapes, with frames (B, T_enc,
+    d) bf16 for the audio frontend and positions (3, B, S) for the vision
+    frontend; token (B, 1) and pos (B,) for "decode"."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        d = {"tokens": ((B, S), i32)}
+        if shape.kind == "train":
+            d["labels"] = ((B, S), i32)
+        if cfg.frontend == "audio":
+            d["frames"] = ((B, cfg.encoder_seq_len, cfg.d_model),
+                           torch.bfloat16)
+        if cfg.frontend == "vision":
+            d["positions"] = ((3, B, S), i32)
+        return d
+    return {"token": ((B, 1), i32), "pos": ((B,), i32)}
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+               device="cuda") -> dict:
+    """A synthetic batch of ``batch_shapes``, drawn on the host with the
+    JAX package's numpy draws in its order (the same values, byte for
+    byte), then placed on ``device``: token ids uniform in [0, vocab),
+    frames N(0, 1) rounded to fp32 then bf16, positions 0 .. S-1 on all
+    three planes, pos S - 1."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shp, dt) in batch_shapes(cfg, shape).items():
+        if name == "pos":
+            t = torch.full(shp, shape.seq_len - 1, dtype=dt)
+        elif name == "positions":
+            t = torch.arange(shp[2], dtype=dt)[None, None].expand(shp)
+        elif dt == torch.int32:
+            t = torch.from_numpy(rng.integers(0, cfg.vocab_size, shp)
+                                 .astype(np.int32))
+        else:
+            t = torch.from_numpy(rng.normal(0, 1, shp).astype(np.float32)
+                                 ).to(dt)
+        out[name] = t.to(device)
+    return out
 
 
 def _static(cfg: ModelConfig):

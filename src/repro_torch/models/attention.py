@@ -92,6 +92,81 @@ def sharded_attention(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
                                cap=cap, scale=scale)
 
 
+def block_causal_attention(q, k, v, *, window=None, cap=None, scale=None,
+                           chunk_kv=1024, block_q=2048, q_offset=0):
+    """Causal self attention with static triangular block skipping (port
+    of the JAX package's plain path beyond ``DENSE_ATTN_MAX_KV`` keys):
+    the query rows are cut into ``block_q`` blocks, and block i attends
+    through ``chunked_attention`` to the key prefix it can see only (with
+    a window, from the first chunk that holds a key in it)."""
+    B, Sq, H, hd = q.shape
+    if q_offset != 0 or Sq != k.shape[1]:
+        raise ValueError("block_causal_attention: self-attention prefill "
+                         "only (q_offset 0, Sq == Skv)")
+    outs = []
+    for lo in range(0, Sq, block_q):
+        hi = min(lo + block_q, Sq)
+        start = 0
+        if window is not None:
+            start = max(0, (lo - window) // chunk_kv * chunk_kv)
+        outs.append(chunked_attention(
+            q[:, lo:hi], k[:, start:hi], v[:, start:hi], causal=True,
+            window=window, cap=cap, scale=scale, chunk_kv=chunk_kv,
+            q_offset=lo - start))
+    return torch.cat(outs, dim=1)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, cap=None,
+                      scale=None, chunk_kv=1024, q_offset=0):
+    """GQA attention streamed over ``chunk_kv``-key chunks with an online
+    (max, sum, acc) softmax in fp32, so the logits held at once are (Sq,
+    chunk_kv) per head (port of the JAX package's ``chunked_attention``).
+    q (B, Sq, H, hd), k/v (B, Skv, K, hd), g-major heads; query row i at
+    absolute position q_offset + i. fp32 logits of the exact products,
+    softcap, mask; each chunk's probabilities cast to v's dtype before p v,
+    summed in fp32."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    chunk_kv = min(chunk_kv, Skv)
+    qg = q.reshape(B, Sq, G, K, hd).float()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    mx = torch.full((B, Sq, G, K), NEG_INF, dtype=torch.float32,
+                    device=q.device)
+    sm = torch.zeros((B, Sq, G, K), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, G, K, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Skv, chunk_kv):
+        # the last chunk is zero-padded to chunk_kv keys, as in the JAX
+        # package, and its padding masked
+        k_i, v_i = k[:, c0:c0 + chunk_kv], v[:, c0:c0 + chunk_kv]
+        pad = chunk_kv - k_i.shape[1]
+        if pad:
+            k_i = torch.nn.functional.pad(k_i, (0, 0, 0, 0, 0, pad))
+            v_i = torch.nn.functional.pad(v_i, (0, 0, 0, 0, 0, pad))
+        k_pos = c0 + torch.arange(chunk_kv, device=q.device)
+        logits = torch.einsum("bqgkh,bckh->bqgkc", qg, k_i.float()) * scale
+        logits = softcap(logits, cap)
+        valid = (k_pos < Skv)[None, :]
+        if causal:
+            d = q_pos[:, None] - k_pos[None, :]
+            ok = d >= 0
+            if window is not None:
+                ok &= d < window
+            valid = valid & ok
+        logits = torch.where(valid[None, :, None, None, :], logits, NEG_INF)
+        new_mx = torch.maximum(mx, logits.amax(dim=-1))
+        p = torch.exp(logits - new_mx[..., None])
+        corr = torch.exp(mx - new_mx)
+        sm = sm * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqgkc,bckh->bqgkh", p.to(v.dtype).float(), v_i.float())
+        mx = new_mx
+    out = acc / sm.clamp(min=1e-37)[..., None]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def update_cache(cache, new, pos):
     """Write one new KV row per sequence into a dense static cache, in
     place. cache: (B, S, K, hd); new: (B, 1, K, hd); pos: (B,) write

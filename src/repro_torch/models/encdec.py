@@ -10,7 +10,8 @@ MLP. Parameters: ``{"embed", "encoder": [layer, ...], "decoder":
 ``norm``, ``attn``, ``norm2``, ``mlp``, a decoder layer also ``xnorm`` and
 ``xattn`` between its self attention and its MLP.
 
-Entry points: ``encode`` and ``encode_cross_kv`` (the serving engine's
+Entry points: the training loss ``forward_loss`` (each encoder and
+decoder layer body under remat), ``encode`` and ``encode_cross_kv`` (the serving engine's
 admission pass: every decoder layer's cross K/V of one request), the
 static path ``prefill`` / ``decode_step`` over dense caches ``{"k", "v"}
 (L, B, max_len, K, hd)`` and ``{"xk", "xv"} (L, B, T_enc, K, hd)``, and
@@ -25,6 +26,8 @@ card, its hd-64 route for whisper); the decode's cross attention is
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.config import ModelConfig
@@ -35,8 +38,10 @@ from repro_torch.models.attention import (attention_scale, decode_attention,
                                           project_q, sharded_attention,
                                           update_cache, update_paged_cache,
                                           update_paged_cache_chunk)
-from repro_torch.models.embedding import decode_logits, embed, head_table
+from repro_torch.models.embedding import (decode_logits, embed, head_table,
+                                          lm_loss)
 from repro_torch.models.layers import apply_mlp, apply_norm, rope_cos_sin
+from repro_torch.models.remat import MODES, remat
 
 
 def _arange_positions(B: int, S: int, device):
@@ -52,21 +57,36 @@ def _mlp(lp, x, cfg: ModelConfig):
     return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
 
 
-def encode(params, frames, cfg: ModelConfig):
+def _enc_layer(lp, cfg: ModelConfig, cos_sin, x):
+    """One bidirectional encoder layer."""
+    h = apply_norm(lp["norm"], x, cfg)
+    q = project_q(lp["attn"], h, cfg, cos_sin)
+    k, v = project_kv(lp["attn"], h, cfg, cos_sin)
+    y = sharded_attention(q, k, v, cfg, causal=False,
+                          scale=attention_scale(cfg))
+    x = x + out_proj(lp["attn"], y, x.dtype)
+    return _mlp(lp, x, cfg)
+
+
+def _layer_remat(mode: str) -> str:
+    """The JAX package checkpoints the encoder's and the decoder's layer
+    bodies with no policy under any remat mode but "none"."""
+    if mode not in MODES:
+        raise ValueError(f"remat={mode!r}: one of {MODES}")
+    return "none" if mode == "none" else "full"
+
+
+def encode(params, frames, cfg: ModelConfig, remat_mode: str = "none"):
     """frames (B, T_enc, d_model) in the activation dtype -> the encoder
     output (B, T_enc, d_model): bidirectional self-attention layers and
-    the final norm."""
+    the final norm. ``remat_mode`` (training): each layer body under
+    ``models.remat``, as ``_layer_remat`` maps it."""
     B, Te, _ = frames.shape
     cos_sin = _rope(cfg, _arange_positions(B, Te, frames.device))
-    scale = attention_scale(cfg)
+    mode = _layer_remat(remat_mode)
     x = frames
     for lp in params["encoder"]:
-        h = apply_norm(lp["norm"], x, cfg)
-        q = project_q(lp["attn"], h, cfg, cos_sin)
-        k, v = project_kv(lp["attn"], h, cfg, cos_sin)
-        y = sharded_attention(q, k, v, cfg, causal=False, scale=scale)
-        x = x + out_proj(lp["attn"], y, x.dtype)
-        x = _mlp(lp, x, cfg)
+        x = remat(functools.partial(_enc_layer, lp, cfg, cos_sin), mode)(x)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
@@ -96,6 +116,44 @@ def _decoder(params, x, cfg: ModelConfig, self_attend, cross_attend):
                          x.dtype)
         x = _mlp(lp, x, cfg)
     return apply_norm(params["final_norm"], x, cfg)
+
+
+def _dec_layer(lp, cfg: ModelConfig, cos_sin, x, enc_out):
+    """One decoder layer over the whole sequence (training): causal self
+    attention, cross attention to the encoder output, the MLP."""
+    scale = attention_scale(cfg)
+    h = apply_norm(lp["norm"], x, cfg)
+    q = project_q(lp["attn"], h, cfg, cos_sin)
+    k, v = project_kv(lp["attn"], h, cfg, cos_sin)
+    y = sharded_attention(q, k, v, cfg, causal=True, scale=scale)
+    x = x + out_proj(lp["attn"], y, x.dtype)
+    h = apply_norm(lp["xnorm"], x, cfg)
+    qx = project_q(lp["xattn"], h, cfg, None)
+    kx, vx = project_kv(lp["xattn"], enc_out, cfg, None)
+    yx = sharded_attention(qx, kx, vx, cfg, causal=False, scale=scale)
+    x = x + out_proj(lp["xattn"], yx, x.dtype)
+    return _mlp(lp, x, cfg)
+
+
+def forward_loss(params, batch, cfg: ModelConfig, pcfg):
+    """Training loss: batch frames (B, T_enc, d) (bf16, the frontend
+    stub's embeddings), tokens (B, S), labels (B, S). The encoder, then
+    the decoder with cross attention, then the LM loss; each encoder and
+    decoder layer body under ``pcfg.remat`` (``_layer_remat``). Returns
+    (ce, {"ce", "aux" = 0})."""
+    mode = _layer_remat(pcfg.remat)
+    enc_out = encode(params, batch["frames"], cfg, pcfg.remat)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"]["table"], tokens, cfg)
+    cos_sin = _rope(cfg, _arange_positions(B, S, tokens.device))
+    for lp in params["decoder"]:
+        x = remat(functools.partial(_dec_layer, lp, cfg, cos_sin), mode)(
+            x, enc_out)
+    x = apply_norm(params["final_norm"], x, cfg)
+    ce = lm_loss(x, head_table(params["embed"], cfg), batch["labels"], cfg)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)}
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda",

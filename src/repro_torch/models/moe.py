@@ -7,9 +7,9 @@ capacity, the dispatch, the expert FFN and the combine, which is what
 this module computes. The expert-parallel modes (all-to-all, psum) and
 grok-1's serving layout over both mesh axes need several devices
 (ROADMAP.md queue 1 item 12). The load-balance loss the reference returns
-beside the output is only read in training, which the port refuses for
-MoE models (queue 1 item 13): ``_aux_loss`` computes it from the routing,
-and the forward leaves it out.
+beside the output (``_aux_loss``, from the routing) is only read in
+training: ``moe_block(..., with_aux=True)`` returns it, and the serving
+paths leave it out.
 
 Capacity. Each call routes its T tokens (idle decode slots and chunk
 padding rows included, as in the reference) to ``experts_per_token`` (k)
@@ -90,9 +90,10 @@ def _expert_ffn(disp, w_gate, w_in, w_out, act):
     return torch.bmm(h, w_out)
 
 
-def moe_local(x, params, cfg: ModelConfig):
+def moe_local(x, params, cfg: ModelConfig, with_aux: bool = False):
     """The block on T flat tokens, every expert local. x (T, d) -> y (T,
-    d) in x's dtype."""
+    d) in x's dtype, and with ``with_aux`` the load-balance loss (fp32
+    scalar) beside it."""
     mo = cfg.moe
     E, k = mo.num_experts, mo.experts_per_token
     T, d = x.shape
@@ -100,7 +101,7 @@ def moe_local(x, params, cfg: ModelConfig):
     act = _ACT["gelu" if cfg.mlp_activation == "gelu_mlp"
                else cfg.mlp_activation]
 
-    w, idx, _ = _route(x, params["router"].to(x.dtype), k)
+    w, idx, probs = _route(x, params["router"].to(x.dtype), k)
     pos = _positions_in_expert(idx, E)
     keep = pos < C
     # kept assignments to their own rows of the flat (E C + 1, d)
@@ -117,12 +118,16 @@ def moe_local(x, params, cfg: ModelConfig):
     got = comb.view(E * C, d)[(idx * C + lpos).reshape(-1)].view(T, k, d)
     wk = torch.where(keep, w, 0.0).to(x.dtype)
     # the weighted sum of each token's k rows: exact products, fp32 sums
-    y = (got.float() * wk.float()[..., None]).sum(dim=1)
-    return y.to(x.dtype)
+    y = (got.float() * wk.float()[..., None]).sum(dim=1).to(x.dtype)
+    return (y, _aux_loss(probs, idx, E)) if with_aux else y
 
 
-def moe_block(params, x, cfg: ModelConfig):
+def moe_block(params, x, cfg: ModelConfig, with_aux: bool = False):
     """x (B, S, d) -> y (B, S, d): the output of the JAX package's
-    ``moe_block`` on a one-device mesh (mode "tp")."""
+    ``moe_block`` on a one-device mesh (mode "tp"); with ``with_aux``,
+    (y, aux) as there."""
     B, S, d = x.shape
-    return moe_local(x.reshape(B * S, d), params, cfg).reshape(B, S, d)
+    out = moe_local(x.reshape(B * S, d), params, cfg, with_aux)
+    if with_aux:
+        return out[0].reshape(B, S, d), out[1]
+    return out.reshape(B, S, d)

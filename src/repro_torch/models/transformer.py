@@ -7,9 +7,9 @@ mixture-of-experts decoders (qwen3-moe, grok-1: ``models.moe`` in place
 of the MLP), pure Mamba2 models and zamba2's hybrid (Mamba2 layers with
 one shared attention + MLP block applied after every
 ``shared_attn_period`` layers); the static path ``init_cache`` /
-``prefill`` / ``decode_step`` for dense, MoE and M-RoPE (qwen2-vl)
-decoders; the training loss ``forward_loss`` for dense decoders. The
-encoder-decoder (whisper) is ``models.encdec``.
+``prefill`` / ``decode_step`` and the training loss ``forward_loss`` for
+all of them and M-RoPE (qwen2-vl) decoders. The encoder-decoder (whisper)
+is ``models.encdec``.
 
 A Python loop over layers replaces ``lax.scan``. Parameters are a dict:
 ``{"embed": {"table"[, "head"]}, "layers": [per-layer dict, ...],
@@ -35,7 +35,8 @@ its slot's row). Every step writes its new KV rows and states into the
 cache in place (the JAX package donates the buffers instead) and returns
 it; into a quantized pool the rows are quantized first, their scale rows
 scattered beside them, and the attention dequantizes. The static path's
-cache is dense instead: ``{"k", "v"}`` ``(num_layers, B, S, K, hd)``.
+cache is dense instead: ``{"k", "v"}`` ``(n_attn, B, S, K, hd)`` and
+``{"conv", "ssm"}`` ``(n_mamba, B, ...)``, one row per sequence.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import moe as moe_mod
@@ -63,6 +63,7 @@ from repro_torch.models.embedding import (decode_logits,
                                           head_table,
                                           lm_loss, sampled_softmax_loss)
 from repro_torch.models.layers import apply_mlp, apply_norm, rope_cos_sin
+from repro_torch.models.remat import MODES, remat
 
 
 def _post_norm(lp, name, y, cfg: ModelConfig):
@@ -71,16 +72,31 @@ def _post_norm(lp, name, y, cfg: ModelConfig):
     return apply_norm(lp[name], y, cfg) if cfg.post_block_norm else y
 
 
-def _mlp_part(lp, x, cfg: ModelConfig, post: bool = True):
+def _attn_part(lp, x, cfg: ModelConfig, attend):
+    """The attention half of a block: ``attend`` maps the normed input to
+    the attention output, which goes through ``out_proj`` and the
+    post-block norm into the residual."""
+    y = out_proj(lp["attn"], attend(apply_norm(lp["norm"], x, cfg)), x.dtype)
+    return x + _post_norm(lp, "post_norm", y, cfg)
+
+
+def _mlp_part(lp, x, cfg: ModelConfig, post: bool = True,
+              with_aux: bool = False):
     """The MLP half of a block: the MLP, or a MoE layer's ``moe`` block.
     The hybrid's shared block has no ``post_norm2`` (``post=False``), as
-    in the JAX package."""
+    in the JAX package. ``with_aux`` (training) returns (x, the MoE
+    block's load-balance loss, 0 for an MLP)."""
     h = apply_norm(lp["norm2"], x, cfg)
     if "moe" in lp:
-        y = moe_mod.moe_block(lp["moe"], h, cfg)
+        out = moe_mod.moe_block(lp["moe"], h, cfg, with_aux=with_aux)
+        y, aux = out if with_aux else (out, None)
     else:
-        y = apply_mlp(lp["mlp"], h, cfg)
-    return x + (_post_norm(lp, "post_norm2", y, cfg) if post else y)
+        y, aux = apply_mlp(lp["mlp"], h, cfg), None
+    x = x + (_post_norm(lp, "post_norm2", y, cfg) if post else y)
+    if not with_aux:
+        return x
+    return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+               if aux is None else aux)
 
 
 PAGE_POOLS = ("k", "v", "k_scale", "v_scale")
@@ -125,10 +141,8 @@ def _layers(params, cache, cfg: ModelConfig, x, attend, mamba=None):
         nonlocal n_attn
         pools = {n: cache[n][n_attn] for n in PAGE_POOLS if n in cache}
         n_attn += 1
-        y = attend(bp["attn"], apply_norm(bp["norm"], x, cfg), pools,
-                   window)
-        x = x + _post_norm(bp, "post_norm", out_proj(bp["attn"], y, x.dtype),
-                           cfg)
+        x = _attn_part(bp, x, cfg,
+                       lambda h: attend(bp["attn"], h, pools, window))
         return _mlp_part(bp, x, cfg, post=not shared)
 
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
@@ -309,35 +323,57 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
 
 
 def check_static(cfg: ModelConfig) -> None:
-    """Raise, naming ROADMAP, for a model this static path does not run:
-    it serves dense, MoE and M-RoPE decoders (``models.encdec`` has the
-    encoder-decoder's)."""
+    """Raise for the encoder-decoder, whose static path is
+    ``models.encdec``'s (``models.api`` dispatches)."""
     if cfg.encoder_layers:
         raise ValueError(f"{cfg.name}: an encoder-decoder's static path "
                          "is models.encdec's (models.api dispatches)")
-    if cfg.ssm is not None or cfg.shared_attn_period:
-        raise NotImplementedError(
-            f"{cfg.name}: the static prefill / decode path of SSM and "
-            "hybrid models is not ported yet (ROADMAP.md queue 1 item 16)")
+
+
+def layer_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(attention applications, mamba layers) of one forward pass, the
+    leading axes of the caches' attention and mamba entries."""
+    n_mamba = sum(kind == MAMBA for kind in cfg.layer_kinds())
+    n_attn = cfg.num_layers - n_mamba
+    if cfg.shared_attn_period:
+        n_attn += cfg.num_layers // cfg.shared_attn_period
+    return n_attn, n_mamba
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda",
                dtype=torch.bfloat16):
-    """Zero static cache: {"k", "v"} (num_layers, B, S, K, hd), one entry
-    per layer in layer order."""
+    """Zero static cache: {"k", "v"} (n_attn, B, S, K, hd), one entry per
+    attention application in layer order (every attention layer, and one
+    per period for a hybrid's shared block), and for mamba layers
+    {"conv" (n_mamba, B, K-1, d_inner + 2 G N) in ``dtype``, "ssm"
+    (n_mamba, B, nh, hp, N) fp32}, one entry per mamba layer."""
     check_static(cfg)
-    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=dtype, device=device)
-            for n in ("k", "v")}
+    n_attn, n_mamba = layer_counts(cfg)
+    cache = {}
+    if n_attn:
+        shape = (n_attn, B, S, cfg.num_kv_heads, cfg.head_dim)
+        for n in ("k", "v"):
+            cache[n] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_mamba:
+        s, d = cfg.ssm, cfg.d_model
+        conv = s.d_inner(d) + 2 * s.n_groups * s.state_dim
+        cache["conv"] = torch.zeros((n_mamba, B, s.conv_kernel - 1, conv),
+                                    dtype=dtype, device=device)
+        cache["ssm"] = torch.zeros((n_mamba, B, s.n_heads(d), s.head_dim,
+                                    s.state_dim), dtype=torch.float32,
+                                   device=device)
+    return cache
 
 
 def prefill(params, batch, cfg: ModelConfig, head=None, max_len=None):
     """Process equal-length prompts: batch tokens (B, S) [, positions (B,
-    S), or (3, B, S) for M-RoPE]. Every layer attends through
-    ``sharded_attention`` (the flash kernel on the card). Returns (cache
-    {"k", "v"} (num_layers, B, max_len, K, hd) holding the prompts' K/V in
-    positions [0, S) and zeros after them (``max_len`` defaults to S),
-    greedy next token (B,) int32).
+    S), or (3, B, S) for M-RoPE]. Every attention application attends
+    through ``sharded_attention`` (the flash kernel on the card); every
+    mamba layer runs ``ssm.mamba_block`` over the whole chunk-padded
+    prompt (the ssd kernel on the card). Returns (cache: {"k", "v"}
+    (n_attn, B, max_len, K, hd) holding the prompts' K/V in positions [0,
+    S) and zeros after them (``max_len`` defaults to S), and each mamba
+    layer's conv tail and final state, greedy next token (B,) int32).
     ``head`` overrides the logits table, as in ``decode_step_paged``."""
     cache, logits = prefill_logits(params, batch, cfg, head, max_len)
     return cache, logits.argmax(dim=-1).to(torch.int32)
@@ -367,7 +403,13 @@ def prefill_logits(params, batch, cfg: ModelConfig, head=None, max_len=None):
                                  cap=cfg.attn_logit_softcap,
                                  scale=attention_scale(cfg))
 
-    x = _layers(params, cache, cfg, x, attend)
+    def mamba(mp, h, m):
+        y, (tail, hs) = ssm_mod.mamba_block(mp, h, cfg)
+        cache["conv"][m].copy_(tail)
+        cache["ssm"][m].copy_(hs)
+        return y
+
+    x = _layers(params, cache, cfg, x, attend, mamba)
     head = head_table(params["embed"], cfg) if head is None else head
     return cache, decode_logits(x[:, -1:], head, cfg)
 
@@ -375,8 +417,9 @@ def prefill_logits(params, batch, cfg: ModelConfig, head=None, max_len=None):
 def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     """One token per sequence against the static cache: batch token (B,
     1), pos (B,) the position to write at (the token attends to [0, pos]).
-    Writes the new K/V rows into ``cache`` in place. Returns (greedy next
-    token (B,) int32, cache)."""
+    Writes the new K/V rows and each mamba layer's new conv tail and state
+    into ``cache`` in place. Returns (greedy next token (B,) int32,
+    cache)."""
     check_static(cfg)
     pos = batch["pos"]
     B = pos.shape[0]
@@ -394,7 +437,14 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
                                 cap=cfg.attn_logit_softcap,
                                 scale=attention_scale(cfg))
 
-    x = _layers(params, cache, cfg, x, attend)
+    def mamba(mp, h, m):
+        conv, ssm = cache["conv"][m], cache["ssm"][m]
+        y, (tail, hs) = ssm_mod.mamba_decode(mp, h, cfg, (conv, ssm))
+        conv.copy_(tail)
+        ssm.copy_(hs)
+        return y
+
+    x = _layers(params, cache, cfg, x, attend, mamba)
     head = head_table(params["embed"], cfg) if head is None else head
     return decode_logits_argmax(x, head, cfg), cache
 
@@ -404,55 +454,70 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
 # ---------------------------------------------------------------------------
 
 
-def _attn_full(lp, x, cfg: ModelConfig, cos_sin, kind: str):
-    """Full-sequence causal self attention of one layer (train mode)."""
-    window = cfg.sliding_window if kind == LOCAL_ATTN else None
-    h = apply_norm(lp["norm"], x, cfg)
-    q = project_q(lp["attn"], h, cfg, cos_sin)
-    k, v = project_kv(lp["attn"], h, cfg, cos_sin)
-    y = sharded_attention(q, k, v, cfg, causal=True, window=window,
-                          cap=cfg.attn_logit_softcap,
-                          scale=attention_scale(cfg))
-    return x + _post_norm(lp, "post_norm", out_proj(lp["attn"], y, x.dtype),
-                          cfg)
-
-
 def check_trainable(cfg: ModelConfig, pcfg) -> None:
-    """Raise, naming ROADMAP, for a model or remat mode this training
-    forward does not run: dense decoders with remat "full" or "none"
-    only (the ssd kernel has no backward, here or in the JAX package)."""
-    why = None
-    if cfg.encoder_layers:
-        why = "encoder-decoder"
-    elif cfg.moe is not None:
-        why = "mixture-of-experts"
-    elif cfg.frontend is not None or cfg.rope_sections is not None:
-        why = "modality frontend and M-RoPE"
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} training is not ported yet (ROADMAP.md "
-            "queue 1 item 13)")
-    if cfg.ssm is not None or cfg.shared_attn_period:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid training needs an ssd backward "
-            "(ROADMAP.md queue 1 item 13)")
-    if pcfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat={pcfg.remat!r}: only 'full' and 'none' are ported "
-            "(ROADMAP.md queue 1 item 13)")
+    """Raise for a remat mode the JAX package does not have. Every decoder
+    family trains here (``models.encdec`` trains the encoder-decoder)."""
+    if pcfg.remat not in MODES:
+        raise ValueError(f"remat={pcfg.remat!r}: one of {MODES}")
+
+
+def _attn_full(lp, x, cfg: ModelConfig, cos_sin, window):
+    """Full-sequence causal self attention of one block (train mode)."""
+    def attend(h):
+        q = project_q(lp["attn"], h, cfg, cos_sin)
+        k, v = project_kv(lp["attn"], h, cfg, cos_sin)
+        return sharded_attention(q, k, v, cfg, causal=True, window=window,
+                                 cap=cfg.attn_logit_softcap,
+                                 scale=attention_scale(cfg))
+    return _attn_part(lp, x, cfg, attend)
 
 
 def _train_layer(lp, kind, cfg, cos_sin, x):
-    return _mlp_part(lp, _attn_full(lp, x, cfg, cos_sin, kind), cfg)
+    """One layer: (x, aux)."""
+    if kind == MAMBA:
+        y, _ = ssm_mod.mamba_block(lp["mamba"], apply_norm(lp["norm"], x, cfg),
+                                   cfg)
+        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    window = cfg.sliding_window if kind == LOCAL_ATTN else None
+    return _mlp_part(lp, _attn_full(lp, x, cfg, cos_sin, window), cfg,
+                     with_aux=True)
+
+
+def _train_period(layers, kinds, shared, cfg, cos_sin, x):
+    """A hybrid's period: its mamba layers, then the shared attention and
+    MLP block (no post-block norms). Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(layers, kinds):
+        x, a = _train_layer(lp, kind, cfg, cos_sin, x)
+        aux = aux + a
+    x = _attn_full(shared, x, cfg, cos_sin, None)
+    x, a = _mlp_part(shared, x, cfg, post=False, with_aux=True)
+    return x, aux + a
+
+
+def _train_units(params, cfg: ModelConfig, cos_sin):
+    """The forward's remat units in order, each a function x -> (x, aux):
+    one per layer, or for a hybrid one per period (the JAX package
+    checkpoints its scanned period body; for a dense model a layer and a
+    period compute the same values)."""
+    kinds = cfg.layer_kinds()
+    P = cfg.shared_attn_period
+    if P:
+        return [functools.partial(_train_period, params["layers"][i:i + P],
+                                  kinds[i:i + P], params["shared"], cfg,
+                                  cos_sin)
+                for i in range(0, cfg.num_layers, P)]
+    return [functools.partial(_train_layer, lp, kind, cfg, cos_sin)
+            for lp, kind in zip(params["layers"], kinds)]
 
 
 def forward_loss(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
-    """Training loss of a dense decoder. batch: tokens (B, S), labels (B,
-    S) [, positions (B, S)]. Returns (loss, {"ce", "aux"}); aux is 0 (no
-    mixture of experts here). ``pcfg.remat == "full"`` recomputes each
-    layer in the backward (``torch.utils.checkpoint``, the JAX package's
-    ``jax.checkpoint`` of the period body); ``"none"`` keeps every
-    activation. Other models and modes raise (``check_trainable``)."""
+    """Training loss of a decoder: dense, mixture-of-experts, M-RoPE, pure
+    Mamba2 or hybrid. batch: tokens (B, S), labels (B, S) [, positions
+    (B, S), or (3, B, S) for M-RoPE]. Returns (loss, {"ce", "aux"}): loss
+    = ce + MOE_AUX_COEF * aux, aux the MoE layers' load-balance losses
+    summed (0 without experts). ``pcfg.remat`` wraps each remat unit
+    (``models.remat``: "none", "full" or "dots")."""
     check_trainable(cfg, pcfg)
     tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
@@ -462,15 +527,14 @@ def forward_loss(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     cos_sin = _rope(cfg, positions)
-    for lp, kind in zip(params["layers"], cfg.layer_kinds()):
-        layer = functools.partial(_train_layer, lp, kind, cfg, cos_sin)
-        x = (checkpoint(layer, x, use_reentrant=False)
-             if pcfg.remat == "full" else layer(x))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in _train_units(params, cfg, cos_sin):
+        x, a = remat(unit, pcfg.remat)(x)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
     ht = head_table(params["embed"], cfg)
     if sampled_ids is not None:
         ce = sampled_softmax_loss(x, ht, labels, sampled_ids, cfg)
     else:
         ce = lm_loss(x, ht, labels, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}

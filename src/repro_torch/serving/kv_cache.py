@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.config import MAMBA, ModelConfig
 from repro_torch.models import quant
-from repro_torch.models.transformer import period_structure
+from repro_torch.models.transformer import layer_counts, period_structure
 
 TRASH_BLOCK = 0
 
@@ -87,9 +87,9 @@ def mamba_layer_stacks(cfg: ModelConfig) -> list[str]:
 
 
 def n_attn_applications(cfg: ModelConfig) -> int:
-    """Attention applications per forward pass: periods x attention
-    stacks, the leading axis of the page pools."""
-    return period_structure(cfg)[1] * len(attn_layer_stacks(cfg))
+    """Attention applications per forward pass (periods x attention
+    stacks), the leading axis of the page pools."""
+    return layer_counts(cfg)[0]
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,

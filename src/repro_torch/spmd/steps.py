@@ -20,7 +20,7 @@ from repro_torch.optim import optimizers as opt
 def check_train_config(cfg: ModelConfig, pcfg: ParallelConfig,
                        ocfg: OptimizerConfig) -> None:
     """Raise on what the one-device trainer cannot mean, naming ROADMAP:
-    the multi-device options, then the model and remat mode
+    the multi-device options, then an unknown remat mode
     (``transformer.check_trainable``)."""
     refused = {"fsdp": pcfg.fsdp,
                "seq_shard_activations": pcfg.seq_shard_activations,
@@ -29,20 +29,24 @@ def check_train_config(cfg: ModelConfig, pcfg: ParallelConfig,
         if on:
             raise NotImplementedError(
                 f"{what}: not ported to the one-device trainer (ROADMAP.md "
-                "queue 1 item 13)")
+                "queue 1 item 12)")
     transformer.check_trainable(cfg, pcfg)
+
+
+_BATCH_AXIS = {"positions": 1}   # (3, B, S) M-RoPE ids; the rest dim 0
 
 
 def _split_microbatches(batch: dict, m: int) -> list[dict]:
     """m microbatches of ``batch``, microbatch i holding the i-th run of
-    B/m consecutive rows of every entry (dim 0). As in the JAX package
-    every entry splits, ``sampled_ids`` too (M-RoPE position ids, split on
-    their dim 1 there, are not ported)."""
+    B/m consecutive rows of every entry: on dim 1 for the (3, B, S) M-RoPE
+    ``positions``, on dim 0 for the rest. As in the JAX package every
+    entry splits, ``sampled_ids`` too."""
     def split(name, x):
-        if x.shape[0] % m:
-            raise ValueError(f"{name}: batch {x.shape[0]} is not a multiple "
-                             f"of {m} microbatches")
-        return x.chunk(m)
+        ax = _BATCH_AXIS.get(name, 0)
+        if x.shape[ax] % m:
+            raise ValueError(f"{name}: batch {x.shape[ax]} is not a "
+                             f"multiple of {m} microbatches")
+        return x.chunk(m, dim=ax)
     parts = {k: split(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(m)]
 

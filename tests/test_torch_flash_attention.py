@@ -130,7 +130,8 @@ def test_dense_attention_grads_match_jax(case):
 
 def test_q_offset_and_long_context_refusal():
     """q_offset shifts the causal diagonal as in the JAX path; beyond
-    DENSE_ATTN_MAX_KV keys the CPU path refuses by name."""
+    DENSE_ATTN_MAX_KV keys the CPU path streams (chunked_attention), where
+    it once refused, and gives dense_attention's values."""
     rng = np.random.default_rng(7)
     q, k, v = (rng.normal(0, 1, s).astype(np.float32)
                for s in ((1, 16, 4, 16), (1, 48, 2, 16), (1, 48, 2, 16)))
@@ -145,9 +146,11 @@ def test_q_offset_and_long_context_refusal():
                               **opts)
     _close(to, jo, "float32")
     _close(tlse, jlse, "float32")
-    big = torch.zeros((1, ops.DENSE_ATTN_MAX_KV + 1, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(big[:, :1], big, big)
+    big = torch.from_numpy(rng.normal(
+        0, 1, (1, ops.DENSE_ATTN_MAX_KV + 1, 1, 16)).astype(np.float32))
+    got = ops.flash_attention(big[:, :1], big, big, q_offset=4000)
+    want = tatt.dense_attention(big[:, :1], big, big, q_offset=4000)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_wrapper_refuses_before_launch():
@@ -168,10 +171,10 @@ def test_kernel_wrapper_refuses_before_launch():
 
 
 @pytest.mark.parametrize("hd,route", [(128, "wgmma"), (16, "mma"),
-                                      (64, "mma64")])
+                                      (64, "mma64"), (80, "mma80")])
 def test_kernel_routes_by_head_dim(hd, route):
-    """hd 128 goes to the Hopper kernel (TMA + wgmma), hd 16 and 64 to the
-    mma.sync kernel's two instances; a CPU tensor of any of them is
+    """hd 128 goes to the Hopper kernel (TMA + wgmma), hd 16, 64 and 80 to
+    the mma.sync kernel's three instances; a CPU tensor of any of them is
     refused before the launch, and no route's counter moves."""
     assert tfa.route(hd) == route
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
@@ -184,12 +187,12 @@ def test_kernel_routes_by_head_dim(hd, route):
     assert dict(tfa.flash_attention.launches) == before
 
 
-@pytest.mark.parametrize("hd", [8, 32, 48, 80, 96, 256])
+@pytest.mark.parametrize("hd", [8, 12, 32, 48, 96, 256])
 def test_kernel_refuses_other_head_dims_by_name(hd):
-    """Every head dim but 16, 64 and 128 is refused by name (no route
+    """Every head dim but 16, 64, 80 and 128 is refused by name (no route
     takes it, and nothing falls back), before any route's counter
     moves."""
-    with pytest.raises(ValueError, match=r"head dims \(16, 64, 128\)"):
+    with pytest.raises(ValueError, match=r"head dims \(16, 64, 80, 128\)"):
         tfa.route(hd)
     q = torch.zeros((1, 8, 4, hd), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16)

@@ -1,6 +1,8 @@
 """The SSD scan kernel on the card against its plain version
 (``models.ssm.ssd_chunked``), with its two bitwise invariants and its
-strided B/C inputs. Every test skips without a CUDA card. The file imports
+strided B/C inputs, and the ``SSD`` autograd function (the kernel
+forward, the plain recompute backward) against autograd through the
+plain scan. Every test skips without a CUDA card. The file imports
 neither jax nor the JAX package (the CPU tests of the scan, against the
 JAX package, are in ``test_torch_ssm.py``), so on a machine with a card
 and without jax it runs alone:
@@ -128,3 +130,35 @@ def test_cuda_ssd_kernel_without_h0_and_empty():
     assert torch.equal(h_e, h0)
     _, h_e = ssd_k.ssd(x[:, e], dt[:, e], A, B[:, e], C[:, e], chunk=32)
     assert torch.equal(h_e, torch.zeros_like(h0))
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[4]])
+def test_cuda_ssd_function_gradients_vs_plain(case):
+    """``SSD``'s gradients for x, dt, A, B, C and h0 against autograd
+    through ``ssd_chunked`` on the same inputs and output gradients:
+    every gradient row (last dim) within 1e-2 of its norm; the forward
+    launches the kernel once, the backward never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, S, nh, hp, G, N, Q = case
+    ins = _inputs(4, b, S, nh, hp, G, N)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    gy = torch.randn((b, S, nh, hp), generator=g, device="cuda")
+    gh = torch.randn((b, nh, hp, N), generator=g, device="cuda")
+    grads = []
+    for fn in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        before = ssd_k.ssd.launches
+        if fn == "kernel":
+            y, h = ssd_k.SSD.apply(*leaves, Q)
+        else:
+            y, h = tssm.ssd_chunked(*leaves[:5], Q, h0=leaves[5])
+        ((y.float() * gy).sum() + (h * gh).sum()).backward()
+        assert ssd_k.ssd.launches == before + (fn == "kernel")
+        grads.append([t.grad.float() for t in leaves])
+    for a, r in zip(*grads):
+        a, r = a.reshape(-1, a.shape[-1]), r.reshape(-1, r.shape[-1])
+        rel = torch.nan_to_num((a - r).norm(dim=-1) / r.norm(dim=-1),
+                               nan=0.0)
+        assert float(rel.max()) <= 1e-2

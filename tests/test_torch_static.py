@@ -7,7 +7,8 @@ forward) and the same greedy tokens through prefill and four decode
 steps, gemma2's 20-token prompts past its 16-token window. Inside the
 port, the counterpart of ``tests/test_decode_consistency.py``: decoding
 token S + 1 from a prefilled cache gives the token a fresh prefill of the
-S + 1 prefix gives. SSM and hybrid models are refused by name."""
+S + 1 prefix gives. The SSM and hybrid models' static path:
+``test_torch_static_ssm.py``."""
 
 import dataclasses
 
@@ -121,16 +122,6 @@ def test_decode_equals_fresh_prefill(mesh, arch):
         np.testing.assert_allclose(cache[n][:, :, S].float().numpy(),
                                    kv1[n][:, :, S].float().numpy(),
                                    atol=1e-2, rtol=1e-2)
-
-
-@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2p7b"])
-def test_static_path_refuses_ssm_and_hybrid(arch):
-    cfg = get_config(arch, smoke=True)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: api.init_cache(cfg, 1, 8, "cpu"),
-                 lambda: api.prefill_fn({}, {"tokens": toks}, cfg)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-            call()
 
 
 def test_static_path_in_fp32(mesh):

@@ -1,0 +1,35 @@
+"""Training of the encoder-decoder (whisper_large_v3: seeded frames)
+and the M-RoPE decoder (qwen2_vl_2b: 3-plane positions, split on
+their dim 1 into microbatches) in the port against the JAX package at smoke
+size (``torch_train_cases``): the loss and one AdamW step (remat full,
+two microbatches), and whisper's fp32 masters after an SGD step, each
+leaf against its own update (the encoder's and the cross attention's
+included)."""
+
+import pytest
+
+from torch_train_cases import (cases as make_cases, check_loss_fn,
+                               check_sgd_masters, check_train_step)
+
+ARCHS = ["whisper_large_v3", "qwen2_vl_2b"]
+
+
+@pytest.fixture(scope="module")
+def cases():
+    out = make_cases(ARCHS, ("bfloat16",))
+    out[ARCHS[0], "float32"] = out[ARCHS[0], "bfloat16"].at("float32")
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_fn_matches_jax(cases, arch):
+    check_loss_fn(cases[arch, "bfloat16"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(cases, arch):
+    check_train_step(cases[arch, "bfloat16"])
+
+
+def test_sgd_masters_match_jax(cases):
+    check_sgd_masters(cases[ARCHS[0], "float32"])

@@ -1,5 +1,5 @@
-"""The training slice's kernels on the card: the flash forward (both
-routes), the gather and the sampled-softmax loss against their plain
+"""The training slice's kernels on the card: the flash forward (every
+route: hd 16, 64, 80 and 128), the gather and the sampled-softmax loss against their plain
 versions, and a training step on the card against the same step on the
 CPU. Every test skips without a CUDA card. The file imports neither jax
 nor the JAX package, so on a machine with a card and without jax it runs
@@ -38,6 +38,10 @@ FLASH_CASES = [  # B, Sq, Skv, H, K, hd, causal, window, cap, q_offset
     (2, 96, 130, 4, 2, 128, False, None, None, 0),
     (1, 148, 2048, 4, 2, 128, True, None, None, 1900),
     (1, 600, 600, 4, 2, 128, True, 100, 50.0, 0),
+    # the hd-80 route (zamba2's shared block: H = K)
+    (2, 200, 200, 4, 4, 80, True, None, None, 0),
+    (1, 130, 300, 8, 8, 80, True, 64, 30.0, 170),
+    (2, 70, 150, 4, 4, 80, False, None, None, 0),
 ]
 
 
