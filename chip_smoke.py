@@ -82,13 +82,15 @@ Phases, each of which raises on failure:
         softcap: for gemma2 SDPA's causal time is a yardstick); the gather at each member's table (256000 x 4608,
         152064 x 5120, 49152 x 3072). Under "<member>_" keys of each
         kernel's row.
-     g. this slice's shapes: the flash forward's hd-64 route ("mma64", a
-        row of its own: "flash_attention_mma64") at whisper's heads (H = K
-        = 20): the encoder's non-causal 1500 x 1500 (B 1 and 8), a
-        chunk's cross attention (256 x 1500) and causal S 512 (B 8), each
-        o held as in 2f, lse within 1e-3, two launches bit-equal; all but
-        the static encoder timed beside SDPA (the same function), the
-        first against its plain version too; decode, a 256-row
+     g. this slice's shapes: the flash forward's hd-64 route ("wgmma64",
+        a row of its own: "flash_attention_wgmma64") at whisper's heads (H
+        = K = 20): the encoder's non-causal 1500 x 1500 (B 1 and 8), a
+        chunk's cross attention (256 x 1500), causal S 512 (B 8) and
+        window 256 + cap 30 at q_offset 300 (700 x 1000), each o held as
+        in 2f, lse within 1e-3, two launches bit-equal, each timed (CUDA
+        events and profiler device time) beside its bound, all but the
+        last beside SDPA (the same function) under both timers, the first
+        against its plain version too; decode, a 256-row
         chunk (decode == chunk(C=1) bit for bit, padding rows zero) at
         whisper's hd 64, G 1, and decode, chunk and packed at qwen3_moe's
         (H 32, K 4) and grok1's (48, 8, cap 30) heads; the flash forward
@@ -96,11 +98,14 @@ Phases, each of which raises on failure:
         gather at the four tables (152064 x 2048, 131072 x 6144, 51968 x
         1280, 152064 x 1536). Under "qwen3_moe_", "grok1_", "whisper_",
         "qwen2_vl_" keys.
-     h. the flash forward's hd-80 route ("mma80", a row of its own:
-        "flash_attention_mma80") at zamba2's shared block (H = K = 32):
-        causal B 2 x S 2048 (training) and B 8 x S 512 (phase 14's static
-        prefill), o held as in 2f, lse within 1e-3, two launches
-        bit-equal, each beside SDPA; the SSD autograd function (the
+     h. the flash forward's hd-80 route ("wgmma80", a row of its own:
+        "flash_attention_wgmma80") at zamba2's shared block (H = K = 32):
+        causal B 2 x S 2048 (training), B 8 x S 512 (phase 14's static
+        prefill), causal S 1500 (ragged) and window 256 + cap 30 at
+        q_offset 300, held and timed as in 2g; the mma route ("mma", row
+        "flash_attention_mma") at hd 16, 8 and 12 (4 q heads, 2 kv heads;
+        causal S 300, hd 12 with window 64, cap 30 and q_offset 100, hd 8
+        non-causal 130 x 200) likewise; the SSD autograd function (the
         kernel forward, the plain recompute backward) at mamba2's and
         zamba2's widths, b 2 x S 2048, 256-row chunks: its gradients for
         x, dt, A, B and C against autograd through ssd_chunked, every row
@@ -168,8 +173,8 @@ Phases, each of which raises on failure:
      batches, 2 microbatches, remat full, SGD: losses within 1e-2, grad
      norms within 1e-2 relative, masters within 1e-2 of the largest
      update (glm4); then mamba2, zamba2, qwen3_moe, grok1, whisper (seeded
-     frames) and qwen2_vl (its smoke config at hd 16, sections (2, 3, 3):
-     hd 12 has no flash route), each held to the larger of those limits
+     frames) and qwen2_vl (its smoke config, hd 12 on the flash kernel's
+     mma route), each held to the larger of those limits
      and twice its noise floor (CPU runs with one-ulp flips in 0.5% of
      the embedding outputs and of whisper's frames), the masters held
      leaf by leaf (each leaf's difference over its own update against
@@ -291,7 +296,7 @@ Phases, each of which raises on failure:
      steps (remat full) on one fixed batch: finite losses, the last below
      the first; a finite, non-zero gradient on every parameter leaf on
      step 1; launches: the ssd kernel once per mamba layer per forward
-     and recompute, flash on mma80 / wgmma / mma64 likewise (whisper: its
+     and recompute, flash on wgmma80 / wgmma / wgmma64 likewise (whisper: its
      encoder, decoder self and cross attention), the gather once a step;
      step ms, tok/s, peak GiB (qwen3_moe's aux beside ce); one profiled
      step of each SSM model (device ms by kernel, the SSD forward's and
@@ -301,7 +306,7 @@ Phases, each of which raises on failure:
   14. the SSM static path (inside phase 5, on its weights and 512-token
      prompts; "[static]", "[static-ssm]" lines): generate_static with 32
      new tokens at full depth (tok/s, prefill and decode step times,
-     launches: the ssd kernel once per mamba layer, mma80 once per
+     launches: the ssd kernel once per mamba layer, wgmma80 once per
      period) held against the engine path by static_vs_engine (the fp32
      reading, the static path at most twice as far), tokens counted;
      then at mamba2's first 4 layers and zamba2's first 6 (one period)
@@ -1596,21 +1601,24 @@ def family_row(rows, kernel, prefix, **kw) -> None:
     rows[kernel].update({prefix + k: v for k, v in kw.items()})
 
 
-def check_flash_o(name, o_k, q, k, v, fo, ref, dense_attention):
-    """The flash kernel's o at the family and hd-64 shapes: within TOL of
-    its plain version (``ref.flash_attention_fwd_plain``: fp32 throughout,
-    one rounding), row by row and value by value (``check_close``), and
-    every row within TOL relative of ``dense_attention``. The value cap is
-    not held against ``dense_attention``: it rounds p to bf16 after
-    normalizing and the kernel before, so one value of each can sit a bf16
-    ulp on either side of the exact one, two ulps apart, past the cap
-    between 1 and 1.56 in magnitude. Returns (max abs err, max row
-    relative err) against the plain version."""
+def check_flash_o(name, o_k, q, k, v, fo, ref, dense_attention,
+                  dense=True):
+    """The flash kernel's o at the family and per-route shapes: within TOL
+    of its plain version (``ref.flash_attention_fwd_plain``: fp32
+    throughout, one rounding), row by row and value by value
+    (``check_close``), and, with ``dense``, every row within TOL relative
+    of ``dense_attention``. The value cap is not held against
+    ``dense_attention``: it rounds p to bf16 after normalizing and the
+    kernel before, so one value of each can sit a bf16 ulp on either side
+    of the exact one, two ulps apart, past the cap between 1 and 1.56 in
+    magnitude. Returns (max abs err, max row relative err) against the
+    plain version."""
     e, rel = check_close(f"{name} vs the plain version", o_k,
                          ref.flash_attention_fwd_plain(q, k, v, **fo)[0])
-    r_dense = row_err(o_k, dense_attention(q, k, v, **fo))
-    check(r_dense <= TOL, f"{name} vs dense_attention: max row relative "
-          f"err {r_dense} (limit {TOL})")
+    if dense:
+        r_dense = row_err(o_k, dense_attention(q, k, v, **fo))
+        check(r_dense <= TOL, f"{name} vs dense_attention: max row "
+              f"relative err {r_dense} (limit {TOL})")
     return e, rel
 
 
@@ -1872,81 +1880,94 @@ SLICE = {"qwen3_moe": ("qwen3_moe_30b_a3b", 32, 4, {}, "dcpfg"),
          "grok1": ("grok1_314b", 48, 8, dict(cap=30.0), "dcpg"),
          "whisper": ("whisper_large_v3", 20, 20, {}, "dcg"),
          "qwen2_vl": ("qwen2_vl_2b", 12, 2, {}, "fg")}
-# hd-64 flash shapes (name, B, Sq, Skv, causal, timed): the encoder at
-# admission (one request) and in the static path (8), a chunk's cross
-# attention, the static prefill's causal self attention at S 512. The
-# timed ones are timed beside SDPA; the first is the row's shape, whose
-# plain version and profiler device times are taken too
-HD64_FLASH = [("encoder 1500 x 1500", 1, 1500, 1500, False, True),
-              ("static encoder B=8", 8, 1500, 1500, False, False),
-              ("chunk cross 256 x 1500", 1, 256, 1500, False, True),
-              ("causal S 512", 8, 512, 512, True, True)]
+# flash shapes of one route: (label, B, Sq, Skv, hd, options, timed). hd
+# 64, whisper's heads: the encoder at admission (one request) and in the
+# static path (8), a chunk's cross attention, the static prefill's causal
+# self attention at S 512, and the options the kernel takes on this route
+# (window, cap, q_offset) at a ragged shape. The timed ones (SDPA computes
+# the same function there) are timed beside SDPA, both by CUDA events and
+# by profiler device time; the first is the row's shape, whose plain
+# version is timed too
+HD64_FLASH = [
+    ("encoder 1500 x 1500", 1, 1500, 1500, 64, dict(causal=False), True),
+    ("static encoder B=8", 8, 1500, 1500, 64, dict(causal=False), True),
+    ("chunk cross 256 x 1500", 1, 256, 1500, 64, dict(causal=False), True),
+    ("causal S 512", 8, 512, 512, 64, dict(causal=True), True),
+    ("window 256 cap 30 at q_offset 300", 2, 700, 1000, 64,
+     dict(causal=True, window=256, cap=30.0, q_offset=300), False)]
 
 
-def check_mma_flash(torch, timer, gen, rows, name, H, K, hd, shapes):
-    """The flash forward's mma.sync route for head dim ``hd`` at
-    ``name``'s heads and ``shapes`` ((label, B, Sq, Skv, causal, timed)):
-    o held by ``check_flash_o``, lse within LSE_TOL of the plain one, two
-    launches bit-equal; the timed ones beside SDPA, which computes the
-    same function at these shapes. The first shape is the row's
+def check_route_flash(torch, timer, gen, rows, name, H, K, shapes):
+    """One flash route at ``name``'s heads and ``shapes`` ((label, B, Sq,
+    Skv, hd, options, timed), every hd on one route): o held by
+    ``check_flash_o``, lse within LSE_TOL of the plain one, two launches
+    bit-equal; the timed ones beside SDPA (events and profiler device
+    time, with the bound). The first shape is the row's
     ("flash_attention_<route>"), the others its "cases"."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models.attention import dense_attention
 
-    route = fa.route(hd)
-    check(route.startswith("mma"), f"hd {hd} is not an mma.sync route")
+    route = fa.route(shapes[0][4])
     cases = []
-    for label, B, Sq, Skv, causal, timed_case in shapes:
+    for label, B, Sq, Skv, hd, fo, timed_case in shapes:
+        check(fa.route(hd) == route, f"hd {hd} is not on route {route}")
         q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).bfloat16()
         k = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
         v = torch.randn((B, Skv, K, hd), generator=gen, device=DEV).bfloat16()
-        o_k, lse_k = fa.flash_attention(q, k, v, causal=causal)
-        o_2, lse_2 = fa.flash_attention(q, k, v, causal=causal)
+        o_k, lse_k = fa.flash_attention(q, k, v, **fo)
+        o_2, lse_2 = fa.flash_attention(q, k, v, **fo)
         check(same_bytes(o_k, o_2) and same_bytes(lse_k, lse_2),
               f"flash hd {hd} {label}: two launches differ")
         del o_2, lse_2
-        e, rel = check_flash_o(f"flash hd {hd} {label}", o_k, q, k, v,
-                               dict(causal=causal), ref, dense_attention)
-        e_lse = err(lse_k, ref.flash_attention_fwd_plain(
-            q, k, v, causal=causal)[1])
+        # rows of 8 or 12 values are held against the plain version
+        # alone: dense_attention's p, rounded to bf16 after normalizing,
+        # puts a row that short up to 1.3e-2 of its norm from the kernel's
+        # (hd 8, 2 x 300 rows), past TOL, while the plain one stays within
+        e, rel = check_flash_o(f"flash hd {hd} {label}", o_k, q, k, v, fo,
+                               ref, dense_attention, dense=hd >= 16)
+        e_lse = err(lse_k, ref.flash_attention_fwd_plain(q, k, v, **fo)[1])
         check(e_lse <= LSE_TOL, f"flash hd {hd} {label}: lse max abs err "
               f"{e_lse} (limit {LSE_TOL})")
-        pairs = causal_pairs(Sq, Skv, causal, None, 0)
+        pairs = causal_pairs(Sq, Skv, fo["causal"], fo.get("window"),
+                             fo.get("q_offset", 0))
         flops = 4.0 * B * H * hd * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
             + 4 * lse_k.numel()
         d = dict(
             kernel="flash_attention", source=FLASH_SRC, kernel_route=route,
             max_abs_err=e, max_row_rel_err=rel, lse_max_abs_err=e_lse,
+            library_ms=None,
             shape=f"{name} {label}: B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
-                  f"hd={hd} {'causal' if causal else 'non-causal'} "
-                  f"({pairs} row-key pairs per batch row)",
+                  f"hd={hd} {fo} ({pairs} row-key pairs per batch row)",
             **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
-        line = "not timed"
+
+        def kernel():
+            return fa.flash_attention(q, k, v, **fo)
+
+        d.update(ms=timer(kernel), device_ms=timer.device(kernel))
+        d["tflops"] = flops / d["device_ms"] * 1e-9
+        line = (f"device {d['device_ms']:.5f} ms (events {d['ms']:.5f}; "
+                f"{d['tflops']:.0f} TFLOP/s; bound {d['bound_ms']:.5f})")
         if timed_case:
+            check(set(fo) == {"causal"}, f"flash {label}: SDPA computes "
+                  "no window, cap or q_offset")
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
             def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=causal)
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=fo["causal"], enable_gqa=H != K)
 
-            def kernel():
-                return fa.flash_attention(q, k, v, causal=causal)
-
-            d.update(ms=timer(kernel), library_ms=timer(sdpa))
-            d["tflops"] = flops / d["ms"] * 1e-9
-            line = (f"{d['ms']:.4f} ms ({d['tflops']:.0f} TFLOP/s; bound "
-                    f"{d['bound_ms']:.4f}), SDPA {d['library_ms']:.4f} ms")
-            if not cases:
-                d.update(device_ms=timer.device(kernel),
-                         library_device_ms=timer.device(sdpa),
-                         plain_ms=timer(
-                             lambda: ref.flash_attention_fwd_plain(
-                                 q, k, v, causal=causal), iters=5))
-                line += f", plain {d['plain_ms']:.4f}"
+            d.update(library_ms=timer(sdpa),
+                     library_device_ms=timer.device(sdpa))
+            line += (f", SDPA device {d['library_device_ms']:.5f} (events "
+                     f"{d['library_ms']:.5f})")
             del qt, kt, vt
+        if not cases:
+            d["plain_ms"] = timer(lambda: ref.flash_attention_fwd_plain(
+                q, k, v, **fo), iters=5)
+            line += f", plain {d['plain_ms']:.4f}"
         print(f"[kernels] flash hd {hd} (route {route}) {label}: {line}; o "
               f"max row rel err {rel:.3g}, lse {e_lse:.3g}; two launches "
               "bit-equal", flush=True)
@@ -1956,11 +1977,26 @@ def check_mma_flash(torch, timer, gen, rows, name, H, K, hd, shapes):
     torch.cuda.empty_cache()
 
 
-# hd-80 flash shapes (zamba2's shared block, H = K = 32): hybrid training
-# (B 2, causal S 2048) and phase 14's static prefill (B 8, S 512); the
-# first is the row's shape
-HD80_FLASH = [("training causal S 2048", 2, 2048, 2048, True, True),
-              ("static prefill B=8 S=512", 8, 512, 512, True, True)]
+# hd-80 flash shapes (zamba2's shared block, H = K = 32), as HD64_FLASH:
+# hybrid training (B 2, causal S 2048), phase 14's static prefill (B 8, S
+# 512), a ragged causal 1500 and the options at a ragged shape; the first
+# is the row's shape
+HD80_FLASH = [
+    ("training causal S 2048", 2, 2048, 2048, 80, dict(causal=True), True),
+    ("static prefill B=8 S=512", 8, 512, 512, 80, dict(causal=True), True),
+    ("causal S 1500", 1, 1500, 1500, 80, dict(causal=True), True),
+    ("window 256 cap 30 at q_offset 300", 2, 700, 1000, 80,
+     dict(causal=True, window=256, cap=30.0, q_offset=300), False)]
+# the mma route's head dims (the smoke configs: hd 8 qwen3 and starcoder2,
+# 12 qwen2_vl, 16 the rest) at 4 q heads over 2 kv heads, as HD64_FLASH
+MMA_FLASH = [
+    ("hd 16 causal S 300", 2, 300, 300, 16, dict(causal=True), True),
+    ("hd 8 causal S 300", 2, 300, 300, 8, dict(causal=True), True),
+    ("hd 12 causal S 300", 2, 300, 300, 12, dict(causal=True), True),
+    ("hd 12 window 64 cap 30 at q_offset 100", 2, 200, 300, 12,
+     dict(causal=True, window=64, cap=30.0, q_offset=100), False),
+    ("hd 8 non-causal 130 x 200", 2, 130, 200, 8, dict(causal=False),
+     True)]
 # the SSD autograd function at both models' widths (nh, hp, G, N): b 2, S
 # 2048, 256-row chunks
 SSD_FN_WIDTHS = {"mamba2_370m": (32, 64, 1, 128),
@@ -2030,17 +2066,18 @@ def check_ssd_function(torch, timer, gen, rows):
 
 def check_hd80(torch, timer, gen, rows):
     """Phase 2h: the flash forward's hd-80 route (row
-    "flash_attention_mma80") and the SSD autograd function."""
-    check_mma_flash(torch, timer, gen, rows, "zamba2", 32, 32, 80,
-                    HD80_FLASH)
+    "flash_attention_wgmma80"), the mma route at hd 8, 12 and 16 (row
+    "flash_attention_mma") and the SSD autograd function."""
+    check_route_flash(torch, timer, gen, rows, "zamba2", 32, 32, HD80_FLASH)
+    check_route_flash(torch, timer, gen, rows, "smoke", 4, 2, MMA_FLASH)
     check_ssd_function(torch, timer, gen, rows)
 
 
 def check_slice(torch, timer, gen, rows):
     """Phase 2g: the kernels at this slice's shapes (SLICE, HD64_FLASH),
-    under the member prefixes and the "flash_attention_mma64" row."""
-    check_mma_flash(torch, timer, gen, rows, "whisper", 20, 20, 64,
-                    HD64_FLASH)                 # whisper: H = K = 20
+    under the member prefixes and the "flash_attention_wgmma64" row."""
+    check_route_flash(torch, timer, gen, rows, "whisper", 20, 20,
+                      HD64_FLASH)               # whisper: H = K = 20
     for name, (arch, H, K, opts, parts) in SLICE.items():
         check_member(torch, timer, gen, rows, name, arch, H, K, opts,
                      set(parts))
@@ -3577,7 +3614,7 @@ def serve_family(torch, counters, card, rows) -> list:
 # the kernels of each member's serving path, whose rows carry its launches
 SLICE_KERNELS = ("paged_attention", "paged_prefill_attention",
                  "ragged_paged_prefill_attention", "flash_attention",
-                 "flash_attention_mma64", "gather")
+                 "flash_attention_wgmma64", "gather")
 # grok-1's depth on one card: 4 of its 64 layers (9.8 GB of bf16 each)
 GROK_LAYERS = 4
 # qwen3_moe's static path against the engine (12a). At all 48 layers the
@@ -3835,7 +3872,7 @@ def serve_whisper(torch, counters, card, rows) -> list:
     g, e, toks = serve_ab(torch, counters, card, tag, make_engine, make_reqs,
                           max_new, ("paged_attention",
                                     "paged_prefill_attention", "gather",
-                                    "flash_attention_mma64"), profile=True)
+                                    "flash_attention_wgmma64"), profile=True)
     # the encode pass alone: one request's frames, CUDA events
     fr = torch.from_numpy(frames[0]).to(DEV, torch.bfloat16)[None]
     timer = Timer(torch)
@@ -3858,10 +3895,10 @@ def serve_whisper(torch, counters, card, rows) -> list:
     torch.cuda.synchronize()
     static = {"wall_s": time.monotonic() - t0,
               "launches": read_launches(counters)}
-    check(static["launches"].get("flash_attention_mma64", 0)
+    check(static["launches"].get("flash_attention_wgmma64", 0)
           == cfg.encoder_layers + 2 * cfg.num_layers,
           f"{tag}: static prefill made "
-          f"{static['launches'].get('flash_attention_mma64')} hd-64 flash "
+          f"{static['launches'].get('flash_attention_wgmma64')} hd-64 flash "
           f"launches, not {cfg.encoder_layers + 2 * cfg.num_layers}")
     margins = []
     static["identical"] = sum(
@@ -4890,13 +4927,11 @@ def profile_train_step(torch, cfg, pcfg, ocfg, params, state, top=15):
     return out
 
 
-# phase 8's models besides glm4: (arch, config changes); qwen2_vl's smoke
-# head dim 12 has no flash route, so it runs at 16 with sections (2, 3, 3)
+# phase 8's models besides glm4: (arch, config changes); qwen2_vl at its
+# smoke config's own head dim 12 (the flash kernel's mma route)
 CARD_VS_CPU_TRAIN = (("mamba2_370m", {}), ("zamba2_2p7b", {}),
                      ("qwen3_moe_30b_a3b", {}), ("grok1_314b", {}),
-                     ("whisper_large_v3", {}),
-                     ("qwen2_vl_2b", dict(head_dim=16,
-                                          rope_sections=(2, 3, 3))))
+                     ("whisper_large_v3", {}), ("qwen2_vl_2b", {}))
 
 
 def train_card_vs_cpu(torch):
@@ -5576,7 +5611,9 @@ def main() -> int:
     card_vs_cpu(torch)
     lap("5-6, 14")
     runs.append(train_full(torch, counters, card))
-    train_card_vs_cpu(torch)
+    # phase 8's smoke models launch the flash kernel's mma route (hd 8, 12,
+    # 16), which no full-width path runs
+    runs += list(train_card_vs_cpu(torch).values())
     lap("7-8")
     runs += serve_family(torch, counters, card, rows)
     lap(10)

@@ -20,27 +20,38 @@
 // What bounds it on this card: at training shapes (S = 2048, hd = 128) each
 // key is reused by thousands of query rows, so it is bound by operations:
 // 4 * hd flops per causal (row, key) pair at the bf16 tensor-core rate
-// (68.7 GFLOP at B=2, S=2048, H=32: 0.0695 ms at 989 TFLOP/s).
+// (68.7 GFLOP at B=2, S=2048, H=32: 0.0695 ms at 989 TFLOP/s). So are
+// whisper's encoder (hd 64, non-causal 1500 x 1500) and zamba2's shared
+// block (hd 80, causal S 2048).
 //
-// Route "wgmma" (hd 128, the training path), designed for Hopper:
+// Routes "wgmma" (hd 128, the training path), "wgmma80" (hd 80, zamba2's
+// shared attention block) and "wgmma64" (hd 64, whisper's encoder, cross
+// and static prefill attention): one template on the head dim, designed
+// for Hopper:
 //  * a block owns 128 query rows of one (batch, q head): two warpgroups of
-//    64 rows. Query tiles are on the grid's slow axis, the last (longest
-//    causal) tile first. There is no producer warp: a 288- or 384-thread
-//    block is held to 168 registers a thread (the compiler does not give
-//    the consumers setmaxnreg's 240 here), and the loop needs 254;
+//    64 rows (or, at hd 64 where 128-row blocks would not give every SM
+//    two, 64 rows and one warpgroup: pick_rows). Query tiles are on the
+//    grid's slow axis, the last (longest causal) tile first. There is no
+//    producer warp: a 288- or 384-thread block is held to 168 registers a
+//    thread (the compiler does not give the consumers setmaxnreg's 240
+//    here), and the hd-128 loop needs 254;
 //  * one thread loads Q once and each 128-key tile of K and V with TMA
 //    (cp.async.bulk.tensor over the (hd, heads, S, B) view of the (B, S,
-//    heads, hd) tensors; a 128-wide row is two 128-byte boxes) into a
-//    3-stage ring of 128B-swizzled tiles, two tiles ahead of their use,
-//    with mbarrier completion and release. TMA fills rows past Sq and Skv
-//    with zeros; keys past Skv are masked all the same, since a zero score
-//    is not -1e30;
+//    heads, hd) tensors) into a 3-stage ring, two tiles ahead of their
+//    use, with mbarrier completion and release. A row is cut into
+//    128B-swizzled boxes of 64 values (one at hd 64, two at hd 128) and,
+//    at hd 80, a 32B-swizzled box of the last 16 values (a 128B swizzle
+//    holds at most 64 bf16 a row; each box gets wgmma descriptors of its
+//    own swizzle). TMA fills rows past Sq and Skv with zeros; keys past
+//    Skv are masked all the same, since a zero score is not -1e30;
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
-//    (K-major, 8 k-steps); O += P V is wgmma m64n128k16 with P from
-//    registers (the scores' accumulator layout is the A-fragment layout
-//    once P is rounded to bf16) and V read through the transpose bit. Per
-//    tile a warpgroup issues S(j) and P(j-1) V(j-1) together and runs the
-//    softmax of S(j) while P V runs;
+//    (K-major, hd / 16 k-steps: 8, 5 or 4); O += P V is wgmma m64n{hd}k16
+//    over the 64-value boxes (n128 spans both at hd 128) and m64n16k16
+//    over the 16-value box, with P from registers (the scores'
+//    accumulator layout is the A-fragment layout once P is rounded to
+//    bf16) and V read through the transpose bit. Per tile a warpgroup
+//    issues S(j) and P(j-1) V(j-1) together and runs the softmax of S(j)
+//    while P V runs;
 //  * the softmax runs in base 2 (scale and log2 e in one multiply, ex2 on
 //    the special-function unit); only tiles on the diagonal, the window's
 //    edge or the Skv edge are masked, branch-free, against per-row key
@@ -49,14 +60,11 @@
 //  * the output is scaled by 1 / l, staged in the warpgroup's own rows of
 //    the Q tile (swizzled as the boxes are) and written by TMA, which
 //    leaves out rows past Sq.
-// Routes "mma" (hd 16, the smoke configs), "mma64" (hd 64, whisper's
-// encoder, cross and static prefill attention) and "mma80" (hd 80,
-// zamba2's shared attention block): one template, 4 warps own
-// 64 rows, each 64-key tile is copied to shared memory with 16-byte loads
-// (one plain load, no ring: a simple first kernel for hd 64 and 80), and both
-// products are mma.sync m16n8k16 with fp32 accumulation. At whisper's
-// non-causal 1500 x 1500 the work is 4 hd flops per (row, key) pair, so
-// this route too is bound by operations on the card.
+// Route "mma" (hd 8, 12 and 16, the smoke configs): 4 warps own 64 rows,
+// each 64-key tile is copied to shared memory with plain loads into
+// 16-value rows (columns past hd zeroed, which changes no q . k and no
+// output column that is kept), and both products are mma.sync m16n8k16
+// with fp32 accumulation.
 // In every route, every sum has one fixed order (no atomics, no split over keys),
 // so two launches on the same inputs give the same bits: remat's
 // recompute of the forward reproduces it exactly.
@@ -65,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"  // mbarriers, wgmma descriptors and fences, ex2
 #include "mma.cuh"     // mma_bf16, pack_bf16
@@ -76,12 +86,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// routes "mma" (hd 16), "mma64" (hd 64) and "mma80" (hd 80)
+// route "mma": hd 8, 12 and 16
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;          // query rows per block, 16 per warp
 constexpr int BKV = 64;         // keys per tile
 constexpr int THREADS = 128;
+constexpr int HDP = 16;         // the shared rows' width: one k-step
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -93,7 +104,8 @@ __device__ __forceinline__ uint32_t pack_halves(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// m16n8k16 fragments as mma.cuh lays them out.
+// m16n8k16 fragments as mma.cuh lays them out. A row holds HD real values
+// (global stride HD) in a shared row of HDP, the rest zero.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -102,10 +114,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Skv, int H, int K, float scale, float cap,
                  int causal, int window, int q_offset) {
-  constexpr int STRIDE = HD + 8;       // padded shared-memory row, values
-  constexpr int KSTEPS = HD / 16;      // k-steps of q k^T
-  constexpr int NT_O = HD / 8;         // 8-column tiles of the output
-  constexpr int VECS = HD / 8;         // 16-byte vectors per row
+  static_assert(HD % 4 == 0 && HD <= HDP, "hd 4k up to 16");
+  constexpr int STRIDE = HDP + 8;      // padded shared-memory row, values
+  constexpr int NT_O = (HD + 7) / 8;   // 8-column tiles of the output
+  // vectors per shared row: 16 bytes when a row is a multiple of 8
+  // values, else 8 (hd 12: 24-byte rows)
+  using Vec = typename std::conditional<HD % 8 == 0, uint4, uint2>::type;
+  constexpr int VW = sizeof(Vec) / 2;  // values per vector
+  constexpr int VECS = HDP / VW;
   __shared__ __align__(16) __nv_bfloat16 ks[BKV * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 vs[BKV * STRIDE];
 
@@ -116,16 +132,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = qt * BQ;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = rows[r] < Sq;
     const __nv_bfloat16* qr = q + ((size_t)(b * Sq + rows[r]) * H + h) * HD;
-#pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-      qf[s][r] = ok ? ld32(qr + s * 16 + 2 * t) : 0u;
-      qf[s][r + 2] = ok ? ld32(qr + s * 16 + 8 + 2 * t) : 0u;
-    }
+    qf[r] = ok ? ld32(qr + 2 * t) : 0u;
+    qf[r + 2] = ok && 8 + 2 * t < HD ? ld32(qr + 8 + 2 * t) : 0u;
   }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -148,14 +161,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     for (int i = threadIdx.x; i < BKV * VECS; i += THREADS) {
       const int r = i / VECS, c = i % VECS, s = kv0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (s < Skv) {
-        const size_t off = ((size_t)(b * Skv + s) * K + kh) * HD + c * 8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
+      Vec kv{}, vv{};
+      if (s < Skv && c * VW < HD) {
+        const size_t off = ((size_t)(b * Skv + s) * K + kh) * HD + c * VW;
+        kv = *reinterpret_cast<const Vec*>(k + off);
+        vv = *reinterpret_cast<const Vec*>(v + off);
       }
-      *reinterpret_cast<uint4*>(ks + r * STRIDE + c * 8) = kv;
-      *reinterpret_cast<uint4*>(vs + r * STRIDE + c * 8) = vv;
+      *reinterpret_cast<Vec*>(ks + r * STRIDE + c * VW) = kv;
+      *reinterpret_cast<Vec*>(vs + r * STRIDE + c * VW) = vv;
     }
     __syncthreads();
 
@@ -164,9 +177,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
       const __nv_bfloat16* kr = ks + (n * 8 + g) * STRIDE + 2 * t;
-#pragma unroll
-      for (int st = 0; st < KSTEPS; ++st)
-        mma_bf16(s[n], qf[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
+      mma_bf16(s[n], qf, ld32(kr), ld32(kr + 8));
     }
 
     // scale, softcap, mask; the new row maxima
@@ -249,33 +260,61 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* orow = o + row * HD + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT_O; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * r] / ll, acc[n][2 * r + 1] / ll);
+      if (n * 8 + 2 * t < HD)       // only the real columns
+        *reinterpret_cast<uint32_t*>(orow + n * 8) =
+            pack_bf16(acc[n][2 * r] / ll, acc[n][2 * r + 1] / ll);
     if (t == 0) lse[row] = m[r] + logf(ll);
   }
 }
 
 // ---------------------------------------------------------------------------
-// route "wgmma": hd 128
+// routes "wgmma" (hd 128), "wgmma80" (hd 80) and "wgmma64" (hd 64)
 // ---------------------------------------------------------------------------
 
 namespace hop {
 
-constexpr int HD = 128;
-constexpr int BQ = 128;                    // query rows per block
 constexpr int BKV = 128;                   // keys per tile
 constexpr int STAGES = 3;                  // K/V ring depth
-constexpr int THREADS = 256;               // two warpgroups of 64 rows
-constexpr int BOX_BYTES = BKV * 64 * 2;    // 128 rows x 64 values (128 B)
-constexpr int TILE_BYTES = 2 * BOX_BYTES;  // 128 rows x 128 values
-constexpr int WG_ROWS_BYTES = 64 * 128;    // a warpgroup's 64 rows of a box
-// shared memory, from a 1024-byte aligned base (the 128B swizzle repeats
-// every 8 rows of 128 bytes): Q, K[STAGES], V[STAGES], then the barriers
-constexpr int SM_Q = 0;
-constexpr int SM_K = SM_Q + TILE_BYTES;
-constexpr int SM_V = SM_K + STAGES * TILE_BYTES;
-constexpr int SM_BAR = SM_V + STAGES * TILE_BYTES;
-constexpr int SM_BYTES = SM_BAR + 8 * (1 + 4 * STAGES) + 1024;
+
+// A tile of R rows of HD values: C0 = 64 or 128 values a row in
+// 128B-swizzled boxes of 64 (R x 128 bytes each), then C1 = 0 or 16 in
+// one 32B-swizzled box (R x 32 bytes).
+template <int HD>
+struct Layout {
+  static constexpr int C0 = HD >= 128 ? 128 : 64;
+  static constexpr int C1 = HD - C0;
+  static_assert(HD == 64 || HD == 80 || HD == 128, "hd 64, 80 or 128");
+  __host__ __device__ static constexpr int box_bytes(int rows) {
+    return rows * 128;
+  }
+  __host__ __device__ static constexpr int part1(int rows) {
+    return rows * C0 * 2;
+  }
+  __host__ __device__ static constexpr int tile_bytes(int rows) {
+    return rows * HD * 2;
+  }
+};
+
+// Shared memory of a block of WGS warpgroups, from a 1024-byte aligned base
+// (the 128B swizzle repeats every 8 rows of 128 bytes): Q, K[STAGES],
+// V[STAGES], then the barriers.
+template <int HD, int WGS>
+struct Smem {
+  static constexpr int BQ = 64 * WGS;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Layout<HD>::tile_bytes(BQ);
+  static constexpr int V = K + STAGES * Layout<HD>::tile_bytes(BKV);
+  static constexpr int BAR = V + STAGES * Layout<HD>::tile_bytes(BKV);
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;
+};
+
+// wgmma shared-memory descriptor, 32B swizzle; lbo and sbo in bytes.
+__device__ __forceinline__ uint64_t sdesc32(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
+}
 
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -304,36 +343,36 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
-// Keeps the compiler from moving reads of an accumulator across a wait.
-__device__ __forceinline__ void pin(float (&d)[64]) {
+// Keeps the compiler from moving reads of an accumulator (or P's
+// registers) across a wait, or reusing them while a wgmma reads them.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-#define ACC64(d)                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define ACC8(d, o)                                                           \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define ACC32(d, o) \
+  ACC8(d, o), ACC8(d, o + 8), ACC8(d, o + 16), ACC8(d, o + 24)
+#define ACC64(d) ACC32(d, 0), ACC32(d, 32)
 
-#define ACC64_STR                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "                    \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "               \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "             \
-  "%24, %25, %26, %27, %28, %29, %30, %31, "             \
-  "%32, %33, %34, %35, %36, %37, %38, %39, "             \
-  "%40, %41, %42, %43, %44, %45, %46, %47, "             \
-  "%48, %49, %50, %51, %52, %53, %54, %55, "             \
-  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define STR8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define STR32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define STR64                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x 128, fp32) = or += a (64 x 16) * b (16 x 128), both K-major in
 // shared memory.
@@ -341,28 +380,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
       "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACC64_STR
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " STR64
       ", %64, %65, p, 1, 1, 0, 0;\n\t}"
       : ACC64(d)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 128, fp32) += a (64 x 16, bf16 fragments in registers) * b
-// (16 x 128), b MN-major in shared memory (the transpose bit).
+// d (64 x N, fp32) += a (64 x 16, bf16 fragments in registers) * b
+// (16 x N), b MN-major in shared memory (the transpose bit); N = 128, 64
+// or 16.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
                                          uint64_t b) {
   asm volatile(
       "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACC64_STR
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " STR64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
       : ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
-
-// Keeps the compiler from reusing P's registers while a wgmma reads them.
-__device__ __forceinline__ void pin(uint32_t (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i])::"memory");
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " STR32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : ACC32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %13, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " STR8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n\t}"
+      : ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // The online softmax of one tile of scores, in place: sc becomes the
@@ -432,28 +484,42 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64],
   for (int i = 0; i < 64; i += 2) pa[i >> 1] = pack_bf16(sc[i], sc[i + 1]);
 }
 
+// The tensor maps of one operand: the 128B-swizzled boxes of its first C0
+// values and the 32B-swizzled box of the last C1 (unused when C1 = 0).
+struct Maps {
+  CUtensorMap sw128, sw32;
+};
+
 // Per tile j each warpgroup issues S(j) = Q K(j)^T, rescales O (the
 // CUDA cores, while S(j) runs), issues O += P(j-1) V(j-1), waits for S(j)
 // alone and runs its softmax while the tensor cores finish P V. One thread of
 // warpgroup 0 also issues the TMA loads, two tiles ahead: K(j + 2) and
 // V(j + 1) in tile j, each into the stage its predecessor three tiles back
-// has left (both warpgroups released it a tile ago, so the wait is
-// normally over). All 256 threads compute: no producer warps, so each
-// thread may hold 255 registers.
-__global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
-                __grid_constant__ const CUtensorMap kmap,
-                __grid_constant__ const CUtensorMap vmap,
-                __grid_constant__ const CUtensorMap omap,
+// has left (every warpgroup released it a tile ago, so the wait is
+// normally over). All threads compute: no producer warps, so each thread
+// may hold 255 registers.
+template <int HD, int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1)
+flash_fwd_wgmma(__grid_constant__ const Maps qmap,
+                __grid_constant__ const Maps kmap,
+                __grid_constant__ const Maps vmap,
+                __grid_constant__ const Maps omap,
                 float* __restrict__ lse,
                 int Sq, int Skv, int H, int K, float scale, float cap,
                 int causal, int window, int q_offset) {
+  using L = Layout<HD>;
+  using SM = Smem<HD, WGS>;
+  constexpr int THREADS = 128 * WGS, BQ = SM::BQ;
+  constexpr int C0 = L::C0, C1 = L::C1, N0 = C0 / 64;
+  constexpr int KV_TILE = L::tile_bytes(BKV), Q_TILE = L::tile_bytes(BQ);
+  constexpr int KV_BOX = L::box_bytes(BKV), Q_BOX = L::box_bytes(BQ);
+  constexpr int KV_P1 = L::part1(BKV), Q_P1 = L::part1(BQ);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t q_s = base + SM_Q, k_s = base + SM_K, v_s = base + SM_V;
+  const uint32_t q_s = base + SM::Q, k_s = base + SM::K, v_s = base + SM::V;
   // barriers: q_full, then per stage k_full, v_full, k_empty, v_empty
-  const uint32_t q_full = base + SM_BAR;
+  const uint32_t q_full = base + SM::BAR;
   auto k_full = [&](int s) { return q_full + 8 * (1 + 4 * s); };
   auto v_full = [&](int s) { return q_full + 8 * (2 + 4 * s); };
   auto k_empty = [&](int s) { return q_full + 8 * (3 + 4 * s); };
@@ -473,23 +539,28 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
   const int tile_lo = kv_lo / BKV;
   const int n_tiles = max(0, (kv_hi + BKV - 1) / BKV - tile_lo);
 
+  // rows r0 .. r0 + rows - 1 of head `hh` of one operand into dst
+  auto load_tile = [&](uint32_t dst, const Maps& map, uint32_t bar,
+                       int box_bytes, int p1, int hh, int r0) {
+#pragma unroll
+    for (int i = 0; i < N0; ++i)
+      tma_load(dst + i * box_bytes, &map.sw128, bar, 64 * i, hh, r0, b);
+    if constexpr (C1 > 0) tma_load(dst + p1, &map.sw32, bar, C0, hh, r0, b);
+  };
   const bool loader = threadIdx.x == 0;
   // tile j of K (or V) into stage j % STAGES, once tile j - STAGES has left
+  auto load_kv = [&](int j, uint32_t ring, const Maps& map, uint32_t full,
+                     uint32_t empty) {
+    if (j >= STAGES) mbar_wait(empty, ((j / STAGES) - 1) & 1);
+    mbar_expect_tx(full, KV_TILE);
+    load_tile(ring + (j % STAGES) * KV_TILE, map, full, KV_BOX, KV_P1, kh,
+              (tile_lo + j) * BKV);
+  };
   auto load_k = [&](int j) {
-    const int s = j % STAGES, kv0 = (tile_lo + j) * BKV;
-    if (j >= STAGES) mbar_wait(k_empty(s), ((j / STAGES) - 1) & 1);
-    mbar_expect_tx(k_full(s), TILE_BYTES);
-    tma_load(k_s + s * TILE_BYTES, &kmap, k_full(s), 0, kh, kv0, b);
-    tma_load(k_s + s * TILE_BYTES + BOX_BYTES, &kmap, k_full(s), 64, kh, kv0,
-             b);
+    load_kv(j, k_s, kmap, k_full(j % STAGES), k_empty(j % STAGES));
   };
   auto load_v = [&](int j) {
-    const int s = j % STAGES, kv0 = (tile_lo + j) * BKV;
-    if (j >= STAGES) mbar_wait(v_empty(s), ((j / STAGES) - 1) & 1);
-    mbar_expect_tx(v_full(s), TILE_BYTES);
-    tma_load(v_s + s * TILE_BYTES, &vmap, v_full(s), 0, kh, kv0, b);
-    tma_load(v_s + s * TILE_BYTES + BOX_BYTES, &vmap, v_full(s), 64, kh, kv0,
-             b);
+    load_kv(j, v_s, vmap, v_full(j % STAGES), v_empty(j % STAGES));
   };
 
   if (loader) {
@@ -501,9 +572,8 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
       mbar_init(v_empty(s), THREADS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(q_full, TILE_BYTES);
-    tma_load(q_s, &qmap, q_full, 0, h, q0, b);
-    tma_load(q_s + BOX_BYTES, &qmap, q_full, 64, h, q0, b);
+    mbar_expect_tx(q_full, Q_TILE);
+    load_tile(q_s, qmap, q_full, Q_BOX, Q_P1, h, q0);
     for (int j = 0; j < min(n_tiles, 2); ++j) load_k(j);
     if (n_tiles > 0) load_v(0);
   }
@@ -531,20 +601,30 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
            (causal && (kv0 + BKV - 1 > first_q ||
                        (window > 0 && kv0 <= last_q - window)));
   };
+  // this warpgroup's 64 rows of Q: the 128B boxes, then the 32B box
+  const uint32_t q_wg = q_s + wg * 64 * 128, q_wg1 = q_s + Q_P1 + wg * 64 * 32;
   auto issue_s = [&](float (&sc)[64], uint32_t kt) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
-      wgmma_ss(sc, sdesc(q_s + off + wg * WG_ROWS_BYTES, 16, 1024),
-               sdesc(kt + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < C0 / 16; ++kk) {
+      const int col = (kk & 3) * 32;
+      wgmma_ss(sc, sdesc(q_wg + (kk >> 2) * Q_BOX + col, 16, 1024),
+               sdesc(kt + (kk >> 2) * KV_BOX + col, 16, 1024), kk > 0);
     }
+    if constexpr (C1 > 0)
+      wgmma_ss(sc, sdesc32(q_wg1, 16, 256), sdesc32(kt + KV_P1, 16, 256), 1);
     wg_commit();
   };
-  auto issue_pv = [&](float (&acc)[64], const uint32_t (&pa)[32],
-                      uint32_t vt) {
+  // O += P V over 16 keys a k-step: n = C0 over the 128B boxes (their
+  // stride is the descriptor's leading offset), n16 over the 32B box
+  auto issue_pv = [&](float (&acc)[C0 / 2], float (&acc1)[8],
+                      const uint32_t (&pa)[32], uint32_t vt) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs(acc, pa + 4 * kk, sdesc(vt + kk * 2048, BOX_BYTES, 1024));
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_rs(acc, pa + 4 * kk, sdesc(vt + kk * 2048, KV_BOX, 1024));
+      if constexpr (C1 > 0)
+        wgmma_rs(acc1, pa + 4 * kk,
+                 sdesc32(vt + KV_P1 + kk * 512, KV_P1, 256));
+    }
     wg_commit();
   };
   // the loads tile j issues: K(j + 2) and V(j + 1)
@@ -554,15 +634,25 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
     if (j + 1 < n_tiles) load_v(j + 1);
   };
 
-  auto rescale = [&](float (&acc)[64], const float (&corr)[2]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= corr[(i >> 1) & 1];
-  };
-
-  float acc[64], sc[64], corr[2];
+  float acc[C0 / 2], acc1[8], sc[64], corr[2];
   uint32_t pa[32];
+  auto pin_acc = [&]() {
+    pin(acc);
+    if constexpr (C1 > 0) pin(acc1);
+  };
+  auto rescale = [&]() {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C0 / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    if constexpr (C1 > 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc1[i] *= corr[(i >> 1) & 1];
+    }
+    pin_acc();
+  };
+#pragma unroll
+  for (int i = 0; i < C0 / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc1[i] = 0.f;
   float m[2] = {neg2, neg2}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -585,18 +675,17 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
     mbar_wait(k_full(s), (it / STAGES) & 1);
     mbar_wait(v_full(ps), ((it - 1) / STAGES) & 1);
     wg_fence();
-    issue_s(sc, k_s + s * TILE_BYTES);
-    rescale(acc, corr);
-    pin(acc);
+    issue_s(sc, k_s + s * KV_TILE);
+    rescale();
     wg_fence();
-    issue_pv(acc, pa, v_s + ps * TILE_BYTES);
+    issue_pv(acc, acc1, pa, v_s + ps * KV_TILE);
     prefetch(it);
     wg_wait<1>();
     pin(sc);
     mbar_arrive(k_empty(s));
     softmax(sc, m, l, corr, kv0, need_mask(kv0));
     wg_wait<0>();
-    pin(acc);
+    pin_acc();
     pin(pa);
     mbar_arrive(v_empty(ps));
     pack_p(sc, pa);
@@ -605,12 +694,11 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
   if (n_tiles > 0) {
     const int ps = (n_tiles - 1) % STAGES;
     mbar_wait(v_full(ps), ((n_tiles - 1) / STAGES) & 1);
-    rescale(acc, corr);
-    pin(acc);
+    rescale();
     wg_fence();
-    issue_pv(acc, pa, v_s + ps * TILE_BYTES);
+    issue_pv(acc, acc1, pa, v_s + ps * KV_TILE);
     wg_wait<0>();
-    pin(acc);
+    pin_acc();
   }
 
   // each thread summed its own columns: combine the quad in a fixed order
@@ -620,63 +708,125 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   // o = acc / l in bf16, written into this warpgroup's 64 rows of the Q
-  // tiles (free once its last S product is done), 128B-swizzled as the
-  // boxes are, then stored by TMA, which leaves out rows past Sq
-  const uint32_t o_s = q_s + wg * WG_ROWS_BYTES;
+  // tile (free once its last S product is done), swizzled as the boxes
+  // are (the 128B swizzle moves 16-byte chunk c of row rr to c ^ (rr & 7),
+  // the 32B one to c ^ ((rr >> 2) & 1)), then stored by TMA, which leaves
+  // out rows past Sq
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float ll = fmaxf(l[r], 1e-37f), inv = 1.f / ll;
     const int rr = 16 * (tid >> 5) + g + 8 * r;  // row within the 64
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      st_shared(o_s + (j >> 3) * BOX_BYTES + rr * 128 +
+    for (int j = 0; j < C0 / 8; ++j)
+      st_shared(q_wg + (j >> 3) * Q_BOX + rr * 128 +
                     (((j & 7) ^ (rr & 7)) << 4) + 4 * t,
                 pack_bf16(acc[4 * j + 2 * r] * inv,
                           acc[4 * j + 2 * r + 1] * inv));
+    if constexpr (C1 > 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        st_shared(q_wg1 + rr * 32 + ((j ^ ((rr >> 2) & 1)) << 4) + 4 * t,
+                  pack_bf16(acc1[4 * j + 2 * r] * inv,
+                            acc1[4 * j + 2 * r + 1] * inv));
+    }
     if (t == 0 && row + 8 * r < Sq)
       lse[(size_t)(b * Sq + row + 8 * r) * H + h] = m[r] * LN2 + logf(ll);
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   wg_bar_sync(1 + wg);
   if (tid == 0) {
-    tma_store(&omap, o_s, 0, h, q0 + 64 * wg, b);
-    tma_store(&omap, o_s + BOX_BYTES, 64, h, q0 + 64 * wg, b);
+#pragma unroll
+    for (int i = 0; i < N0; ++i)
+      tma_store(&omap.sw128, q_wg + i * Q_BOX, 64 * i, h, q0 + 64 * wg, b);
+    if constexpr (C1 > 0) tma_store(&omap.sw32, q_wg1, C0, h, q0 + 64 * wg, b);
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
+#undef ACC8
+#undef ACC32
 #undef ACC64
-#undef ACC64_STR
+#undef STR8
+#undef STR32
+#undef STR64
 
-// A (B, S, N, 128) bf16 tensor seen as (128, N, S, B), boxes of 64 values x
-// 1 head x `rows` rows, 128B-swizzled; rows past S read as zeros and are
-// not written.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
-            int N, int rows) {
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * 2ull, (cuuint64_t)N * HD * 2,
-                                 (cuuint64_t)S * N * HD * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+// A (B, S, N, hd) bf16 tensor seen as (hd, N, S, B), boxes of `cols`
+// values x 1 head x `rows` rows, 128B-swizzled (64 values) or 32B-swizzled
+// (16); rows past S read as zeros and are not written.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd,
+            int B, int S, int N, int cols, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)N, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {hd * 2ull, (cuuint64_t)N * hd * 2,
+                                 (cuuint64_t)S * N * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Both maps of one operand (the 32B one only where the head dim has a
+// 16-value tail).
+template <int HD>
+bool encode_maps(EncodeTiled fn, Maps* maps, const void* ptr, int B, int S,
+                 int N, int rows) {
+  maps->sw32 = {};
+  return encode(fn, &maps->sw128, ptr, HD, B, S, N, 64, rows) &&
+         (Layout<HD>::C1 == 0 ||
+          encode(fn, &maps->sw32, ptr, HD, B, S, N, 16, rows));
+}
+
+template <int HD, int WGS>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Sq, int Skv, int H, int K, float scale, float cap,
+           int causal, int window, int q_offset, cudaStream_t stream) {
+  constexpr int BQ = Smem<HD, WGS>::BQ, BYTES = Smem<HD, WGS>::BYTES;
+  EncodeTiled fn = encode_tiled();
+  Maps qm, km, vm, om;
+  if (fn == nullptr || !encode_maps<HD>(fn, &qm, q, B, Sq, H, BQ) ||
+      !encode_maps<HD>(fn, &km, k, B, Skv, K, BKV) ||
+      !encode_maps<HD>(fn, &vm, v, B, Skv, K, BKV) ||
+      !encode_maps<HD>(fn, &om, o, B, Sq, H, 64))
+    return -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  flash_fwd_wgmma<HD, WGS><<<grid, 128 * WGS, BYTES, stream>>>(
+      qm, km, vm, om, static_cast<float*>(lse), Sq, Skv, H, K, scale, cap,
+      causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hd 64's block height: 64 rows (one warpgroup, two blocks an SM) where
+// 128-row blocks would not give every SM of the current card two, else
+// 128. hd 80 and 128 always take 128: their ring leaves room for one
+// block an SM at either height.
+int pick_rows(int B, int Sq, int H) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 128;
+  return (long)B * H * ((Sq + 127) / 128) < 2L * sms ? 64 : 128;
 }
 
 }  // namespace hop
 
-// The mma.sync routes on `stream`.
+// The mma.sync route on `stream`.
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int Sq, int Skv, int H, int K, float scale,
                float cap, int causal, int window, int q_offset,
-               void* stream) {
-  if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
+               cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flash_fwd_kernel<HD><<<grid, THREADS, 0, st>>>(
+  flash_fwd_kernel<HD><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -689,66 +839,33 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// The entry points: q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16 contiguous
+// The entry point: q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16 contiguous
 // -> o (B, Sq, H, hd) bf16, lse (B, Sq, H) fp32; cap <= 0 means no
-// softcap, window <= 0 no window. They return cudaGetLastError() after the
-// launch.
-
-// Route "mma", hd 16.
-int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int Sq, int Skv, int H,
-                            int K, float scale, float cap, int causal,
-                            int window, int q_offset, void* stream) {
-  return launch_mma<16>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
-                        causal, window, q_offset, stream);
-}
-
-// Route "mma64", hd 64.
-int flash_attention_fwd_mma64(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Sq, int Skv,
-                              int H, int K, float scale, float cap,
-                              int causal, int window, int q_offset,
-                              void* stream) {
-  return launch_mma<64>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
-                        causal, window, q_offset, stream);
-}
-
-// Route "mma80", hd 80 (zamba2's shared attention block): 5 k-steps of
-// q k^T, 10 eight-column output tiles, 176-byte padded shared rows.
-int flash_attention_fwd_mma80(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Sq, int Skv,
-                              int H, int K, float scale, float cap,
-                              int causal, int window, int q_offset,
-                              void* stream) {
-  return launch_mma<80>(q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap,
-                        causal, window, q_offset, stream);
-}
-
-// Route "wgmma", hd 128; Skv >= 1 (a tensor map needs a non-empty tensor).
-// Returns -1 when the tensor maps cannot be built.
-int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Sq, int Skv,
-                              int H, int K, float scale, float cap,
-                              int causal, int window, int q_offset,
-                              void* stream) {
+// softcap, window <= 0 no window; Skv >= 1 (a tensor map needs a
+// non-empty tensor). hd 8, 12 and 16 take the mma.sync route, 64, 80 and
+// 128 the wgmma one (hd 64 at the height hop::pick_rows gives). Returns
+// cudaGetLastError() after the launch, -1 when the tensor maps cannot be
+// built and -2 for a head dim no route takes.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int B, int Sq, int Skv, int H, int K,
+                        int hd, float scale, float cap, int causal,
+                        int window, int q_offset, void* stream) {
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
-  EncodeTiled fn = encode_tiled();
-  CUtensorMap qm, km, vm, om;
-  if (fn == nullptr || !hop::encode(fn, &qm, q, B, Sq, H, hop::BQ) ||
-      !hop::encode(fn, &km, k, B, Skv, K, hop::BKV) ||
-      !hop::encode(fn, &vm, v, B, Skv, K, hop::BKV) ||
-      !hop::encode(fn, &om, o, B, Sq, H, 64))
-    return -1;
-  cudaError_t e = cudaFuncSetAttribute(
-      hop::flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      hop::SM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(B * H, (Sq + hop::BQ - 1) / hop::BQ);
-  hop::flash_fwd_wgmma<<<grid, hop::THREADS, hop::SM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, om, static_cast<float*>(lse), Sq, Skv, H, K, scale, cap,
-      causal, window, q_offset);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ARGS q, k, v, o, lse, B, Sq, Skv, H, K, scale, cap, causal, window, \
+             q_offset, st
+  switch (hd) {
+    case 8: return launch_mma<8>(ARGS);
+    case 12: return launch_mma<12>(ARGS);
+    case 16: return launch_mma<16>(ARGS);
+    case 64:
+      return hop::pick_rows(B, Sq, H) == 128 ? hop::launch<64, 2>(ARGS)
+                                             : hop::launch<64, 1>(ARGS);
+    case 80: return hop::launch<80, 2>(ARGS);
+    case 128: return hop::launch<128, 2>(ARGS);
+    default: return -2;
+  }
+#undef ARGS
 }
 
 }  // extern "C"

@@ -3,13 +3,14 @@ autograd function that training runs.
 
 Port of ``repro.kernels.flash_attention.flash_attention`` (a Pallas TPU
 forward kernel under a ``jax.custom_vjp`` whose backward ``_bwd_ref`` is
-plain jnp). The kernels are in ``csrc/flash_attention.cu``, one route per
-head dim: ``"wgmma"`` for hd 128 (TMA loads into a ring of tiles and
-Hopper's warpgroup products; the training path), ``"mma80"`` for hd 80
-(zamba2's shared attention block), ``"mma64"`` for hd 64 (whisper's
-encoder, cross and static prefill attention) and ``"mma"`` for hd 16 (the
-smoke configs), the last three one ``mma.sync`` template. Their
-plain version is ``ref.flash_attention_fwd_plain`` (the same (o, lse)).
+plain jnp). The kernels are in ``csrc/flash_attention.cu``, behind one
+entry point, in two designs: ``"wgmma"`` for hd 128 (the training path),
+``"wgmma80"`` for hd 80 (zamba2's shared attention block) and
+``"wgmma64"`` for hd 64 (whisper's encoder, cross and static prefill
+attention), one template of TMA loads into a ring of tiles and Hopper's
+warpgroup products; ``"mma"`` for hd 8, 12 and 16 (the smoke configs), an
+``mma.sync`` template over 16-value rows. Their plain version is
+``ref.flash_attention_fwd_plain`` (the same (o, lse)).
 ``FlashAttention``
 runs the kernel forward, saves ``(q, k, v, o, lse)`` as ``_vjp_fwd`` does,
 and its backward is ``ref.flash_attention_bwd_plain``, the port of
@@ -30,25 +31,27 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-ROUTES = {16: "mma", 64: "mma64", 80: "mma80", 128: "wgmma"}  # hd -> kernel
+ROUTES = {8: "mma", 12: "mma", 16: "mma", 64: "wgmma64", 80: "wgmma80",
+          128: "wgmma"}                                   # hd -> kernel
 HEAD_DIMS = tuple(ROUTES)
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = ([_VP] * 5 + [_INT] * 5 + [_F, _F] + [_INT] * 3 + [_VP], _INT)
+# q, k, v, o, lse; B, Sq, Skv, H, K, hd; scale, cap; causal, window,
+# q_offset; stream
+_SIG = ([_VP] * 5 + [_INT] * 6 + [_F, _F] + [_INT] * 3 + [_VP], _INT)
 
 
 def _lib():
-    return build.load("flash_attention", {
-        f"flash_attention_fwd_{r}": _SIG for r in ROUTES.values()})
+    return build.load("flash_attention", {"flash_attention_fwd": _SIG})
 
 
 def route(hd: int) -> str:
-    """The kernel that takes head dim ``hd``: "wgmma" (128), "mma80" (80),
-    "mma64" (64) or "mma" (16). Raises ValueError naming the head dims for
-    any other."""
+    """The kernel that takes head dim ``hd``: "wgmma" (128), "wgmma80"
+    (80), "wgmma64" (64) or "mma" (8, 12, 16). Raises ValueError naming
+    the head dims for any other."""
     if hd not in ROUTES:
         raise ValueError(f"flash_attention: the kernel takes head dims "
-                         f"{HEAD_DIMS} (128 -> wgmma, 80 -> mma80, 64 -> "
-                         f"mma64, 16 -> mma), got {hd}")
+                         f"{HEAD_DIMS} (128 -> wgmma, 80 -> wgmma80, 64 -> "
+                         f"wgmma64, 8/12/16 -> mma), got {hd}")
     return ROUTES[hd]
 
 
@@ -88,10 +91,10 @@ def _check(q, k, v, window, q_offset):
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
                     scale=None, q_offset=0):
     """CUDA flash forward. q (B, Sq, H, hd), k/v (B, Skv, K, hd) bf16
-    contiguous on one card, hd 128 (route "wgmma"), 80 ("mma80"), 64
-    ("mma64") or 16 ("mma"),
-    Skv >= 1; query row i sits at absolute position ``q_offset + i``.
-    Returns (o (B, Sq, H, hd) bf16, lse (B, Sq, H) fp32)."""
+    contiguous on one card, hd 128 (route "wgmma"), 80 ("wgmma80"), 64
+    ("wgmma64") or 8, 12, 16 ("mma"), Skv >= 1; query row i sits at
+    absolute position ``q_offset + i``. Returns (o (B, Sq, H, hd) bf16,
+    lse (B, Sq, H) fp32)."""
     _check(q, k, v, window, q_offset)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -100,15 +103,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
     o = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     with build.on_device(q):
-        rc = getattr(_lib(), f"flash_attention_fwd_{r}")(
+        rc = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, K, float(scale),
+            lse.data_ptr(), B, Sq, Skv, H, K, hd, float(scale),
             0.0 if cap is None else float(cap), int(causal),
             0 if window is None else int(window), int(q_offset),
             build.current_stream(q))
     if rc != 0:
-        why = "no tensor maps" if rc == -1 else f"cudaError {rc}"
-        raise RuntimeError(f"flash_attention_fwd_{r} launch failed: {why}")
+        why = {-1: "no tensor maps", -2: "no route for this head dim"}.get(
+            rc, f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention route {r} launch failed: {why}")
     flash_attention.launches[r] += 1
     return o, lse
 

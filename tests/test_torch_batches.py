@@ -31,6 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models import attention as tatt
 from repro_torch.spmd import steps as tsteps
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _bytes(x):

@@ -23,6 +23,7 @@ from repro_torch.checkpoint.elastic import restore_to, save_global
 from repro_torch.config import OptimizerConfig, ParallelConfig, get_config
 from repro_torch.launch.train import train
 from repro_torch.optim import optimizers as topt
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _state(v):

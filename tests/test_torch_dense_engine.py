@@ -25,6 +25,7 @@ from repro_torch.models import api
 from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request
 from test_torch_engine import _assert_same_or_near_tie
+import torch_cpu  # noqa: F401  (one torch thread)
 
 # max_batch 2, 16-token blocks, 12-token chunks; 7 allocatable blocks
 # force preemption once two requests pass 3 blocks each

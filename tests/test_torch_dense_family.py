@@ -35,6 +35,7 @@ from repro_torch.models import embedding as temb
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import init_model, loss_fn, params_from_jax
 from repro_torch.serving.kv_cache import init_paged_cache
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["qwen3_32b", "starcoder2_3b", "gemma2_27b"]
 # fp32: the ladder's 1e-5. bf16: test_torch_transformer.py's 5e-2 for a

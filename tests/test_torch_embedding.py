@@ -18,6 +18,7 @@ import torch
 from repro.kernels import embedding as jemb_k
 from repro_torch.kernels import embedding as temb_k
 from repro_torch.kernels import ops
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _table(dtype=torch.bfloat16, V=40, d=64):

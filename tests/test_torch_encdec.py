@@ -39,6 +39,7 @@ from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.cache import encoder_cache_bytes
 from repro_torch.serving.runners import EncDecRunner, make_runner
 from test_torch_moe_engine import assert_same_or_near_tie, record
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCH = "whisper_large_v3"
 FP32_TOL = 1e-5

@@ -28,6 +28,7 @@ from repro_torch.models import transformer
 from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
 from repro_torch.serving.kv_cache import init_paged_cache
+import torch_cpu  # noqa: F401  (one torch thread)
 
 BF16_TOL = 1e-2
 # max_batch 2, 16-token blocks, 12-token chunks; 7 allocatable blocks

@@ -43,6 +43,7 @@ from repro_torch.serving.kv_cache import TRASH_BLOCK
 from repro_torch.serving.runners import SAMPLING_MODES
 from repro_torch.serving.sampling import sample_tokens
 from repro_torch.serving.scheduler import SamplingParams
+import torch_cpu  # noqa: F401  (one torch thread)
 
 # (arch, prefill_pack, kv_dtype, speculative tokens)
 RUNNERS = [("glm4_9b", 1, "bf16", 0), ("glm4_9b", 4, "int8", 0),

@@ -35,6 +35,7 @@ from repro_torch.serving.frontend import (AdmissionController,
                                           ShedError, render_metrics,
                                           render_router_metrics)
 from repro_torch.serving.frontend.admission import MIN_RETRY_AFTER_S
+import torch_cpu  # noqa: F401  (one torch thread)
 
 RNG = np.random.default_rng(7)
 

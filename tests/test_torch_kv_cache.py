@@ -15,6 +15,7 @@ from repro.serving.scheduler import Scheduler as JSched
 from repro_torch.serving.kv_cache import TRASH_BLOCK, BlockManager
 from repro_torch.serving.kv_cache import block_bytes, chain_block_hashes
 from repro_torch.serving.scheduler import Request, Scheduler
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _state(bm):

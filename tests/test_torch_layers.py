@@ -18,6 +18,7 @@ from repro_torch.config import get_config
 from repro_torch.models import attention as tatt
 from repro_torch.models import embedding as temb
 from repro_torch.models import layers as tlay
+import torch_cpu  # noqa: F401  (one torch thread)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}

@@ -25,6 +25,7 @@ from repro.models import api as japi
 from repro.models import moe as jmoe
 from repro_torch.config import get_config
 from repro_torch.models import moe
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["qwen3_moe_30b_a3b", "grok1_314b"]
 FP32_TOL = 1e-5

@@ -41,6 +41,7 @@ from repro_torch.models import api, moe
 from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.runners import TransformerRunner, make_runner
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["qwen3_moe_30b_a3b", "grok1_314b"]
 BF16_TOL = 1e-2

@@ -19,6 +19,7 @@ from repro import config as jconfig
 from repro.optim import optimizers as jopt
 from repro_torch import config as tconfig
 from repro_torch.optim import optimizers as topt
+import torch_cpu  # noqa: F401  (one torch thread)
 
 NAMES = ["sgd", "momentum", "adagrad", "rmsprop", "adadelta", "adam",
          "adamw"]

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tatt
+import torch_cpu  # noqa: F401  (one torch thread)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

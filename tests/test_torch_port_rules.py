@@ -12,6 +12,7 @@ import pytest
 
 from repro.config import get_config as jax_get_config
 from repro_torch.config import ARCHS, ModelConfig, get_config
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"

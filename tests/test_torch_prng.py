@@ -19,6 +19,7 @@ import torch
 
 from jax._src import prng as jax_prng
 from repro_torch.serving import prng
+import torch_cpu  # noqa: F401  (one torch thread)
 
 SEEDS = (0, 7, -1, int(np.uint32(2 ** 31 + 5).view(np.int32)))
 RIDS = (0, 5, 2 ** 20)

@@ -33,6 +33,7 @@ from test_torch_ragged_prefill import (assert_rows_close,
                                        assert_same_or_near_tie, both,
                                        ragged_case, run_port, to_torch)
 from test_torch_ragged_prefill import setup  # noqa: F401 (module fixture)
+import torch_cpu  # noqa: F401  (one torch thread)
 
 BF16_TOL = 1e-2
 # max_batch 2, 16-token blocks, 12-token chunks, 7 allocatable blocks:

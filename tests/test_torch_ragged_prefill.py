@@ -43,6 +43,7 @@ from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.engine import pack_ragged, unpack_ragged
 from repro_torch.serving.kv_cache import BlockManager, init_paged_cache
 from repro_torch.serving.scheduler import Scheduler
+import torch_cpu  # noqa: F401  (one torch thread)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -16,6 +16,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.config import ParallelConfig, ShapeConfig, get_config
 from repro_torch.models import api
 from repro_torch.optim import optimizers as topt
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["mamba2_370m", "zamba2_2p7b", "qwen3_moe_30b_a3b",
          "whisper_large_v3"]

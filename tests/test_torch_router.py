@@ -28,6 +28,7 @@ from repro_torch.models.api import init_model
 from repro_torch.serving import (InferenceEngine, ReplicaRouter, Request,
                                  SamplingParams, SharedPrefixIndex)
 from repro_torch.serving.kv_cache import BlockManager
+import torch_cpu  # noqa: F401  (one torch thread)
 
 RNG = np.random.default_rng(11)
 

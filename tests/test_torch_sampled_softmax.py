@@ -29,6 +29,7 @@ from repro_torch.config import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import sampled_softmax as tss
 from repro_torch.models import embedding as temb
+import torch_cpu  # noqa: F401  (one torch thread)
 
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}

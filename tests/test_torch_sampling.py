@@ -16,6 +16,7 @@ from repro.serving.sampling import _prep_logits as jax_prep_logits
 from repro.serving.sampling import sample_tokens as jax_sample_tokens
 from repro_torch.serving.sampling import (NEG, base_key, prep_logits,
                                           sample_tokens)
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _oracle_probs(lg, t, k):

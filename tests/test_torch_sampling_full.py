@@ -43,6 +43,7 @@ from repro_torch.serving import InferenceEngine, Request, SamplingParams
 from repro_torch.serving import prng
 from repro_torch.serving import sampling as P
 from repro_torch.serving.runners import make_runner
+import torch_cpu  # noqa: F401  (one torch thread)
 
 BF16_TOL = 1e-2
 RNG = np.random.default_rng(0)

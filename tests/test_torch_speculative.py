@@ -32,6 +32,7 @@ from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
 from repro_torch.serving.kv_cache import BlockManager, init_paged_cache
 from repro_torch.serving.scheduler import Scheduler
+import torch_cpu  # noqa: F401  (one torch thread)
 
 BF16_TOL = 1e-2
 K = 2

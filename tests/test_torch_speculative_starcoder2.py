@@ -26,6 +26,7 @@ from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
 from repro_torch.serving.runners import SpeculativeRunner, make_runner
 from test_torch_engine import _assert_same_or_near_tie
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 @pytest.fixture(scope="module")

@@ -54,6 +54,7 @@ from repro_torch.serving.cache import (SlotStateCache, init_slot_state,
 from repro_torch.serving.kv_cache import (attn_layer_stacks, block_bytes,
                                           mamba_layer_stacks)
 from repro_torch.serving.runners import make_runner
+import torch_cpu  # noqa: F401  (one torch thread)
 
 FP32_TOL = 1e-4
 BF16_TOL = 5e-2

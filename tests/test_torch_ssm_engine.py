@@ -36,6 +36,7 @@ from repro_torch.serving.cache import SlotStateCache
 from repro_torch.serving.kv_cache import BlockManager
 from repro_torch.serving.runners import make_runner
 from repro_torch.serving.scheduler import Scheduler
+import torch_cpu  # noqa: F401  (one torch thread)
 
 BF16_TOL = 1e-2
 ARCHS = ("mamba2_370m", "zamba2_2p7b")

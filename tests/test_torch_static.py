@@ -25,6 +25,7 @@ from repro_torch.config import get_config
 from repro_torch.models import api
 from repro_torch.models.api import params_from_jax
 from repro_torch.spmd import steps
+import torch_cpu  # noqa: F401  (one torch thread)
 
 DENSE = ["glm4_9b", "qwen3_32b", "starcoder2_3b", "gemma2_27b"]
 # bf16 over a whole forward (see test_torch_dense_family.py)

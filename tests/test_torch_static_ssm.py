@@ -32,6 +32,7 @@ from repro_torch.models import api, transformer
 from repro_torch.models.api import params_from_jax
 from repro_torch.serving import InferenceEngine, Request
 from torch_train_cases import jax_layout
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["mamba2_370m", "zamba2_2p7b"]
 FP32_TOL = 1e-4        # test_torch_ssm.py's fp32 tolerance

@@ -38,6 +38,7 @@ from repro_torch.serving.kv_cache import BlockManager, block_bytes
 from repro_torch.serving.scheduler import Scheduler, SwapCostModel
 
 from test_torch_engine import _assert_same_or_near_tie
+import torch_cpu  # noqa: F401  (one torch thread)
 
 
 def _state(bm):

@@ -38,6 +38,7 @@ from repro_torch.launch.train import train
 from repro_torch.models.api import params_from_jax
 from repro_torch.optim import optimizers as topt
 from repro_torch.spmd import steps as tsteps
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S, STEPS = 4, 32, 3
@@ -232,7 +233,8 @@ def test_cli_learns_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "glm4_9b", "--smoke", "--device", "cpu", "--steps", "20",
          "--batch", "4", "--seq", "32", "--microbatches", "2"],
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"},         # one thread, as torch_cpu
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "[train] step 20" in r.stdout

@@ -9,6 +9,7 @@ import pytest
 
 from torch_train_cases import (cases as make_cases, check_loss_fn,
                                check_train_step)
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["glm4_9b", "starcoder2_3b", "gemma2_27b", "qwen3_32b"]
 

@@ -10,6 +10,7 @@ import pytest
 
 from torch_train_cases import (cases as make_cases, check_loss_fn,
                                check_sgd_masters, check_train_step)
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["whisper_large_v3", "qwen2_vl_2b"]
 

@@ -9,6 +9,7 @@ import pytest
 
 from torch_train_cases import (cases as make_cases, check_loss_fn,
                                check_sgd_masters, check_train_step)
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["qwen3_moe_30b_a3b", "grok1_314b"]
 

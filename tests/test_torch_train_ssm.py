@@ -15,6 +15,7 @@ from torch_train_cases import (cases as make_cases, check_loss_fn,
                                check_sgd_masters, check_train_step)
 from repro_torch.kernels import ssd as tssd
 from repro_torch.models.ssm import ssd_chunked
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCHS = ["mamba2_370m", "zamba2_2p7b"]
 

@@ -1,9 +1,9 @@
 """The training slice's kernels on the card: the flash forward (every
-route: hd 16, 64, 80 and 128), the gather and the sampled-softmax loss against their plain
-versions, and a training step on the card against the same step on the
-CPU. Every test skips without a CUDA card. The file imports neither jax
-nor the JAX package, so on a machine with a card and without jax it runs
-alone:
+route: hd 8, 12 and 16 on "mma", 64, 80 and 128 on the wgmma template),
+the gather and the sampled-softmax loss against their plain versions,
+and a training step on the card against the same step on the CPU. Every
+test skips without a CUDA card. The file imports neither jax nor the JAX
+package, so on a machine with a card and without jax it runs alone:
 
   PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_training_cuda.py
 """
@@ -42,6 +42,13 @@ FLASH_CASES = [  # B, Sq, Skv, H, K, hd, causal, window, cap, q_offset
     (2, 200, 200, 4, 4, 80, True, None, None, 0),
     (1, 130, 300, 8, 8, 80, True, 64, 30.0, 170),
     (2, 70, 150, 4, 4, 80, False, None, None, 0),
+    # the hd-64 route (whisper: H = K), the encoder's 1500 rows ragged
+    (1, 1500, 1500, 4, 4, 64, False, None, None, 0),
+    (2, 200, 200, 4, 4, 64, True, None, None, 0),
+    (1, 130, 300, 8, 2, 64, True, 64, 30.0, 170),
+    # hd 8 and 12 (the smoke configs) on the mma route's 16-value rows
+    (2, 200, 200, 4, 2, 8, True, None, 50.0, 0),
+    (2, 130, 300, 12, 2, 12, True, 64, None, 170),
 ]
 
 
@@ -80,6 +87,32 @@ def test_flash_kernel_vs_plain(case):
         grads.append([t.grad.float() for t in leaves])
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+# hd, B, H: at hd 64 the kernel takes 64-row blocks where 128-row ones
+# would not give each of the H100's 132 SMs two (B 1 x H 4 x 12 query
+# tiles), 128-row ones otherwise (B 8 x H 20); hd 80 always 128
+@pytest.mark.parametrize("hd,B,H", [(64, 1, 4), (64, 8, 20), (80, 1, 4),
+                                    (80, 8, 20)])
+def test_flash_block_heights_vs_plain(hd, B, H):
+    """The hd-64 and hd-80 routes at the block heights their rule picks
+    against the plain version (each o row within 1e-2 of its norm, lse
+    within 1e-3), at whisper's non-causal 1500 rows and at a ragged causal
+    shape with a window and a q_offset."""
+    _need_card()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(hd + B)
+    for Sq, Skv, opts in ((1500, 1500, dict(causal=False)),
+                          (333, 1000, dict(causal=True, window=200,
+                                           q_offset=667))):
+        q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((B, Skv, H, hd), generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        o, lse = tfa.flash_attention(q, k, v, **opts)
+        po, plse = tref.flash_attention_fwd_plain(q, k, v, **opts)
+        rel = (o.float() - po.float()).norm(dim=-1) / po.float().norm(dim=-1)
+        assert float(rel.max()) <= 1e-2
+        assert float((lse - plse).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize("T", [1, 8, 256, 4096])

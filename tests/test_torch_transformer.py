@@ -18,6 +18,7 @@ from repro.serving.kv_cache import init_paged_cache as jax_init_paged_cache
 from repro_torch.config import get_config
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import init_model, params_from_jax
+import torch_cpu  # noqa: F401  (one torch thread)
 
 # fp32: the two frameworks sum in other orders; bf16: activations round at
 # other places (XLA may keep fused intermediates in fp32), which moves

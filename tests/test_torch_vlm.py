@@ -30,6 +30,7 @@ from repro_torch.models import api, transformer
 from repro_torch.models.api import params_from_jax
 from repro_torch.models.layers import rope_cos_sin
 from repro_torch.serving import InferenceEngine
+import torch_cpu  # noqa: F401  (one torch thread)
 
 ARCH = "qwen2_vl_2b"
 PCFG = JPar(remat="none")
