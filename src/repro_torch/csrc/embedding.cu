@@ -19,6 +19,16 @@
 // ids. Ids follow jnp's indexing rule, as the reference table[ids] does
 // off the TPU: a negative id counts from the end (id + V), then the row is
 // clamped into [0, V), so a bad id can never read outside the table.
+//
+// Narrow rows. The dataflow core gathers float32 rows of 4 bytes (a 1-D
+// vector), 8 bytes (the paper's Figure 3 table), or rows of a table seen
+// through a view at an address that is not 16-byte aligned. Where the row
+// bytes or an address rule out 16-byte vectors, gather_words_kernel
+// copies 4-byte words instead: one thread a word of the output, so a
+// warp covers 32 consecutive output words (16 two-word rows) with one
+// coalesced store and reads each row's words together. The entry point
+// chooses the path by row bytes and alignment; every model table keeps the
+// vector path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,15 +70,43 @@ gather_rows_kernel(const uint4* __restrict__ table,
     if (c0 + 32 * j < row_vecs) dst[c0 + 32 * j] = buf[j];
 }
 
+// thread i copies word i % row_words of output row i / row_words
+__global__ void __launch_bounds__(256)
+gather_words_kernel(const uint32_t* __restrict__ table,
+                    const int* __restrict__ ids, uint32_t* __restrict__ out,
+                    long long total, int row_words, int V) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long t = i / row_words;
+  const int c = (int)(i - t * row_words);
+  int id = __ldg(ids + t);
+  id = min(max(id < 0 ? id + V : id, 0), V - 1);
+  out[i] = __ldg(table + (size_t)id * row_words + c);
+}
+
 }  // namespace
 
 extern "C" {
 
 // table (V, row_bytes), ids (T,) int32 -> out (T, row_bytes); row_bytes a
-// multiple of 16. Returns cudaGetLastError() after the launch.
+// multiple of 4 at 4-byte aligned addresses (16-byte vectors where the row
+// bytes and both addresses allow). Returns cudaGetLastError() after the
+// launch, cudaErrorInvalidValue for rows the kernels do not take.
 int embedding_gather(const void* table, const void* ids, void* out, int T,
                      int V, int row_bytes, void* stream) {
   if (T == 0) return static_cast<int>(cudaGetLastError());
+  const uintptr_t addr = (uintptr_t)table | (uintptr_t)out;
+  if (row_bytes % 4 || addr % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (row_bytes % 16 || addr % 16) {
+    const int row_words = row_bytes / 4;
+    const long long total = (long long)T * row_words;
+    gather_words_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(table), static_cast<const int*>(ids),
+        static_cast<uint32_t*>(out), total, row_words, V);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int row_vecs = row_bytes / 16, nseg = (row_vecs + SEG - 1) / SEG;
   const long long warps = (long long)T * nseg;
   gather_rows_kernel<<<(unsigned)((warps + WARPS - 1) / WARPS), WARPS * 32, 0,

@@ -52,13 +52,28 @@ def _lib():
     return build.load("embedding", {"embedding_gather": _SIG})
 
 
+def path(table) -> str:
+    """The kernel path ``gather`` takes for ``table``: "vector" (16-byte
+    loads) where the row bytes are a multiple of 16 at a 16-byte aligned
+    address, "words" (4-byte words: the dataflow core's narrow float32
+    rows, or a table at a 4-byte aligned offset) where they are a multiple
+    of 4, else "refused" (ValueError by name)."""
+    row_bytes = table.shape[-1] * table.element_size()
+    if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0:
+        return "vector"
+    if row_bytes % 4 == 0 and table.data_ptr() % 4 == 0:
+        return "words"
+    return "refused"
+
+
 def gather(table, ids):
     """CUDA gather ``table[ids]``. table: (V, d) contiguous on the card,
-    rows a multiple of 16 bytes; ids: int32 of any shape on the same card.
-    Returns (*ids.shape, d) in table.dtype. Rows follow ``table_rows``
-    (a negative id counts from the end, then clamped into [0, V)).
-    Raises ValueError on what the kernel does not take: shapes and types
-    first, then devices."""
+    rows a whole number of 4-byte words at a 4-byte aligned address (rows
+    of 16-byte multiples at 16-byte addresses take 16-byte vectors; the
+    rest 4-byte words); ids: int32 of any shape on the same card. Returns
+    (*ids.shape, d) in table.dtype. Rows follow ``table_rows`` (a negative
+    id counts from the end, then clamped into [0, V)). Raises ValueError on
+    what the kernel does not take: shapes and types first, then devices."""
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"gather: table must be 2-D contiguous, got "
                          f"{tuple(table.shape)}")
@@ -66,9 +81,10 @@ def gather(table, ids):
         raise ValueError(f"gather: ids must be int32, got {ids.dtype}")
     V, d = table.shape
     row_bytes = d * table.element_size()
-    if row_bytes % 16 or table.data_ptr() % 16:
-        raise ValueError("gather: table rows must be 16-byte multiples at a "
-                         f"16-byte aligned address (row bytes {row_bytes})")
+    if path(table) == "refused":
+        raise ValueError("gather: table rows must be whole 4-byte words at "
+                         "a 4-byte aligned address (row bytes "
+                         f"{row_bytes})")
     if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
         raise ValueError("gather: table and ids must be on the same CUDA "
                          f"device (got {table.device}, {ids.device})")

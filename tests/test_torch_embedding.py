@@ -30,9 +30,9 @@ REFUSALS = [  # name, table, ids, message
     ("int64 ids", _table(), torch.zeros(3, dtype=torch.int64), "int32"),
     ("float ids", _table(), torch.zeros(3), "int32"),
     ("rows of 6 bytes", _table(d=3), torch.zeros(3, dtype=torch.int32),
-     "16-byte"),
-    ("rows of 20 bytes", _table(torch.float32, d=5),
-     torch.zeros(3, dtype=torch.int32), "16-byte"),
+     "4-byte words"),
+    ("rows of 10 bytes", _table(d=5), torch.zeros(3, dtype=torch.int32),
+     "4-byte words"),
     ("1-D table", torch.zeros(64, dtype=torch.bfloat16),
      torch.zeros(3, dtype=torch.int32), "2-D"),
     ("transposed table", _table().t(), torch.zeros(3, dtype=torch.int32),

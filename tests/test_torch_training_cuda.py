@@ -1,6 +1,8 @@
 """The training slice's kernels on the card: the flash forward (every
 route: hd 8, 12 and 16 on "mma", 64, 80 and 128 on the wgmma template),
-the gather and the sampled-softmax loss against their plain versions,
+the gather (its 16-byte vector path and the 4-byte word path of the
+dataflow core's narrow rows) and the sampled-softmax loss against their
+plain versions,
 and a training step on the card against the same step on the CPU. Every
 test skips without a CUDA card. The file imports neither jax nor the JAX
 package, so on a machine with a card and without jax it runs alone:
@@ -143,6 +145,45 @@ def test_gather_kernel_vs_plain(T):
     temb.Gather.apply(leaves[0], ids).backward(grad)
     temb.gather_plain(leaves[1], ids).backward(grad)
     assert torch.equal(leaves[0].grad, leaves[1].grad)
+
+
+# the dataflow core's float32 rows: 4 bytes (a 1-D vector), 8 (Figure 3),
+# 20, 64 (Figure 6's sparse table) and 2048 (the LM at d 512); then rows
+# of 16-byte multiples at a 4-byte aligned offset, which take the words
+# path too
+NARROW_CASES = [  # d, T, offset in float32 words, path
+    (1, 32, 0, "words"), (2, 4096, 0, "words"), (5, 33, 0, "words"),
+    (16, 32, 0, "vector"), (512, 4096, 0, "vector"), (16, 1, 1, "words"),
+    (512, 32, 3, "words"),
+]
+
+
+@pytest.mark.parametrize("d,T,offset,want", NARROW_CASES)
+def test_gather_kernel_narrow_rows(d, T, offset, want):
+    """float32 rows the 16-byte vectors cannot take go through the 4-byte
+    word path and equal gather_plain bit for bit, negative and
+    out-of-range ids included; the core's Gather (a 1-D vector, a
+    Transpose view) launches the kernel too."""
+    from repro_torch.core import ops as cops
+    _need_card()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(d * 7 + T)
+    V = 1000
+    base = torch.randn(V * d + offset, generator=g, device="cuda")
+    table = base[offset:].view(V, d)
+    assert temb.path(table) == want
+    ids = torch.randint(-V, V, (T,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    ids[:min(T, 3)] = torch.tensor([V, -V - 1, V - 1], dtype=torch.int32,
+                                   device="cuda")[:min(T, 3)]
+    before = temb.gather.launches
+    assert torch.equal(temb.gather(table, ids), temb.gather_plain(table, ids))
+    assert torch.equal(cops.gather(table.t(), ids[ids.abs() < d]),
+                       table.t()[ids[ids.abs() < d].long()])
+    vec = table[:, 0].contiguous()
+    ok = ids[(ids >= -V) & (ids < V)]
+    assert torch.equal(cops.gather(vec, ok), vec[ok.long()])
+    assert temb.gather.launches == before + 3
 
 
 @pytest.mark.parametrize("T,n,d,cap", [
