@@ -105,7 +105,9 @@ Phases, each of which raises on failure:
         q_offset 300, held and timed as in 2g; the mma route ("mma", row
         "flash_attention_mma") at hd 16, 8 and 12 (4 q heads, 2 kv heads;
         causal S 300, hd 12 with window 64, cap 30 and q_offset 100, hd 8
-        non-causal 130 x 200) likewise; the SSD autograd function (the
+        non-causal 130 x 200) likewise, and over 64 seeded draws of each
+        of those shapes against the plain fp32 version (its o in bf16,
+        and unrounded), the worst row errors printed ("draws_" keys); the SSD autograd function (the
         kernel forward, the plain recompute backward) at mamba2's and
         zamba2's widths, b 2 x S 2048, 256-row chunks: its gradients for
         x, dt, A, B and C against autograd through ssd_chunked, every row
@@ -352,11 +354,34 @@ Phases, each of which raises on failure:
      discards with 0-3 backup workers. f. 2,000 chained Identity (and
      Neg) ops: ops/s against the paper's 2,000,000. The gather launches
      of c and d count as the gather's main-path launches.
+  17. tensor-parallel paged serving and the kernels' partials (run last):
+     a. the decode and chunk kernels' block_mask / return_lse partials at
+        glm4_9b's widths (H 32, K 2, hd 128) over bf16, int8 and fp8
+        pools, half the table entries attended: o rows within 1e-2 and
+        lse within 1e-3 of the plain partials, the same rows empty; a
+        full mask's o in bf16 byte-equal to the plain launch; P = 2 == P
+        = 1 byte for byte; paged_shard_attention over 1-4 shards within
+        1e-2 of the unsharded kernel; each variant timed beside its
+        bound (rows "<kernel>_partial", "<kernel>_<pool>_partial"), and
+        its entry points driven once with the counters zeroed (their
+        launches are the rows' main-path launches).
+     b-c. glm4_9b at full width and depth (phase 3's traffic, 32 new),
+        zamba2_2p7b at full width with 6 of 54 layers and whisper with 4
+        + 4 of 32 + 32 (16 and 32 new), each first on one eager engine in
+        a spawned process (tp = 1), then on 2 spawned ranks over a mesh
+        model=2 (gloo with both on cuda:0 on a one-card machine, NCCL
+        with a card each): both ranks' tokens, the bits of every emitted
+        token's fp32 logits row and the scheduling stats equal tp = 1's
+        (a failure names the first difference, both top-2 margins there
+        and the first decoder block whose output differs), each rank's
+        kv-head cache half of tp = 1's; the backend and the rank-to-card
+        map, tok/s, gathers and staged copies and bytes ("[tp]" lines).
+        Every rank's exit code and result is checked.
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
   ``python3 chip_smoke.py --phase 2h,14,13,8`` runs some phases alone, in
-  the order given (also 2g, 12 and 16; "13 ARCH ..." some of phase 13's
-  models): development runs, no result line.
+  the order given (also 2g, 12, 16, 17 and 17a; "13 ARCH ..." some of
+  phase 13's models): development runs, no result line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -2151,12 +2176,70 @@ def check_ssd_function(torch, timer, gen, rows):
         torch.cuda.empty_cache()
 
 
+# seeded draws of each MMA_FLASH shape that phase 2h holds the mma route
+# to, and the worst row error it prints
+MMA_DRAWS = 64
+
+
+def mma_draws(torch, gen, rows, n=MMA_DRAWS) -> None:
+    """The mma route over ``n`` seeded draws of each MMA_FLASH shape (4 q
+    heads over 2 kv heads): o against its plain fp32 version, both as
+    ``check_close`` holds it (the plain o rounded to bf16: every row
+    within TOL of its norm, every value within the cap) and against the
+    plain o before that rounding (every row within TOL; two bf16 outputs
+    can sit one ulp apart where the exact value lies near a rounding
+    edge, which in a row of 8 values is up to 2^-7 of a value twice the
+    row's rms, 5.5e-3 of the row's norm). The worst row errors by shape,
+    under "draws_" keys of the "flash_attention_mma" row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K = 4, 2
+    worst, worst32 = {}, {}
+    for label, B, Sq, Skv, hd, fo, _ in MMA_FLASH:
+        w = w32 = 0.0
+        for _ in range(n):
+            q = torch.randn((B, Sq, H, hd), generator=gen,
+                            device=DEV).bfloat16()
+            k = torch.randn((B, Skv, K, hd), generator=gen,
+                            device=DEV).bfloat16()
+            v = torch.randn((B, Skv, K, hd), generator=gen,
+                            device=DEV).bfloat16()
+            o_k, _ = fa.flash_attention(q, k, v, **fo)
+            _, rel = check_close(f"flash mma {label} (draws)", o_k,
+                                 ref.flash_attention_fwd_plain(
+                                     q, k, v, **fo)[0])
+            # fp32 operands hold the bf16 values exactly: the same plain
+            # function, its output not rounded
+            rel32 = row_err(o_k, ref.flash_attention_fwd_plain(
+                q.float(), k.float(), v.float(), **fo)[0])
+            check(rel32 <= TOL, f"flash mma {label} (draws): max row "
+                  f"relative err {rel32} against the unrounded plain o "
+                  f"(limit {TOL})")
+            w, w32 = max(w, rel), max(w32, rel32)
+        worst[label], worst32[label] = w, w32
+    row = rows["flash_attention_mma"]
+    row.update(draws=n, draws_worst_row_rel_err=max(worst.values()),
+               draws_worst_by_shape=worst,
+               draws_worst_row_rel_err_fp32=max(worst32.values()),
+               draws_worst_by_shape_fp32=worst32)
+    print(f"[kernels] flash mma route over {n} seeded draws of each shape: "
+          f"worst o row relative err vs the plain fp32 version "
+          f"{max(worst32.values()):.4g} (its o unrounded), "
+          f"{max(worst.values()):.4g} (its o in bf16; limit {TOL}); by "
+          "shape " + json.dumps({k: [float(f"{worst32[k]:.4g}"),
+                                     float(f"{v:.4g}")]
+                                 for k, v in worst.items()}), flush=True)
+
+
 def check_hd80(torch, timer, gen, rows):
     """Phase 2h: the flash forward's hd-80 route (row
     "flash_attention_wgmma80"), the mma route at hd 8, 12 and 16 (row
-    "flash_attention_mma") and the SSD autograd function."""
+    "flash_attention_mma", also over MMA_DRAWS draws of its shapes) and
+    the SSD autograd function."""
     check_route_flash(torch, timer, gen, rows, "zamba2", 32, 32, HD80_FLASH)
     check_route_flash(torch, timer, gen, rows, "smoke", 4, 2, MMA_FLASH)
+    mma_draws(torch, gen, rows)
     check_ssd_function(torch, timer, gen, rows)
 
 
@@ -6159,6 +6242,561 @@ def core_phase(torch, counters, card, rows, gather_checked=False) -> dict:
     return {"launches": launches, "fig9": fig9, "fig6": fig6, **rest}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel paged serving and the kernels' partials
+# ---------------------------------------------------------------------------
+
+# a partial's lse where it attended nothing: -1e30 (below this counts)
+EMPTY_LSE = -1e29
+
+
+def check_lse(torch, name, lse_k, lse_p) -> float:
+    """Kernel vs plain lse: the same rows empty (<= EMPTY_LSE), the others
+    within LSE_TOL. Returns the max abs err over the non-empty rows."""
+    empty = lse_p <= EMPTY_LSE
+    check(torch.equal(lse_k <= EMPTY_LSE, empty),
+          f"{name}: the kernel and the plain version attend nothing in "
+          "different rows")
+    live = ~empty
+    e = float((lse_k - lse_p)[live].abs().max()) if bool(live.any()) \
+        else 0.0
+    check(e <= LSE_TOL, f"{name}: lse max abs err {e} (limit {LSE_TOL})")
+    return e
+
+
+def live_keys(torch, ctx, mask, bs, q_lens=None, C=None) -> int:
+    """Keys a partial attends: decode (q_lens None), each sequence's keys
+    before ctx on unmasked pages; chunk, its causal (row, key) pairs on
+    unmasked pages over the rows before q_len."""
+    total = 0
+    for b, c in enumerate(ctx):
+        ok = mask[b].repeat_interleave(bs)[:max(c, 0)].bool()
+        if q_lens is None:
+            total += int(ok.sum())
+            continue
+        cum = torch.cumsum(ok.long(), 0)
+        q0 = c - q_lens[b]
+        total += sum(int(cum[q0 + i]) for i in range(q_lens[b]))
+    return total
+
+
+def check_partials(torch, timer, gen, rows, counters) -> dict:
+    """Phase 17a: the decode and chunk kernels' block_mask / return_lse
+    partials at glm4_9b's widths (H 32, K 2, hd 128, 16-token pages) over
+    bf16, int8 and fp8 pools, against their plain versions
+    (``ref.paged_attention_partial_ref``,
+    ``ref.paged_prefill_attention_partial_ref``): o rows within TOL, lse
+    within LSE_TOL, the same rows empty; a full mask's o rounded to bf16
+    byte-equal to the plain launch; pages_per_compute_block 2 == 1 byte
+    for byte; ``paged_shard_attention`` over 1-4 shards against the
+    unsharded kernel within TOL. Rows "<kernel>_partial",
+    "<kernel>_<pool>_partial" with times and bounds. Then the variants'
+    entry points, counted (the counters zeroed before): paged_shard_attention
+    over 2 shards and ``ops.paged_prefill_attention_partial`` once per
+    pool. Returns that run ({"launches": ...})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import paged_shard_attention
+
+    H, K, hd, bs = 32, 2, 128, 16
+    ctx = [2048, 1536, 1024, 777, 2000, 1, 0, 300]
+    B, nb = len(ctx), 2048 // bs
+    q, kp16, vp16, bt, ctxt = paged_case(torch, gen, B, H, K, hd, bs, nb,
+                                         ctx)
+    mask = (torch.rand((B, nb), generator=gen, device=DEV) < 0.5).to(
+        torch.int32)
+    mask[3] = 0                      # a sequence this shard holds nothing of
+    full = torch.ones_like(mask)
+    # chunks: 256 rows ending at 2048 keys (200 valid), and 256 from 444
+    Cc, qls, ctc = 256, [200, 256], [2048, 700]
+    qc, kc16, vc16, btc, ctxc = paged_case(torch, gen, 2, H, K, hd, bs, nb,
+                                           ctc, C=Cc)
+    qlc = torch.tensor(qls, dtype=torch.int32, device=DEV)
+    maskc = (torch.rand((2, nb), generator=gen, device=DEV) < 0.5).to(
+        torch.int32)
+    fullc = torch.ones_like(maskc)
+    # the key rows each launch reads (before ctx, on unmasked pages) and
+    # the (row, key) pairs it attends
+    n_dec = live_keys(torch, ctx, mask.cpu(), bs)
+    n_chk = live_keys(torch, ctc, maskc.cpu(), bs)
+    pairs_chk = live_keys(torch, ctc, maskc.cpu(), bs, qls)
+    for kv in KV_DTYPES:
+        kp, vp, sc = pools_in(kv, kp16, vp16)
+        # decode
+        o_k, l_k = pa.paged_attention(q, kp, vp, bt, ctxt, block_mask=mask,
+                                      return_lse=True, **sc)
+        o_p, l_p = ref.paged_attention_partial_ref(q, kp, vp, bt, ctxt, mask,
+                                                   **sc)
+        e, rel = check_close(f"paged_attention partial[{kv}] vs plain", o_k,
+                             o_p)
+        e_l = check_lse(torch, f"paged_attention partial[{kv}]", l_k, l_p)
+        check(bool((o_k[3] == 0).all() and (o_k[6] == 0).all()),
+              f"paged_attention partial[{kv}]: an empty row is not zero")
+        o_f, _ = pa.paged_attention(q, kp, vp, bt, ctxt, block_mask=full,
+                                    return_lse=True, **sc)
+        o_b = pa.paged_attention(q, kp, vp, bt, ctxt, **sc)
+        check(same_bytes(o_f.bfloat16(), o_b),
+              f"paged_attention partial[{kv}]: a full mask's o in bf16 is "
+              "not the plain launch's bytes")
+        o_2, l_2 = pa.paged_attention(q, kp, vp, bt, ctxt, block_mask=mask,
+                                      return_lse=True,
+                                      pages_per_compute_block=2, **sc)
+        check(same_bytes(o_2, o_k) and same_bytes(l_2, l_k),
+              f"paged_attention partial[{kv}]: P = 2 != P = 1")
+        for n in (1, 2, 3, 4):
+            check_close(f"paged_shard_attention[{kv}] n={n} vs the "
+                        "unsharded kernel",
+                        paged_shard_attention(q, kp, vp, bt, ctxt, n, **sc),
+                        o_b)
+        b_dec = (q.numel() * 2 + 2 * n_dec * kv_row_bytes(kv, K, hd)
+                 + o_k.numel() * 4 + l_k.numel() * 4 + 2 * bt.numel() * 4
+                 + B * 4)
+        rows[variant("paged_attention", pa.launch_key(kv, True))] = dict(
+            kernel="paged_attention", source=DECODE_SRC, max_abs_err=e,
+            max_row_rel_err=rel, lse_max_abs_err=e_l,
+            **timed(timer, lambda: pa.paged_attention(
+                        q, kp, vp, bt, ctxt, block_mask=mask,
+                        return_lse=True, **sc),
+                    lambda: ref.paged_attention_partial_ref(
+                        q, kp, vp, bt, ctxt, mask, **sc)),
+            library_ms=None,
+            shape=f"B={B} H={H} K={K} hd={hd} bs={bs} ctx={ctx}, "
+                  f"{int(mask.sum())} of {mask.numel()} table entries "
+                  f"attended ({n_dec} keys)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_dec, 4.0 * n_dec * H * hd))))
+        # chunk
+        kp, vp, sc = pools_in(kv, kc16, vc16)
+        o_k, l_k = pa.paged_prefill_attention(
+            qc, kp, vp, btc, ctxc, qlc, block_mask=maskc, return_lse=True,
+            **sc)
+        o_p, l_p = ref.paged_prefill_attention_partial_ref(
+            qc, kp, vp, btc, ctxc, qlc, maskc, **sc)
+        e, rel = check_close(f"paged_prefill_attention partial[{kv}] vs "
+                             "plain", o_k, o_p)
+        e_l = check_lse(torch, f"paged_prefill_attention partial[{kv}]", l_k,
+                        l_p)
+        check(bool((o_k[0, 200:] == 0).all()),
+              f"paged_prefill_attention partial[{kv}]: padding rows not "
+              "zero")
+        o_f, _ = pa.paged_prefill_attention(qc, kp, vp, btc, ctxc, qlc,
+                                            block_mask=fullc,
+                                            return_lse=True, **sc)
+        check(same_bytes(o_f.bfloat16(), pa.paged_prefill_attention(
+                  qc, kp, vp, btc, ctxc, qlc, **sc)),
+              f"paged_prefill_attention partial[{kv}]: a full mask's o in "
+              "bf16 is not the plain launch's bytes")
+        o_2, l_2 = pa.paged_prefill_attention(
+            qc, kp, vp, btc, ctxc, qlc, block_mask=maskc, return_lse=True,
+            pages_per_compute_block=2, **sc)
+        check(same_bytes(o_2, o_k) and same_bytes(l_2, l_k),
+              f"paged_prefill_attention partial[{kv}]: P = 2 != P = 1")
+        b_chk = (qc.numel() * 2 + 2 * n_chk * kv_row_bytes(kv, K, hd)
+                 + o_k.numel() * 4 + l_k.numel() * 4 + 2 * btc.numel() * 4
+                 + 16)
+        rows[variant("paged_prefill_attention",
+                     pa.launch_key(kv, True))] = dict(
+            kernel="paged_prefill_attention", source=DECODE_SRC,
+            max_abs_err=e, max_row_rel_err=rel, lse_max_abs_err=e_l,
+            **timed(timer, lambda: pa.paged_prefill_attention(
+                        qc, kp, vp, btc, ctxc, qlc, block_mask=maskc,
+                        return_lse=True, **sc),
+                    lambda: ref.paged_prefill_attention_partial_ref(
+                        qc, kp, vp, btc, ctxc, qlc, maskc, **sc)),
+            library_ms=None,
+            shape=f"B=2 C={Cc} q_lens={qls} ctx={ctc} H={H} K={K} hd={hd}, "
+                  f"{int(maskc.sum())} of {maskc.numel()} table entries "
+                  f"attended ({pairs_chk} row-key pairs)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(b_chk, 4.0 * pairs_chk * H * hd))))
+        for name in ("paged_attention", "paged_prefill_attention"):
+            r = rows[variant(name, pa.launch_key(kv, True))]
+            print(f"[kernels] {name} partial [{kv}]: {r['shape']}: device "
+                  f"{fmt(r['device_ms'])} ms (events {r['ms']:.5f}), plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']}); o max row rel err "
+                  f"{r['max_row_rel_err']:.3g}, lse {r['lse_max_abs_err']:.3g}"
+                  "; full mask == plain launch, P 2 == P 1 bit for bit",
+                  flush=True)
+    print(f"[kernels] paged_shard_attention over 1-4 shards within {TOL} of "
+          f"the unsharded kernel over {'/'.join(KV_DTYPES)} pools",
+          flush=True)
+    # the variants' entry points, counted
+    reset_launches(counters)
+    for kv in KV_DTYPES:
+        kp, vp, sc = pools_in(kv, kp16, vp16)
+        paged_shard_attention(q, kp, vp, bt, ctxt, 2, **sc)
+        kp, vp, sc = pools_in(kv, kc16, vc16)
+        ops.paged_prefill_attention_partial(qc, kp, vp, btc, ctxc, qlc,
+                                            maskc, **sc)
+    torch.cuda.synchronize()
+    run = {"launches": read_launches(counters)}
+    for kv in KV_DTYPES:
+        for name, want in (("paged_attention", 2),
+                           ("paged_prefill_attention", 1)):
+            got = run["launches"].get(
+                variant(name, pa.launch_key(kv, True)), 0)
+            check(got == want, f"{name} partial [{kv}]: {got} launches "
+                  f"from its entry point, not {want}")
+    return run
+
+
+# phase 17's tensor-parallel runs: (arch, layers or None for the full
+# depth, the traffic); glm4_9b serves phase 3's traffic at full depth,
+# zamba2 one 6-layer period of its 54, whisper 4 + 4 of its 32 + 32
+TP_RUNS = (("glm4_9b", None), ("zamba2_2p7b", 6), ("whisper_large_v3", 4))
+TP_WORLD = 2
+TP_TIMEOUT_S = 480
+# the engine stats both ranks of a tensor-parallel run must share with the
+# tp = 1 run, value for value
+SCHED_STATS = ("steps", "prefill_chunks", "preemptions", "tokens",
+               "prefill_tokens", "quantum_dropped_tokens", "cache_hit_tokens",
+               "cow_copies", "requests", "requests_done", "spec_decodes",
+               "spec_emitted", "stop_hits", "full_sampling_steps",
+               "peak_block_utilization", "peak_blocks_in_use", "aborts",
+               "swap_preemptions", "swap_ins", "encodes")
+
+
+def tp_case(arch, layers):
+    """(config, requests, engine keywords) of one phase-17 run."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.serving import Request
+
+    cfg = get_config(arch)
+    if layers is not None:
+        change = {"num_layers": layers}
+        if cfg.encoder_layers:
+            change["encoder_layers"] = layers
+        cfg = dataclasses.replace(cfg, **change)
+    kw = dict(max_batch=8, block_size=16, max_len=1024,
+              max_num_batched_tokens=8 + 256, seed=0)
+    if cfg.encoder_layers:
+        rng = np.random.default_rng(0)
+        reqs = [Request(rng.integers(0, cfg.vocab_size, 128).astype(np.int32),
+                        max_new=32, frames=rng.normal(
+                            0, 1, (cfg.encoder_seq_len, cfg.d_model)).astype(
+                            np.float32)) for _ in range(8)]
+        kw["max_len"] = 256
+    else:
+        reqs = [Request(p, max_new=32 if layers is None else 16)
+                for p in phase3_traffic(cfg)]
+    return cfg, reqs, kw
+
+
+def kv_head_bytes(cache) -> int:
+    """Bytes of the cache leaves that shard by kv head (pools, their
+    scales, the cross K/V)."""
+    from repro_torch.spmd.sharding import KV_HEAD_LEAVES
+    total = 0
+    for name, t in cache.items():
+        if isinstance(t, dict):
+            total += kv_head_bytes(t)
+        elif name in KV_HEAD_LEAVES:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def digest(torch, x):
+    """An int64 digest of ``x``'s bits along its last axis (a 0-d tensor
+    for a vector), on x's device: any changed bit changes it."""
+    bits = x.contiguous()
+    bits = bits.view({2: torch.int16, 4: torch.int32}[bits.element_size()])
+    w = torch.arange(bits.shape[-1], device=bits.device) % 1021 + 1
+    return (bits.to(torch.int64) * w).sum(-1)
+
+
+@contextlib.contextmanager
+def block_digests(torch, sink):
+    """While active, every decoder block half of ``models.transformer``
+    appends digests to ``sink``: the attention's output before
+    ``out_proj``, the attention half's output, the MLP half's output, in
+    call order (device tensors)."""
+    from repro_torch.models import transformer as tr
+
+    attn_part, mlp_part = tr._attn_part, tr._mlp_part
+
+    def attn(lp, x, cfg, attend):
+        def attend_digested(h):
+            o = attend(h)
+            sink.append(digest(torch, o.reshape(-1)))
+            return o
+        y = attn_part(lp, x, cfg, attend_digested)
+        sink.append(digest(torch, y.reshape(-1)))
+        return y
+
+    def mlp(lp, x, cfg, *args, **kw):
+        y = mlp_part(lp, x, cfg, *args, **kw)
+        sink.append(digest(torch, (y if torch.is_tensor(y) else y[0])
+                           .reshape(-1)))
+        return y
+
+    tr._attn_part, tr._mlp_part = attn, mlp
+    try:
+        yield sink
+    finally:
+        tr._attn_part, tr._mlp_part = attn_part, mlp_part
+
+
+def record_steps(torch, eng) -> dict:
+    """Make ``eng`` (eager) read every step's fp32 logits and block
+    digests. Returns the record it fills: "tokens" {(rid, i): [logits
+    row digest, top-2 margin, top-1 id, top-2 id]} for each token i a
+    request emitted, "blocks" [per step: block digests]."""
+    rec = {"tokens": {}, "blocks": []}
+    pending, sink = [], []
+    run_step, step, forward = eng._run_step, eng._step, eng._forward
+
+    def forward_read(has_chunk, mode="greedy"):
+        with block_digests(torch, sink):
+            out = forward(has_chunk, mode)
+        eng._read_logits = out["logits"].float()
+        return out
+
+    def run_step_read(plan):
+        out = run_step(plan)
+        lg = eng._read_logits
+        top = torch.topk(lg, 2, dim=-1)
+        fp = digest(torch, lg).tolist()
+        vals, ids = top.values.tolist(), top.indices.tolist()
+        rows = [(s, r) for s, r in plan.decodes] + [
+            (eng.max_batch + i, r) for i, (_, r, _) in enumerate(plan.chunks)]
+        for row, req in rows:
+            pending.append((req, len(req.out), [
+                fp[row], vals[row][0] - vals[row][1], ids[row][0],
+                ids[row][1]]))
+        rec["blocks"].append(torch.stack(sink).tolist() if sink else [])
+        sink.clear()
+        return out
+
+    def step_read():
+        ran = step()
+        for req, n, row in pending:
+            if len(req.out) > n:
+                rec["tokens"][(req.rid, n)] = row
+        pending.clear()
+        return ran
+
+    eng._run_step, eng._step, eng._forward = (run_step_read, step_read,
+                                              forward_read)
+    return rec
+
+
+def tp_serve(torch, counters, cfg, reqs, kw, mesh=None) -> dict:
+    """One eager engine run of ``reqs`` (rank 0 or a follower of a mesh,
+    or tp = 1): tokens, scheduling stats, kv-head bytes, tok/s, launches,
+    and what ``record_steps`` read ("rows": "request:token" -> [logits
+    row digest, top-2 margin, top-1, top-2], request in ``reqs`` order;
+    "blocks": per step, the block digests)."""
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import InferenceEngine
+
+    params = init_model(cfg, 0, DEV)
+    eng = InferenceEngine(cfg, device=DEV, params=params, mesh=mesh,
+                          cuda_graphs=False, **kw)
+    rec = record_steps(torch, eng)
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if eng.group is None or eng.group.rank == 0:
+        out = eng.run(reqs)
+        eng.close()
+        rids = [r.rid for r in reqs]
+    else:
+        out = eng.follow()            # rank 0's rids, in its order
+        rids = sorted(out)
+    torch.cuda.synchronize()
+    order = {rid: i for i, rid in enumerate(rids)}
+    s = eng.stats
+    res = {"tokens": [out[rid].tolist() for rid in rids],
+           "rows": {f"{order[rid]}:{i}": row
+                    for (rid, i), row in rec["tokens"].items()},
+           "blocks": rec["blocks"],
+           "sched": {k: s[k] for k in SCHED_STATS},
+           "kv_head_bytes": kv_head_bytes(eng.cache),
+           "kv_cache_mib": s["kv_cache_mib"], "wall_s": s.get("wall_s"),
+           "tok_s": s.get("tok_s"), "launches": read_launches(counters),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           **{k: s[k] for k in s if k.startswith("tp")}}
+    del eng, params
+    free(torch)
+    return res
+
+
+def parting(a: dict, b: dict) -> dict:
+    """Where two ``tp_serve`` runs part: the first token (request, index)
+    that differs, the first emitted token whose logits row differs in any
+    bit (in emission order: index, then request) and both runs' [digest,
+    top-2 margin, top-1, top-2] there, and the first (step, block digest)
+    that differs. All None: the runs agree bit for bit."""
+    keys = sorted(set(a["rows"]) | set(b["rows"]),
+                  key=lambda k: tuple(int(x) for x in k.split(":"))[::-1])
+    bits = next((k for k in keys if a["rows"].get(k) is None
+                 or b["rows"].get(k) is None
+                 or a["rows"][k][0] != b["rows"][k][0]), None)
+    block = next(((i, j) for i, (x, y) in enumerate(zip(a["blocks"],
+                                                        b["blocks"]))
+                  for j in range(max(len(x), len(y)))
+                  if j >= len(x) or j >= len(y) or x[j] != y[j]), None)
+    if block is None and len(a["blocks"]) != len(b["blocks"]):
+        block = (min(len(a["blocks"]), len(b["blocks"])), 0)
+    tok = first_difference(a["tokens"], b["tokens"])
+    at = None if tok is None else f"{tok[0]}:{tok[1]}"
+    return {"token": tok,
+            "token_rows": None if at is None
+            else [a["rows"].get(at), b["rows"].get(at)],
+            "logits_bits": bits,
+            "logits_rows": None if bits is None
+            else [a["rows"].get(bits), b["rows"].get(bits)],
+            "block": block}
+
+
+def tp_rank(rank, world, init_method, queue, cases=TP_RUNS) -> None:
+    """One rank of phase 17's runs (a spawned process): with ``world`` > 1
+    it joins the group (gloo when the ranks share a card) and builds the
+    ("data", "model") = (1, world) mesh; with 1 it serves alone (tp = 1).
+    It serves every case of ``cases`` (TP_RUNS') and puts its results on
+    ``queue``; raises on any failure."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+    from repro_torch.serving.graphs import KERNELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh, backend = None, None
+    cards = [(rank, torch.cuda.current_device(),
+              torch.cuda.get_device_name())]
+    if world > 1:
+        backend = init_rank(rank, world, init_method, "cuda", TP_TIMEOUT_S)
+        mesh = make_host_mesh(1, world, "cuda")
+        cards = [None] * world
+        dist.all_gather_object(cards, (rank, torch.cuda.current_device(),
+                                       torch.cuda.get_device_name()))
+    runs = {}
+    for arch, layers in cases:
+        cfg, reqs, kw = tp_case(arch, layers)
+        runs[arch] = tp_serve(torch, KERNELS, cfg, reqs, kw, mesh)
+        if world > 1:
+            dist.barrier()
+    queue.put((rank, {"backend": backend, "cards": cards, "runs": runs}))
+    if world > 1:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, cases=TP_RUNS) -> dict:
+    """Run ``tp_rank`` over ``cases`` on ``world`` spawned processes;
+    {rank: result}. Fails unless every rank puts its result and exits 0
+    in time."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = "file://" + str(Path(tempfile.mkdtemp(prefix="tp_")) / "rdzv")
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, world, init, results, cases))
+             for r in range(world)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+            except queue_mod.Empty:
+                pass
+            bad = [(i, p.exitcode) for i, p in enumerate(procs)
+                   if p.exitcode not in (None, 0)]
+            check(not bad, f"phase 17: rank(s) failed: {bad} (rank, exit "
+                  "code)")
+            check(time.monotonic() - t0 < TP_TIMEOUT_S,
+                  f"phase 17: the ranks did not finish in {TP_TIMEOUT_S} s")
+        for p in procs:
+            p.join(60)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"phase 17: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    got["wall_s"] = time.monotonic() - t0
+    return got
+
+
+def first_difference(a: list, b: list):
+    """(request, token index) of the first token where two runs' streams
+    (in request order) part, or None."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        for i in range(max(len(x), len(y))):
+            if i >= len(x) or i >= len(y) or x[i] != y[i]:
+                return r, i
+    return None
+
+
+def serve_tp(torch, counters, card) -> list:
+    """Phase 17b-c: TP_RUNS on one engine (tp = 1, eager) in a spawned
+    process of its own, then on TP_WORLD spawned ranks over a mesh
+    model=TP_WORLD (every rank on its own card with NCCL when there are
+    enough, else all on cuda:0 over gloo): both ranks' tokens, every
+    emitted token's logits row (bit for bit) and scheduling stats equal
+    the tp = 1 run's, each rank's kv-head cache bytes are 1 / TP_WORLD of
+    tp = 1's. Every rank's exit code and result is checked; where a rank
+    parts, the failure names the first token, logits row (with both top-2
+    margins) and block digest that differ. Returns the runs (their
+    launches are the spawned processes')."""
+    free(torch)
+    one = spawn_ranks(1)[0]["runs"]
+    got = spawn_ranks(TP_WORLD)
+    r0 = got[0]
+    print(f"[tp] {card}: backend {r0['backend']}, ranks on cards "
+          + ", ".join(f"rank {r} -> cuda:{d} ({n})" for r, d, n in r0["cards"])
+          + f"; {TP_WORLD} ranks spawned, served and joined in "
+          f"{got['wall_s']:.1f} s", flush=True)
+    runs = []
+    for arch, layers in TP_RUNS:
+        base = one[arch]
+        for rank in range(TP_WORLD):
+            mine = got[rank]["runs"][arch]
+            part = parting(base, mine)
+            check(part["token"] is None and part["logits_bits"] is None,
+                  f"phase 17 {arch}: rank {rank} parts from tp = 1: "
+                  + json.dumps(part))
+            check(mine["sched"] == base["sched"],
+                  f"phase 17 {arch}: rank {rank}'s scheduling stats differ "
+                  f"from tp = 1: {mine['sched']} vs {base['sched']}")
+            check(mine["kv_head_bytes"] * TP_WORLD == base["kv_head_bytes"],
+                  f"phase 17 {arch}: rank {rank} holds "
+                  f"{mine['kv_head_bytes']} kv-head bytes, tp = 1 "
+                  f"{base['kv_head_bytes']}")
+        tp = got[0]["runs"][arch]
+        depth = "full depth" if layers is None else f"{layers} layers"
+        print(f"[tp] {card}: {arch} ({depth}), mesh model={TP_WORLD}: tokens, "
+              f"logits bits ({len(base['rows'])} emitted rows) and scheduling "
+              f"stats of both ranks == tp = 1 ({base['sched']['tokens']} "
+              f"tokens, {base['sched']['steps']} steps, "
+              f"{base['sched']['cache_hit_tokens']} prefix-hit tokens); tok/s "
+              f"{tp['tok_s']} (tp = 1 eager {base['tok_s']}); per-rank "
+              f"kv-head cache {tp['kv_head_bytes'] / 2 ** 20:.1f} MiB (tp = 1 "
+              f"{base['kv_head_bytes'] / 2 ** 20:.1f}); gathers "
+              f"{tp['tp_gathers']} ({tp['tp_gather_bytes']} bytes), staged "
+              f"copies {tp['tp_staged_copies']} ({tp['tp_staged_bytes']} "
+              f"bytes); peak {tp['peak_mem_gib']:.2f} GiB a rank: "
+              + json.dumps({k: v for k, v in tp.items()
+                            if k not in ("tokens", "launches", "rows",
+                                         "blocks")}),
+              flush=True)
+        runs += [base, tp]
+    return runs
+
+
 def build_report(log: str) -> None:
     """ptxas' registers and spills per kernel, and every warning or C75xx
     note, as [build] lines. Fails if ptxas serialized sampled_softmax.cu's
@@ -6211,7 +6849,8 @@ def main() -> int:
         build_report(log.read_text())
 
     phases = sys.argv[2].split(",") if dev_run else []
-    if phases and set(phases) <= {"12", "2g", "2h", "8", "13", "14", "16"}:
+    if phases and set(phases) <= {"12", "2g", "2h", "8", "13", "14", "16",
+                                  "17", "17a"}:
         # a development run: some phases alone, in the order given (14:
         # phase 5's 512-token runs, each followed by phase 14; "13 ARCH
         # ..." some of its models); no summary and no result line
@@ -6237,6 +6876,16 @@ def main() -> int:
                 rows = {"gather": {}}
                 core_phase(torch, KERNELS, card, rows)
                 print(f"[kernels] phase 16: {json.dumps(rows)}")
+            elif phase in ("17", "17a"):
+                timer = Timer(torch)
+                gen = torch.Generator(device=DEV)
+                gen.manual_seed(17)
+                check_partials(torch, timer, gen, rows, KERNELS)
+                del timer
+                free(torch)
+                if phase == "17":
+                    serve_tp(torch, KERNELS, card)
+                print(f"[kernels] phase {phase}: {json.dumps(rows)}")
             elif phase == "13":
                 train_families(torch, KERNELS, card, sys.argv[3:] or None)
             else:
@@ -6296,6 +6945,14 @@ def main() -> int:
     runs.append(core_phase(torch, counters, card, rows,
                            gather_checked=True))
     lap(16)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    runs.append(check_partials(torch, timer, gen, rows, counters))
+    del timer
+    free(torch)
+    runs += serve_tp(torch, counters, card)
+    lap(17)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}
@@ -6313,6 +6970,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items() if k in SUMMARY_EXTRAS
                        or k.startswith(("no_write", "device_ms", "hd80_",
+                                        "lse_", "draws",
                                         "zamba2_", "mamba2_", "verify_",
                                         "core_",
                                         "plain_device_ms",

@@ -64,7 +64,9 @@
 // each 64-key tile is copied to shared memory with plain loads into
 // 16-value rows (columns past hd zeroed, which changes no q . k and no
 // output column that is kept), and both products are mma.sync m16n8k16
-// with fp32 accumulation.
+// with fp32 accumulation; P enters P V as a bf16 high part and a bf16
+// remainder, two products into one accumulator (short rows of 8 or 12
+// values are not held within 1e-2 of the fp32 P V with one rounding).
 // In every route, every sum has one fixed order (no atomics, no split over keys),
 // so two launches on the same inputs give the same bits: remat's
 // recompute of the forward reproduces it exactly.
@@ -229,19 +231,30 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // acc += p v: the scores' accumulator layout is the A layout of p
+    // acc += p v: the scores' accumulator layout is the A layout of p.
+    // p enters as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), both
+    // products summed in fp32: p to about 16 bits, as near the TPU
+    // kernel's fp32 p . v as these rows need (one bf16 rounding of p put
+    // an 8-value row 1e-2 of its norm from the fp32 product)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                        pack_bf16(s[2 * j][2], s[2 * j][3]),
-                        pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                        pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* sv = s[2 * j + (r >> 1)] + 2 * (r & 1);
+        ph[r] = pack_bf16(sv[0], sv[1]);
+        const float2 hf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ph[r]));
+        pl[r] = pack_bf16(sv[0] - hf.x, sv[1] - hf.y);
+      }
       const __nv_bfloat16* v0 = vs + (16 * j + 2 * t) * STRIDE + g;
 #pragma unroll
       for (int n = 0; n < NT_O; ++n) {
         const __nv_bfloat16* vc = v0 + n * 8;
-        mma_bf16(acc[n], pa, pack_halves(vc[0], vc[STRIDE]),
-                 pack_halves(vc[8 * STRIDE], vc[9 * STRIDE]));
+        const uint32_t b0 = pack_halves(vc[0], vc[STRIDE]);
+        const uint32_t b1 = pack_halves(vc[8 * STRIDE], vc[9 * STRIDE]);
+        mma_bf16(acc[n], ph, b0, b1);
+        mma_bf16(acc[n], pl, b0, b1);
       }
     }
   }

@@ -9,6 +9,14 @@
 // rows the kernel dequantizes in-tile. cap <= 0: no softcap; window <= 0:
 // no sliding window. Each function returns cudaGetLastError() after the
 // launch.
+//
+// The partials of pool-sharded serving (the TPU kernels' block_mask and
+// return_lse): block_mask, when not null, is int32 (n_seqs, nb), and the
+// keys of a zero entry are neither read nor attended. With lse not null,
+// out is fp32 (the locally normalized output) and lse (rows, H) fp32 gets
+// m + log(l) per (row, head), -1e30 where a row attended nothing; the
+// arithmetic is the same as for a bf16 out, so out rounded to bf16 equals
+// the bf16 launch's bytes.
 
 #include "paged_attention.cuh"
 
@@ -17,8 +25,9 @@ namespace {
 paged::Args make_args(const void* q, void* k_pages, void* v_pages,
                       const void* k_scale, const void* v_scale,
                       const void* block_tables, const void* ctx_lens,
-                      const void* q_lens, void* out, int C, int H, int K,
-                      int bs, int nb, float scale, float cap, int window) {
+                      const void* q_lens, const void* block_mask, void* out,
+                      void* lse, int C, int H, int K, int bs, int nb,
+                      float scale, float cap, int window) {
   paged::Args a = {};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k_pages = k_pages;
@@ -28,7 +37,13 @@ paged::Args make_args(const void* q, void* k_pages, void* v_pages,
   a.block_tables = static_cast<const int*>(block_tables);
   a.ctx_lens = static_cast<const int*>(ctx_lens);
   a.q_lens = static_cast<const int*>(q_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.block_mask = static_cast<const int*>(block_mask);
+  if (lse != nullptr) {
+    a.out32 = static_cast<float*>(out);
+    a.lse = static_cast<float*>(lse);
+  } else {
+    a.out = static_cast<__nv_bfloat16*>(out);
+  }
   a.C = C;
   a.H = H;
   a.K = K;
@@ -89,10 +104,12 @@ long long paged_decode_scratch_floats(int B, int H, int K, int hd, int bs,
 }
 
 // Decode: q (B, H, hd) -> out (B, H, hd), through `part` (fp32 scratch of
-// paged_decode_scratch_floats floats, `part_floats` given).
+// paged_decode_scratch_floats floats, `part_floats` given); block_mask
+// and lse may be null (see above).
 int paged_decode(const void* q, void* k_pages, void* v_pages,
                  const void* k_scale, const void* v_scale,
-                 const void* block_tables, const void* ctx_lens, void* out,
+                 const void* block_tables, const void* ctx_lens,
+                 const void* block_mask, void* out, void* lse,
                  void* part, long long part_floats, int B, int H, int K,
                  int hd, int bs, int nb, int pool_type, float scale,
                  float cap, int window, void* stream) {
@@ -100,22 +117,26 @@ int paged_decode(const void* q, void* k_pages, void* v_pages,
     return static_cast<int>(cudaErrorInvalidValue);
   paged::Args a =
       make_args(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                ctx_lens, nullptr, out, 1, H, K, bs, nb, scale, cap, window);
+                ctx_lens, nullptr, block_mask, out, lse, 1, H, K, bs, nb,
+                scale, cap, window);
   a.part = static_cast<float*>(part);
   a.nseg = (nb * bs + paged::kSeg - 1) / paged::kSeg;
   return paged::launch<paged::kDecode>(a, B, H / K, hd, pool_type, stream);
 }
 
-// Chunked prefill: q (B, C, H, hd) + q_lens (B,) -> out (B, C, H, hd).
+// Chunked prefill: q (B, C, H, hd) + q_lens (B,) -> out (B, C, H, hd);
+// block_mask and lse ((B, C, H)) may be null.
 int paged_prefill(const void* q, void* k_pages, void* v_pages,
                   const void* k_scale, const void* v_scale,
                   const void* block_tables, const void* ctx_lens,
-                  const void* q_lens, void* out, int B, int C, int H, int K,
+                  const void* q_lens, const void* block_mask, void* out,
+                  void* lse, int B, int C, int H, int K,
                   int hd, int bs, int nb, int pool_type, float scale,
                   float cap, int window, void* stream) {
   const paged::Args a =
       make_args(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                ctx_lens, q_lens, out, C, H, K, bs, nb, scale, cap, window);
+                ctx_lens, q_lens, block_mask, out, lse, C, H, K, bs, nb,
+                scale, cap, window);
   return paged::launch<paged::kChunk>(a, B, C * (H / K), hd, pool_type,
                                       stream);
 }

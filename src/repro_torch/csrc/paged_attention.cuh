@@ -82,7 +82,17 @@
 //    registers with the same merge function;
 //  * dead steps are skipped: past ctx, before the window, and past the
 //    last row position of a tile (per block) or of a warp's 16 rows (per
-//    warp).
+//    warp);
+//  * the partials of pool-sharded serving (decode and chunk; the TPU
+//    kernels' block_mask and return_lse): a zero block_mask entry's rows
+//    get the ring's zero fill, never a load, and a bit per key per ring
+//    stage (written with the stage's loads, read by its compute) masks
+//    their scores. With lse, the finalize writes acc / l in fp32 and lse
+//    = m ln 2 + log(l) (-1e30 for a row that attended nothing): the same
+//    arithmetic, so a full mask's o rounds to the plain bytes. All of it
+//    sits behind a template flag (PART): the plain launches run an
+//    instantiation without it (behind a runtime test instead, decode and
+//    chunk ran 2-5% slower on the H100: tools/paged_ab.py).
 //
 // Bit for bit: every row is computed by the same sequence of operations
 // whatever the entry point, C, B, S, row tile or grid. Each segment's
@@ -121,6 +131,7 @@ constexpr int kDecodeRows = 16;      // row tile of a decode block
 constexpr int kChunkRows = 64;       // row tile of a chunk / packed block
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // scores run in base 2
+constexpr float kLn2 = 0.6931471805599453f;
 
 enum Mode : int { kChunk = 0, kRagged = 1, kRaggedWrite = 2, kDecode = 3 };
 
@@ -140,7 +151,10 @@ struct Args {
   const int* q_lens;                 // kChunk; null: one row per sequence
   const int* starts;                 // kRagged*
   const int* ends;
-  __nv_bfloat16* out;
+  const int* block_mask;             // kChunk/kDecode: (n_seqs, nb) or null
+  __nv_bfloat16* out;                // null when lse is given
+  float* out32;                      // partials: fp32 o, with lse
+  float* lse;                        // partials: (rows, H) fp32, or null
   float* part;                       // kDecode: the segments' partials
   int C, H, K, bs, nb, n_tiles, nseg;
   float scale, cap;
@@ -221,9 +235,16 @@ __device__ __forceinline__ float merge_acc(int how, float acc, float acc_p,
   return __fadd_rn(__fmul_rn(acc, ca), __fmul_rn(acc_p, cp));
 }
 
-// The finalize of every mode: acc / max(l, 1e-37), rounded to bf16.
+// The finalize of every mode: acc / max(l, 1e-37), rounded to bf16 (or
+// kept in fp32 for a partial).
 __device__ __forceinline__ float finish(float acc, float l) {
   return __fdiv_rn(acc, fmaxf(l, 1e-37f));
+}
+
+// A partial's natural log-sum-exp from the base-2 max m and the sum l:
+// m ln 2 + log(l); -1e30 for a row that attended nothing (l == 0).
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.f ? __fadd_rn(__fmul_rn(m, kLn2), logf(l)) : kNegInf;
 }
 
 // One sequence's rows as the kernel sees them.
@@ -276,15 +297,19 @@ constexpr int smem_bytes() {
   constexpr int RSTB = HD * (int)sizeof(T) + 16;  // padded pool row, bytes
   constexpr int STAGE = 2 * kStep * RSTB + (QUANT ? 2 * kStep * 4 : 0);
   return ROWS * QST * 2 + kStages * STAGE +
-         (QUANT ? 2 * kStep * QST * 2 : 0) + kStages * kStep * 4;
+         (QUANT ? 2 * kStep * QST * 2 : 0) + kStages * kStep * 4 +
+         kStages * 8;
 }
 
 // One block: (sequence, kv head, tile of ROWS query rows) and, for
-// kDecode, one segment of keys.
-template <int HD, int ROWS, typename T, int MODE>
+// kDecode, one segment of keys. PART: the partials' launch (a block mask
+// or an lse); without it their code is compiled out.
+template <int HD, int ROWS, typename T, int MODE, bool PART>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const Args a) {
   constexpr bool SPLIT = MODE == kDecode;
+  const int* const block_mask = PART ? a.block_mask : nullptr;
+  float* const lse_out = PART ? a.lse : nullptr;
   constexpr bool QUANT = sizeof(T) == 1;
   constexpr int QST = HD + 8;                     // padded bf16 row
   constexpr int RSTB = HD * (int)sizeof(T) + 16;  // padded pool row, bytes
@@ -302,6 +327,9 @@ paged_attention_kernel(const Args a) {
   __nv_bfloat16* vb_s = kb_s + kStep * QST;
   int* roff_s = reinterpret_cast<int*>(ring + kStages * STAGE +
                                        (QUANT ? 2 * kStep * QST * 2 : 0));
+  // with a block mask: per ring stage, bit t of the step's key t is set
+  // where the tile reads that key (two words of 32 keys)
+  uint32_t* live_s = reinterpret_cast<uint32_t*>(roff_s + kStages * kStep);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t4 = lane & 3;
@@ -371,6 +399,8 @@ paged_attention_kernel(const Args a) {
   auto row_of = [&](int j, int t) -> int {
     const int p = j * kStep + t;
     if (p < klo || p >= khi) return -1;
+    if (block_mask != nullptr && block_mask[b * nb + p / bs] == 0)
+      return -1;                     // a masked entry: never read
     return a.block_tables[b * nb + p / bs] * bs + p % bs;
   };
   // step j's keys and values (and scales) -> ring stage, asynchronously
@@ -378,6 +408,10 @@ paged_attention_kernel(const Args a) {
     const int st = (j - jlo) % kStages;
     unsigned char* sb = ring + st * STAGE;
     const int* ro = roff_s + st * kStep;
+    if (block_mask != nullptr && tid < kStep) {   // warps 0 and 1
+      const uint32_t bits = __ballot_sync(0xffffffffu, ro[tid] >= 0);
+      if (lane == 0) live_s[st * 2 + warp] = bits;
+    }
 #pragma unroll
     for (int k = 0; k < (kStep * VEC + kThreads - 1) / kThreads; ++k) {
       const int i = tid + k * kThreads;
@@ -490,6 +524,10 @@ paged_attention_kernel(const Args a) {
     cp_async_commit();
 
     const int k0 = j * kStep;
+    // with a block mask, the keys of step j the tile reads
+    uint64_t live = 0;
+    if (block_mask != nullptr)
+      live = live_s[st * 2] | (uint64_t)live_s[st * 2 + 1] << 32;
     if (warp < WARPS && k0 < whi && k0 + kStep > wlo) {
       // S = Q K^T: 16 rows x 64 keys, hd / 16 k-steps
       float s[8][4];
@@ -525,18 +563,28 @@ paged_attention_kernel(const Args a) {
           for (int e = 0; e < 4; ++e)
             s[n][e] = __fmul_rn(a.cap, tanhf(__fdiv_rn(s[n][e], a.cap)));
       }
-      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1, kpos = k0 + n * 8 + 2 * t4 + (e & 1);
-          const float z = kpos >= lo[h] && kpos < hi[h]
-                              ? __fmul_rn(s[n][e], kLog2e) : kNegInf;
-          s[n][e] = z;
-          mx[h] = fmaxf(mx[h], z);
+          s[n][e] = kpos >= lo[h] && kpos < hi[h]
+                        ? __fmul_rn(s[n][e], kLog2e) : kNegInf;
         }
       }
+      // a block mask's keys: a branch of its own, as the softcap's
+      if (block_mask != nullptr) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!(live >> (n * 8 + 2 * t4 + (e & 1)) & 1)) s[n][e] = kNegInf;
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       float corr[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -642,15 +690,26 @@ paged_attention_kernel(const Args a) {
       }
     }
   } else {
-    // finalize: acc / max(l, 1e-37) -> bf16, back to the q row layout
+    // finalize: acc / max(l, 1e-37) -> bf16, back to the q row layout;
+    // a partial keeps it in fp32 and writes the row's lse
     if (warp < WARPS) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int rr = wr0 + g8 + 8 * h;
         if (rr >= sq.rows_total) continue;
         const int c = rr / G, g = rr % G;
-        __nv_bfloat16* orow =
-            a.out + ((size_t)(sq.row0 + c) * H + g * K + kh) * HD + 2 * t4;
+        const size_t row = (size_t)(sq.row0 + c) * H + g * K + kh;
+        if (lse_out != nullptr) {
+          float* orow = a.out32 + row * HD + 2 * t4;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            *reinterpret_cast<float2*>(orow + n * 8) =
+                make_float2(finish(acc_r[n][2 * h], l_r[h]),
+                            finish(acc_r[n][2 * h + 1], l_r[h]));
+          if (t4 == 0) lse_out[row] = lse_of(m_r[h], l_r[h]);
+          continue;
+        }
+        __nv_bfloat16* orow = a.out + row * HD + 2 * t4;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
           *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -664,7 +723,7 @@ paged_attention_kernel(const Args a) {
 // Decode's second pass: one block per (sequence, kv head, row tile, 16
 // columns) merges the live segments' partials in segment order and
 // finalizes. Eight threads share a row, each holding two of its columns.
-template <int HD>
+template <int HD, bool PART>
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const Args a) {
   constexpr int CB = HD / 16;        // column blocks of 16
@@ -710,19 +769,26 @@ paged_merge_kernel(const Args a) {
   }
   if (rr >= sq.rows_total) return;
   const int c = rr / G, g = rr % G;
-  *reinterpret_cast<uint32_t*>(
-      a.out + ((size_t)(sq.row0 + c) * a.H + g * a.K + kh) * HD + col) =
+  const size_t orow = (size_t)(sq.row0 + c) * a.H + g * a.K + kh;
+  if (PART && a.lse != nullptr) {    // a partial: fp32 o and the lse
+    *reinterpret_cast<float2*>(a.out32 + orow * HD + col) =
+        make_float2(finish(acc.x, l), finish(acc.y, l));
+    if (col == 0) a.lse[orow] = lse_of(m, l);
+    return;
+  }
+  *reinterpret_cast<uint32_t*>(a.out + orow * HD + col) =
       pack_bf16(finish(acc.x, l), finish(acc.y, l));
 }
 
 // `rows` is the row count one sequence can hold (G for decode, C*G, or
 // T*G when packed). The row tile only sets how many rows share a loaded
 // step; no row's arithmetic depends on it.
-template <typename T, int MODE, int HD>
-cudaError_t launch_hd(Args a, int n_seqs, int rows, cudaStream_t stream) {
+template <typename T, int MODE, int HD, bool PART>
+cudaError_t launch_kernel(Args a, int n_seqs, int rows,
+                          cudaStream_t stream) {
   constexpr int ROWS = MODE == kDecode ? kDecodeRows : kChunkRows;
   constexpr int SMEM = smem_bytes<HD, ROWS, T>();
-  auto kernel = paged_attention_kernel<HD, ROWS, T, MODE>;
+  auto kernel = paged_attention_kernel<HD, ROWS, T, MODE, PART>;
   a.n_tiles = (rows + ROWS - 1) / ROWS;
   const long long blocks =
       (long long)n_seqs * a.K * a.n_tiles * (MODE == kDecode ? a.nseg : 1);
@@ -735,9 +801,22 @@ cudaError_t launch_hd(Args a, int n_seqs, int rows, cudaStream_t stream) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const unsigned merge_blocks = n_seqs * a.K * a.n_tiles * (HD / 16);
-    paged_merge_kernel<HD><<<merge_blocks, kThreads, 0, stream>>>(a);
+    paged_merge_kernel<HD, PART><<<merge_blocks, kThreads, 0, stream>>>(
+        a);
   }
   return cudaGetLastError();
+}
+
+// The partials' instantiation for a launch with a block mask or an lse
+// (decode and chunk only), the plain one otherwise.
+template <typename T, int MODE, int HD>
+cudaError_t launch_hd(const Args& a, int n_seqs, int rows,
+                      cudaStream_t stream) {
+  if constexpr (MODE == kChunk || MODE == kDecode) {
+    if (a.block_mask != nullptr || a.lse != nullptr)
+      return launch_kernel<T, MODE, HD, true>(a, n_seqs, rows, stream);
+  }
+  return launch_kernel<T, MODE, HD, false>(a, n_seqs, rows, stream);
 }
 
 template <typename T, int MODE>

@@ -3,8 +3,9 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 nothing falls back. A CPU tensor goes to the plain PyTorch version, which
 is what the JAX package's ops run off the TPU (``repro.kernels.ops``):
-``ref.paged_attention_ref`` for decode, ``paged_chunk_attention_xla`` for
-chunked prefill, ``ragged_chunk_attention_xla`` for packed prefill (after
+``ref.paged_attention_ref`` for decode (``ref.paged_attention_partial_ref``
+for its fp32 partials), ``paged_chunk_attention_xla`` for chunked prefill
+(``ref.paged_prefill_attention_partial_ref`` for its partials), ``ragged_chunk_attention_xla`` for packed prefill (after
 ``update_paged_cache_ragged`` for the fused write), ``table[ids]`` for the
 gather, ``models.ssm.ssd_chunked`` for the SSD scan,
 ``models.attention.dense_attention`` for flash attention (up to
@@ -62,6 +63,41 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     fn = pa.paged_attention if q.is_cuda else ref.paged_attention_ref
     return fn(q, k_pages, v_pages, block_tables, ctx_lens, window=window,
               cap=cap, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_attention_partial(q, k_pages, v_pages, block_tables, ctx_lens,
+                            block_mask, *, window=None, cap=None,
+                            scale=None, k_scale=None, v_scale=None):
+    """Partial-softmax paged decode over a shard-local block table: only
+    the table entries ``block_mask`` (B, nb) selects are attended.
+    Returns fp32 ``(o, lse)``, o (B, H, hd), lse (B, H), for the
+    cross-shard LSE stitch (``models.attention.stitch_paged_partials``)."""
+    kw = dict(window=window, cap=cap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return pa.paged_attention(q, k_pages, v_pages, block_tables,
+                                  ctx_lens, block_mask=block_mask,
+                                  return_lse=True, **kw)
+    return ref.paged_attention_partial_ref(q, k_pages, v_pages, block_tables,
+                                           ctx_lens, block_mask, **kw)
+
+
+def paged_prefill_attention_partial(q, k_pages, v_pages, block_tables,
+                                    ctx_lens, q_lens, block_mask, *,
+                                    window=None, cap=None, scale=None,
+                                    k_scale=None, v_scale=None):
+    """The chunk kernel's partials (``paged_prefill_attention`` with
+    ``block_mask`` and ``return_lse``): fp32 ``(o, lse)``, o (B, C, H,
+    hd), lse (B, C, H)."""
+    kw = dict(window=window, cap=cap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return pa.paged_prefill_attention(
+            q, k_pages, v_pages, block_tables, ctx_lens, q_lens,
+            block_mask=block_mask, return_lse=True, **kw)
+    return ref.paged_prefill_attention_partial_ref(
+        q, k_pages, v_pages, block_tables, ctx_lens, q_lens, block_mask,
+        **kw)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,

@@ -30,7 +30,20 @@ block_size up to 32 and head_dim 128 (glm4_9b and the other decoders),
 80 (zamba2_2p7b's shared attention), 64 (whisper_large_v3's decoder) or
 16 (the smoke sizes).
 
-Each wrapper counts its launches by pool dtype name in ``.launches``.
+The decode and chunk wrappers also take the TPU kernels' options of
+pool-sharded serving: ``block_mask`` (n_seqs, nb), whose zero entries'
+pages are neither read nor attended, and ``return_lse``, which returns
+fp32 partials ``(o, lse)`` for the LSE stitch
+(``models.attention.stitch_paged_partials``): o the locally normalized
+output, lse (B, H) or (B, C, H) the log-sum-exp of the attended keys,
+<= -1e30 where a row attended nothing. The arithmetic is the same as
+without them: with a full mask, o rounded to bf16 is the plain launch's
+output byte for byte. ``pages_per_compute_block``, the TPU kernels' grid
+knob, is accepted and ignored (any P gives the same math there too). The
+packed kernel has no partials, in the JAX package either.
+
+Each wrapper counts its launches by pool dtype name in ``.launches``; a
+partial launch counts under "partial" (bf16 pools) or "<pool>_partial".
 """
 
 from __future__ import annotations
@@ -49,16 +62,40 @@ POOL_CODES = {"bf16": 0, "int8": 1, "fp8": 2}   # csrc's PoolType
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def refuse_unported(pages_per_compute_block, block_mask, return_lse):
-    """Raise for the kernel options the port does not take yet."""
+def _refuse_ragged_partials(block_mask, return_lse):
+    """The packed kernel has no partials: the JAX package's has none."""
     if block_mask is not None or return_lse:
         raise NotImplementedError(
-            "block_mask / return_lse partials are not ported yet "
-            "(ROADMAP.md queue 2 items 1-3)")
-    if pages_per_compute_block not in (None, 1):
-        raise NotImplementedError(
-            f"pages_per_compute_block={pages_per_compute_block}: P > 1 is "
-            "not ported yet (ROADMAP.md queue 2 items 1-3)")
+            "block_mask / return_lse: the packed (ragged) kernel has no "
+            "partials, in the JAX package either (ROADMAP.md queue 2 item "
+            "3)")
+
+
+def _partial_io(q, block_mask, return_lse, n_seqs, nb):
+    """(block mask int32 or None, out, lse or None) of a decode or chunk
+    launch: fp32 o and its lse for a partial, else a bf16 out like q."""
+    if block_mask is not None:
+        if tuple(block_mask.shape) != (n_seqs, nb):
+            raise ValueError(f"block_mask must be ({n_seqs}, {nb}), got "
+                             f"{tuple(block_mask.shape)}")
+        if block_mask.device != q.device:
+            raise ValueError(f"block_mask must be on {q.device}, got "
+                             f"{block_mask.device}")
+        block_mask = block_mask.to(torch.int32).contiguous()
+    if not return_lse:
+        return block_mask, torch.empty_like(q), None
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    return block_mask, out, lse
+
+
+def launch_key(pool: str, partial: bool) -> str:
+    """A launch's counter key: the pool's name, or for a launch of the
+    partials' instantiation (a block mask or an lse) "partial" (bf16) or
+    "<pool>_partial"."""
+    if not partial:
+        return pool
+    return "partial" if pool == "bf16" else f"{pool}_partial"
 
 
 def _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, n_seqs,
@@ -126,12 +163,12 @@ def _lib(stem):
     lib = build.load(stem)
     knobs = [_INT, _F, _F, _INT, _VP]      # pool_type, scale, cap, window,
     if stem == "paged_attention":           # stream
-        lib.paged_decode.argtypes = [_VP] * 9 + [ctypes.c_longlong] \
+        lib.paged_decode.argtypes = [_VP] * 11 + [ctypes.c_longlong] \
             + [_INT] * 6 + knobs
         lib.paged_decode.restype = _INT
         lib.paged_decode_scratch_floats.argtypes = [_INT] * 6
         lib.paged_decode_scratch_floats.restype = ctypes.c_longlong
-        lib.paged_prefill.argtypes = [_VP] * 9 + [_INT] * 7 + knobs
+        lib.paged_prefill.argtypes = [_VP] * 11 + [_INT] * 7 + knobs
         lib.paged_prefill.restype = _INT
     else:
         lib.ragged_paged_prefill.argtypes = [_VP] * 12 + [_INT] * 7 + knobs
@@ -159,15 +196,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                     return_lse=False, pages_per_compute_block=1,
                     k_scale=None, v_scale=None):
     """Decode: q (B, H, hd), one query per sequence -> (B, H, hd) bf16.
-    ctx_lens == 0 marks an inactive slot, whose output row is zeros."""
-    refuse_unported(pages_per_compute_block, block_mask, return_lse)
+    ctx_lens == 0 marks an inactive slot, whose output row is zeros. With
+    ``return_lse``: fp32 ``(o, lse)``, lse (B, H); ``block_mask`` (B, nb)
+    leaves out the pages of its zero entries."""
     B, H, hd = q.shape
     pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, B,
                   ctx_lens=ctx_lens)
     _, bs, K, _ = k_pages.shape
     nb = block_tables.shape[1]
     lib = _lib("paged_attention")
-    out = torch.empty_like(q)
+    mask, out, lse = _partial_io(q, block_mask, return_lse, B, nb)
     # the segments' partial states (csrc/paged_attention.cu says the size)
     part = torch.empty(lib.paged_decode_scratch_floats(B, H, K, hd, bs, nb),
                        dtype=torch.float32, device=q.device)
@@ -175,12 +213,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
         rc = lib.paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            ctx_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-            part.numel(), B, H, K, hd, bs, nb,
+            ctx_lens.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(lse),
+            part.data_ptr(), part.numel(), B, H, K, hd, bs, nb,
             *_knobs(pool, hd, window, cap, scale), build.current_stream(q))
     _raise_on(rc, "paged_decode")
-    paged_attention.launches[pool] += 1
-    return out
+    paged_attention.launches[
+        launch_key(pool, mask is not None or return_lse)] += 1
+    return (out, lse) if return_lse else out
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
@@ -191,23 +230,25 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     """Chunked prefill: q (B, C, H, hd); row i of sequence b sits at
     absolute position ``ctx_lens[b] - q_lens[b] + i`` (the chunk's KV is
     already in the pages). Rows at or past q_lens are zeros.
-    Returns (B, C, H, hd) bf16."""
-    refuse_unported(pages_per_compute_block, block_mask, return_lse)
+    Returns (B, C, H, hd) bf16, or with ``return_lse`` fp32 ``(o, lse)``,
+    lse (B, C, H); ``block_mask`` as in ``paged_attention``."""
     B, C, H, hd = q.shape
     pool = _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, B,
                   ctx_lens=ctx_lens, q_lens=q_lens)
     _, bs, K, _ = k_pages.shape
-    out = torch.empty_like(q)
+    nb = block_tables.shape[1]
+    mask, out, lse = _partial_io(q, block_mask, return_lse, B, nb)
     with torch.cuda.device(q.device):
         rc = _lib("paged_attention").paged_prefill(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            ctx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), B, C, H,
-            K, hd, bs, block_tables.shape[1],
+            ctx_lens.data_ptr(), q_lens.data_ptr(), _ptr(mask),
+            out.data_ptr(), _ptr(lse), B, C, H, K, hd, bs, nb,
             *_knobs(pool, hd, window, cap, scale), build.current_stream(q))
     _raise_on(rc, "paged_prefill")
-    paged_prefill_attention.launches[pool] += 1
-    return out
+    paged_prefill_attention.launches[
+        launch_key(pool, mask is not None or return_lse)] += 1
+    return (out, lse) if return_lse else out
 
 
 def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
@@ -227,7 +268,7 @@ def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
     quantized for an int8/fp8 pool, whose chunk scale rows must already be
     in the scale pools) the chunk's KV is also stored into the pages, in
     place, and ``(o, k_pages, v_pages)`` is returned."""
-    refuse_unported(pages_per_compute_block, block_mask, return_lse)
+    _refuse_ragged_partials(block_mask, return_lse)
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new must be given together")
     T, H, hd = q.shape

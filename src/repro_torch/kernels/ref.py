@@ -103,6 +103,79 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+
+def paged_attention_partial_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                                block_mask, *, window=None, cap=None,
+                                scale=None, k_scale=None, v_scale=None):
+    """Partial-softmax paged decode oracle for pool-sharded serving (the
+    decode kernel's plain version with ``block_mask`` / ``return_lse``).
+
+    ``paged_attention_ref``'s math, op for op, with keys also masked where
+    their table entry's ``block_mask`` (B, nb) is zero (a shard attends
+    only the pages it holds); returns ``(o, lse)``: o (B, H, hd) fp32, the
+    locally normalized output, and lse (B, H) fp32, the log-sum-exp of the
+    attended keys. A row that attended nothing has o = 0 and lse <= -1e30
+    (zero weight in the stitch). With a full mask, o equals
+    ``paged_attention_ref``'s before its cast to q's dtype, bit for bit.
+    """
+    B, H, hd = q.shape
+    bs, K = k_pages.shape[1], k_pages.shape[2]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    k = _gather_pages(k_pages, k_scale, block_tables)
+    v = _gather_pages(v_pages, v_scale, block_tables)
+    S = k.shape[1]
+    qg = q.reshape(B, G, K, hd)
+    logits = torch.einsum("bgkh,bskh->bgks", qg.float(), k.float()) * scale
+    logits = _softcap(logits, cap)
+    k_pos = torch.arange(S, device=q.device)
+    ctx = ctx_lens.long()
+    ok = k_pos[None, :] < ctx[:, None]                         # (B, S)
+    if window is not None:
+        ok &= k_pos[None, :] > ctx[:, None] - 1 - window
+    ok &= (block_mask != 0).repeat_interleave(bs, dim=1)      # shard-local
+    ok = ok[:, None, None, :]
+    logits = torch.where(ok, logits, NEG_INF)
+    mx = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(logits - mx), 0.0)
+    sm = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
+    lse = mx + torch.log(sm)
+    p = (p / sm).to(v.dtype)
+    o = torch.einsum("bgks,bskh->bgkh", p.float(), v.float())
+    return o.reshape(B, H, hd), lse.reshape(B, H)
+
+
+def paged_shard_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                              n_shards, *, window=None, cap=None,
+                              scale=None, k_scale=None, v_scale=None):
+    """LSE-stitch oracle for pool-sharded paged decode: ``n_shards``
+    shards each hold a disjoint part of a sequence's pages (table entry j
+    belongs to shard ``j % n_shards``), each computes its partial with
+    ``paged_attention_partial_ref``, and the partials are stitched, each
+    weighted by its share of the global softmax mass:
+
+        m = max_i lse_i
+        o = sum_i o_i exp(lse_i - m) / sum_i exp(lse_i - m)
+
+    Agrees with ``paged_attention_ref`` for every n_shards. Returns (B, H,
+    hd) in q's dtype; raises ValueError for n_shards < 1."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    B, nb = block_tables.shape
+    entry = torch.arange(nb, device=block_tables.device)[None, :]
+    parts = [paged_attention_partial_ref(
+        q, k_pages, v_pages, block_tables, ctx_lens,
+        (entry % n_shards == s).expand(B, nb).to(torch.int32),
+        window=window, cap=cap, scale=scale, k_scale=k_scale,
+        v_scale=v_scale) for s in range(n_shards)]
+    os = torch.stack([o for o, _ in parts])            # (S, B, H, hd)
+    lses = torch.stack([lse for _, lse in parts])      # (S, B, H)
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m[None])
+    den = torch.clamp(w.sum(dim=0), min=1e-37)
+    out = (os * w[..., None]).sum(dim=0) / den[..., None]
+    return out.to(q.dtype)
+
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
                                 q_lens, *, window=None, cap=None, scale=None,
                                 k_scale=None, v_scale=None):
@@ -139,6 +212,46 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     o = torch.einsum("bcgks,bskh->bcgkh", p.float(), v.float())
     return o.reshape(B, C, H, hd).to(q.dtype)
 
+
+
+def paged_prefill_attention_partial_ref(q, k_pages, v_pages, block_tables,
+                                        ctx_lens, q_lens, block_mask, *,
+                                        window=None, cap=None, scale=None,
+                                        k_scale=None, v_scale=None):
+    """The chunk kernel's plain version with ``block_mask`` /
+    ``return_lse``: ``paged_prefill_attention_ref``'s math with keys also
+    masked where their table entry's ``block_mask`` (B, nb) is zero.
+    Returns ``(o, lse)``: o (B, C, H, hd) fp32, lse (B, C, H) fp32; rows
+    that attended nothing (padding rows, a masked-out context) have o = 0
+    and lse <= -1e30. With q_lens == 1 and C == 1 it is
+    ``paged_attention_partial_ref``'s row."""
+    B, C, H, hd = q.shape
+    bs, K = k_pages.shape[1], k_pages.shape[2]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    k = _gather_pages(k_pages, k_scale, block_tables)
+    v = _gather_pages(v_pages, v_scale, block_tables)
+    S = k.shape[1]
+    qg = q.reshape(B, C, G, K, hd)
+    logits = torch.einsum("bcgkh,bskh->bcgks", qg.float(), k.float()) * scale
+    logits = _softcap(logits, cap)
+    dev = q.device
+    q_pos = (ctx_lens - q_lens).long()[:, None] + torch.arange(C, device=dev)
+    k_pos = torch.arange(S, device=dev)
+    ok = k_pos[None, None] <= q_pos[..., None]                      # causal
+    if window is not None:
+        ok &= k_pos[None, None] > q_pos[..., None] - window
+    ok &= (torch.arange(C, device=dev)[None] < q_lens.long()[:, None])[..., None]
+    ok &= (block_mask != 0).repeat_interleave(bs, dim=1)[:, None]  # shard
+    ok = ok[:, :, None, None, :]
+    logits = torch.where(ok, logits, NEG_INF)
+    mx = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(logits - mx), 0.0)
+    sm = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
+    lse = mx + torch.log(sm)
+    p = (p / sm).to(v.dtype)
+    o = torch.einsum("bcgks,bskh->bcgkh", p.float(), v.float())
+    return o.reshape(B, C, H, hd), lse.reshape(B, C, H)
 
 def ragged_paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                        ctx_lens, starts, ends, row_seq, *,

@@ -1,9 +1,12 @@
-"""Serving driver for the PyTorch port (port of ``repro.launch.serve``
-without meshes): a synthetic Poisson workload through the
-continuous-batching engine, through a data-parallel fleet of engines
-behind one ``ReplicaRouter`` (``--dp``, ``--disaggregate``), or a
-long-lived HTTP server (``--http``: SSE token streaming, /health,
-/metrics; SIGINT/SIGTERM drains gracefully).
+"""Serving driver for the PyTorch port (port of ``repro.launch.serve``):
+a synthetic Poisson workload through the continuous-batching engine,
+through a data-parallel fleet of engines behind one ``ReplicaRouter``
+(``--dp``, ``--disaggregate``), or a long-lived HTTP server (``--http``:
+SSE token streaming, /health, /metrics; SIGINT/SIGTERM drains
+gracefully). ``--mesh data=A,model=B`` spawns A x B ranks (processes,
+``torch.distributed``) and serves the workload tensor-parallel over each
+"model" group (the data axis replicates): one engine a rank, the page
+pools sharded by kv head; rank 0 prints the summary with a mesh line.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \\
       --device cpu
@@ -28,6 +31,8 @@ long-lived HTTP server (``--http``: SSE token streaming, /health,
       --dp 2 [--disaggregate]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \
       --device cpu --http 127.0.0.1:8000 [--dp 2] [--ttft-slo-ms 5000]
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh model=2
 
 The default device is the card ("cuda"), where the engine runs its step
 as CUDA graphs, one per (shape, sampling mode); ``--device cpu`` runs the
@@ -44,6 +49,7 @@ import time
 import numpy as np
 
 from repro_torch.config import ARCHS, get_config
+from repro_torch.launch.mesh import parse_mesh
 
 
 def poisson_arrival_steps(n: int, rate: float, rng) -> list[int]:
@@ -113,9 +119,10 @@ def profiled_run(eng, reqs, arrivals, top: int):
 
 
 def build_engine(cfg, args, shared_index=None, params=None,
-                 draft_params=None):
-    """One engine from the CLI's options; on the card its kernels are
-    built and its greedy step graphs captured before it serves."""
+                 draft_params=None, mesh=None):
+    """One engine from the CLI's options (one rank's of ``mesh``); on the
+    card its kernels are built and, without tensor parallelism, its
+    greedy step graphs captured before it serves."""
     from repro_torch.serving import InferenceEngine
     draft_cfg = (get_config(args.speculative_draft, smoke=args.smoke)
                  if args.speculative_draft else None)
@@ -130,7 +137,7 @@ def build_engine(cfg, args, shared_index=None, params=None,
         num_speculative_tokens=args.num_speculative_tokens,
         swap_space_bytes=args.swap_space_bytes,
         swap_policy=args.swap_policy, shared_index=shared_index,
-        params=params, draft_params=draft_params)
+        params=params, draft_params=draft_params, mesh=mesh)
     if eng.device.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()            # compile before, not inside, the run
@@ -166,16 +173,32 @@ def build_controller(args, n_replicas: int = 1):
                                n_replicas=n_replicas)
 
 
-def run_engine(cfg, args):
-    eng = build_engine(cfg, args)
+def run_engine(cfg, args, mesh=None, report=True):
+    """The synthetic workload through one engine (on a mesh: this rank's;
+    a group's rank 0 drives it, the others follow). Prints the summary
+    where ``report``."""
+    eng = build_engine(cfg, args, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     reqs = make_requests(cfg, args, rng)
     arrivals = poisson_arrival_steps(len(reqs), args.rate, rng)
+    if eng.group is not None and eng.group.rank != 0:
+        return eng.follow()
     if args.profile:
         outs = profiled_run(eng, reqs, arrivals, args.profile)
     else:
         outs = eng.run(reqs, arrival_steps=arrivals)
+    eng.close()
+    if not report:
+        return outs
     s = eng.stats
+    if mesh is not None:
+        print(f"[serve] mesh data={mesh.shape[0]} model={mesh.shape[1]}: "
+              f"tp={eng.tp} backend={args.backend} ranks={args.world}, "
+              f"kv-head pools sharded ({s['kv_cache_mib']} MiB a rank), "
+              f"gathers={s['tp_gathers']} "
+              f"gather_bytes={s['tp_gather_bytes']} "
+              f"staged_copies={s['tp_staged_copies']} "
+              f"staged_bytes={s['tp_staged_bytes']}")
     print(f"[serve] device={eng.device} arch={cfg.name} "
           f"kv_dtype={s['kv_dtype']} prefill_pack={eng.prefill_pack} "
           f"kv_cache_mib={s['kv_cache_mib']} "
@@ -206,6 +229,41 @@ def run_engine(cfg, args):
               f"swapped_in_blocks={s['swapped_in_blocks']}")
     print("[serve] sample output ids:", outs[reqs[0].rid][:8].tolist())
     return outs
+
+
+def _mesh_rank(rank, args, init_method):
+    """One rank of ``--mesh``: join the group, build the mesh, serve."""
+    import torch
+
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model = parse_mesh(args.mesh)
+    dev_type = torch.device(args.device).type
+    args.world = data * model
+    args.backend = init_rank(rank, args.world, init_method, dev_type)
+    mesh = make_host_mesh(data, model, dev_type)
+    run_engine(get_config(args.arch, smoke=args.smoke), args, mesh,
+               report=rank == 0)
+    torch.distributed.destroy_process_group()
+
+
+def run_mesh(args):
+    """``--mesh``: spawn the A x B ranks, wait for every one; fails if any
+    rank does."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+    data, model = parse_mesh(args.mesh)
+    if torch.device(args.device).type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()            # once, before the ranks load it
+    init = "file://" + str(Path(tempfile.mkdtemp(prefix="mesh_"))
+                           / "rendezvous")
+    mp.start_processes(_mesh_rank, args=(args, init), nprocs=data * model,
+                       join=True, start_method="spawn")
 
 
 def run_router(cfg, args):
@@ -344,6 +402,11 @@ def parse_args(argv=None):
     ap.add_argument("--shared-slots", type=int, default=512,
                     help="host slots (blocks) of the fleet's "
                     "SharedPrefixIndex, LRU-evicted")
+    ap.add_argument("--mesh", default=None, metavar="data=A,model=B",
+                    help="spawn A x B ranks and serve tensor-parallel over "
+                    "each 'model' group (page pools sharded by kv head; "
+                    "the data axis replicates): NCCL when every rank has "
+                    "a card of its own, else gloo")
     ap.add_argument("--http", default=None, metavar="HOST:PORT",
                     help="serve over HTTP until SIGINT/SIGTERM instead of "
                     "the synthetic workload: POST /generate (SSE), GET "
@@ -396,6 +459,15 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.disaggregate and args.dp < 2:
         ap.error("--disaggregate needs --dp >= 2 (prefill + decode roles)")
+    if args.mesh:
+        try:
+            parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.http or args.dp > 1:
+            ap.error("--mesh with --http or --dp: a router or front end "
+                     "over tensor-parallel engines is not ported yet "
+                     "(ROADMAP.md queue 1 item 12)")
     return args
 
 
@@ -406,7 +478,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.http:
+    if args.mesh:
+        run_mesh(args)
+    elif args.http:
         run_http(cfg, args)
     elif args.dp > 1:
         run_router(cfg, args)

@@ -11,6 +11,18 @@ Quantized pools (int8 / fp8, ``models.quant``) take only rows already
 quantized to their dtype: the callers quantize new K/V first and scatter
 its scale rows into the fp32 scale pools, and the attention paths
 dequantize after the gather (plain) or in-tile (kernels).
+
+Tensor-parallel serving (a ``spmd.collectives`` model group current, of
+size tp > 1): the pools and the cross K/V hold this rank's K / tp kv heads
+(``local_kv_heads`` cuts new K/V rows to them before a write). The paged
+and cross attention paths attend this rank's heads only, all G query heads
+of each local kv head (g-major: q heads g * K + k), and ``gather_heads``
+restores every head in the global order before ``out_proj``: an exact
+gather, so every contraction across heads runs whole on every rank and the
+outputs are the same bits on any tp (the JAX package's
+``replicate_over_model``). ``paged_shard_attention`` is the other
+sharding, of the blocks axis: per-shard partial softmaxes over disjoint
+pages, LSE-stitched.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import causal_mask
 from repro_torch.models import quant
 from repro_torch.models.layers import apply_rope, rms_norm_fp32, softcap
+from repro_torch.spmd import collectives
 
 NEG_INF = -1.0e30
 
@@ -57,6 +70,57 @@ def out_proj(params, y, x_dtype):
 
 def attention_scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
+
+
+def _model_group():
+    """The current model group when it shards (tp > 1), else None."""
+    g = collectives.current()
+    return g if g is not None and g.size > 1 else None
+
+
+def local_kv_heads(x, dim: int = -2):
+    """This rank's kv heads of ``x`` along ``dim`` (its K / tp contiguous
+    heads), or ``x`` itself without tensor parallelism."""
+    g = _model_group()
+    if g is None:
+        return x
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n)
+
+
+def _local_q(q, k_local: int):
+    """q (..., H, hd) -> the query heads of this rank's ``k_local`` kv
+    heads, (..., G * k_local, hd) g-major: heads g * K + k for the rank's
+    k."""
+    g = _model_group()
+    *lead, H, hd = q.shape
+    K = k_local * g.size
+    qg = q.reshape(*lead, H // K, K, hd)
+    return qg.narrow(-2, g.rank * k_local, k_local).reshape(
+        *lead, (H // K) * k_local, hd)
+
+
+def gather_heads(o, k_local: int):
+    """(..., G * k_local, hd) per-rank heads -> (..., H, hd), every rank's
+    in the global g-major order: the counterpart of the JAX package's
+    ``replicate_over_model``, an exact gather before any contraction
+    across heads."""
+    g = _model_group()
+    if g is None:
+        return o
+    *lead, Hl, hd = o.shape
+    G = Hl // k_local
+    full = g.gather(o.reshape(*lead, G, k_local, hd), dim=-2)
+    return full.reshape(*lead, G * k_local * g.size, hd)
+
+
+def over_local_heads(attend, q, k_local: int):
+    """``attend(q)`` over this rank's kv heads with tensor parallelism
+    (q cut to their query heads, the result gathered to all H), else
+    ``attend(q)``."""
+    if _model_group() is None:
+        return attend(q)
+    return gather_heads(attend(_local_q(q, k_local).contiguous()), k_local)
 
 
 def dense_attention(q, k, v, *, causal=True, window=None, cap=None,
@@ -208,14 +272,38 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, cap=None,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def dense_as_pages(cache):
+    """A dense (B, S, K, hd) cache as a page pool of B * S / bs pages of
+    bs rows (a view; bs the largest divisor of S up to the kernels' 32)
+    and its block tables (B, S / bs) int32: sequence b owns pages b * nb
+    .. b * nb + nb - 1, in order."""
+    B, S = cache.shape[:2]
+    bs = max(d for d in range(1, 33) if S % d == 0)
+    nb = S // bs
+    tables = torch.arange(B * nb, dtype=torch.int32,
+                          device=cache.device).reshape(B, nb)
+    return cache.reshape(B * nb, bs, *cache.shape[2:]), tables
+
+
 def decode_attention_local(q, k_cache, v_cache, pos, *, window=None,
                            cap=None, scale=None):
     """The JAX package's unsharded decode attention (its whisper decode's
-    cross attention, against all T_enc keys with ``pos = T_enc - 1``).
-    On one device it is ``decode_attention``: both are
-    ``_decode_attn_local`` over the whole cache."""
-    return decode_attention(q, k_cache, v_cache, pos, window=window,
-                            cap=cap, scale=scale)
+    cross attention, against all T_enc keys with ``pos = T_enc - 1``):
+    ``decode_attention``'s function, run as paged decode over the dense
+    caches viewed as pages (``dense_as_pages``): the decode kernel on the
+    card, ``paged_attention_ref`` (``decode_attention``'s op sequence) on
+    the CPU. A row's bits on the card then do not depend on how many
+    heads share the launch, as a batched GEMM's split of its 1500-key
+    sums does. With tensor parallelism the caches hold this rank's kv
+    heads: it attends those and gathers. q (B, 1, H, hd)."""
+    k_pages, tables = dense_as_pages(k_cache)
+    v_pages, _ = dense_as_pages(v_cache)
+    ctx = (pos + 1).to(torch.int32)
+    o = over_local_heads(
+        lambda qh: ops.paged_attention(qh, k_pages, v_pages, tables, ctx,
+                                       window=window, cap=cap, scale=scale),
+        q[:, 0].contiguous(), k_cache.shape[2])
+    return o[:, None].to(q.dtype)
 
 
 def _scatter(pages, blk, slot, rows):
@@ -287,10 +375,14 @@ def update_paged_cache_ragged(pages, new, block_tables, ctx_lens, starts,
 def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                            window=None, cap=None, scale=None, k_scale=None,
                            v_scale=None):
-    """Decode attention via block tables. q: (B, 1, H, hd) -> (B, 1, H, hd)."""
-    o = ops.paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                            block_tables, ctx_lens, window=window, cap=cap,
-                            scale=scale, k_scale=k_scale, v_scale=v_scale)
+    """Decode attention via block tables. q: (B, 1, H, hd) -> (B, 1, H, hd).
+    With tensor parallelism each rank attends its pools' kv heads and the
+    heads are gathered."""
+    o = over_local_heads(
+        lambda qh: ops.paged_attention(
+            qh, k_pages, v_pages, block_tables, ctx_lens, window=window,
+            cap=cap, scale=scale, k_scale=k_scale, v_scale=v_scale),
+        q[:, 0].contiguous(), k_pages.shape[2])
     return o[:, None].to(q.dtype)
 
 
@@ -299,11 +391,52 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                           k_scale=None, v_scale=None):
     """Chunked-prefill attention via block tables: the C queries of one
     prompt chunk attend causally to the paged context (this chunk's KV
-    already scattered in). q: (B, C, H, hd) -> (B, C, H, hd)."""
-    o = ops.paged_prefill_attention(q.contiguous(), k_pages, v_pages,
-                                    block_tables, ctx_lens, q_lens,
-                                    window=window, cap=cap, scale=scale,
-                                    k_scale=k_scale, v_scale=v_scale)
+    already scattered in). q: (B, C, H, hd) -> (B, C, H, hd); sharded
+    over kv heads as ``paged_decode_attention``."""
+    o = over_local_heads(
+        lambda qh: ops.paged_prefill_attention(
+            qh, k_pages, v_pages, block_tables, ctx_lens, q_lens,
+            window=window, cap=cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale),
+        q.contiguous(), k_pages.shape[2])
+    return o.to(q.dtype)
+
+
+def stitch_paged_partials(os, lses):
+    """Combine per-shard partial paged attentions into the global result.
+
+    os: (S, ..., hd) locally normalized fp32 outputs; lses: (S, ...)
+    their fp32 log-sum-exps, one entry per shard along axis 0. Each
+    partial is renormalized by its share of the global softmax mass (the
+    flash-decode stitch). Rows no shard attended (every lse <= -1e30)
+    come out zero."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m[None])
+    den = torch.clamp(w.sum(dim=0), min=1e-37)
+    return (os * w[..., None]).sum(dim=0) / den[..., None]
+
+
+def paged_shard_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                          n_shards, *, window=None, cap=None, scale=None,
+                          k_scale=None, v_scale=None):
+    """Pool-sharded paged decode attention: blocks-axis sharding and the
+    LSE stitch. Shard s holds the pages of table entries ``j % n_shards ==
+    s`` (a round-robin stand-in for ownership by residence), runs the
+    partial-softmax kernel over its entries (``ops.paged_attention_partial``:
+    the other entries' pages are never read), and the fp32 partials are
+    stitched. The same math as ``paged_decode_attention`` for any
+    n_shards. q: (B, H, hd) -> (B, H, hd)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    B, nb = block_tables.shape
+    entry = torch.arange(nb, device=block_tables.device)[None, :]
+    parts = [ops.paged_attention_partial(
+        q, k_pages, v_pages, block_tables, ctx_lens,
+        (entry % n_shards == s).expand(B, nb).to(torch.int32).contiguous(),
+        window=window, cap=cap, scale=scale, k_scale=k_scale,
+        v_scale=v_scale) for s in range(n_shards)]
+    o = stitch_paged_partials(torch.stack([p[0] for p in parts]),
+                              torch.stack([p[1] for p in parts]))
     return o.to(q.dtype)
 
 
@@ -380,11 +513,14 @@ def ragged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     """Packed (ragged) chunked-prefill attention via block tables: chunks
     of up to S sequences ride one flat (1, T, H, hd) row batch, each row
     attending causally to its owner's paged context (the chunk's KV
-    already scattered in). Returns (1, T, H, hd)."""
-    o = ops.ragged_paged_prefill_attention(
-        q[0].contiguous(), k_pages, v_pages, block_tables, ctx_lens, starts,
-        ends, row_seq, window=window, cap=cap, scale=scale, k_scale=k_scale,
-        v_scale=v_scale)
+    already scattered in). Returns (1, T, H, hd); sharded over kv heads as
+    ``paged_decode_attention``."""
+    o = over_local_heads(
+        lambda qh: ops.ragged_paged_prefill_attention(
+            qh, k_pages, v_pages, block_tables, ctx_lens, starts, ends,
+            row_seq, window=window, cap=cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale),
+        q[0].contiguous(), k_pages.shape[2])
     return o[None].to(q.dtype)
 
 
@@ -400,7 +536,12 @@ def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
     Quantized pools (``k_scale``/``v_scale`` given): the chunk's K/V is
     quantized here and its scale rows are scattered into the scale pools
     before the fused op, which reads them for the dequant. Returns
-    ``(o, k_pages, v_pages, k_scale, v_scale)``."""
+    ``(o, k_pages, v_pages, k_scale, v_scale)``.
+
+    With tensor parallelism k_new / v_new are cut to this rank's kv heads
+    (the pools' heads) and the attention is sharded as
+    ``paged_decode_attention``'s."""
+    k_new, v_new = local_kv_heads(k_new), local_kv_heads(v_new)
     if k_scale is not None:
         kvd = quant.kv_dtype_name(k_pages.dtype)
         k_new, ksr = quant.quantize_kv(k_new, kvd)
@@ -408,11 +549,14 @@ def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
         for pool, rows in ((k_scale, ksr), (v_scale, vsr)):
             update_paged_cache_ragged(pool, rows, block_tables, ctx_lens,
                                       starts, ends, row_seq)
-    o, kc, vc = ops.ragged_prefill_update_attend(
-        q[0].contiguous(), k_new[0].contiguous(), v_new[0].contiguous(),
-        k_pages, v_pages, block_tables, ctx_lens, starts, ends, row_seq,
-        window=window, cap=cap, scale=scale, k_scale=k_scale,
-        v_scale=v_scale)
+    o = over_local_heads(
+        lambda qh: ops.ragged_prefill_update_attend(
+            qh, k_new[0].contiguous(), v_new[0].contiguous(), k_pages,
+            v_pages, block_tables, ctx_lens, starts, ends, row_seq,
+            window=window, cap=cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)[0],
+        q[0].contiguous(), k_pages.shape[2])
+    kc, vc = k_pages, v_pages
     if k_scale is not None:
         return o[None].to(q.dtype), kc, vc, k_scale, v_scale
     return o[None].to(q.dtype), kc, vc

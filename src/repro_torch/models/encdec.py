@@ -22,6 +22,9 @@ encoder, the static prefill, a chunk's cross attention against all
 T_enc keys) goes through ``sharded_attention`` (the flash kernel on the
 card, its hd-64 route for whisper); the decode's cross attention is
 ``decode_attention_local`` against all T_enc keys, as in the reference.
+With tensor parallelism the engine paths write and attend this rank's kv
+heads of the pools and of the cross K/V, and gather the heads
+(``models.attention``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import (attention_scale, decode_attention,
-                                          decode_attention_local, out_proj,
+                                          decode_attention_local,
+                                          local_kv_heads, out_proj,
+                                          over_local_heads,
                                           paged_chunk_attention,
                                           paged_decode_attention, project_kv,
                                           project_q, sharded_attention,
@@ -260,10 +265,10 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
     def self_attend(ap, h, layer):
         q = project_q(ap, h, cfg, cos_sin)
         k, v = project_kv(ap, h, cfg, cos_sin)
-        kc = update_paged_cache_chunk(pools["k"][layer], k, bt, q_start,
-                                      q_lens)
-        vc = update_paged_cache_chunk(pools["v"][layer], v, bt, q_start,
-                                      q_lens)
+        kc = update_paged_cache_chunk(pools["k"][layer], local_kv_heads(k),
+                                      bt, q_start, q_lens)
+        vc = update_paged_cache_chunk(pools["v"][layer], local_kv_heads(v),
+                                      bt, q_start, q_lens)
         return paged_chunk_attention(q, kc, vc, bt, ctx_lens, q_lens,
                                      scale=scale)
 
@@ -271,8 +276,10 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
         # no query-position dependence: the prefill's op sequence, chunk
         # by chunk
         q = project_q(ap, h, cfg, None)
-        return sharded_attention(q, cross["xk"][layer], cross["xv"][layer],
-                                 cfg, causal=False, scale=scale)
+        xk, xv = cross["xk"][layer], cross["xv"][layer]
+        return over_local_heads(
+            lambda ql: sharded_attention(ql, xk, xv, cfg, causal=False,
+                                         scale=scale), q, xk.shape[2])
 
     x = _decoder(params, x, cfg, self_attend, cross_attend)
     head = head_table(params["embed"], cfg) if head is None else head
@@ -300,8 +307,10 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
     def self_attend(ap, h, layer):
         q = project_q(ap, h, cfg, cos_sin)
         k, v = project_kv(ap, h, cfg, cos_sin)
-        kc = update_paged_cache(pools["k"][layer], k, bt, pos)
-        vc = update_paged_cache(pools["v"][layer], v, bt, pos)
+        kc = update_paged_cache(pools["k"][layer], local_kv_heads(k), bt,
+                                pos)
+        vc = update_paged_cache(pools["v"][layer], local_kv_heads(v), bt,
+                                pos)
         return paged_decode_attention(q, kc, vc, bt, ctx_lens, scale=scale)
 
     def cross_attend(ap, h, layer):

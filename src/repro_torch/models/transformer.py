@@ -52,6 +52,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_scale, decode_attention,
                                           out_proj,
                                           paged_chunk_attention,
+                                          local_kv_heads,
                                           paged_decode_attention, project_kv,
                                           project_q,
                                           ragged_chunk_update_attend,
@@ -170,7 +171,9 @@ def _rope(cfg: ModelConfig, positions):
 def _store_kv(pools, k, v, update, *args):
     """Write new K/V rows into a layer's pools with ``update(pool, rows,
     *args)``: quantized first for an int8/fp8 pool, whose scale rows go
-    into the scale pools. Returns the attention's scale keywords."""
+    into the scale pools. With tensor parallelism only this rank's kv
+    heads, the pools' own. Returns the attention's scale keywords."""
+    k, v = local_kv_heads(k), local_kv_heads(v)
     scales = {}
     if "k_scale" in pools:
         kvd = quant.kv_dtype_name(pools["k"].dtype)

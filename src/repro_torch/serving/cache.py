@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.config import MAMBA, ModelConfig
+from repro_torch.spmd.sharding import kv_heads_per_rank
 
 __all__ = ["SlotStateCache", "SlotCacheStats", "EncoderCache",
            "init_slot_state", "init_encoder_cache", "slot_state_bytes",
@@ -146,18 +147,22 @@ def slot_state_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
 
 
 def init_encoder_cache(cfg: ModelConfig, n_slots: int, device="cuda",
-                       dtype=torch.bfloat16):
+                       dtype=torch.bfloat16, tp: int = 1):
     """Zero per-slot cross-attention K/V: {"xk", "xv"} each (L, n_slots,
-    T_enc, K, hd), the layout of ``encdec.encode_cross_kv``."""
+    T_enc, K, hd), the layout of ``encdec.encode_cross_kv``; K / tp kv
+    heads on a tensor-parallel rank."""
     shape = (cfg.num_layers, n_slots, cfg.encoder_seq_len,
-             cfg.num_kv_heads, cfg.head_dim)
+             kv_heads_per_rank(cfg.num_kv_heads, tp), cfg.head_dim)
     return {n: torch.zeros(shape, dtype=dtype, device=device)
             for n in ("xk", "xv")}
 
 
-def encoder_cache_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
-    """Device bytes of one slot's cross-attention K/V."""
+def encoder_cache_bytes(cfg: ModelConfig, dtype_bytes: int = 2,
+                        tp: int = 1) -> int:
+    """Device bytes of one slot's cross-attention K/V (on one of ``tp``
+    tensor-parallel ranks)."""
     if not cfg.encoder_layers:
         return 0
-    return (2 * cfg.num_layers * cfg.encoder_seq_len * cfg.num_kv_heads
-            * cfg.head_dim * dtype_bytes)
+    return (2 * cfg.num_layers * cfg.encoder_seq_len
+            * kv_heads_per_rank(cfg.num_kv_heads, tp) * cfg.head_dim
+            * dtype_bytes)

@@ -60,14 +60,30 @@ move whole blocks between the pools and pinned host tensors allocated
 here, once: 1-byte pools through their ``uint8`` view. The copies write
 the pools in place, so the captured graphs, which hold the pools'
 addresses, read what was copied. ``abort`` cancels a request between
-steps. The port refuses any mesh or tensor parallelism (ROADMAP.md queue
-1 item 12).
+steps.
+
+Tensor parallelism (``mesh``, a ``launch.mesh.make_host_mesh`` mesh whose
+"model" axis has tp > 1 ranks; one engine a rank): every rank holds the
+whole weights and K / tp kv heads of each page pool (and of whisper's
+cross K/V), attends its own heads and gathers them exactly before
+``out_proj`` (``models.attention``), so every rank computes the same bits
+as one device would. Host state (block tables, refcounts, hashes, the
+scheduler) is global and identical on every rank: rank 0 of the group
+owns submissions and aborts (``run()``, the async driver, ``abort``), and
+each ``step()`` first broadcasts what it received since the last step,
+its drain flag, its clock and its swap cost model's rates; the other
+ranks run ``follow()``, which replays them and steps, until rank 0's
+``close()``.
+Under ``debug_invariants`` the ranks compare a digest of every step plan.
+The tensor-parallel engine runs eagerly, and refuses ``shard_params``,
+CUDA graphs and a shared index (ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import time
 from collections import deque
 
@@ -87,6 +103,8 @@ from repro_torch.serving.sampling import SamplingBuffer
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
                                            StepPlan, SwapCostModel)
 from repro_torch.serving.stats import Histogram, SECONDS_BUCKETS, STEP_BUCKETS
+from repro_torch.spmd import collectives
+from repro_torch.spmd import sharding as shd
 
 __all__ = ["InferenceEngine", "Request", "SamplingParams"]
 
@@ -259,11 +277,40 @@ def _replay_name(key) -> str:
     return name if mode == "greedy" else f"{name}/{mode}"
 
 
-def _refuse(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: tensor-parallel serving is not ported yet (ROADMAP.md "
-            "queue 1 item 12)")
+def _refuse_tp(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported for tensor-parallel serving yet (ROADMAP.md "
+        "queue 1 item 12)")
+
+
+class _LoggedScheduler(Scheduler):
+    """Rank 0's scheduler under tensor parallelism: it records every
+    submission and abort in ``log``, which the next step broadcasts to
+    the group's other ranks."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.log = []
+
+    def add(self, req: Request) -> None:
+        super().add(req)
+        self.log.append(("add", req))
+
+    def abort(self, rid: int) -> bool:
+        ok = super().abort(rid)
+        self.log.append(("abort", rid))
+        return ok
+
+
+def plan_digest(plan: StepPlan) -> str:
+    """A digest of what a step plan does: requests by rid, slots, chunk
+    lengths, block copies and moves."""
+    rows = (plan.spec_tokens, plan.admitted,
+            [(s, r.rid) for s, r in plan.decodes],
+            [(s, r.rid, n) for s, r, n in plan.chunks], plan.copies,
+            plan.swap_outs, plan.swap_ins, plan.shared_ins,
+            [(s, r.rid) for s, r in plan.encodes])
+    return hashlib.sha256(repr(rows).encode()).hexdigest()
 
 
 def _runs(pairs):
@@ -293,9 +340,18 @@ class InferenceEngine:
                  num_speculative_tokens: int = 0, draft_params=None,
                  max_logprobs: int = 8, max_stop_len: int = 8,
                  swap_space_bytes: int = 0, swap_policy: str = "auto",
-                 shared_index=None, mesh=None,
+                 shared_index=None, mesh=None, shard_params: bool = False,
                  cuda_graphs: bool | None = None):
-        _refuse(mesh)
+        if shard_params:
+            _refuse_tp("shard_params=True (weights sharded over the mesh)")
+        # tensor parallelism over the mesh's "model" axis: pools and the
+        # cross K/V shard by kv head, weights and slot state stay whole
+        self.tp = shd.serving_tp(mesh)
+        if self.tp > 1 and cuda_graphs:
+            _refuse_tp("cuda_graphs=True (collectives under CUDA graphs)")
+        if self.tp > 1 and shared_index is not None:
+            _refuse_tp("shared_index (a router over tensor-parallel "
+                       "engines)")
         if kv_dtype not in quant.KV_DTYPES:
             raise ValueError(
                 f"kv_dtype={kv_dtype!r} not in {sorted(quant.KV_DTYPES)}")
@@ -307,12 +363,20 @@ class InferenceEngine:
             cfg, draft_cfg=draft_cfg,
             num_speculative_tokens=num_speculative_tokens,
             max_logprobs=max_logprobs)
+        if self.tp > 1 and self.runner.needs_blocks:
+            # pools shard by whole kv heads (target and draft alike): fail
+            # here, not in a step
+            shd.kv_heads_per_rank(cfg.num_kv_heads, self.tp)
+            if draft_cfg is not None:
+                shd.kv_heads_per_rank(draft_cfg.num_kv_heads, self.tp)
+        self.group = (collectives.ModelGroup(mesh.get_group("model"))
+                      if self.tp > 1 else None)
         spec = self.runner.spec_tokens
         self.cfg = cfg
         self.device = torch.device(device)
         on_card = self.device.type == "cuda"
         if cuda_graphs is None:
-            cuda_graphs = on_card
+            cuda_graphs = on_card and self.tp == 1
         if cuda_graphs and not on_card:
             raise ValueError(f"cuda_graphs=True on {self.device}: CUDA "
                              "graphs need a CUDA device")
@@ -344,10 +408,11 @@ class InferenceEngine:
         # pure paged runners qualify: slot state has no block-swap form.
         self._dev_block_bytes = 0
         if self.runner.needs_blocks:
-            self._dev_block_bytes = block_bytes(cfg, block_size,
+            self._dev_block_bytes = block_bytes(cfg, block_size, tp=self.tp,
                                                 kv_dtype=kv_dtype)
             if draft_cfg is not None:
                 self._dev_block_bytes += block_bytes(draft_cfg, block_size,
+                                                     tp=self.tp,
                                                      kv_dtype=kv_dtype)
         swap_capable = (self.runner.needs_blocks
                         and not self.runner.needs_slots
@@ -394,7 +459,11 @@ class InferenceEngine:
                                        width=cfg.padded_vocab_size,
                                        max_stop_len=max_stop_len,
                                        max_logprobs=max_logprobs)
-        self.sched = Scheduler(self.bm, max_batch, self.max_blocks_per_seq,
+        # rank 0 of a tensor-parallel group logs what its scheduler gets
+        sched_cls = (_LoggedScheduler
+                     if self.group is not None and self.group.rank == 0
+                     else Scheduler)
+        self.sched = sched_cls(self.bm, max_batch, self.max_blocks_per_seq,
                                max_num_batched_tokens, self.chunk_width,
                                enable_prefix_caching=enable_prefix_caching,
                                chunk_quantum=self.runner.chunk_quantum,
@@ -416,7 +485,8 @@ class InferenceEngine:
         self.params = params
         self.runner.bind(self.params)
         self.cache = self.runner.init_cache(num_blocks, block_size,
-                                            max_batch, self.device, kv_dtype)
+                                            max_batch, self.device, kv_dtype,
+                                            tp=self.tp)
         # the paged pools as the host copies see them, in a fixed order:
         # 1-byte pools as uint8 (index_copy_ has no fp8 form)
         self._paged = ([t.view(torch.uint8) if t.element_size() == 1 else t
@@ -454,15 +524,11 @@ class InferenceEngine:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         kv_mib = 0.0
         if self.runner.needs_blocks:
-            kv_mib = num_blocks * block_bytes(cfg, block_size,
-                                              kv_dtype=kv_dtype)
-            if draft_cfg is not None:
-                kv_mib += num_blocks * block_bytes(draft_cfg, block_size,
-                                                   kv_dtype=kv_dtype)
+            kv_mib = num_blocks * self._dev_block_bytes
             kv_mib /= 2 ** 20
         slot_mib = (max_batch * slot_state_bytes(cfg) / 2 ** 20
                     if self.runner.needs_slots else 0.0)
-        enc_mib = (max_batch * encoder_cache_bytes(cfg) / 2 ** 20
+        enc_mib = (max_batch * encoder_cache_bytes(cfg, tp=self.tp) / 2 ** 20
                    if self.runner.needs_encoder else 0.0)
         self.stats = {"steps": 0, "prefill_chunks": 0, "preemptions": 0,
                       "tokens": 0, "prefill_tokens": 0,
@@ -492,6 +558,11 @@ class InferenceEngine:
                       "slot_state_mib": round(slot_mib, 3),
                       "kv_dtype": kv_dtype,
                       "graph_captures": 0,
+                      # tensor parallelism: the degree, and the model
+                      # group's gathers (spmd.collectives.ModelGroup.stats;
+                      # "staged": through pinned host memory under gloo)
+                      "tp": self.tp, "tp_gathers": 0, "tp_gather_bytes": 0,
+                      "tp_staged_copies": 0, "tp_staged_bytes": 0,
                       # by (shape, mode): "decode", "chunk" (greedy),
                       # "decode/plain", "chunk/full", ...
                       "graph_replays": {"chunk": 0, "decode": 0}}
@@ -911,9 +982,71 @@ class InferenceEngine:
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One engine iteration. Returns True when any work ran."""
-        with self._on_stream():
-            return self._step()
+        """One engine iteration. Returns True when any work ran. On rank 0
+        of a tensor-parallel group it first sends the other ranks what
+        they need to take the same step."""
+        if self.group is not None:
+            if self.group.rank != 0:
+                raise RuntimeError("step() on a following rank: call "
+                                   "follow(); rank 0 drives the group")
+            self.group.broadcast(self._step_message())
+        return self._group_step()
+
+    def _group_step(self) -> bool:
+        with self._on_stream(), collectives.use(self.group):
+            ran = self._step()
+        if self.group is not None:
+            for k, v in self.group.stats.items():
+                self.stats[f"tp_{k}"] = v
+        return ran
+
+    def _step_message(self) -> dict:
+        """What rank 0 received since its last step (submissions, aborts),
+        its scheduler's drain flag, its clock and its swap cost model's
+        rates."""
+        log, self.sched.log = self.sched.log, []
+        cost = self._swap_cost
+        return {"log": log, "draining": self.sched.draining,
+                "clock": self.step_count,
+                "cost": None if cost is None
+                else (cost.bytes_per_s, cost.prefill_tok_s)}
+
+    @torch.no_grad()
+    def follow(self) -> dict[int, np.ndarray]:
+        """A following rank of a tensor-parallel group: take every step
+        rank 0 takes, with its submissions, aborts, clock and swap rates,
+        until rank 0's ``close()``. Returns {rid: generated token array}
+        of the requests it followed, as ``run`` does."""
+        if self.group is None or self.group.rank == 0:
+            raise RuntimeError("follow() is for the ranks after 0 of a "
+                               "tensor-parallel group")
+        followed = []
+        while True:
+            msg = self.group.broadcast()
+            if msg is None:
+                return {r.rid: np.asarray(r.out, np.int32) for r in followed}
+            # rank 0 accepted every logged submission: replay them before
+            # taking its drain flag
+            self.sched.draining = False
+            for what, arg in msg["log"]:
+                if what == "add":
+                    self.sched.add(arg)
+                    self._note_arrival(arg)
+                    followed.append(arg)
+                else:
+                    self.abort(arg)
+            self.sched.draining = msg["draining"]
+            self.step_count = msg["clock"]
+            if msg["cost"] is not None:
+                self._swap_cost.bytes_per_s, self._swap_cost.prefill_tok_s \
+                    = msg["cost"]
+            self._group_step()
+
+    def close(self) -> None:
+        """Rank 0 of a tensor-parallel group: release the other ranks
+        from ``follow()``. A no-op without tensor parallelism."""
+        if self.group is not None and self.group.rank == 0:
+            self.group.broadcast(None)
 
     def _step(self) -> bool:
         plan = self.sched.schedule()
@@ -934,6 +1067,12 @@ class InferenceEngine:
                 self.stats["peak_blocks_in_use"], st.blocks_in_use)
         if self.debug_invariants:
             self._check_invariants(plan)
+            if self.group is not None:
+                digests = self.group.all_gather_object(plan_digest(plan))
+                if len(set(digests)) != 1:
+                    raise RuntimeError(
+                        f"step {self.step_count}: tensor-parallel ranks "
+                        f"planned different steps: {digests}")
         # host copies, all on the engine's stream in this order: the
         # swap-outs' gather first, on the pre-step pools (before anything
         # can rewrite a freed block); then swap-ins and shared adoptions,

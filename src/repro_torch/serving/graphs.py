@@ -46,6 +46,11 @@ capture records the launches its body made (the counters' delta over the
 capture); a run's launches are then the counters' own (warm-up and
 capture) plus, per (shape, mode), replays x launches per capture
 (:func:`replayed_launches`).
+
+No graph is captured under tensor parallelism (a current model group of
+more than one rank, ``spmd.collectives``): capturing the group's
+collectives is not ported (ROADMAP.md queue 1 item 12), and a
+tensor-parallel engine runs eagerly.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sampled_softmax as ss
 from repro_torch.kernels import ssd as ssd_k
+from repro_torch.spmd import collectives
 
 __all__ = ["CompiledSteps", "KERNELS", "launch_counts", "replayed_launches"]
 
@@ -127,6 +133,11 @@ class CompiledSteps:
     def capture(self, key) -> None:
         """Warm up on a null step, then capture the key's graph."""
         has_chunk, mode = key
+        group = collectives.current()
+        if group is not None and group.size > 1:
+            raise NotImplementedError(
+                "CUDA graphs of a tensor-parallel step (collectives under "
+                "capture) are not ported yet (ROADMAP.md queue 1 item 12)")
         with DEVICE_LOCK:
             self._capture(key, has_chunk, mode)
 

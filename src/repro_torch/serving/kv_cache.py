@@ -46,6 +46,7 @@ import torch
 from repro_torch.config import MAMBA, ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.transformer import layer_counts, period_structure
+from repro_torch.spmd.sharding import kv_heads_per_rank
 
 TRASH_BLOCK = 0
 
@@ -93,11 +94,12 @@ def n_attn_applications(cfg: ModelConfig) -> int:
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device="cuda", kv_dtype: str = "bf16"):
+                     device="cuda", kv_dtype: str = "bf16", tp: int = 1):
     """Zero page pools for every attention application in ``kv_dtype``; a
-    quantized dtype adds zero fp32 per-row scale pools."""
+    quantized dtype adds zero fp32 per-row scale pools. With ``tp`` > 1:
+    one tensor-parallel rank's, K / tp kv heads."""
     shape = (n_attn_applications(cfg), num_blocks, block_size,
-             cfg.num_kv_heads, cfg.head_dim)
+             kv_heads_per_rank(cfg.num_kv_heads, tp), cfg.head_dim)
     dtype = quant.KV_DTYPES[kv_dtype]
     # zero bytes are zeros in every pool dtype (fp8 included)
     cache = {name: torch.zeros(shape, dtype=torch.uint8,
@@ -113,15 +115,17 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 def block_bytes(cfg: ModelConfig, block_size: int, dtype_bytes: int = 2,
-                kv_dtype: str = "bf16") -> int:
+                tp: int = 1, kv_dtype: str = "bf16") -> int:
     """Device bytes one block id costs across every attention application's
     k+v pools; a quantized ``kv_dtype`` narrows the elements and adds the
-    fp32 per-row scales (4 bytes per (token, kv head) row)."""
+    fp32 per-row scales (4 bytes per (token, kv head) row). ``tp`` > 1
+    gives one tensor-parallel rank's cost: it holds K / tp kv heads of
+    every page (tp must divide K)."""
     row_bytes = cfg.head_dim * dtype_bytes
     if quant.is_quantized(kv_dtype):
         row_bytes = cfg.head_dim * quant.kv_dtype_bytes(kv_dtype) + 4
-    return (2 * n_attn_applications(cfg) * block_size * cfg.num_kv_heads
-            * row_bytes)
+    return (2 * n_attn_applications(cfg) * block_size
+            * kv_heads_per_rank(cfg.num_kv_heads, tp) * row_bytes)
 
 
 class SharedPrefixIndex:

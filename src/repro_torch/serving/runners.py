@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.config import MAMBA, ModelConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models.attention import local_kv_heads
 from repro_torch.models.embedding import head_table
 from repro_torch.serving.cache import init_encoder_cache, init_slot_state
 from repro_torch.serving.kv_cache import init_paged_cache
@@ -115,7 +116,10 @@ class ModelRunner:
         self.head = head_table(params["embed"], self.cfg).float()
 
     def init_cache(self, num_blocks: int, block_size: int, max_batch: int,
-                   device, kv_dtype: str = "bf16"):
+                   device, kv_dtype: str = "bf16", tp: int = 1):
+        """The device cache; with ``tp`` > 1 one tensor-parallel rank's:
+        K / tp kv heads of every pool and of the cross K/V, slot state
+        whole."""
         raise NotImplementedError
 
     def pool_sets(self, cache) -> list[dict]:
@@ -182,9 +186,9 @@ class TransformerRunner(ModelRunner):
     supports_packed_prefill = True
 
     def init_cache(self, num_blocks, block_size, max_batch, device,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
         return init_paged_cache(self.cfg, num_blocks, block_size, device,
-                                kv_dtype)
+                                kv_dtype, tp)
 
     def step(self, params, cache, a, *, has_chunk, sampling="greedy"):
         logits_c = None
@@ -214,12 +218,13 @@ class SSMRunner(ModelRunner):
         self.chunk_quantum = cfg.ssm.chunk_size
 
     def init_cache(self, num_blocks, block_size, max_batch, device,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
         if kv_dtype != "bf16":
             raise ValueError(
                 f"kv_dtype={kv_dtype}: SSM/hybrid runners keep bf16 pools "
                 "(slot state has no quantized form)")
-        cache = (init_paged_cache(self.cfg, num_blocks, block_size, device)
+        cache = (init_paged_cache(self.cfg, num_blocks, block_size, device,
+                                  tp=tp)
                  if self.needs_blocks else {})
         cache.update(init_slot_state(self.cfg, max_batch, device))
         return cache
@@ -270,14 +275,15 @@ class EncDecRunner(ModelRunner):
     needs_encoder = True
 
     def init_cache(self, num_blocks, block_size, max_batch, device,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
         if kv_dtype != "bf16":
             raise ValueError(
                 f"kv_dtype={kv_dtype}: the enc-dec runner keeps bf16 pools "
                 "(cross K/V is per-slot, not paged)")
         return {"self": init_paged_cache(self.cfg, num_blocks, block_size,
-                                         device),
-                "cross": init_encoder_cache(self.cfg, max_batch, device)}
+                                         device, tp=tp),
+                "cross": init_encoder_cache(self.cfg, max_batch, device,
+                                            tp=tp)}
 
     def pool_sets(self, cache):
         return [cache["self"]]
@@ -285,10 +291,11 @@ class EncDecRunner(ModelRunner):
     def encode(self, params, cache, slot: int, frames) -> None:
         """The admission pass: the request's cross K/V (frames (T_enc,
         d_model) in the activation dtype) into row ``slot`` of the
-        encoder cache, in place (the captured graphs hold its address)."""
+        encoder cache, in place (the captured graphs hold its address);
+        with tensor parallelism, this rank's kv heads of it."""
         kv = encdec.encode_cross_kv(params, frames[None], self.cfg)
         for name in ("xk", "xv"):
-            cache["cross"][name][:, slot] = kv[name][:, 0]
+            cache["cross"][name][:, slot] = local_kv_heads(kv[name][:, 0])
 
     def step(self, params, cache, a, *, has_chunk, sampling="greedy"):
         logits_c = None
@@ -357,11 +364,11 @@ class SpeculativeRunner(ModelRunner):
         self.draft_head = self.head if dft is tgt else dft.float()
 
     def init_cache(self, num_blocks, block_size, max_batch, device,
-                   kv_dtype="bf16"):
+                   kv_dtype="bf16", tp=1):
         return {"tgt": init_paged_cache(self.cfg, num_blocks, block_size,
-                                        device, kv_dtype),
+                                        device, kv_dtype, tp),
                 "dft": init_paged_cache(self.draft_cfg, num_blocks,
-                                        block_size, device, kv_dtype)}
+                                        block_size, device, kv_dtype, tp)}
 
     def pool_sets(self, cache):
         return [cache["tgt"], cache["dft"]]

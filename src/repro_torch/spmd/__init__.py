@@ -1,1 +1,2 @@
-"""Step builders (one device: no mesh, no shardings yet)."""
+"""Step builders (one device), and the sharding rules and collectives of
+tensor-parallel serving."""

@@ -186,7 +186,9 @@ def test_gather_plain_vs_pallas_interpret(dtype):
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_options():
     """A wrapper launches its kernel or raises: CPU tensors never reach a
-    hidden fallback, and the options this slice does not port are named."""
+    hidden fallback, the partials' options included (decode and chunk
+    take block_mask, return_lse and any pages_per_compute_block), and
+    the packed kernel's missing partials are named."""
     rng = np.random.default_rng(8)
     q, kp, vp, bt, ctx = (torch.from_numpy(a) for a in
                           _paged_case(rng, 2, 4, 2, 16, 8, 3))
@@ -200,14 +202,18 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_options():
         temb_k.gather(kp[0, 0], torch.zeros(3, dtype=torch.int32))
     for kw in ({"pages_per_compute_block": 2}, {"block_mask": bt},
                {"return_lse": True}):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 2 items 1-3"):
+        with pytest.raises(ValueError, match="CUDA"):
             tpa.paged_attention(q, kp, vp, bt, ctx, **kw)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 2 items 1-3"):
-        tpa.paged_prefill_attention(q[:, None], kp, vp, bt, ctx,
-                                    torch.ones(2, dtype=torch.int32),
-                                    pages_per_compute_block=2)
+        with pytest.raises(ValueError, match="CUDA"):
+            tpa.paged_prefill_attention(q[:, None], kp, vp, bt, ctx,
+                                        torch.ones(2, dtype=torch.int32),
+                                        **kw)
+    se = torch.tensor([0, 1], dtype=torch.int32)
+    for kw in ({"block_mask": bt}, {"return_lse": True}):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue 2 item 3"):
+            tpa.ragged_paged_prefill_attention(q, kp, vp, bt, ctx, se,
+                                               se + 1, **kw)
     # a quantized pool's scale pools must be fp32 (N, bs, K, 1): a wrong
     # shape, a wrong dtype or a missing one is refused before any launch
     k8, v8 = kp.to(torch.int8), vp.to(torch.int8)

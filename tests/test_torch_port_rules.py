@@ -40,7 +40,28 @@ def test_port_imports_without_jax_or_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 39, r.stdout
+    assert n_modules >= 42, r.stdout
+
+
+# the tensor-parallel slice's modules (torch.distributed, no jax): each
+# alone in a fresh interpreter
+TP_MODULES = ("repro_torch.spmd.sharding", "repro_torch.spmd.collectives",
+              "repro_torch.launch.mesh")
+IMPORT_ONE = """
+import sys
+import {name}
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("name", TP_MODULES)
+def test_tp_modules_import_without_jax_or_repro(name):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", IMPORT_ONE.format(name=name)],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_no_source_imports_repro():

@@ -10,7 +10,7 @@ two trees run in the order other, this, this, other, each in a process of
 its own that builds that tree's kernels (into that tree's build/) and
 times its ``repro_torch.kernels.flash_attention.flash_attention`` at
 SHAPES (zamba2's shared block at hd 80, whisper's attention at hd 64,
-glm4's at hd 128), inputs from seed 0, with chip_smoke's Timer (CUDA
+glm4's at hd 128, the mma route's hd 8-16), inputs from seed 0, with chip_smoke's Timer (CUDA
 events, and profiler device time, the L2 cache flushed before every call),
 beside ``scaled_dot_product_attention`` on the same inputs under both
 timers. Prints the card's name and power limit, one JSON line per run,
@@ -34,6 +34,12 @@ SHAPES = {
     "whisper_cross_256x1500": (1, 256, 1500, 20, 20, 64, False),
     "whisper_causal_b8_s512": (8, 512, 512, 20, 20, 64, True),
     "glm4_causal_b2_s2048": (2, 2048, 2048, 32, 2, 128, True),
+    # the mma route (hd 8, 12, 16: the smoke configs) at chip_smoke phase
+    # 2h's shapes
+    "smoke_hd16_causal_s300": (2, 300, 300, 4, 2, 16, True),
+    "smoke_hd8_causal_s300": (2, 300, 300, 4, 2, 8, True),
+    "smoke_hd12_causal_s300": (2, 300, 300, 4, 2, 12, True),
+    "smoke_hd8_noncausal_130x200": (2, 130, 200, 4, 2, 8, False),
 }
 
 

@@ -2,7 +2,7 @@
 """Time the flash kernel's hd-64 and hd-80 callers end to end in two
 source trees on one card, in turns.
 
-  python3 tools/slice_ab.py OTHER_ROOT    # from the repo root; one CUDA card
+  python3 tools/slice_ab.py OTHER_ROOT [--serve-only]   # repo root; one card
 
 OTHER_ROOT is another copy of the repo (for example a parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists). The
@@ -13,10 +13,12 @@ layers at full width, random weights from seed 0, seeded 1500 x 1280
 frames; CUDA events and profiler device time, the L2 cache flushed before
 each call), phase 12c's whisper serving run (``serve_whisper``: 8
 requests on CUDA graphs and eager; the graphs' tok/s, TTFT and token gap)
-and phase 13's training runs of zamba2_2p7b and whisper_large_v3
-(``train_families``: 4 AdamW steps, step ms the mean of steps 2-4).
-Prints the card's name and power limit, one JSON line per run, and the
-mean of each tree's two runs.
+with how many of its 8 requests the static path (``generate_static``)
+and the preempting 41-block run give token for token as the engine, and
+phase 13's training runs of zamba2_2p7b and whisper_large_v3
+(``train_families``: 4 AdamW steps, step ms the mean of steps 2-4; left
+out with ``--serve-only``). Prints the card's name and power limit, one
+JSON line per run, and the mean of each tree's two runs.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TRAIN = ["zamba2_2p7b", "whisper_large_v3"]
 
 
-def child(tree: Path) -> None:
+def child(tree: Path, train: bool) -> None:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -63,32 +65,40 @@ def child(tree: Path) -> None:
         out["whisper_encode_device_ms"] = timer.device(encode, iters=5)
     del params, timer, fr
     torch.cuda.empty_cache()
-    graphs = cs.serve_whisper(torch, KERNELS, cs.card_line(), {})[0]
+    graphs, _, static, tight = cs.serve_whisper(torch, KERNELS,
+                                                cs.card_line(), {})
+    out["whisper_static_identical"] = static["identical"]
+    out["whisper_static_margins"] = static["margins"]
+    out["whisper_preempted_identical"] = tight["identical"]
     for key in ("tok_s", "ttft_s_median", "ttft_s_max", "token_gap_s_median",
                 "chunk_step_ms_mean", "decode_step_ms_mean",
                 "chunk_body_device_ms_mean"):
         out[f"whisper_serve_{key}"] = float(graphs[key])
-    for res in cs.train_families(torch, KERNELS, cs.card_line(), TRAIN):
+    for res in (cs.train_families(torch, KERNELS, cs.card_line(), TRAIN)
+                if train else []):
         out[f"{res['arch']}_step_ms"] = res["step_ms_mean"]
         out[f"{res['arch']}_launches"] = res["launches"]
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(Path(sys.argv[2]))
+    args = sys.argv[1:]
+    if args[:1] == ["--child"]:
+        child(Path(args[1]), "--serve-only" not in args)
         return 0
-    if len(sys.argv) != 2:
+    flags = [a for a in args if a.startswith("--")]
+    if len(args) - len(flags) != 1 or set(flags) - {"--serve-only"}:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    other = Path(sys.argv[1]).resolve()
+    other = Path(next(a for a in args if a not in flags)).resolve()
     print(chip_smoke.card_line(), flush=True)
     runs = []
     for tree in (other, ROOT, ROOT, other):
-        r = subprocess.run([sys.executable, __file__, "--child", str(tree)],
-                           capture_output=True, text=True, timeout=1200)
+        r = subprocess.run([sys.executable, __file__, "--child", str(tree),
+                            *flags], capture_output=True, text=True,
+                           timeout=1200)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
             return 1
