@@ -262,7 +262,8 @@ Phases, each of which raises on failure:
   12. mixture of experts, the encoder-decoder and M-RoPE at full width
      (run last; random weights from seed 0; one model at a time, each
      freed before the next; "[serve-slice]", "[static]" lines):
-     a. qwen3_moe_30b_a3b (48 layers): phase 3's traffic on graphs and
+     a. qwen3_moe_30b_a3b (24 of its 48 layers since phase 18): phase 3's
+        traffic on graphs and
         eager (byte-identical), a prefill_pack 4 run over int8 pools (4
         new; the MoE block at T = 512); at capacity factor 16 (no drops)
         and 4 of the 48 layers (at 48 the fp32 reading no longer tells
@@ -291,10 +292,12 @@ Phases, each of which raises on failure:
      12`` runs the build and phase 12 alone, ``--phase 2g`` the build and
      phase 2g (development runs: no result line).
   13. training of every family at full width (run after phase 12; each
-     model freed before the next; "[train-family]" lines): mamba2_370m (48
-     layers), zamba2_2p7b (54), qwen3_moe_30b_a3b (4 of 48), whisper (32 +
-     32; 1500 x 1280 seeded frames, 448 tokens), qwen2_vl_2b (28; phase
-     12d's 3-plane positions), B 2 x 2048, seeded fp32 masters, 4 AdamW
+     model freed before the next; "[train-family]" lines): mamba2_370m (24
+     of its 48 layers), zamba2_2p7b (30 of 54), qwen3_moe_30b_a3b (4 of
+     48), whisper (32 encoder + 16 of 32 decoder layers; 1500 x 1280
+     seeded frames, 448 tokens), qwen2_vl_2b (14 of 28; phase 12d's
+     3-plane positions; the cuts since phase 18, for the run's time
+     limit), B 2 x 2048, seeded fp32 masters, 4 AdamW
      steps (remat full) on one fixed batch: finite losses, the last below
      the first; a finite, non-zero gradient on every parameter leaf on
      step 1; launches: the ssd kernel once per mamba layer per forward
@@ -365,7 +368,8 @@ Phases, each of which raises on failure:
         bound (rows "<kernel>_partial", "<kernel>_<pool>_partial"), and
         its entry points driven once with the counters zeroed (their
         launches are the rows' main-path launches).
-     b-c. glm4_9b at full width and depth (phase 3's traffic, 32 new),
+     b-c. glm4_9b at full width, 20 of its 40 layers since phase 18
+        (phase 3's traffic, 16 new),
         zamba2_2p7b at full width with 6 of 54 layers and whisper with 4
         + 4 of 32 + 32 (16 and 32 new), each first on one eager engine in
         a spawned process (tp = 1), then on 2 spawned ranks over a mesh
@@ -377,11 +381,28 @@ Phases, each of which raises on failure:
         kv-head cache half of tp = 1's; the backend and the rank-to-card
         map, tok/s, gathers and staged copies and bytes ("[tp]" lines).
         Every rank's exit code and result is checked.
+  18. multi-rank training (``train_mesh``; "[train-mesh]" lines):
+     glm4_9b at full width and 4 of its 40 layers, global batch 4 x 2048
+     from ShardedSource(seed=0), remat full, AdamW, 3 steps, each mesh in
+     spawned processes sharing the card over gloo (every collective
+     staged through pinned host memory). a. tp = dp = 1, run twice (the
+     same bits), and card vs CPU at phase 8's smoke setup and the same
+     depth: the floors; the tolerance is 4 x the larger. b. data=2 with
+     ZeRO-1: losses and grad norms within it, both ranks' working params
+     the same bits after every step, then save_global of the state. c.
+     model=2: the same gaps; the norms (unsharded) the same bits on both
+     ranks. d. 18b's checkpoint through restore_for_mesh at model=2,
+     every shard its leaf's slice bit for bit, then a fourth step within
+     the tolerance of 18a's. Per rank: flash (hd 128) 2 x layers x steps
+     and gather ``steps`` launches; ms a step, tok/s, staged bytes a
+     step and peak memory a rank, beside the card's name and power
+     limit. A rank that fails or hangs past its timeout fails the run,
+     naming its rank and phase.
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
   ``python3 chip_smoke.py --phase 2h,14,13,8`` runs some phases alone, in
-  the order given (also 2g, 12, 16, 17 and 17a; "13 ARCH ..." some of
-  phase 13's models): development runs, no result line.
+  the order given (also 2g, 12, 16, 17, 17a and 18; "13 ARCH ..." some
+  of phase 13's models): development runs, no result line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -3796,6 +3817,9 @@ SLICE_KERNELS = ("paged_attention", "paged_prefill_attention",
                  "flash_attention_wgmma64", "gather")
 # grok-1's depth on one card: 4 of its 64 layers (9.8 GB of bf16 each)
 GROK_LAYERS = 4
+# phase 12a's qwen3_moe depth: 24 of its 48 layers (cut for the whole
+# run's time limit, since phase 18)
+MOE_LAYERS = 24
 # qwen3_moe's static path against the engine (12a). At all 48 layers the
 # two bf16 paths lie as far from the fp32 reading as from each other,
 # even with the routing replayed: the random expert weights (fan-in E, as
@@ -3884,8 +3908,8 @@ def moe_card_vs_cpu(torch, params, cfg, T: int = 256) -> dict:
 
 
 def serve_moe(torch, counters, card, rows) -> list:
-    """12a qwen3_moe_30b_a3b (48 layers) and 12b grok1_314b (GROK_LAYERS
-    of 64), random weights from seed 0, one at a time."""
+    """12a qwen3_moe_30b_a3b (MOE_LAYERS of 48) and 12b grok1_314b
+    (GROK_LAYERS of 64), random weights from seed 0, one at a time."""
     import dataclasses
     from repro_torch.config import get_config
     from repro_torch.models.api import init_model
@@ -3893,7 +3917,7 @@ def serve_moe(torch, counters, card, rows) -> list:
 
     runs = []
     for name, arch, layers, max_new in (("qwen3_moe", "qwen3_moe_30b_a3b",
-                                         None, 32),
+                                         MOE_LAYERS, 32),
                                         ("grok1", "grok1_314b", GROK_LAYERS,
                                          16)):
         cfg = get_config(arch)
@@ -5362,12 +5386,15 @@ def train_card_vs_cpu_one(torch, label, cfg, batches, floor=True) -> dict:
 # ---------------------------------------------------------------------------
 
 # (arch, layers or None for the full depth, batch source): B 2; S 2048 for
-# the decoders, 448 decoder tokens over 1500 frames for whisper
-FAMILY_TRAIN = (("mamba2_370m", None, "source"),
-                ("zamba2_2p7b", None, "source"),
+# the decoders, 448 decoder tokens over 1500 frames for whisper. Since
+# phase 18 the whole run's time limit cuts mamba2 to 24 of its 48 layers,
+# zamba2 to 30 of 54 (five 6-layer periods), whisper's decoder to 16 of 32
+# (its encoder keeps 32) and qwen2_vl to 14 of 28
+FAMILY_TRAIN = (("mamba2_370m", 24, "source"),
+                ("zamba2_2p7b", 30, "source"),
                 ("qwen3_moe_30b_a3b", 4, "source"),
-                ("whisper_large_v3", None, "make_batch"),
-                ("qwen2_vl_2b", None, "mrope"))
+                ("whisper_large_v3", 16, "make_batch"),
+                ("qwen2_vl_2b", 14, "mrope"))
 FAMILY_STEPS, FAMILY_B, FAMILY_S, WHISPER_S = 4, 2, 2048, 448
 # the archs that also take one step under each remat mode
 REMAT_ARCHS = ("mamba2_370m", "qwen3_moe_30b_a3b")
@@ -6443,9 +6470,13 @@ def check_partials(torch, timer, gen, rows, counters) -> dict:
 
 
 # phase 17's tensor-parallel runs: (arch, layers or None for the full
-# depth, the traffic); glm4_9b serves phase 3's traffic at full depth,
-# zamba2 one 6-layer period of its 54, whisper 4 + 4 of its 32 + 32
-TP_RUNS = (("glm4_9b", None), ("zamba2_2p7b", 6), ("whisper_large_v3", 4))
+# depth, new tokens a request); glm4_9b serves phase 3's whole traffic (32
+# new tokens a request) at 20 of its 40 layers (the depth cut for the
+# whole run's time limit since phase 18; the check is bit equality, at
+# any depth), zamba2 one 6-layer period of its 54, whisper 4 + 4 of its
+# 32 + 32
+TP_RUNS = (("glm4_9b", 20, 32), ("zamba2_2p7b", 6, 16),
+           ("whisper_large_v3", 4, 32))
 TP_WORLD = 2
 TP_TIMEOUT_S = 480
 # the engine stats both ranks of a tensor-parallel run must share with the
@@ -6458,8 +6489,9 @@ SCHED_STATS = ("steps", "prefill_chunks", "preemptions", "tokens",
                "swap_preemptions", "swap_ins", "encodes")
 
 
-def tp_case(arch, layers):
-    """(config, requests, engine keywords) of one phase-17 run."""
+def tp_case(arch, layers, max_new):
+    """(config, requests, engine keywords) of one phase-17 run: ``arch``
+    at ``layers`` layers (None: all), ``max_new`` tokens a request."""
     import dataclasses
 
     import numpy as np
@@ -6477,13 +6509,12 @@ def tp_case(arch, layers):
     if cfg.encoder_layers:
         rng = np.random.default_rng(0)
         reqs = [Request(rng.integers(0, cfg.vocab_size, 128).astype(np.int32),
-                        max_new=32, frames=rng.normal(
+                        max_new=max_new, frames=rng.normal(
                             0, 1, (cfg.encoder_seq_len, cfg.d_model)).astype(
                             np.float32)) for _ in range(8)]
         kw["max_len"] = 256
     else:
-        reqs = [Request(p, max_new=32 if layers is None else 16)
-                for p in phase3_traffic(cfg)]
+        reqs = [Request(p, max_new=max_new) for p in phase3_traffic(cfg)]
     return cfg, reqs, kw
 
 
@@ -6678,8 +6709,9 @@ def tp_rank(rank, world, init_method, queue, cases=TP_RUNS) -> None:
         dist.all_gather_object(cards, (rank, torch.cuda.current_device(),
                                        torch.cuda.get_device_name()))
     runs = {}
-    for arch, layers in cases:
-        cfg, reqs, kw = tp_case(arch, layers)
+    for case in cases:
+        arch = case[0]
+        cfg, reqs, kw = tp_case(*case)
         runs[arch] = tp_serve(torch, KERNELS, cfg, reqs, kw, mesh)
         if world > 1:
             dist.barrier()
@@ -6761,7 +6793,7 @@ def serve_tp(torch, counters, card) -> list:
           + f"; {TP_WORLD} ranks spawned, served and joined in "
           f"{got['wall_s']:.1f} s", flush=True)
     runs = []
-    for arch, layers in TP_RUNS:
+    for arch, layers, max_new in TP_RUNS:
         base = one[arch]
         for rank in range(TP_WORLD):
             mine = got[rank]["runs"][arch]
@@ -6778,7 +6810,8 @@ def serve_tp(torch, counters, card) -> list:
                   f"{base['kv_head_bytes']}")
         tp = got[0]["runs"][arch]
         depth = "full depth" if layers is None else f"{layers} layers"
-        print(f"[tp] {card}: {arch} ({depth}), mesh model={TP_WORLD}: tokens, "
+        print(f"[tp] {card}: {arch} ({depth}, {max_new} new tokens a "
+              f"request), mesh model={TP_WORLD}: tokens, "
               f"logits bits ({len(base['rows'])} emitted rows) and scheduling "
               f"stats of both ranks == tp = 1 ({base['sched']['tokens']} "
               f"tokens, {base['sched']['steps']} steps, "
@@ -6794,6 +6827,444 @@ def serve_tp(torch, counters, card) -> list:
                                          "blocks")}),
               flush=True)
         runs += [base, tp]
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 18: multi-rank training on torch.distributed
+# ---------------------------------------------------------------------------
+
+# glm4_9b at full width and 4 of its 40 layers (two ranks' bf16 params,
+# fp32 masters, AdamW slots and gradients share one card), a global batch
+# of 4 x 2048 tokens from ShardedSource(seed=0), remat full, AdamW; 18a
+# runs one step more (the reference of 18d's step after the restore)
+MESH_LAYERS, MESH_STEPS, MESH_B, MESH_S = 4, 3, 4, 2048
+MESH_TIMEOUT_S = 420      # each world's join limit and its groups' timeout
+# the tolerance of a loss (absolute) or grad norm (relative) gap to 18a:
+# this many times the larger floor measured in the same run at the same
+# configuration, each the largest gap over the four steps 18b-d hold: 18a
+# again (it must give the same bits), and 18a with one-bf16-ulp flips in
+# FLIP_SHARE of its embedding outputs (phase 8's noise floor: bf16
+# rounding of any kind, amplified over the steps; the fourth step's loss
+# rises and amplifies it most). The card against the CPU at phase 8's
+# smoke setup is printed beside them and gates nothing (another
+# configuration). A control must fail the gate: 18a on rows [0, 1, 0, 1]
+# of each batch, which is what data=2 computes when both data ranks train
+# on the same half of the batch.
+MESH_TOL_FACTOR = 4
+MESH_CKPT = ROOT / "build" / "phase18_ckpt"
+MESH_BACKEND = "gloo, staged through pinned host memory"
+
+
+def mesh_setup(smoke=False):
+    """(cfg, pcfg, ocfg, host batches) of phase 18; ``smoke``: glm4's
+    smoke widths at the same depth."""
+    import dataclasses
+    from repro_torch.config import OptimizerConfig, ParallelConfig, get_config
+    from repro_torch.data.pipeline import ShardedSource
+    cfg = dataclasses.replace(get_config("glm4_9b", smoke=smoke),
+                              num_layers=MESH_LAYERS)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    src = ShardedSource(cfg, MESH_S, seed=0)
+    batches = [src.batch(i, MESH_B) for i in range(MESH_STEPS + 1)]
+    return cfg, ParallelConfig(remat="full"), ocfg, batches
+
+
+def leaf_digest(torch, x) -> int:
+    """``digest`` of a whole tensor's bits, taken 2^24 values at a time
+    (an int64 copy of a 620M-value table would not fit beside the run)."""
+    flat = x.detach().reshape(-1)
+    n = 1 << 24
+    return sum(int(digest(torch, flat[i:i + n])) * (i // n + 1)
+               for i in range(0, flat.numel(), n))
+
+
+def mesh_train(torch, cfg, pcfg, ocfg, batches, mesh=None, device=None,
+               digests="all"):
+    """Train from the seeded init on ``batches`` (global, host) on one
+    device or this rank of ``mesh``: per step the loss, grad norm, wall
+    ms and staged collective bytes, and the working params' digests
+    ("all", "replicated": those no rank shards, or None). Returns (result,
+    params, state)."""
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serving.graphs import KERNELS
+    from repro_torch.spmd import collectives
+    from repro_torch.spmd import steps as tsteps
+
+    dev = device or DEV
+    params, state = build_state(cfg, ocfg, dev, 0, mesh, pcfg)
+    step = tsteps.make_train_step(cfg, pcfg, ocfg, mesh)
+    tm = collectives.train_mesh(mesh) if mesh is not None else None
+    keep = None
+    if digests == "replicated":
+        keep = [all(e is None for e in lay.spec) for lay in tree_leaves(
+            tsteps.param_layouts(cfg, pcfg, mesh))]
+    out = {"loss": [], "grad_norm": [], "ms": [], "staged_bytes": [],
+           "digests": []}
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    for i, b in enumerate(batches):
+        staged = tm.stats["staged_bytes"] if tm else 0
+        t0 = time.monotonic()
+        params, state, m = step(params, state, i, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        out["loss"].append(float(m["loss"]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.monotonic() - t0))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["staged_bytes"].append((tm.stats["staged_bytes"] - staged)
+                                   if tm else 0)
+        if digests:
+            out["digests"].append([
+                leaf_digest(torch, p) if keep is None or keep[j] else None
+                for j, p in enumerate(tree_leaves(params))])
+        if i + 1 == MESH_STEPS:
+            out["launches"] = read_launches(KERNELS)
+    if dev == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out, params, state
+
+
+def gaps(run, ref, steps=None) -> dict:
+    """Largest per-step |loss gap| and relative grad-norm gap to ``ref``
+    over the first ``steps`` steps (default all of ``run``'s)."""
+    n = steps or len(run["loss"])
+    return {"loss": max(abs(a - b) for a, b in
+                        zip(run["loss"][:n], ref["loss"][:n])),
+            "grad_norm": max(abs(a - b) / b for a, b in
+                             zip(run["grad_norm"][:n],
+                                 ref["grad_norm"][:n]))}
+
+
+def mesh_reference(torch) -> dict:
+    """Phase 18a, in a process of its own: tp = dp = 1 (each step's loss,
+    grad norm and every working param's digest); again (it must give the
+    same bits) and with flipped embedding bits, every step 18b-d hold
+    (the floors); the control on half of each batch; and the card against
+    the CPU at phase 8's smoke setup (printed only). Returns the first
+    run, the floors, the control's gaps and the smoke reading."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data.pipeline import ShardedSource
+    cfg, pcfg, ocfg, batches = mesh_setup()
+
+    def run(bs, **kw):
+        out = mesh_train(torch, cfg, pcfg, ocfg, bs, **kw)[0]
+        free(torch)
+        return out
+
+    ref = run(batches)
+    again = run(batches)
+    floors = {"repeat": gaps(again, ref),
+              "repeat_same_bits": again["digests"] == ref["digests"]
+              and again["loss"] == ref["loss"]}
+    with flipped_embedding(torch, 0):
+        floors["flip"] = gaps(run(batches, digests=None), ref)
+    n = MESH_STEPS
+    half = [{k: np.concatenate([v[:MESH_B // 2]] * 2) for k, v in b.items()}
+            for b in batches[:n]]
+    control = gaps(run(half, digests=None), ref, n)
+    scfg, spcfg, _, _ = mesh_setup(smoke=True)
+    spcfg = dataclasses.replace(spcfg, microbatches=2)
+    sgd = OptimizerConfig(name="sgd", lr=0.1, warmup_steps=0,
+                          schedule="constant")
+    sb = [ShardedSource(scfg, 32, seed=0).batch(i, 4) for i in range(3)]
+    card = mesh_train(torch, scfg, spcfg, sgd, sb, digests=None)[0]
+    cpu = mesh_train(torch, scfg, spcfg, sgd, sb, device="cpu",
+                     digests=None)[0]
+    return {"ref": ref, "floors": floors, "control": control,
+            "card_vs_cpu_smoke": gaps(card, cpu)}
+
+
+def mesh_data2(torch, mesh) -> dict:
+    """Phase 18b on this rank: data=2 with ZeRO-1; then ``save_global``
+    of the state after the last step (rank 0 writes it)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.elastic import save_global
+    from repro_torch.spmd import steps as tsteps
+    cfg, pcfg, ocfg, batches = mesh_setup()
+    run, params, state = mesh_train(torch, cfg, pcfg, ocfg,
+                                    batches[:MESH_STEPS], mesh)
+    lead = dist.get_rank() == 0
+    mgr = CheckpointManager(MESH_CKPT, keep=1) if lead else None
+    t0 = time.monotonic()
+    save_global(mgr, MESH_STEPS, {"params": params, "opt": state},
+                mesh=mesh, layouts=tsteps.train_layouts(cfg, pcfg, ocfg,
+                                                        mesh))
+    run["gather_s"] = time.monotonic() - t0
+    if lead:
+        mgr.wait()
+    dist.barrier()
+    run["save_s"] = time.monotonic() - t0
+    if lead:
+        run["ckpt_bytes"] = sum(f.stat().st_size
+                                for f in MESH_CKPT.rglob("*.npy"))
+    return run
+
+
+def mesh_model2(torch, mesh) -> dict:
+    """Phases 18c-d on this rank: model=2 from the seeded init; then the
+    18b checkpoint through ``restore_for_mesh`` (every shard on the card
+    against its slice of the leaf in the file, bit for bit) and one more
+    step."""
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, _tensor
+    from repro_torch.checkpoint.elastic import restore_for_mesh
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.serving.graphs import KERNELS
+    from repro_torch.spmd import collectives
+    from repro_torch.spmd import steps as tsteps
+    cfg, pcfg, ocfg, batches = mesh_setup()
+    run, params, state = mesh_train(torch, cfg, pcfg, ocfg,
+                                    batches[:MESH_STEPS], mesh,
+                                    digests="replicated")
+    # the state's structure (``restore`` reads no leaf of it)
+    spec = tree_map(lambda _: 0, {"params": params, "opt": state})
+    lay = tsteps.train_layouts(cfg, pcfg, ocfg, mesh)
+    mgr = CheckpointManager(MESH_CKPT, keep=1)
+    del params, state
+    free(torch)
+    t0 = time.monotonic()
+    step_no, got = restore_for_mesh(mgr, spec, mesh, lay, DEV)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    del spec
+    tm = collectives.train_mesh(mesh)
+    manifest = json.loads((MESH_CKPT / f"step_{step_no:08d}" /
+                           "manifest.json").read_text())["leaves"]
+    names = leaf_paths(got)
+    bad = []
+    for name, shard, la in zip(names, tree_leaves(got), tree_leaves(lay)):
+        meta = manifest[name.lstrip("/")]
+        whole = _tensor(np.load(MESH_CKPT / f"step_{step_no:08d}" /
+                                meta["file"], mmap_mode="c"), meta["dtype"])
+        want = la.cut(whole, tm.coords, tm.shape).contiguous()
+        if not torch.equal(shard.cpu().view(torch.uint8).reshape(-1),
+                           want.view(torch.uint8).reshape(-1)):
+            bad.append(name)
+        del whole, want
+    params = tree_map(lambda p: p.requires_grad_(), got["params"])
+    state = got["opt"]
+    step = tsteps.make_train_step(cfg, pcfg, ocfg, mesh)
+    reset_launches(KERNELS)
+    b = batches[MESH_STEPS]
+    _, _, m = step(params, state, step_no, {
+        k: torch.from_numpy(v).to(DEV) for k, v in b.items()})
+    run["restore"] = {"step": step_no, "leaves": len(names),
+                      "unequal_shards": bad, "restore_s": restore_s,
+                      "loss": float(m["loss"]),
+                      "launches": read_launches(KERNELS)}
+    return run
+
+
+MESH_JOBS = {"18a": ((1, 1), mesh_reference), "18b": ((2, 1), mesh_data2),
+             "18c": ((1, 2), mesh_model2)}
+
+
+def mesh_rank(rank, job, init_method, queue) -> None:
+    """One process of a phase-18 world (spawned): joins the group (gloo:
+    the ranks share the card) and builds the mesh, unless the world is
+    one process; runs ``job`` and puts (rank, result) on ``queue``, or
+    (rank, {"error": where and the traceback}) on any failure (a
+    collective past its timeout included)."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape, fn = MESH_JOBS[job]
+    world = shape[0] * shape[1]
+    try:
+        if world == 1:
+            res = fn(torch)
+        else:
+            from repro_torch.launch.mesh import init_rank, make_host_mesh
+            from repro_torch.spmd import collectives
+            backend = init_rank(rank, world, init_method, DEV,
+                                MESH_TIMEOUT_S)
+            mesh = make_host_mesh(*shape, DEV)
+            res = fn(torch, mesh)
+            res["backend"] = backend
+            res["collectives"] = collectives.train_mesh(mesh).stats
+        queue.put((rank, res))
+        if world > 1:
+            torch.distributed.destroy_process_group()
+    except BaseException:
+        queue.put((rank, {"error": f"phase {job}, rank {rank} of {world}: "
+                                   + traceback.format_exc()}))
+        raise
+
+
+def spawn_mesh(job) -> list:
+    """Run phase-18 ``job`` in its own spawned world; every rank's result
+    in rank order. Fails naming the rank and phase if one fails, exits
+    non-zero or is still running after MESH_TIMEOUT_S."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    shape, _ = MESH_JOBS[job]
+    world = shape[0] * shape[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = "file://" + str(Path(tempfile.mkdtemp(prefix="mesh_")) / "rdzv")
+    procs = [ctx.Process(target=mesh_rank, args=(r, job, init, results))
+             for r in range(world)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            try:
+                rank, res = results.get(timeout=5)
+                check("error" not in res, res.get("error", ""))
+                got[rank] = res
+            except queue_mod.Empty:
+                pass
+            bad = [(i, p.exitcode) for i, p in enumerate(procs)
+                   if p.exitcode not in (None, 0) and i not in got]
+            check(not bad, f"phase {job}: rank(s) failed without a "
+                  f"result: {bad} (rank, exit code)")
+            late = [i for i in range(world) if i not in got]
+            check(time.monotonic() - t0 < MESH_TIMEOUT_S,
+                  f"phase {job}: rank(s) {late} still running after "
+                  f"{MESH_TIMEOUT_S} s")
+        for p in procs:
+            p.join(60)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"phase {job}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    for r in got:
+        got[r]["wall_s"] = time.monotonic() - t0
+    return [got[r] for r in range(world)]
+
+
+def mesh_line(card, tag, run, rank_runs) -> str:
+    later = run["ms"][1:] or run["ms"]
+    ms = sum(later) / len(later)
+    staged = run["staged_bytes"][1:] or run["staged_bytes"]
+    return (f"[train-mesh] {card}: {tag}: {ms:.1f} ms a step over steps "
+            f"2-{len(run['ms'])} ({MESH_BACKEND}), "
+            f"{MESH_B * MESH_S / ms * 1e3:.0f} tok/s, staged collective "
+            f"bytes a step {sum(staged) / len(staged):.0f}, peak memory a "
+            "rank " + ", ".join(f"{r.get('peak_mem_gib', float('nan')):.2f}"
+                          for r in rank_runs)
+            + " GiB")
+
+
+def train_mesh(torch, card) -> list:
+    """Phase 18: glm4_9b at full width and MESH_LAYERS layers, each mesh
+    in spawned processes on the one card (two ranks share it over gloo:
+    NCCL refuses two ranks on one GPU).
+
+    18a, tp = dp = 1 (``mesh_reference``): the reference, the floors, and
+    a control that must land outside the tolerance.
+    18b, data=2 with ZeRO-1: each step's loss and grad norm within the
+    tolerance of 18a's; both ranks' working params the same bits after
+    every step. 18c, model=2: each step's loss and grad norm within the
+    tolerance; the leaves no rank shards (the norms) the same bits on
+    both ranks; per rank the flash kernel launched 2 x layers x steps
+    times (forward and remat recompute) and the gather ``steps`` times.
+    18d: 18b's ``save_global`` restored at model=2 by
+    ``restore_for_mesh``, every shard its leaf's slice bit for bit, then
+    one more step, its loss within the tolerance of 18a's fourth. The
+    tolerance is MESH_TOL_FACTOR times the larger of 18a's floors.
+    Returns the runs (their launches)."""
+    import shutil
+    free(torch)
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    a = spawn_mesh("18a")[0]
+    ref, floors, control = a["ref"], a["floors"], a["control"]
+    check(floors["repeat_same_bits"], "phase 18a: a second tp = dp = 1 run "
+          f"gave other bits: {floors['repeat']}")
+    floor = {k: max(floors[f][k] for f in ("repeat", "flip"))
+             for k in ("loss", "grad_norm")}
+    tol = {k: MESH_TOL_FACTOR * v for k, v in floor.items()}
+    check(any(control[k] > tol[k] for k in tol), "phase 18a: the control "
+          f"(both data ranks on the same half of the batch) lands within "
+          f"the tolerance {json.dumps(tol)}: gaps {json.dumps(control)}")
+    print(f"[time] phase 18a done in {a['wall_s']:.1f} s", flush=True)
+    print(f"[train-mesh] {card}: 18a glm4_9b full width, {MESH_LAYERS} "
+          f"layers, global batch {MESH_B} x {MESH_S}, remat full, AdamW: "
+          f"losses {ref['loss']}, grad norms {ref['grad_norm']}; a second "
+          f"run the same bits; floors {json.dumps(floors)}; tolerance "
+          f"{MESH_TOL_FACTOR} x the largest: {json.dumps(tol)}; the "
+          f"control (rows [0, 1, 0, 1]) fails it: {json.dumps(control)}; "
+          "card vs CPU at phase 8's smoke setup (gates nothing): "
+          f"{json.dumps(a['card_vs_cpu_smoke'])}; "
+          + mesh_line(card, "tp = dp = 1", ref, [ref]), flush=True)
+    runs = [dict(launches=ref["launches"])]
+    n = 2 * MESH_LAYERS * MESH_STEPS
+    for job, what in (("18b", "data=2, ZeRO-1"), ("18c", "model=2")):
+        ranks = spawn_mesh(job)
+        for r, run in enumerate(ranks):
+            g = gaps(run, ref, MESH_STEPS)
+            for k in ("loss", "grad_norm"):
+                check(g[k] <= tol[k], f"phase {job} ({what}) rank {r}: "
+                      f"{k} gap {g[k]} to 18a above {tol[k]} (floor "
+                      f"{floor[k]} x {MESH_TOL_FACTOR}): {run[k]} vs "
+                      f"{ref[k][:MESH_STEPS]}")
+            check(run["loss"] == ranks[0]["loss"], f"phase {job}: rank {r}'s"
+                  f" losses {run['loss']} differ from rank 0's")
+            check(run["digests"] == ranks[0]["digests"], f"phase {job} "
+                  f"({what}): rank {r}'s "
+                  + ("working params" if job == "18b" else "replicated "
+                     "leaves") + " differ in bits from rank 0's")
+            got = run["launches"]
+            fl, ga = got.get("flash_attention"), got.get("gather")
+            check(fl == n and ga == MESH_STEPS, f"phase {job} rank {r}: "
+                  f"flash {fl} (want {n}), gather {ga} (want {MESH_STEPS}) "
+                  "launches")
+            runs.append(dict(launches=got))
+        print(mesh_line(card, f"{job} {what}, {ranks[0]['backend']}",
+                        ranks[0], ranks) +
+              f"; loss gaps to 18a {gaps(ranks[0], ref, MESH_STEPS)} within "
+              f"{json.dumps(tol)}; both ranks the same "
+              + ("working params' bits after every step" if job == "18b"
+                 else "replicated leaves' bits (norms)")
+              + f"; launches a rank {ranks[0]['launches']}; losses "
+              f"{ranks[0]['loss']}; collectives {ranks[0]['collectives']}; "
+              f"world {ranks[0]['wall_s']:.1f} s", flush=True)
+        print(f"[time] phase {job} done in {ranks[0]['wall_s']:.1f} s",
+              flush=True)
+        if job == "18b":
+            print(f"[train-mesh] {card}: 18b save_global: "
+                  f"{ranks[0]['ckpt_bytes']} bytes in "
+                  f"{ranks[0]['save_s']:.1f} s (gathered to rank 0's host "
+                  f"in {ranks[0]['gather_s']:.1f} s, then written)",
+                  flush=True)
+        else:
+            for r, run in enumerate(ranks):
+                rs = run["restore"]
+                check(rs["step"] == MESH_STEPS and not rs["unequal_shards"],
+                      f"phase 18d rank {r}: restored step {rs['step']}, "
+                      f"shards unequal to their slices: "
+                      f"{rs['unequal_shards']}")
+                gap = abs(rs["loss"] - ref["loss"][MESH_STEPS])
+                check(gap <= tol["loss"], f"phase 18d rank {r}: the step "
+                      f"after the restore, loss {rs['loss']} vs 18a's "
+                      f"{ref['loss'][MESH_STEPS]} (gap {gap} above "
+                      f"{tol['loss']})")
+                runs.append(dict(launches=rs["launches"]))
+            rs = ranks[0]["restore"]
+            print(f"[train-mesh] {card}: 18d restore_for_mesh of 18b's "
+                  f"checkpoint at model=2: {rs['leaves']} leaves a rank, "
+                  f"every shard its slice bit for bit, in "
+                  f"{rs['restore_s']:.1f} s; one more step: loss "
+                  f"{rs['loss']} (18a {ref['loss'][MESH_STEPS]})",
+                  flush=True)
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
     return runs
 
 
@@ -6815,6 +7286,60 @@ def build_report(log: str) -> None:
             check(src != "sampled_softmax.cu" or not any(
                 c in line for c in WGMMA_SERIALIZED),
                 f"ptxas serialized {src}'s wgmma pipeline: {line.strip()}")
+
+
+def lap(t0, phase):
+    print(f"[time] phase {phase} done at {time.monotonic() - t0:.1f} s "
+          "(since the build started)", flush=True)
+
+
+def earlier_phases(torch, card, t0) -> tuple[dict, list]:
+    """Phases 2-16 of the whole run, in order, in this process: the
+    kernel rows and every run (their launches). ``tools/tp_repeat.py
+    --history`` runs them too, before its repeats."""
+    from repro_torch.serving.graphs import KERNELS
+    timer = Timer(torch)
+    rows = check_kernels(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    lap(t0, 2)
+    counters = KERNELS            # every kernel wrapper and its counter
+    res, params = serve_full(torch, counters, card)
+    runs = [res] + serve_packed(torch, counters, card, params)
+    lap(t0, "3-4")
+    sampling_runs, verify_launches = serve_sampling(torch, counters, card,
+                                                    params)
+    runs += sampling_runs
+    rows["paged_prefill_attention"].update(verify_launches)
+    lap(t0, 9)
+    runs += serve_tiers(torch, counters, card, params)
+    lap(t0, 11)
+    del params
+    torch.cuda.empty_cache()
+    runs += serve_ssm(torch, counters, card)
+    card_vs_cpu(torch)
+    lap(t0, "5-6, 14")
+    runs.append(train_full(torch, counters, card))
+    # phase 8's smoke models launch the flash kernel's mma route (hd 8, 12,
+    # 16), which no full-width path runs
+    runs += list(train_card_vs_cpu(torch).values())
+    lap(t0, "7-8")
+    runs += serve_family(torch, counters, card, rows)
+    lap(t0, 10)
+    runs += serve_slice(torch, counters, card, rows)
+    lap(t0, 12)
+    runs += train_families(torch, counters, card)
+    lap(t0, "13, 15")
+    runs.append(core_phase(torch, counters, card, rows,
+                           gather_checked=True))
+    lap(t0, 16)
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    runs.append(check_partials(torch, timer, gen, rows, counters))
+    del timer
+    free(torch)
+    return rows, runs
 
 
 def main() -> int:
@@ -6850,7 +7375,7 @@ def main() -> int:
 
     phases = sys.argv[2].split(",") if dev_run else []
     if phases and set(phases) <= {"12", "2g", "2h", "8", "13", "14", "16",
-                                  "17", "17a"}:
+                                  "17", "17a", "18"}:
         # a development run: some phases alone, in the order given (14:
         # phase 5's 512-token runs, each followed by phase 14; "13 ARCH
         # ..." some of its models); no summary and no result line
@@ -6888,6 +7413,8 @@ def main() -> int:
                 print(f"[kernels] phase {phase}: {json.dumps(rows)}")
             elif phase == "13":
                 train_families(torch, KERNELS, card, sys.argv[3:] or None)
+            elif phase == "18":
+                train_mesh(torch, card)
             else:
                 serve_ssm(torch, KERNELS, card, runs=tuple(
                     r for r in SSM_RUNS if r[1] == "512"))
@@ -6906,53 +7433,11 @@ def main() -> int:
                     sys.argv[2][2:] or "abcd")
         print("[phase 11] passed (a partial run: no result line)")
         return 0
-    def lap(phase):
-        print(f"[time] phase {phase} done at {time.monotonic() - t0:.1f} s "
-              "(since the build started)", flush=True)
-
-    timer = Timer(torch)
-    rows = check_kernels(torch, timer)
-    del timer
-    torch.cuda.empty_cache()
-    lap(2)
-    counters = KERNELS            # every kernel wrapper and its counter
-    res, params = serve_full(torch, counters, card)
-    runs = [res] + serve_packed(torch, counters, card, params)
-    lap("3-4")
-    sampling_runs, verify_launches = serve_sampling(torch, counters, card,
-                                                    params)
-    runs += sampling_runs
-    rows["paged_prefill_attention"].update(verify_launches)
-    lap(9)
-    runs += serve_tiers(torch, counters, card, params)
-    lap(11)
-    del params
-    torch.cuda.empty_cache()
-    runs += serve_ssm(torch, counters, card)
-    card_vs_cpu(torch)
-    lap("5-6, 14")
-    runs.append(train_full(torch, counters, card))
-    # phase 8's smoke models launch the flash kernel's mma route (hd 8, 12,
-    # 16), which no full-width path runs
-    runs += list(train_card_vs_cpu(torch).values())
-    lap("7-8")
-    runs += serve_family(torch, counters, card, rows)
-    lap(10)
-    runs += serve_slice(torch, counters, card, rows)
-    lap(12)
-    runs += train_families(torch, counters, card)
-    lap("13, 15")
-    runs.append(core_phase(torch, counters, card, rows,
-                           gather_checked=True))
-    lap(16)
-    timer = Timer(torch)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(17)
-    runs.append(check_partials(torch, timer, gen, rows, counters))
-    del timer
-    free(torch)
-    runs += serve_tp(torch, counters, card)
-    lap(17)
+    rows, runs = earlier_phases(torch, card, t0)
+    runs += serve_tp(torch, KERNELS, card)
+    lap(t0, 17)
+    runs += train_mesh(torch, card)
+    lap(t0, 18)
 
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in rows}

@@ -60,12 +60,16 @@ def _unflatten(flat: dict, spec):
     return next(iter(flat.values()))
 
 
-def _host(x) -> tuple[np.ndarray, str]:
+def _host(x, copy: bool = True) -> tuple[np.ndarray, str]:
     """(a numpy copy of the leaf that owns its memory, its logical dtype
-    name): a bf16 tensor as its uint16 view, named "bfloat16"."""
+    name): a bf16 tensor as its uint16 view, named "bfloat16". A host
+    tensor is taken as it is with ``copy=False``."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
-        t = t.cpu() if t.device.type != "cpu" else t.clone()
+        if t.device.type != "cpu":
+            t = t.cpu()
+        elif copy:
+            t = t.clone()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = t.numpy()
@@ -95,12 +99,14 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
 
-    def save(self, step: int, state, metric: float | None = None):
+    def save(self, step: int, state, metric: float | None = None,
+             copy: bool = True):
         """state: a tree (dicts, lists, tuples) of tensors or arrays. A
         blocking host copy of every leaf, then the disk write on a thread
         (the next step may run while it drains), or before returning
-        with ``async_save=False``."""
-        flat = {k: _host(v) for k, v in _flatten(state).items()}
+        with ``async_save=False``. ``copy=False``: the caller hands over
+        host tensors it will not change, written without a copy."""
+        flat = {k: _host(v, copy) for k, v in _flatten(state).items()}
         if self._pending is not None:
             self._pending.join()
 
@@ -145,17 +151,22 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, spec, step: int | None = None) -> tuple[int, dict]:
+    def restore(self, spec, step: int | None = None,
+                mmap: bool = False) -> tuple[int, dict]:
         """spec: a prototype tree (its structure is used, not its leaves).
         Returns (step, the tree of CPU tensors of the saved dtypes);
-        ``step`` defaults to the latest."""
+        ``step`` defaults to the latest. ``mmap``: the tensors are
+        copy-on-write maps of the files, read as they are used (a
+        rank that cuts its shards reads only those)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = self.dir / f"step_{step:08d}"
         manifest = json.loads((path / "manifest.json").read_text())
-        flat = {name: _tensor(np.load(path / meta["file"]), meta["dtype"])
+        mode = "c" if mmap else None
+        flat = {name: _tensor(np.load(path / meta["file"], mmap_mode=mode),
+                              meta["dtype"])
                 for name, meta in manifest["leaves"].items()}
         return step, _unflatten(flat, spec)
 

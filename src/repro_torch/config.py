@@ -168,10 +168,10 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX package's parallel configuration, field for field. The port
-    runs on one device, where ``zero1`` shards nothing and is a no-op; the
-    trainer refuses ``fsdp`` and ``seq_shard_activations`` by name
-    (ROADMAP.md queue 1 item 12)."""
+    """The JAX package's parallel configuration, field for field. On a
+    mesh the trainer shards the masters and slots over "data" with
+    ``zero1`` (on one device it shards nothing); it refuses ``fsdp`` and
+    ``seq_shard_activations`` by name (ROADMAP.md queue 1 item 12)."""
     fsdp: bool = False            # shard params over "data" too
     zero1: bool = True            # shard optimizer state over "data"
     remat: str = "full"           # none | dots | full
@@ -192,7 +192,8 @@ class OptimizerConfig:
     warmup_steps: int = 100
     schedule: str = "cosine"       # constant | cosine | linear
     total_steps: int = 10_000
-    compression: str = "none"      # none | int8_ef (refused by the trainer)
+    compression: str = "none"      # none | int8_ef (never read by the
+                                   # JAX trainer; refused by the port's)
     slot_dtype: str = "float32"    # "bfloat16" halves moment memory
                                    # (masters stay fp32; math in fp32)
 

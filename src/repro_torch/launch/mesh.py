@@ -5,7 +5,8 @@ of ``repro.launch.mesh``, on ``torch.distributed``).
 ``DeviceMesh`` over the default process group, which the caller has
 initialized with ``data * model`` ranks. As in the JAX package, serving
 reads only the "model" axis (``spmd.sharding.serving_tp``): the data axis
-replicates. ``init_rank`` initializes one rank's process group: NCCL when
+replicates. Training reads both (``spmd.collectives.train_mesh``: the
+"data" and "model" groups, rank ``d * model + m`` at (d, m)). ``init_rank`` initializes one rank's process group: NCCL when
 every rank has a card of its own, gloo otherwise (the CPU, or several
 ranks on one card: NCCL refuses two ranks on one GPU).
 """

@@ -149,6 +149,108 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     return params
 
 
+def _layout_tree(cfg: ModelConfig, leaf):
+    """``init_model``'s tree with ``leaf(shape, logical axes)`` at every
+    leaf: the logical axes of the JAX package's ``init_*`` functions
+    (``repro.models.modules`` conventions), without the "layers" axis its
+    stacks add (the port's layers are a list)."""
+    d, H, K, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim, cfg.d_ff)
+    V = cfg.padded_vocab_size
+
+    def norm():
+        p = {"scale": leaf((d,), ("embed",))}
+        if cfg.norm == "layernorm":
+            p["bias"] = leaf((d,), ("embed",))
+        return p
+
+    embed = {"table": leaf((V, d), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        embed["head"] = leaf((V, d), ("vocab", "embed"))
+
+    def mlp():
+        p = {"w_in": leaf((d, f), ("embed", "ff")),
+             "w_out": leaf((f, d), ("ff", "embed"))}
+        if cfg.mlp_activation != "gelu_mlp":
+            p = {"w_gate": leaf((d, f), ("embed", "ff")), **p}
+        return p
+
+    def attention():
+        p = {"wq": leaf((d, H, hd), ("embed", "heads", "head_dim")),
+             "wk": leaf((d, K, hd), ("embed", "kv_heads", "head_dim")),
+             "wv": leaf((d, K, hd), ("embed", "kv_heads", "head_dim")),
+             "wo": leaf((H, hd, d), ("heads", "head_dim", "embed"))}
+        if cfg.qk_norm:
+            p["q_norm"] = leaf((hd,), ("head_dim",))
+            p["k_norm"] = leaf((hd,), ("head_dim",))
+        return p
+
+    def moe():
+        E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        ex = ("experts", "expert_embed", "expert_ff")
+        return {"router": leaf((d, E), ("embed", None)),
+                "w_gate": leaf((E, d, fe), ex), "w_in": leaf((E, d, fe), ex),
+                "w_out": leaf((E, fe, d),
+                              ("experts", "expert_ff", "expert_embed"))}
+
+    def attn_block(shared=False):
+        p = {"norm": norm(), "attn": attention(), "norm2": norm()}
+        if cfg.moe is not None and not shared:
+            p["moe"] = moe()
+        else:
+            p["mlp"] = mlp()
+        if cfg.post_block_norm and not shared:
+            p["post_norm"], p["post_norm2"] = norm(), norm()
+        return p
+
+    if is_encdec(cfg):
+        def dec_block():
+            return {"norm": norm(), "attn": attention(), "xnorm": norm(),
+                    "xattn": attention(), "norm2": norm(), "mlp": mlp()}
+        return {"embed": embed,
+                "encoder": [attn_block() for _ in range(cfg.encoder_layers)],
+                "decoder": [dec_block() for _ in range(cfg.num_layers)],
+                "enc_final_norm": norm(), "final_norm": norm()}
+
+    def mamba_block():
+        s = cfg.ssm
+        di, nh = s.d_inner(d), s.n_heads(d)
+        gn = s.n_groups * s.state_dim
+        return {"norm": norm(), "mamba": {
+            "wz": leaf((d, di), ("embed", "ssm_inner")),
+            "wx": leaf((d, di), ("embed", "ssm_inner")),
+            "wbc": leaf((d, 2 * gn), ("embed", None)),
+            "wdt": leaf((d, nh), ("embed", "ssm_heads")),
+            "conv_x": leaf((s.conv_kernel, di), (None, "ssm_inner")),
+            "conv_bc": leaf((s.conv_kernel, 2 * gn), (None, None)),
+            "dt_bias": leaf((nh,), ("ssm_heads",)),
+            "A_log": leaf((nh,), ("ssm_heads",)),
+            "D": leaf((nh,), ("ssm_heads",)),
+            "norm_scale": leaf((di,), ("ssm_inner",)),
+            "w_out": leaf((di, d), ("ssm_inner", "embed"))}}
+
+    layers = [mamba_block() if kind == MAMBA else attn_block()
+              for kind in cfg.layer_kinds()]
+    params = {"embed": embed, "layers": layers, "final_norm": norm()}
+    if cfg.shared_attn_period:
+        params["shared"] = attn_block(shared=True)
+    return params
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical axes of every leaf of ``init_model``'s tree (the
+    counterpart of the specs that the JAX package's ``init_model``
+    returns beside its params; per layer, without the leading "layers"
+    axis)."""
+    return _layout_tree(cfg, lambda shape, axes: tuple(axes))
+
+
+def param_shapes(cfg: ModelConfig):
+    """The shape of every leaf of ``init_model``'s tree, nothing
+    allocated."""
+    return _layout_tree(cfg, lambda shape, axes: tuple(shape))
+
+
 def loss_fn(params, batch, cfg: ModelConfig, pcfg, sampled_ids=None):
     """Training loss and metrics {"ce", "aux"}: ``encdec.forward_loss``
     for the encoder-decoder (its batch carries ``frames``; no sampled

@@ -23,6 +23,14 @@ outputs are the same bits on any tp (the JAX package's
 ``replicate_over_model``). ``paged_shard_attention`` is the other
 sharding, of the blocks axis: per-shard partial softmaxes over disjoint
 pages, LSE-stitched.
+
+Tensor-parallel training (a ``spmd.collectives`` training mesh current,
+its "model" group of size tp > 1): the weights are the rank's shards
+(``spmd.sharding``'s kv-group cut of the query heads), ``project_q`` /
+``project_kv`` project its heads, ``train_attention`` attends them
+(``train_split``), and the caller sums ``out_proj`` over the group;
+``sharded_attention`` splits the query rows where tp divides neither
+head count (docs/torch-training-mesh.md).
 """
 
 from __future__ import annotations
@@ -40,9 +48,11 @@ NEG_INF = -1.0e30
 
 
 def project_q(params, x, cfg: ModelConfig, cos_sin=None):
+    """(B, S, H, hd) queries; H the heads ``wq`` holds (a training rank's
+    shard holds H / tp)."""
     B, S, d = x.shape
     w = params["wq"].to(x.dtype).reshape(d, -1)
-    q = (x @ w).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = (x @ w).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm_fp32(q, params["q_norm"])
     if cos_sin is not None:
@@ -52,7 +62,7 @@ def project_q(params, x, cfg: ModelConfig, cos_sin=None):
 
 def project_kv(params, x, cfg: ModelConfig, cos_sin=None):
     B, S, d = x.shape
-    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    shape = (B, S, -1, cfg.head_dim)
     k = (x @ params["wk"].to(x.dtype).reshape(d, -1)).reshape(shape)
     v = (x @ params["wv"].to(x.dtype).reshape(d, -1)).reshape(shape)
     if cfg.qk_norm:
@@ -149,11 +159,72 @@ def dense_attention(q, k, v, *, causal=True, window=None, cap=None,
 def sharded_attention(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
                       cap=None, scale=None):
     """Full-sequence attention (train / prefill; ``causal=False`` for
-    whisper's encoder and cross attention), one-device form of the JAX
-    package's ``sharded_attention``: with no "model" axis there is no
-    sequence-parallel fallback, only ``ops.flash_attention``."""
-    return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               cap=cap, scale=scale)
+    whisper's encoder and cross attention) through ``ops.flash_attention``
+    (port of the JAX package's ``sharded_attention``). Its
+    sequence-parallel fallback: in training under a "model" group that
+    does not divide the head count (q, k, v then whole on every rank),
+    each rank attends its contiguous block of query rows against all
+    keys (the flash kernel's ``q_offset``) and the rows are gathered; q,
+    k and v enter through ``copy_to``, so their gradients, each rank's
+    part, are summed."""
+    kw = dict(causal=causal, window=window, cap=cap, scale=scale)
+    grp = collectives.tp_group()
+    Sq = q.shape[1]
+    if grp is None or cfg.num_heads % grp.size == 0 or Sq % grp.size:
+        return ops.flash_attention(q, k, v, **kw)
+    n = Sq // grp.size
+    q, k, v = (collectives.copy_to(t, grp) for t in (q, k, v))
+    o = ops.flash_attention(q[:, grp.rank * n:(grp.rank + 1) * n], k, v,
+                            q_offset=grp.rank * n, **kw)
+    return collectives.gather_seq(o, grp, 1)
+
+
+def train_split(cfg: ModelConfig, tp: int) -> str | None:
+    """How a training block's attention splits over ``tp`` model ranks:
+    None (tp 1); "kv" where tp divides K (each rank its K / tp kv heads
+    and their query heads, ``spmd.sharding``'s kv-group cut); "heads"
+    where it divides H only (contiguous query heads, the kv heads whole on
+    every rank); "seq" otherwise (``sharded_attention``'s fallback; the
+    attention weights whole on every rank)."""
+    if tp <= 1:
+        return None
+    if cfg.num_kv_heads % tp == 0:
+        return "kv"
+    return "heads" if cfg.num_heads % tp == 0 else "seq"
+
+
+def train_attention(params, h, cfg: ModelConfig, cos_sin, window=None):
+    """Causal self attention of a training block over its normed input h
+    (B, S, d), before ``out_proj``: the rank's heads under a sharding
+    "model" group (Megatron-style column parallel; ``out_proj``'s result
+    is then summed over the group), else every head. The replicated
+    input, and the qk-norm scales applied to the rank's heads only, enter
+    through ``collectives.copy_to``."""
+    grp = collectives.tp_group()
+    split = train_split(cfg, grp.size if grp is not None else 1)
+    kw = dict(causal=True, window=window, cap=cfg.attn_logit_softcap,
+              scale=attention_scale(cfg))
+    if split in (None, "seq"):
+        q = project_q(params, h, cfg, cos_sin)
+        k, v = project_kv(params, h, cfg, cos_sin)
+        return sharded_attention(q, k, v, cfg, **kw)
+    p = dict(params)
+    names = ("q_norm", "k_norm") if split == "kv" else ("q_norm",)
+    for n in names:
+        if n in p:
+            p[n] = collectives.copy_to(p[n], grp)
+    hq = collectives.copy_to(h, grp)
+    q = project_q(p, hq, cfg, cos_sin)
+    if split == "kv":
+        k, v = project_kv(p, hq, cfg, cos_sin)
+    else:
+        # every kv head on every rank: each local query head's own
+        Hl = q.shape[2]
+        idx = (grp.rank * Hl + torch.arange(Hl, device=h.device)) \
+            % cfg.num_kv_heads
+        k, v = (collectives.copy_to(t, grp)[:, :, idx]
+                for t in project_kv(p, h, cfg, cos_sin))
+    return ops.flash_attention(q, k, v, **kw)
 
 
 def block_causal_attention(q, k, v, *, window=None, cap=None, scale=None,

@@ -1,8 +1,19 @@
 """Token embedding, logits and the training losses (port of
-``repro.models.embedding``). Single device: the JAX package's vocab-sharded
-Part/Gather/Stitch collapses to one clamped gather, its vocab-parallel
-logits to one fp32 product, and the losses' pmax/psum/pmean stitches to
-their one-shard values."""
+``repro.models.embedding``).
+
+In training under a sharding "model" group (``spmd.collectives.
+tp_group``) whose vocab shard the table holds (V_pad / tp rows, rank r
+the rows from r * V_pad / tp), ``embed`` and ``lm_loss`` are the JAX
+package's vocab-parallel forms: Part/Gather/Stitch (the local rows
+through the gather kernel, out-of-shard ids zeroed, the sum over
+"model"), and the chunked cross-entropy partials (max, sum-exp, true
+logit) stitched by a detached max and two sums over "model". The mean
+over "data" is the train step's (``spmd.steps``: each data rank's loss
+is the mean of its rows; the step averages the gradients and the loss
+over "data", the gradient of the JAX package's ``pmean``). With the
+whole table the Part/Gather/Stitch collapses to one clamped gather, the
+logits to one fp32 product, and the stitches to their one-shard values.
+The serving paths hold whole tables."""
 
 from __future__ import annotations
 
@@ -13,6 +24,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import softcap
+from repro_torch.spmd import collectives
 
 NEG = -1.0e30
 
@@ -21,15 +33,27 @@ def head_table(params, cfg: ModelConfig):
     return params["table"] if cfg.tie_embeddings else params["head"]
 
 
+def vocab_shard(table, cfg: ModelConfig):
+    """(model group, first row's vocab id) of a training rank's vocab
+    shard of the table, or (None, 0) for a whole table."""
+    grp = collectives.shard_group(table.shape[0], cfg.padded_vocab_size,
+                                  "a table's vocab rows")
+    return (None, 0) if grp is None else (grp, grp.rank * table.shape[0])
+
+
 def embed(table, tokens, cfg: ModelConfig):
     """tokens: (B, S) int -> (B, S, d) in the activation dtype, times
     sqrt(d) with ``cfg.embedding_scale``. As in the JAX package, ids are
-    clamped into [0, V_pad) for the gather and rows of out-of-range ids
-    come out zero."""
+    clamped into [0, V_pad) for the gather (a vocab shard's into its own
+    rows) and rows of out-of-range ids come out zero; a shard's rows are
+    summed over "model" (one nonzero term each)."""
     V = table.shape[0]
-    ids = tokens.clamp(0, V - 1).to(torch.int32)
-    ok = (tokens >= 0) & (tokens < V)
+    grp, off = vocab_shard(table, cfg)
+    loc = tokens - off if off else tokens
+    ids = loc.clamp(0, V - 1).to(torch.int32)
+    ok = (loc >= 0) & (loc < V)
     out = torch.where(ok[..., None], ops.embedding_gather(table, ids), 0)
+    out = collectives.reduce_from(out, grp)
     out = out.to(torch.bfloat16 if cfg.dtype == "bfloat16"
                  else torch.float32)
     if cfg.embedding_scale:
@@ -60,8 +84,12 @@ def lm_loss(x, table, labels, cfg: ModelConfig, chunk: int = 4096):
     """Mean token cross-entropy (port of ``lm_loss`` with ``_xent_local``).
     x: (B, S, d); labels: (B, S). Tokens are taken ``chunk`` at a time (all
     at once when the count is not a multiple), so the live logits are one
-    (chunk, V_pad) fp32 block. Vocab-padding columns are masked to NEG;
-    the row max is detached (the LSE is exact for any shift).
+    (chunk, V_pad) fp32 block (V_pad / tp for a vocab shard). Vocab-padding
+    columns are masked to NEG; the row max is detached (the LSE is exact
+    for any shift). A shard's (max, sum-exp, true logit) partials are
+    stitched over "model": the detached max of the maxima, the rescaled
+    sums and the true logits summed (x enters through ``copy_to``, so its
+    gradient sums every shard's part).
 
     The logits are an fp32 product of fp32 casts of x and the table (in
     the activations' dtype first, as the JAX package casts it). The JAX
@@ -73,13 +101,14 @@ def lm_loss(x, table, labels, cfg: ModelConfig, chunk: int = 4096):
     B, S, d = x.shape
     T = B * S
     V = table.shape[0]
+    grp, off = vocab_shard(table, cfg)
     ck = chunk if T % chunk == 0 else T
-    xt = x.reshape(T, d)
-    lab = labels.reshape(T).long()
+    xt = collectives.copy_to(x, grp).reshape(T, d)
+    lab = labels.reshape(T).long() - off
     t32 = table.to(x.dtype).float()
-    col_ok = torch.arange(V, device=x.device) < cfg.vocab_size
+    col_ok = torch.arange(off, off + V, device=x.device) < cfg.vocab_size
     ok = (lab >= 0) & (lab < V)
-    rows = []
+    mxs, ses, tls = [], [], []
     for lo in range(0, T, ck):
         logits = xt[lo:lo + ck].float() @ t32.T
         logits = softcap(logits, cfg.final_logit_softcap)
@@ -87,10 +116,16 @@ def lm_loss(x, table, labels, cfg: ModelConfig, chunk: int = 4096):
         mx = logits.amax(dim=-1).detach()
         lb = lab[lo:lo + ck]
         tl = torch.gather(logits, 1, lb.clamp(0, V - 1)[:, None])[:, 0]
-        tl = torch.where(ok[lo:lo + ck], tl, 0.0)
-        se = torch.exp(logits - mx[:, None]).sum(dim=-1)
-        rows.append(torch.log(se) + mx - tl)
-    return torch.cat(rows).mean()
+        tls.append(torch.where(ok[lo:lo + ck], tl, 0.0))
+        ses.append(torch.exp(logits - mx[:, None]).sum(dim=-1))
+        mxs.append(mx)
+    mx, se, tl = torch.cat(mxs), torch.cat(ses), torch.cat(tls)
+    if grp is not None:
+        gmx = grp.gather(mx[None], 0).amax(dim=0)
+        se = collectives.reduce_from(se * torch.exp(mx - gmx), grp)
+        tl = collectives.reduce_from(tl, grp)
+        mx = gmx
+    return (torch.log(se) + mx - tl).mean()
 
 
 def sampled_softmax_loss(x, table, labels, sampled_ids, cfg: ModelConfig):
@@ -103,6 +138,7 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, cfg: ModelConfig):
     B, S, d = x.shape
     T = B * S
     V = table.shape[0]
+    grp, off = vocab_shard(table, cfg)
     cap = cfg.final_logit_softcap
     xt = x.reshape(T, d).float()
     lab = labels.reshape(T).long()
@@ -110,8 +146,10 @@ def sampled_softmax_loss(x, table, labels, sampled_ids, cfg: ModelConfig):
     t32 = table.float()
 
     def rows(ids):
-        ok = (ids >= 0) & (ids < V)
-        return torch.where(ok[:, None], t32[ids.clamp(0, V - 1)], 0.0)
+        loc = ids - off
+        ok = (loc >= 0) & (loc < V)
+        return collectives.reduce_from(
+            torch.where(ok[:, None], t32[loc.clamp(0, V - 1)], 0.0), grp)
 
     lt = softcap(torch.sum(xt * rows(lab), dim=-1), cap)
     ls = softcap(xt @ rows(sids).T, cap)

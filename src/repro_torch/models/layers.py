@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.spmd import collectives
 
 
 def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
@@ -74,11 +75,21 @@ _ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def apply_mlp(params, x, cfg: ModelConfig):
+    """The MLP. In training under a sharding "model" group whose ``ff``
+    slice the weights hold (Megatron-style: ``w_gate`` / ``w_in`` column
+    parallel, ``w_out`` row parallel), x enters through
+    ``collectives.copy_to`` and the partial outputs are summed over the
+    group."""
+    grp = collectives.shard_group(params["w_in"].shape[-1], cfg.d_ff,
+                                  "the MLP's ff slice")
+    x = collectives.copy_to(x, grp)
     w = {k: v.to(x.dtype) for k, v in params.items()}
     if cfg.mlp_activation == "gelu_mlp":
-        return _ACT["gelu"](x @ w["w_in"]) @ w["w_out"]
-    g = _ACT[cfg.mlp_activation](x @ w["w_gate"])
-    return (g * (x @ w["w_in"])) @ w["w_out"]
+        y = _ACT["gelu"](x @ w["w_in"]) @ w["w_out"]
+    else:
+        g = _ACT[cfg.mlp_activation](x @ w["w_gate"])
+        y = (g * (x @ w["w_in"])) @ w["w_out"]
+    return collectives.reduce_from(y, grp)
 
 
 def softcap(x, cap: float | None):

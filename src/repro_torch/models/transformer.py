@@ -56,7 +56,8 @@ from repro_torch.models.attention import (attention_scale, decode_attention,
                                           paged_decode_attention, project_kv,
                                           project_q,
                                           ragged_chunk_update_attend,
-                                          sharded_attention, update_cache,
+                                          sharded_attention, train_attention,
+                                          update_cache,
                                           update_paged_cache,
                                           update_paged_cache_chunk)
 from repro_torch.models.embedding import (decode_logits,
@@ -65,6 +66,7 @@ from repro_torch.models.embedding import (decode_logits,
                                           lm_loss, sampled_softmax_loss)
 from repro_torch.models.layers import apply_mlp, apply_norm, rope_cos_sin
 from repro_torch.models.remat import MODES, remat
+from repro_torch.spmd import collectives
 
 
 def _post_norm(lp, name, y, cfg: ModelConfig):
@@ -78,6 +80,9 @@ def _attn_part(lp, x, cfg: ModelConfig, attend):
     the attention output, which goes through ``out_proj`` and the
     post-block norm into the residual."""
     y = out_proj(lp["attn"], attend(apply_norm(lp["norm"], x, cfg)), x.dtype)
+    # a training rank's heads (row parallel): summed over "model"
+    y = collectives.reduce_from(y, collectives.shard_group(
+        lp["attn"]["wo"].shape[0], cfg.num_heads, "out_proj's heads"))
     return x + _post_norm(lp, "post_norm", y, cfg)
 
 
@@ -465,14 +470,10 @@ def check_trainable(cfg: ModelConfig, pcfg) -> None:
 
 
 def _attn_full(lp, x, cfg: ModelConfig, cos_sin, window):
-    """Full-sequence causal self attention of one block (train mode)."""
-    def attend(h):
-        q = project_q(lp["attn"], h, cfg, cos_sin)
-        k, v = project_kv(lp["attn"], h, cfg, cos_sin)
-        return sharded_attention(q, k, v, cfg, causal=True, window=window,
-                                 cap=cfg.attn_logit_softcap,
-                                 scale=attention_scale(cfg))
-    return _attn_part(lp, x, cfg, attend)
+    """Full-sequence causal self attention of one block (train mode;
+    ``train_attention``: the rank's heads under tensor parallelism)."""
+    return _attn_part(lp, x, cfg, lambda h: train_attention(
+        lp["attn"], h, cfg, cos_sin, window))
 
 
 def _train_layer(lp, kind, cfg, cos_sin, x):

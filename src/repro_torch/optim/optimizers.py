@@ -88,17 +88,28 @@ def schedule(ocfg: OptimizerConfig, step) -> torch.Tensor:
     return torch.as_tensor(ocfg.lr * warm * dec, dtype=torch.float32)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, stitch=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
+    Sharded leaves (multi-rank training): ``stitch`` takes this rank's
+    (L,) fp32 sums of squares of its pieces and returns the total over
+    the mesh, each piece counted once (``spmd.steps`` sums a sharded leaf
+    over the axes it is sharded on and counts a replicated one once, with
+    the same bits on every rank)."""
+    if stitch is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    return torch.sqrt(stitch(torch.stack(
+        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, stitch=None, pieces=None):
     """Scale every leaf by min(1, max_norm / norm), the scale cast to the
-    leaf's dtype, in place. Returns (grads, norm before clipping)."""
-    gn = global_norm(grads)
+    leaf's dtype, in place. Returns (grads, norm before clipping). With
+    ``stitch``, the norm of the sharded gradient: ``pieces`` (default the
+    gradient) are the tensors whose sums of squares ``stitch`` adds up
+    (``global_norm``)."""
+    gn = global_norm(grads if pieces is None else pieces, stitch)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))

@@ -1,2 +1,3 @@
-"""Step builders (one device), and the sharding rules and collectives of
-tensor-parallel serving."""
+"""Step builders (one device or a ("data", "model") mesh), the sharding
+rules, ZeRO-1, the collectives of tensor-parallel serving and multi-rank
+training, and the int8 error-feedback all-reduce."""

@@ -11,19 +11,43 @@ whole kv heads over the "model" axis, each rank holding K / tp heads;
 Mamba slot state and weights stay whole on every rank, and so does every
 piece of host metadata (block tables, refcounts, hashes, the scheduler).
 
-The training half, for the multi-device trainer to come: ``make_rules``
-maps logical axis names to mesh axes, ``resolve_spec`` a tensor's logical
-axes to a spec, dropping assignments the dims do not divide.
+The training half (``spmd.steps.make_train_step(..., mesh)``):
+``make_rules`` maps logical axis names to mesh axes, ``resolve_spec`` a
+tensor's logical axes to a spec, dropping assignments the dims do not
+divide; ``tree_pspecs`` does it over a parameter tree and its logical
+specs (``models.api.param_specs``); ``batch_spec`` puts the batch rows
+over the data axes where they divide (else every data rank computes the
+whole batch, as GSPMD replicates it). A ``Layout`` is one leaf's
+placement: its spec, and the dims whose heads are cut by kv-head group
+(below). ``Layout.cut`` takes one rank's shard of a global tensor from
+its mesh coordinates; ``gather_global`` is the inverse over a
+``collectives.TrainMesh``, an exact gather of ``uint8`` views.
+
+Query heads are g-major (head h = g * K + k reads kv head k), so a
+contiguous cut of ``wq``'s or ``wo``'s heads axis would not be the query
+heads of the rank's contiguous kv heads. Where the "model" axis divides K,
+those leaves are cut by kv-head group instead: rank r of tp holds, in
+this order, the heads g * K + r * K / tp + j for g < H / K, j < K / tp (g
+outer), which are the local g-major heads of its K / tp kv heads; the
+heads axis is seen as (G, K) and K is cut contiguously. The global tree
+(checkpoints) keeps the reference's order. Where tp divides H but not K,
+the heads are cut contiguously and the kv heads stay whole on every rank
+(``models.attention.train_attention`` picks each local head's kv head).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
+
+import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 
 Rules = dict[str, Any]   # logical name -> mesh axis | tuple | None
+
+DP_AXES = ("pod", "data")
 
 # cache leaves that shard by kv head (axis 3 of their 5-D stacks)
 KV_HEAD_LEAVES = ("k", "v", "xk", "xv", "k_scale", "v_scale")
@@ -36,6 +60,24 @@ def mesh_shape(mesh) -> dict[str, int]:
     if isinstance(mesh, dict):
         return dict(mesh)
     return dict(zip(mesh.mesh_dim_names or (), mesh.shape))
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Data-parallel axes present in the mesh ("pod" folds into data
+    parallelism, as in the JAX package)."""
+    return tuple(a for a in DP_AXES if a in mesh_shape(mesh))
+
+
+def batch_spec(global_batch: int, mesh, extra_dims: int = 1) -> tuple:
+    """Spec of (B, ...) activations: the batch over the data axes when
+    their product divides it, else replicated."""
+    sizes = mesh_shape(mesh)
+    dp = dp_axes(mesh)
+    size = math.prod(sizes[a] for a in dp) if dp else 1
+    first = dp if (dp and global_batch % size == 0) else None
+    if isinstance(first, tuple) and len(first) == 1:
+        first = first[0]
+    return (first,) + (None,) * extra_dims
 
 
 def serving_tp(mesh) -> int:
@@ -120,3 +162,114 @@ def resolve_spec(shape: tuple[int, ...], logical: tuple[str | None, ...],
         else:
             out.append(None)
     return tuple(out)
+
+
+def map_specs(fn, params, specs):
+    """``fn(leaf, spec)`` over a parameter tree (dicts and lists) and its
+    spec tree, whose tuples are leaves; the result is shaped like
+    ``params``."""
+    if isinstance(params, dict):
+        return {k: map_specs(fn, params[k], specs[k]) for k in params}
+    if isinstance(params, list):
+        return [map_specs(fn, p, s) for p, s in zip(params, specs)]
+    return fn(params, specs)
+
+
+def tree_pspecs(params, specs, rules: Rules, mesh):
+    """The resolved spec of every leaf of ``params`` (tensors or shapes)
+    from its logical ``specs``."""
+    def one(p, s):
+        shape = p.shape if isinstance(p, torch.Tensor) else p
+        return resolve_spec(tuple(shape), s, rules, mesh)
+    return map_specs(one, params, specs)
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """One leaf's placement on a mesh: ``spec`` (one entry per dim) and
+    ``groups``, ((dim, K), ...): dims of H = G * K query heads whose
+    shard is a block of kv heads (module docstring)."""
+    spec: tuple
+    groups: tuple = ()
+
+    def with_spec(self, spec) -> "Layout":
+        return Layout(tuple(spec), self.groups)
+
+    def index(self, dim: int, coords: dict, sizes: dict) -> tuple[int, int]:
+        """(this rank's shard index, shard count) along ``dim``: the
+        row-major index of its coordinates on the dim's axes."""
+        idx, n = 0, 1
+        for a in _axes(self.spec[dim] if dim < len(self.spec) else None):
+            idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+        return idx, n
+
+    def cut(self, x, coords: dict, sizes: dict):
+        """The shard of the global ``x`` at mesh ``coords`` (a view)."""
+        K = dict(self.groups)
+        for d in range(x.dim()):
+            i, n = self.index(d, coords, sizes)
+            if n == 1:
+                continue
+            if d in K:
+                g = x.unflatten(d, (x.shape[d] // K[d], K[d]))
+                x = g.narrow(d + 1, i * K[d] // n, K[d] // n).flatten(d,
+                                                                     d + 1)
+            else:
+                m = x.shape[d] // n
+                x = x.narrow(d, i * m, m)
+        return x
+
+
+def gather_global(x, layout: Layout, tm, to_root: bool = False):
+    """The global tensor of every rank's shard ``x`` (``layout.cut``'s
+    inverse) over ``tm``, a ``collectives.TrainMesh``: exact gathers
+    along each sharded dim, the inner axis of a tuple entry first, on
+    every rank; with ``to_root`` on the host of the mesh's rank (0, 0)
+    only (None elsewhere: a rank leaves after its shard reached its
+    group's rank 0)."""
+    K = dict(layout.groups)
+    for d, entry in enumerate(layout.spec):
+        for a in reversed(_axes(entry)):
+            g = tm.group(a)
+            if g.size == 1:
+                continue
+            kl = K[d] // g.size if d in K else None
+            if kl is not None:
+                # this shard's heads as (G, K / size): gather the kv part
+                x = x.unflatten(d, (x.shape[d] // kl, kl))
+            dd = d + 1 if kl is not None else d
+            x = g.gather_to_root(x, dd) if to_root else g.gather(x, dd)
+            if x is None:
+                return None
+            if kl is not None:
+                x = x.flatten(d, d + 1)
+    if to_root:
+        return x.cpu() if all(c == 0 for c in tm.coords.values()) else None
+    return x
+
+
+def head_groups(cfg: ModelConfig, logical: tuple, spec: tuple,
+                mesh) -> tuple:
+    """((dim, K),) for the "heads" dims of a leaf that "model" alone
+    shards while its size also divides K (the kv-head-group cut), else
+    ()."""
+    tp = mesh_shape(mesh).get("model", 1)
+    return tuple((d, cfg.num_kv_heads)
+                 for d, (name, entry) in enumerate(zip(logical, spec))
+                 if name == "heads" and entry == "model"
+                 and cfg.num_kv_heads % tp == 0)
+
+
+def tree_layouts(params, specs, cfg: ModelConfig, rules: Rules, mesh):
+    """The ``Layout`` of every leaf of ``params`` (tensors or shapes) on
+    ``mesh`` from its logical ``specs``."""
+    return map_specs(
+        lambda logical, spec: Layout(spec, head_groups(cfg, logical, spec,
+                                                       mesh)),
+        specs, tree_pspecs(params, specs, rules, mesh))

@@ -3,7 +3,11 @@
 gives the same bits: in fresh processes, and in this one after its free
 device memory was filled with stale bytes or while another stream runs.
 
-  python3 tools/tp_repeat.py [N] [--layers L]   # from the repo root; one card
+  python3 tools/tp_repeat.py [N] [--layers L] [--history]   # one card
+
+``--history`` first runs chip_smoke.py's phases 2-16 in this process
+(``chip_smoke.earlier_phases``), as its whole run does before phase 17:
+the first run below then has that history behind it.
 
 glm4_9b (full width, full depth or L layers) on phase 3's traffic (8 x
 512 with a 256-token shared prefix, 32 new), eager, through
@@ -100,6 +104,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("rounds", type=int, nargs="?", default=1)
     ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--history", action="store_true",
+                    help="run chip_smoke's phases 2-16 here first")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -112,7 +118,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line(), flush=True)
     build.build_all()
-    case = ("glm4_9b", args.layers)
+    if args.history:
+        import time
+        cs.earlier_phases(torch, cs.card_line(), time.monotonic())
+        cs.free(torch)
+    case = ("glm4_9b", args.layers, 32)
 
     def here():
         cfg, reqs, kw = cs.tp_case(*case)
