@@ -398,11 +398,45 @@ Phases, each of which raises on failure:
      step and peak memory a rank, beside the card's name and power
      limit. A rank that fails or hangs past its timeout fails the run,
      naming its rank and phase.
+  19. weight-sharded tensor-parallel serving (``shard_params=True``) and
+     the MoE block's mesh modes (its runs share phase 17's spawned
+     processes, before phase 18; "[tp-shard]", "[moe-mesh]" lines), two
+     ranks on a mesh model=2 (gloo, both on cuda:0 on a one-card
+     machine), eager, phase 3's traffic (32 new tokens a request), each
+     against a tp = 1 run of the same seed-0 weights in the tp = 1
+     process: a. qwen3_moe_30b_a3b at full width, 12 of its 48 layers
+     (decode steps "ep_psum", 256-row chunks "ep_a2a"); b. glm4_9b at
+     phase 17's depth (its tp = 1 run is phase 17's); c. grok1_314b, 2
+     of its 64 layers, ``expert_ff_2d``. A MoE run's base is tp = 1
+     replaying the mesh's routing (``models.moe_replay``: the mesh's
+     experts at every row, its mode's capacity rule), a dense run's tp =
+     1 itself. Rank 0's tokens equal the base's up to a first difference
+     at a near-tie (the base's scores put rank 0's token less than TOL,
+     or twice the two rows' largest |difference| there, below its own);
+     the largest |difference| between every emitted token's fp32 logits
+     row up to each parting and the base's is at most
+     SHARD_FLOOR_FACTOR x the floor measured in the same run, the base
+     again with one-ulp flips in FLIP_SHARE of its embedding outputs
+     (printed against TOL). A MoE run also: every call replayed, every
+     keep mask the mesh's capacity rule's, the router log-probabilities
+     of the rows both runs share within SHARD_FLOOR_FACTOR x the floor's,
+     each row the replay's own router routes elsewhere within twice its
+     gap of a tie (the widest printed). 19b's control, rank 1's ``wo`` of
+     layer CONTROL_LAYER zeroed, must land past its gate. Both ranks the
+     same tokens; scheduling stats equal tp = 1's; each rank's weight
+     bytes at most 0.55 of tp = 1's; the paged decode and chunk kernels
+     and the gather launched on both ranks; the MoE modes each run must
+     show. Printed: tok/s, weight bytes and peak GiB a rank, mode counts,
+     collectives and their bytes, launches by rank. d. qwen3_moe's MoE
+     block alone at full width, "ep_psum" on 8 decode rows and "ep_a2a"
+     on a 512-row chunk, against the plain one-process emulation of the
+     same per-shard capacity on the card: every row within TOL of its
+     norm, on both ranks.
   Every kernel must have launched on a serving or training path, except
   sampled_softmax_loss, which no model path of either package calls.
   ``python3 chip_smoke.py --phase 2h,14,13,8`` runs some phases alone, in
-  the order given (also 2g, 12, 16, 17, 17a and 18; "13 ARCH ..." some
-  of phase 13's models): development runs, no result line.
+  the order given (also 2g, 12, 16, 17, 17a, 18 and 19; "13 ARCH ..."
+  some of phase 13's models): development runs, no result line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or run from a
@@ -6478,7 +6512,26 @@ def check_partials(torch, timer, gen, rows, counters) -> dict:
 TP_RUNS = (("glm4_9b", 20, 32), ("zamba2_2p7b", 6, 16),
            ("whisper_large_v3", 4, 32))
 TP_WORLD = 2
-TP_TIMEOUT_S = 480
+TP_TIMEOUT_S = 600
+# phase 19's sharded-weights runs on the same ranks (shard_params=True,
+# model=TP_WORLD): (arch, layers, new tokens a request, expert_ff_2d), at
+# full width and phase 3's traffic; qwen3_moe at 12 of its 48 layers and
+# grok1 at 2 of its 64 (the depths cut for the whole run's time limit),
+# glm4 at phase 17's depth (its tp = 1 run is phase 17's)
+SHARD_RUNS = (("qwen3_moe_30b_a3b", 12, 32, False), ("glm4_9b", 20, 32, False),
+              ("grok1_314b", 2, 32, True))
+MOE_MESH = "moe_block"           # phase 19d's case among the rank's runs
+PHASE19_DIR = ROOT / "build" / "phase19"
+# a sharded rank holds at most this share of tp = 1's weight bytes
+SHARD_WEIGHT_SHARE = 0.55
+# phase 19's gates: a sharded run's logits rows (and a MoE model's router
+# log-probabilities) at most this many times the floor measured in the
+# same run, its base against the base with one-ulp flips in FLIP_SHARE of
+# its embedding outputs (a bf16 path's noise, amplified over the layers);
+# 19b's control, rank 1's wo of layer CONTROL_LAYER zeroed (that layer's
+# attention half left out), must land past it
+SHARD_FLOOR_FACTOR = 2
+CONTROL_LAYER, CONTROL_NEW = 10, 4
 # the engine stats both ranks of a tensor-parallel run must share with the
 # tp = 1 run, value for value
 SCHED_STATS = ("steps", "prefill_chunks", "preemptions", "tokens",
@@ -6572,12 +6625,17 @@ def block_digests(torch, sink):
         tr._attn_part, tr._mlp_part = attn_part, mlp_part
 
 
-def record_steps(torch, eng) -> dict:
+def record_steps(torch, eng, keep_rows=False) -> dict:
     """Make ``eng`` (eager) read every step's fp32 logits and block
     digests. Returns the record it fills: "tokens" {(rid, i): [logits
     row digest, top-2 margin, top-1 id, top-2 id]} for each token i a
-    request emitted, "blocks" [per step: block digests]."""
-    rec = {"tokens": {}, "blocks": []}
+    request emitted, "blocks" [per step: block digests]; with
+    ``keep_rows``, "emitted" {(rid, i): that fp32 logits row on the
+    host}; "route", a ``models.moe_replay.RouteRecord`` told the rows of
+    every step (the decode batch's and the chunk row's MoE calls told
+    apart by their row counts), which the caller installs."""
+    from repro_torch.models.moe_replay import RouteRecord
+    rec = {"tokens": {}, "blocks": [], "emitted": {}, "route": RouteRecord()}
     pending, sink = [], []
     run_step, step, forward = eng._run_step, eng._step, eng._forward
 
@@ -6588,6 +6646,11 @@ def record_steps(torch, eng) -> dict:
         return out
 
     def run_step_read(plan):
+        rec["route"].begin_step({
+            eng.max_batch: {s: (r.rid, r.num_computed)
+                            for s, r in plan.decodes},
+            eng.chunk_width: {i: (r.rid, r.num_computed + i)
+                              for _, r, n in plan.chunks for i in range(n)}})
         out = run_step(plan)
         lg = eng._read_logits
         top = torch.topk(lg, 2, dim=-1)
@@ -6598,16 +6661,18 @@ def record_steps(torch, eng) -> dict:
         for row, req in rows:
             pending.append((req, len(req.out), [
                 fp[row], vals[row][0] - vals[row][1], ids[row][0],
-                ids[row][1]]))
+                ids[row][1]], lg[row] if keep_rows else None))
         rec["blocks"].append(torch.stack(sink).tolist() if sink else [])
         sink.clear()
         return out
 
     def step_read():
         ran = step()
-        for req, n, row in pending:
+        for req, n, row, lg in pending:
             if len(req.out) > n:
                 rec["tokens"][(req.rid, n)] = row
+                if lg is not None:
+                    rec["emitted"][(req.rid, n)] = lg.cpu()
         pending.clear()
         return ran
 
@@ -6616,33 +6681,72 @@ def record_steps(torch, eng) -> dict:
     return rec
 
 
-def tp_serve(torch, counters, cfg, reqs, kw, mesh=None) -> dict:
+def tp_serve(torch, counters, cfg, reqs, kw, mesh=None, opts=None) -> dict:
     """One eager engine run of ``reqs`` (rank 0 or a follower of a mesh,
     or tp = 1): tokens, scheduling stats, kv-head bytes, tok/s, launches,
-    and what ``record_steps`` read ("rows": "request:token" -> [logits
-    row digest, top-2 margin, top-1, top-2], request in ``reqs`` order;
-    "blocks": per step, the block digests)."""
+    weight bytes, MoE mode counts, and what ``record_steps`` read ("rows":
+    "request:token" -> [logits row digest, top-2 margin, top-1, top-2],
+    request in ``reqs`` order; "blocks": per step, the block digests).
+    ``opts``: "shard" (``shard_params=True``: the engine draws the seed-0
+    weights and cuts each part as it is drawn), "f2d" (``expert_ff_2d``),
+    "rows" (a label: rank 0 saves every emitted token's fp32 logits row
+    under ``PHASE19_DIR``, "rows_file"; a MoE run saves its routing there
+    too, ``models.moe_replay.RouteRecord.state()``, "route_file"), "flip"
+    (inside ``flipped_embedding``: a noise floor), "replay" (tp = 1: the
+    file of a mesh's merged routing, which the MoE blocks replay with the
+    mesh's capacity rule on a "model" axis of TP_WORLD; "missing", the
+    calls it did not hold), "control" (phase 19b's control: rank 1's
+    ``wo`` of layer CONTROL_LAYER zeroed, its partial of that layer's
+    attention left out of the sum), "tag" (the run's key suffix)."""
+    import contextlib
+    from repro_torch.config import ParallelConfig
+    from repro_torch.models import moe, moe_replay
     from repro_torch.models.api import init_model
     from repro_torch.serving import InferenceEngine
 
-    params = init_model(cfg, 0, DEV)
+    opts = opts or {}
+    if opts.get("flip"):
+        with flipped_embedding(torch, 29):
+            return tp_serve(torch, counters, cfg, reqs, kw, mesh,
+                            dict(opts, flip=False))
+    shard = bool(opts.get("shard"))
+    params = None if shard else init_model(cfg, 0, DEV)
     eng = InferenceEngine(cfg, device=DEV, params=params, mesh=mesh,
-                          cuda_graphs=False, **kw)
-    rec = record_steps(torch, eng)
+                          pcfg=ParallelConfig(remat="none",
+                                              expert_ff_2d=opts.get("f2d",
+                                                                    False)),
+                          shard_params=shard, cuda_graphs=False, **kw)
+    lead = eng.group is None or eng.group.rank == 0
+    if opts.get("control") and not lead:
+        eng.params["layers"][CONTROL_LAYER]["attn"]["wo"].zero_()
+    rec = record_steps(torch, eng, keep_rows=bool(opts.get("rows")) and lead)
+    route, replay = rec["route"], None
+    if opts.get("replay"):
+        replay = moe_replay.Replay(torch.load(opts["replay"]), route,
+                                   TP_WORLD, opts.get("f2d", False))
+    elif cfg.moe is not None:
+        moe.route_tap = route.tap
     reset_launches(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    if eng.group is None or eng.group.rank == 0:
-        out = eng.run(reqs)
-        eng.close()
-        rids = [r.rid for r in reqs]
-    else:
-        out = eng.follow()            # rank 0's rids, in its order
-        rids = sorted(out)
+    try:
+        with (moe_replay.replaying(replay) if replay is not None
+              else contextlib.nullcontext()):
+            if lead:
+                out = eng.run(reqs)
+                eng.close()
+                rids = [r.rid for r in reqs]
+            else:
+                out = eng.follow()            # rank 0's rids, in its order
+                rids = sorted(out)
+    finally:
+        moe.route_tap = None
     torch.cuda.synchronize()
     order = {rid: i for i, rid in enumerate(rids)}
+    route.rename(order)
     s = eng.stats
     res = {"tokens": [out[rid].tolist() for rid in rids],
+           "prompts": [len(r.prompt) for r in reqs],
            "rows": {f"{order[rid]}:{i}": row
                     for (rid, i), row in rec["tokens"].items()},
            "blocks": rec["blocks"],
@@ -6651,8 +6755,23 @@ def tp_serve(torch, counters, cfg, reqs, kw, mesh=None) -> dict:
            "kv_cache_mib": s["kv_cache_mib"], "wall_s": s.get("wall_s"),
            "tok_s": s.get("tok_s"), "launches": read_launches(counters),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "weight_bytes": s["weight_bytes"], "moe_modes": s["moe_modes"],
+           "shard_params": s["shard_params"],
+           "missing": None if replay is None else replay.missing,
            **{k: s[k] for k in s if k.startswith("tp")}}
-    del eng, params
+    if opts.get("rows"):
+        PHASE19_DIR.mkdir(parents=True, exist_ok=True)
+        if rec["emitted"]:
+            path = PHASE19_DIR / f"{opts['rows']}.pt"
+            torch.save({f"{order[rid]}:{i}": row
+                        for (rid, i), row in rec["emitted"].items()}, path)
+            res["rows_file"] = str(path)
+        if cfg.moe is not None:
+            rank = 0 if eng.group is None else eng.group.rank
+            path = PHASE19_DIR / f"{opts['rows']}_route{rank}.pt"
+            torch.save(route.state(), path)
+            res["route_file"] = str(path)
+    del eng, params, rec, route, replay
     free(torch)
     return res
 
@@ -6685,12 +6804,21 @@ def parting(a: dict, b: dict) -> dict:
             "block": block}
 
 
+def run_key(arch: str, opts: dict) -> str:
+    """A run's key among a process's runs: the arch and its "tag" ("/shard"
+    a sharded-weights run, "/flip" one with flipped embeddings, "/replay"
+    tp = 1 replaying a mesh's MoE routing, "/control" 19b's control)."""
+    return arch + opts.get("tag", "")
+
+
 def tp_rank(rank, world, init_method, queue, cases=TP_RUNS) -> None:
-    """One rank of phase 17's runs (a spawned process): with ``world`` > 1
-    it joins the group (gloo when the ranks share a card) and builds the
-    ("data", "model") = (1, world) mesh; with 1 it serves alone (tp = 1).
-    It serves every case of ``cases`` (TP_RUNS') and puts its results on
-    ``queue``; raises on any failure."""
+    """One rank of phase 17's and 19's runs (a spawned process): with
+    ``world`` > 1 it joins the group (gloo when the ranks share a card)
+    and builds the ("data", "model") = (1, world) mesh; with 1 it serves
+    alone (tp = 1). It serves every case of ``cases``, (arch, layers,
+    max_new[, tp_serve's opts]), or runs phase 19d for the arch
+    ``MOE_MESH``, and puts its results on ``queue``; raises on any
+    failure."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -6709,10 +6837,14 @@ def tp_rank(rank, world, init_method, queue, cases=TP_RUNS) -> None:
         dist.all_gather_object(cards, (rank, torch.cuda.current_device(),
                                        torch.cuda.get_device_name()))
     runs = {}
-    for case in cases:
-        arch = case[0]
-        cfg, reqs, kw = tp_case(*case)
-        runs[arch] = tp_serve(torch, KERNELS, cfg, reqs, kw, mesh)
+    for arch, layers, max_new, *opts in cases:
+        opts = opts[0] if opts else {}
+        if arch == MOE_MESH:
+            runs[arch] = moe_mesh_check(torch, mesh)
+        else:
+            cfg, reqs, kw = tp_case(arch, layers, max_new)
+            runs[run_key(arch, opts)] = tp_serve(torch, KERNELS, cfg, reqs,
+                                                 kw, mesh, opts)
         if world > 1:
             dist.barrier()
     queue.put((rank, {"backend": backend, "cards": cards, "runs": runs}))
@@ -6747,14 +6879,15 @@ def spawn_ranks(world: int, cases=TP_RUNS) -> dict:
                 pass
             bad = [(i, p.exitcode) for i, p in enumerate(procs)
                    if p.exitcode not in (None, 0)]
-            check(not bad, f"phase 17: rank(s) failed: {bad} (rank, exit "
-                  "code)")
+            check(not bad, f"phase 17/19: rank(s) failed: {bad} (rank, "
+                  "exit code)")
             check(time.monotonic() - t0 < TP_TIMEOUT_S,
-                  f"phase 17: the ranks did not finish in {TP_TIMEOUT_S} s")
+                  f"phase 17/19: the ranks did not finish in {TP_TIMEOUT_S} "
+                  "s")
         for p in procs:
             p.join(60)
         codes = [p.exitcode for p in procs]
-        check(codes == [0] * world, f"phase 17: rank exit codes {codes}")
+        check(codes == [0] * world, f"phase 17/19: rank exit codes {codes}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -6773,27 +6906,70 @@ def first_difference(a: list, b: list):
     return None
 
 
-def serve_tp(torch, counters, card) -> list:
-    """Phase 17b-c: TP_RUNS on one engine (tp = 1, eager) in a spawned
-    process of its own, then on TP_WORLD spawned ranks over a mesh
-    model=TP_WORLD (every rank on its own card with NCCL when there are
-    enough, else all on cuda:0 over gloo): both ranks' tokens, every
-    emitted token's logits row (bit for bit) and scheduling stats equal
-    the tp = 1 run's, each rank's kv-head cache bytes are 1 / TP_WORLD of
-    tp = 1's. Every rank's exit code and result is checked; where a rank
+def serve_tp(torch, counters, card, phases=("17", "19")) -> list:
+    """Phases 17b-c and 19, in the same spawned processes: TP_WORLD
+    spawned ranks over a mesh model=TP_WORLD (every rank on its own card
+    with NCCL when there are enough, else all on cuda:0 over gloo), then
+    the tp = 1 runs on one engine (eager) in a process of its own.
+    Phase 17: TP_RUNS; both ranks' tokens, every emitted token's logits
+    row (bit for bit) and scheduling stats equal the tp = 1 run's, each
+    rank's kv-head cache bytes are 1 / TP_WORLD of tp = 1's; where a rank
     parts, the failure names the first token, logits row (with both top-2
-    margins) and block digest that differ. Returns the runs (their
-    launches are the spawned processes')."""
+    margins) and block digest that differ. Phase 19: SHARD_RUNS with
+    ``shard_params=True`` against tp = 1 runs of the same weights (19b's
+    is phase 17's glm4 run; a MoE model's, beside a plain run, tp = 1
+    replaying the mesh's routing, and that replay again with flipped
+    embeddings), 19b's control, and 19d (``check_shard``). Every rank's
+    exit code and result is checked. Returns the runs (their launches are
+    the spawned processes')."""
     free(torch)
-    one = spawn_ranks(1)[0]["runs"]
-    got = spawn_ranks(TP_WORLD)
+    one_cases, world_cases = [], []
+    if "17" in phases:
+        for arch, layers, max_new in TP_RUNS:
+            rows = "19" in phases and any(
+                (arch, layers, max_new) == r[:3] for r in SHARD_RUNS)
+            one_cases.append((arch, layers, max_new,
+                              {"rows": f"{arch}_tp1"} if rows else {}))
+            world_cases.append((arch, layers, max_new))
+    if "19" in phases:
+        for arch, layers, max_new, f2d in SHARD_RUNS:
+            if not any(c[:3] == (arch, layers, max_new) for c in one_cases):
+                one_cases.append((arch, layers, max_new,
+                                  {"rows": f"{arch}_tp1", "f2d": f2d}))
+            world_cases.append((arch, layers, max_new,
+                                {"shard": True, "f2d": f2d, "tag": "/shard",
+                                 "rows": f"{arch}_shard"}))
+        # 19b's noise floor: tp = 1 with one-ulp flips in its embeddings;
+        # its control: a sharded run with one layer's partial left out
+        one_cases.append(("glm4_9b", 20, 32, {"rows": "glm4_9b_flip",
+                                              "flip": True, "tag": "/flip"}))
+        world_cases.append(("glm4_9b", 20, CONTROL_NEW,
+                            {"shard": True, "control": True,
+                             "tag": "/control", "rows": "glm4_9b_control"}))
+        world_cases.append((MOE_MESH, None, None))
+    got = spawn_ranks(TP_WORLD, world_cases)
+    if "19" in phases:
+        # tp = 1 replaying each MoE mesh run's routing, and again with
+        # flipped embeddings (the floor)
+        for arch, layers, max_new, f2d in SHARD_RUNS:
+            if get_config_of(arch).moe is None:
+                continue
+            ranks = [got[r]["runs"][arch + "/shard"] for r in range(TP_WORLD)]
+            PHASE19_DIR.mkdir(parents=True, exist_ok=True)
+            path = PHASE19_DIR / f"{arch}_mesh_route.pt"
+            torch.save(moe_replay_merge(ranks), path)
+            for tag, flip in (("/replay", False), ("/replay_flip", True)):
+                one_cases.append((arch, layers, max_new, {
+                    "rows": arch + tag.replace("/", "_"), "f2d": f2d,
+                    "replay": str(path), "flip": flip, "tag": tag}))
+    one = spawn_ranks(1, one_cases)[0]["runs"]
     r0 = got[0]
     print(f"[tp] {card}: backend {r0['backend']}, ranks on cards "
           + ", ".join(f"rank {r} -> cuda:{d} ({n})" for r, d, n in r0["cards"])
           + f"; {TP_WORLD} ranks spawned, served and joined in "
-          f"{got['wall_s']:.1f} s", flush=True)
+          f"{got['wall_s']:.1f} s (phases {', '.join(phases)})", flush=True)
     runs = []
-    for arch, layers, max_new in TP_RUNS:
+    for arch, layers, max_new in (TP_RUNS if "17" in phases else ()):
         base = one[arch]
         for rank in range(TP_WORLD):
             mine = got[rank]["runs"][arch]
@@ -6824,10 +7000,306 @@ def serve_tp(torch, counters, card) -> list:
               f"bytes); peak {tp['peak_mem_gib']:.2f} GiB a rank: "
               + json.dumps({k: v for k, v in tp.items()
                             if k not in ("tokens", "launches", "rows",
-                                         "blocks")}),
+                                         "blocks", "routes")}),
               flush=True)
         runs += [base, tp]
+    if "19" in phases:
+        runs += check_shard(torch, card, one, got)
+    # 19b's tp = 1 run is phase 17's: count its launches once
+    return list({id(r): r for r in runs}.values())
+
+
+def moe_mesh_check(torch, mesh) -> dict:
+    """Phase 19d on this rank: qwen3_moe's MoE block at full width (layer
+    0 of its seed-0 weights, whole on each rank) on the serving mesh,
+    "ep_psum" on 8 decode rows and "ep_a2a" on a 512-row chunk (seeded
+    bf16 inputs), against the plain one-process emulation of the same
+    per-shard capacity on the card (``moe_local`` over the whole rows,
+    and over each rank's slice of the sequence for "ep_a2a"): every row
+    within TOL of its norm. Also the distance to one device's block
+    (``moe_local`` over all rows: under "ep_a2a" other drops) and the
+    call's host-clock ms."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import init_model
+    from repro_torch.spmd import collectives
+    cfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b"), num_layers=1)
+    p = init_model(cfg, 0, DEV)["layers"][0]["moe"]
+    free(torch)
+    sm = collectives.ServeMesh(mesh)
+    tp = sm.model.size
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(19)
+    out = {}
+    for mode, (B, S) in (("ep_psum", (8, 1)), ("ep_a2a", (1, 512))):
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        with collectives.use(sm):
+            moe.moe_block(p, x, cfg)                   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = moe.moe_block(p, x, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        n = tp if mode == "ep_a2a" else 1
+        S_l = S // n
+        emu = torch.cat([moe.moe_local(
+            x[:, i * S_l:(i + 1) * S_l].reshape(B * S_l, -1), p, cfg).view(
+                B, S_l, -1) for i in range(n)], dim=1)
+        one = moe.moe_local(x.reshape(B * S, -1), p, cfg).view(B, S, -1)
+        out[mode] = {"rows": B * S, "row_err": row_err(y, emu),
+                     "max_abs_err": err(y, emu),
+                     "one_device_row_err": row_err(y, one), "ms": ms}
+    out["modes"] = dict(sm.moe_modes)
+    del p
+    free(torch)
+    return out
+
+
+def first_tokens(mine: dict, base: dict) -> list:
+    """Each request's first token index where two runs part (the shorter
+    stream's length where they do not)."""
+    return [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+            for a, b in zip(mine["tokens"], base["tokens"])]
+
+
+def explain_parting(base: dict, mine: dict, vocab: int) -> list:
+    """Where ``mine`` parts from ``base``: for each request whose tokens
+    differ or whose streams end apart, (request, token index, margin,
+    gap, near-tie). The margin is how far the base's fp32 logits row put
+    ``mine``'s token below its own there, the gap the largest |difference|
+    of the two runs' rows there (the same context on both; ``rows_gap``
+    holds it to the floor). A near-tie is a margin below TOL or within
+    twice the gap: each score moved by at most the gap, and that swaps
+    only tokens that close."""
+    import torch
+    ma = torch.load(mine["rows_file"])
+    ba = torch.load(base["rows_file"])
+    out = []
+    for r, (a, b) in enumerate(zip(mine["tokens"], base["tokens"])):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            if len(a) != len(b):
+                out.append((r, min(len(a), len(b)), None, None, False))
+            continue
+        row = ba[f"{r}:{i}"]
+        margin = float(row[b[i]] - row[a[i]])
+        gap = err(ma[f"{r}:{i}"][:vocab], row[:vocab])
+        out.append((r, i, round(margin, 6), round(gap, 6),
+                    margin < max(TOL, 2 * gap)))
+    return out
+
+
+def moe_replay_merge(ranks: list) -> dict:
+    """The mesh ranks' routing records (``tp_serve``'s "route_file")
+    joined into whole calls (``models.moe_replay.merge``)."""
+    import torch
+    from repro_torch.models import moe_replay
+    return moe_replay.merge([torch.load(r["route_file"])["calls"]
+                             for r in ranks])
+
+
+def rows_gap(base: dict, mine: dict, vocab: int) -> dict:
+    """How far the two runs' saved fp32 logits rows (their first
+    ``vocab`` columns: the padding columns hold -1e30) of the tokens each
+    request emitted up to its first differing one (the same context on
+    both) are apart: the largest |difference| ("abs"), the largest
+    ``row_err`` (|difference| over the base row's norm, "row"), and the
+    number of rows ("rows")."""
+    import torch
+    a = torch.load(mine["rows_file"])
+    b = torch.load(base["rows_file"])
+    out = {"row": 0.0, "abs": 0.0, "rows": 0}
+    for r, i in enumerate(first_tokens(mine, base)):
+        for j in range(min(i + 1, len(mine["tokens"][r]),
+                           len(base["tokens"][r]))):
+            ra, rb = a[f"{r}:{j}"][:vocab], b[f"{r}:{j}"][:vocab]
+            out["row"] = max(out["row"], row_err(ra[None], rb[None]))
+            out["abs"] = max(out["abs"], err(ra, rb))
+            out["rows"] += 1
+    return out
+
+
+def check_shard(torch, card, one: dict, got: dict) -> list:
+    """Phase 19's checks and lines over the tp = 1 runs ``one`` and the
+    ranks' results ``got``. 19a-c (SHARD_RUNS): rank 0's tokens equal the
+    base's up to a near-tie (``explain_parting``), and its fp32 logits
+    rows before each parting are within SHARD_FLOOR_FACTOR x the floor
+    measured in the same run (``rows_gap``). The base of a dense model is
+    tp = 1, its floor tp = 1 with flipped embeddings; that of a MoE model
+    tp = 1 replaying the mesh's routing (``models.moe_replay``), its floor
+    that replay with flipped embeddings, and then also: every call
+    replayed, every keep mask the mesh's capacity rule's, the router
+    log-probabilities of the rows both runs share within
+    SHARD_FLOOR_FACTOR x the floor's, and each row that the replay's own
+    router routes elsewhere within twice its gap of a tie. Every rank: the
+    tokens rank 0's, the scheduling stats tp = 1's, weight bytes at most
+    SHARD_WEIGHT_SHARE of tp = 1's, the paged kernels and the gather
+    launched, the MoE modes expected. 19b's control lands past its gate.
+    19d's rows within TOL. Returns the runs (tp = 1 and rank 0) for the
+    launch sums."""
+    from repro_torch.models import moe_replay
+    runs = []
+    expect = {"qwen3_moe_30b_a3b": {"ep_psum", "ep_a2a"},
+              "grok1_314b": {"f2d"}, "glm4_9b": set()}
+    gates = {}
+    for tag, (arch, layers, max_new, f2d) in zip("abc", SHARD_RUNS):
+        what = f"phase 19{tag} {arch}"
+        cfg = get_config_of(arch)
+        fails = []                # checked once the run's line is out
+
+        def need(cond, msg):
+            if not cond:
+                fails.append(msg)
+
+        plain = one[arch]
+        ranks = [got[r]["runs"][arch + "/shard"] for r in range(TP_WORLD)]
+        mine = ranks[0]
+        if cfg.moe is not None:
+            base, flip = one[arch + "/replay"], one[arch + "/replay_flip"]
+            need(base["missing"] == 0 and flip["missing"] == 0,
+                 f"the replays missed {base['missing']} and "
+                 f"{flip['missing']} of the mesh's MoE calls")
+            need(base["sched"] == plain["sched"],
+                 "the replay's scheduling stats differ from tp = 1")
+        else:
+            base, flip = plain, one[arch + "/flip"]
+        parted = explain_parting(base, mine, cfg.vocab_size)
+        need(all(p[4] for p in parted),
+             "partings that are no near-tie (request, token, margin, gap, "
+             f"near-tie): {[p for p in parted if not p[4]]}")
+        gap = rows_gap(base, mine, cfg.vocab_size)
+        floor = rows_gap(base, flip, cfg.vocab_size)
+        gates[arch] = (floor, SHARD_FLOOR_FACTOR * floor["abs"])
+        need(gap["abs"] <= SHARD_FLOOR_FACTOR * floor["abs"],
+              f"the sharded logits rows are {gap['abs']} from the "
+              f"base's, past {SHARD_FLOOR_FACTOR} x the floor "
+              f"{floor['abs']}")
+        routing = ""
+        if cfg.moe is not None:
+            rep, rep_flip = (torch.load(r["route_file"]) for r in (base, flip))
+            first, first_f = first_tokens(mine, base), first_tokens(flip, base)
+            cmp = moe_replay.compare(
+                torch.load(PHASE19_DIR / f"{arch}_mesh_route.pt"), rep,
+                lambda q, p: p < base["prompts"][q] + first[q])
+            rfloor = moe_replay.compare(
+                moe_replay.merge([rep_flip["calls"]]), rep,
+                lambda q, p: p < base["prompts"][q] + first_f[q])
+            need(cmp["keep_diffs"] == 0,
+                 f"{cmp['keep_diffs']} rows of the mesh's MoE calls keep "
+                 "other assignments than its capacity rule")
+            need(cmp["rows"] > 0 and cmp["logp_gap"]
+                 <= SHARD_FLOOR_FACTOR * rfloor["logp_gap"],
+                 f"the router log-probabilities of {cmp['rows']} rows are "
+                 f"{cmp['logp_gap']} from the replay's, past "
+                 f"{SHARD_FLOOR_FACTOR} x the floor {rfloor['logp_gap']}")
+            bad = [t for t in cmp["rerouted"] if t["tie"] > 2 * t["gap"]]
+            need(not bad, f"rows the mesh routed past a tie: {bad}")
+            ties = sorted(cmp["rerouted"], key=lambda t: -t["tie"])
+            routing = (
+                f"; routing against the replay ({cmp['calls']} calls, "
+                f"{cmp['rows']} shared rows x layers): rows whose keep mask "
+                f"is not the capacity rule's {cmp['keep_diffs']}, router "
+                f"log-probability gap {cmp['logp_gap']:.6f} (floor {rfloor['logp_gap']:.6f} over "
+                f"{rfloor['rows']}), {len(ties)} rows routed elsewhere than "
+                "the replay's own top k (tie over twice the gap: "
+                f"{len(bad)}), the widest ties (request, position, layer, "
+                "tie, gap): "
+                + json.dumps([(t["request"], t["position"], t["layer"],
+                               round(t["tie"], 6), round(t["gap"], 6))
+                              for t in ties[:12]]))
+        for r, res in enumerate(ranks):
+            need(res["tokens"] == mine["tokens"],
+                 f"rank {r}'s tokens differ from rank 0's")
+            need(res["sched"] == plain["sched"],
+                 f"rank {r}'s scheduling stats differ from tp = 1: "
+                 f"{res['sched']} vs {plain['sched']}")
+            share = res["weight_bytes"] / plain["weight_bytes"]
+            need(res["shard_params"] and share <= SHARD_WEIGHT_SHARE,
+                 f"rank {r} holds {share:.3f} of tp = 1's weight bytes "
+                 f"(limit {SHARD_WEIGHT_SHARE})")
+            for k in ("paged_attention", "paged_prefill_attention",
+                      "gather"):
+                need(res["launches"].get(k, 0) > 0,
+                     f"rank {r} launched no {k}")
+            need(set(res["moe_modes"]) == expect[arch]
+                 and all(v > 0 for v in res["moe_modes"].values()),
+                 f"rank {r}'s MoE modes {res['moe_modes']}, expected "
+                 f"{expect[arch]}")
+        brief_launch = [{k: res["launches"].get(k, 0) for k in
+                         ("paged_attention", "paged_prefill_attention",
+                          "gather")} for res in [plain] + ranks]
+        label = "tp = 1" if cfg.moe is None else "the replay"
+        apart = sum(x != y for x, y in zip(mine["tokens"], plain["tokens"]))
+        print(f"[tp-shard] {card}: 19{tag} {arch} ({layers} of "
+              f"{cfg.num_layers} layers, {max_new} new "
+              f"tokens a request{', expert_ff_2d' if f2d else ''}), mesh "
+              f"model={TP_WORLD}, shard_params=True: tok/s {mine['tok_s']} "
+              f"(tp = 1 eager {plain['tok_s']}); weight bytes a rank "
+              + " / ".join(str(res["weight_bytes"]) for res in ranks)
+              + f" (tp = 1 {plain['weight_bytes']}, share "
+              f"{mine['weight_bytes'] / plain['weight_bytes']:.4f}); peak "
+              + " / ".join(f"{res['peak_mem_gib']:.2f}" for res in ranks)
+              + f" GiB a rank (tp = 1 {plain['peak_mem_gib']:.2f}); MoE "
+              f"modes {mine['moe_modes']}; collectives rank 0: gathers "
+              f"{mine['tp_gathers']} ({mine['tp_gather_bytes']} bytes), "
+              f"reduces {mine['tp_reduces']} ({mine['tp_reduce_bytes']} "
+              f"bytes), all-to-alls {mine['tp_all_to_alls']}, staged copies "
+              f"{mine['tp_staged_copies']} ({mine['tp_staged_bytes']} "
+              f"bytes); launches, tp = 1 then by rank {brief_launch}; "
+              f"{sum(len(t) for t in mine['tokens'])} tokens, "
+              f"{len(parted)} of {len(mine['tokens'])} requests part from "
+              f"{label} (request, token, how far {label}'s scores put the "
+              "sharded token below its own, the rows' largest |difference| "
+              f"there, a near-tie: below {TOL} or twice that): {parted}"
+              + ("" if cfg.moe is None else
+                 f" ({apart} part from the plain tp = 1 run, whose "
+                 "routing is its own)")
+              + f"; logits rows before each parting ({gap['rows']}): "
+              f"largest |difference| {gap['abs']:.6f} ("
+              f"{'within' if gap['abs'] <= TOL else 'not within'} {TOL}), "
+              f"{gap['row']:.6f} of the row's norm; the floor, {label} "
+              f"again with one-ulp flips in {FLIP_SHARE} of its embedding "
+              f"outputs ({floor['rows']} rows): {floor['abs']:.6f}, "
+              f"{floor['row']:.6f} of the norm; the gate "
+              f"{SHARD_FLOOR_FACTOR} x the floor" + routing,
+              flush=True)
+        check(not fails, f"{what}: " + "; ".join(fails))
+        runs += [plain, mine]
+    ctrl = got[0]["runs"]["glm4_9b/control"]
+    floor, gate = gates["glm4_9b"]
+    cgap = rows_gap(one["glm4_9b"], ctrl, get_config_of("glm4_9b").vocab_size)
+    check(cgap["abs"] > gate,
+          f"phase 19b's control (rank 1's wo of layer {CONTROL_LAYER} "
+          f"zeroed) is {cgap['abs']} from tp = 1, inside the gate {gate}")
+    print(f"[tp-shard] {card}: 19b control, glm4_9b sharded with rank 1's "
+          f"wo of layer {CONTROL_LAYER} zeroed ({CONTROL_NEW} new tokens a "
+          f"request): logits rows before each parting ({cgap['rows']}) "
+          f"{cgap['abs']:.6f} from tp = 1's, {cgap['row']:.6f} of the norm: "
+          f"past the gate {gate:.6f} ({SHARD_FLOOR_FACTOR} x the floor "
+          f"{floor['abs']:.6f})", flush=True)
+    for r in range(TP_WORLD):
+        res = got[r]["runs"][MOE_MESH]
+        for mode in ("ep_psum", "ep_a2a"):
+            check(res[mode]["row_err"] <= TOL,
+                  f"phase 19d: rank {r}'s {mode} block is "
+                  f"{res[mode]['row_err']} from the emulation (rows, limit "
+                  f"{TOL})")
+        check(res["modes"] == {"ep_psum": 2, "ep_a2a": 2},
+              f"phase 19d: rank {r}'s modes {res['modes']}")
+        print(f"[moe-mesh] {card}: 19d rank {r}: qwen3_moe's MoE block at "
+              f"full width, model={TP_WORLD}, against the one-process "
+              f"emulation of the same per-shard capacity: "
+              + json.dumps({m: res[m] for m in ("ep_psum", "ep_a2a")}),
+              flush=True)
     return runs
+
+
+def get_config_of(arch: str):
+    from repro_torch.config import get_config
+    return get_config(arch)
 
 
 # ---------------------------------------------------------------------------
@@ -7375,7 +7847,7 @@ def main() -> int:
 
     phases = sys.argv[2].split(",") if dev_run else []
     if phases and set(phases) <= {"12", "2g", "2h", "8", "13", "14", "16",
-                                  "17", "17a", "18"}:
+                                  "17", "17a", "18", "19"}:
         # a development run: some phases alone, in the order given (14:
         # phase 5's 512-token runs, each followed by phase 14; "13 ARCH
         # ..." some of its models); no summary and no result line
@@ -7409,8 +7881,10 @@ def main() -> int:
                 del timer
                 free(torch)
                 if phase == "17":
-                    serve_tp(torch, KERNELS, card)
+                    serve_tp(torch, KERNELS, card, phases=("17",))
                 print(f"[kernels] phase {phase}: {json.dumps(rows)}")
+            elif phase == "19":
+                serve_tp(torch, KERNELS, card, phases=("19",))
             elif phase == "13":
                 train_families(torch, KERNELS, card, sys.argv[3:] or None)
             elif phase == "18":
@@ -7435,7 +7909,7 @@ def main() -> int:
         return 0
     rows, runs = earlier_phases(torch, card, t0)
     runs += serve_tp(torch, KERNELS, card)
-    lap(t0, 17)
+    lap(t0, "17, 19")
     runs += train_mesh(torch, card)
     lap(t0, 18)
 

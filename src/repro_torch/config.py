@@ -170,8 +170,13 @@ class ShapeConfig:
 class ParallelConfig:
     """The JAX package's parallel configuration, field for field. On a
     mesh the trainer shards the masters and slots over "data" with
-    ``zero1`` (on one device it shards nothing); it refuses ``fsdp`` and
-    ``seq_shard_activations`` by name (ROADMAP.md queue 1 item 12)."""
+    ``zero1`` (on one device it shards nothing). The serving engine reads
+    ``expert_ff_2d`` (``InferenceEngine(pcfg=...)``: grok-1's MoE layout,
+    the expert d_ff over ("data", "model")). What training still lacks,
+    refused by name (``spmd.steps.check_train_config``; ROADMAP.md queue
+    1 item 12): ``fsdp``, ``seq_shard_activations``, and tensor
+    parallelism of the MoE, SSM, hybrid, encoder-decoder and VLM
+    families (they train data parallel)."""
     fsdp: bool = False            # shard params over "data" too
     zero1: bool = True            # shard optimizer state over "data"
     remat: str = "full"           # none | dots | full

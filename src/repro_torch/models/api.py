@@ -48,12 +48,18 @@ def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.encoder_layers > 0
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None,
+               place=None):
     """Random parameters for a dense, MoE, M-RoPE, SSM or hybrid decoder
     or an encoder-decoder, drawn on ``device`` in fp32 and stored in
     ``dtype``: ``cfg.dtype`` by default (every leaf, as the serving
     engines cast the whole tree), or ``torch.float32`` for the training
-    masters (the draw itself)."""
+    masters (the draw itself). ``place(subtree, path)``, where given, is
+    applied to each top-level part as soon as it is drawn (the embedding,
+    each layer, each final norm, the shared block; path ("embed",),
+    ("layers", i), ...) and its result kept instead: a sharded engine
+    cuts each part to its rank's shard there, so the whole model never
+    exists at once. The draws, and so the numbers, are the same."""
     dt = _DTYPES[cfg.dtype] if dtype is None else dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -80,9 +86,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
             p["bias"] = torch.zeros(d, dtype=dt, device=device)
         return p
 
+    def put(tree, *path):
+        return tree if place is None else place(tree, path)
+
     embed = {"table": dense((V, d), scale=0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = dense((V, d))
+    embed = put(embed, "embed")
     if cfg.mlp_activation == "gelu_mlp":
         def mlp():
             return {"w_in": dense((d, f)), "w_out": dense((f, d))}
@@ -119,9 +129,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
             return {"norm": norm(), "attn": attention(), "xnorm": norm(),
                     "xattn": attention(), "norm2": norm(), "mlp": mlp()}
         return {"embed": embed,
-                "encoder": [attn_block() for _ in range(cfg.encoder_layers)],
-                "decoder": [dec_block() for _ in range(cfg.num_layers)],
-                "enc_final_norm": norm(), "final_norm": norm()}
+                "encoder": [put(attn_block(), "encoder", i)
+                            for i in range(cfg.encoder_layers)],
+                "decoder": [put(dec_block(), "decoder", i)
+                            for i in range(cfg.num_layers)],
+                "enc_final_norm": put(norm(), "enc_final_norm"),
+                "final_norm": put(norm(), "final_norm")}
 
     def mamba_block():
         s = cfg.ssm
@@ -141,11 +154,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
             "D": const(torch.ones(nh)), "norm_scale": const(torch.ones(di)),
             "w_out": dense((di, d))}}
 
-    layers = [mamba_block() if kind == MAMBA else attn_block()
-              for kind in cfg.layer_kinds()]
-    params = {"embed": embed, "layers": layers, "final_norm": norm()}
+    layers = [put(mamba_block() if kind == MAMBA else attn_block(),
+                  "layers", i) for i, kind in enumerate(cfg.layer_kinds())]
+    params = {"embed": embed, "layers": layers,
+              "final_norm": put(norm(), "final_norm")}
     if cfg.shared_attn_period:
-        params["shared"] = attn_block(shared=True)
+        params["shared"] = put(attn_block(shared=True), "shared")
     return params
 
 

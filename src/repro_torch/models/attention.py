@@ -20,9 +20,15 @@ of each local kv head (g-major: q heads g * K + k), and ``gather_heads``
 restores every head in the global order before ``out_proj``: an exact
 gather, so every contraction across heads runs whole on every rank and the
 outputs are the same bits on any tp (the JAX package's
-``replicate_over_model``). ``paged_shard_attention`` is the other
-sharding, of the blocks axis: per-shard partial softmaxes over disjoint
-pages, LSE-stitched.
+``replicate_over_model``). With sharded weights (the engine's
+``shard_params=True``: ``wq`` / ``wk`` / ``wv`` hold the rank's heads,
+``spmd.sharding``'s kv-group cut) the projections give the rank's heads
+only, the attention takes them as they are (``local_q=True``: no
+narrowing, no gather), and ``out_proj`` over the rank's rows of ``wo``
+is a partial sum that the block sums over the group (row parallel, as in
+training). ``paged_shard_attention`` is the other sharding, of the
+blocks axis: per-shard partial softmaxes over disjoint pages,
+LSE-stitched.
 
 Tensor-parallel training (a ``spmd.collectives`` training mesh current,
 its "model" group of size tp > 1): the weights are the rank's shards
@@ -88,14 +94,14 @@ def _model_group():
     return g if g is not None and g.size > 1 else None
 
 
-def local_kv_heads(x, dim: int = -2):
-    """This rank's kv heads of ``x`` along ``dim`` (its K / tp contiguous
-    heads), or ``x`` itself without tensor parallelism."""
+def local_kv_heads(x, held: int, dim: int = -2):
+    """This rank's ``held`` kv heads of ``x`` along ``dim`` (its K / tp
+    contiguous heads), or ``x`` itself without tensor parallelism or where
+    it holds just those (a sharded projection's)."""
     g = _model_group()
-    if g is None:
+    if g is None or x.shape[dim] == held:
         return x
-    n = x.shape[dim] // g.size
-    return x.narrow(dim, g.rank * n, n)
+    return x.narrow(dim, g.rank * held, held)
 
 
 def _local_q(q, k_local: int):
@@ -124,11 +130,12 @@ def gather_heads(o, k_local: int):
     return full.reshape(*lead, G * k_local * g.size, hd)
 
 
-def over_local_heads(attend, q, k_local: int):
+def over_local_heads(attend, q, k_local: int, local_q: bool = False):
     """``attend(q)`` over this rank's kv heads with tensor parallelism
     (q cut to their query heads, the result gathered to all H), else
-    ``attend(q)``."""
-    if _model_group() is None:
+    ``attend(q)``. ``local_q``: q holds those query heads already (a
+    sharded projection's), and so does the result."""
+    if _model_group() is None or local_q:
         return attend(q)
     return gather_heads(attend(_local_q(q, k_local).contiguous()), k_local)
 
@@ -445,21 +452,22 @@ def update_paged_cache_ragged(pages, new, block_tables, ctx_lens, starts,
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                            window=None, cap=None, scale=None, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, local_q=False):
     """Decode attention via block tables. q: (B, 1, H, hd) -> (B, 1, H, hd).
     With tensor parallelism each rank attends its pools' kv heads and the
-    heads are gathered."""
+    heads are gathered (``local_q``: q and the result hold the rank's
+    query heads only)."""
     o = over_local_heads(
         lambda qh: ops.paged_attention(
             qh, k_pages, v_pages, block_tables, ctx_lens, window=window,
             cap=cap, scale=scale, k_scale=k_scale, v_scale=v_scale),
-        q[:, 0].contiguous(), k_pages.shape[2])
+        q[:, 0].contiguous(), k_pages.shape[2], local_q)
     return o[:, None].to(q.dtype)
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                           q_lens, *, window=None, cap=None, scale=None,
-                          k_scale=None, v_scale=None):
+                          k_scale=None, v_scale=None, local_q=False):
     """Chunked-prefill attention via block tables: the C queries of one
     prompt chunk attend causally to the paged context (this chunk's KV
     already scattered in). q: (B, C, H, hd) -> (B, C, H, hd); sharded
@@ -469,7 +477,7 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
             qh, k_pages, v_pages, block_tables, ctx_lens, q_lens,
             window=window, cap=cap, scale=scale, k_scale=k_scale,
             v_scale=v_scale),
-        q.contiguous(), k_pages.shape[2])
+        q.contiguous(), k_pages.shape[2], local_q)
     return o.to(q.dtype)
 
 
@@ -580,7 +588,8 @@ def ragged_chunk_attention_xla(q, k_pages, v_pages, block_tables, ctx_lens,
 
 def ragged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                            starts, ends, row_seq, *, window=None, cap=None,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, k_scale=None, v_scale=None,
+                           local_q=False):
     """Packed (ragged) chunked-prefill attention via block tables: chunks
     of up to S sequences ride one flat (1, T, H, hd) row batch, each row
     attending causally to its owner's paged context (the chunk's KV
@@ -591,14 +600,15 @@ def ragged_chunk_attention(q, k_pages, v_pages, block_tables, ctx_lens,
             qh, k_pages, v_pages, block_tables, ctx_lens, starts, ends,
             row_seq, window=window, cap=cap, scale=scale, k_scale=k_scale,
             v_scale=v_scale),
-        q[0].contiguous(), k_pages.shape[2])
+        q[0].contiguous(), k_pages.shape[2], local_q)
     return o[None].to(q.dtype)
 
 
 def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
                                block_tables, ctx_lens, starts, ends,
                                row_seq, *, window=None, cap=None,
-                               scale=None, k_scale=None, v_scale=None):
+                               scale=None, k_scale=None, v_scale=None,
+                               local_q=False):
     """Scatter a packed chunk's KV into the pages and attend, as one fused
     op (``ops.ragged_prefill_update_attend``). q: (1, T, H, hd); k_new /
     v_new: (1, T, K, hd), same flat rows. Returns ``(o, k_pages,
@@ -612,7 +622,8 @@ def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
     With tensor parallelism k_new / v_new are cut to this rank's kv heads
     (the pools' heads) and the attention is sharded as
     ``paged_decode_attention``'s."""
-    k_new, v_new = local_kv_heads(k_new), local_kv_heads(v_new)
+    K_l = k_pages.shape[2]
+    k_new, v_new = local_kv_heads(k_new, K_l), local_kv_heads(v_new, K_l)
     if k_scale is not None:
         kvd = quant.kv_dtype_name(k_pages.dtype)
         k_new, ksr = quant.quantize_kv(k_new, kvd)
@@ -626,7 +637,7 @@ def ragged_chunk_update_attend(q, k_new, v_new, k_pages, v_pages,
             v_pages, block_tables, ctx_lens, starts, ends, row_seq,
             window=window, cap=cap, scale=scale, k_scale=k_scale,
             v_scale=v_scale)[0],
-        q[0].contiguous(), k_pages.shape[2])
+        q[0].contiguous(), K_l, local_q)
     kc, vc = k_pages, v_pages
     if k_scale is not None:
         return o[None].to(q.dtype), kc, vc, k_scale, v_scale

@@ -13,7 +13,13 @@ is the mean of its rows; the step averages the gradients and the loss
 over "data", the gradient of the JAX package's ``pmean``). With the
 whole table the Part/Gather/Stitch collapses to one clamped gather, the
 logits to one fp32 product, and the stitches to their one-shard values.
-The serving paths hold whole tables."""
+
+Serving reads the same shards where the engine shards its weights
+(``shard_params=True``; ``shard_group`` then finds the serving mesh's
+"model" group): ``embed`` is the same vocab-parallel lookup, bit for bit
+the whole table's (one nonzero term a row), and ``decode_logits``
+multiplies the rank's V_pad / tp head rows and gathers the fp32 logits
+exactly into whole V_pad rows, which is what sampling reads."""
 
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ def head_table(params, cfg: ModelConfig):
 
 
 def vocab_shard(table, cfg: ModelConfig):
-    """(model group, first row's vocab id) of a training rank's vocab
-    shard of the table, or (None, 0) for a whole table."""
+    """(model group, first row's vocab id) of a rank's vocab shard of the
+    table, or (None, 0) for a whole table."""
     grp = collectives.shard_group(table.shape[0], cfg.padded_vocab_size,
                                   "a table's vocab rows")
     return (None, 0) if grp is None else (grp, grp.rank * table.shape[0])
@@ -68,11 +74,15 @@ def embed(table, tokens, cfg: ModelConfig):
 def decode_logits(x, table, cfg: ModelConfig):
     """x: (B, 1, d) -> (B, V_pad) fp32 logits, vocab-padding columns set to
     NEG. A true fp32 product: pass an fp32 ``table`` to skip the per-call
-    cast (the serving runner keeps one fp32 copy of the head)."""
+    cast (the serving runner keeps one fp32 copy of the head). A vocab
+    shard's logits are gathered over its group into whole rows."""
+    grp, off = vocab_shard(table, cfg)
     logits = x[:, 0].float() @ table.float().T
     logits = softcap(logits, cfg.final_logit_softcap)
-    col_ok = torch.arange(table.shape[0], device=x.device) < cfg.vocab_size
-    return torch.where(col_ok[None, :], logits, NEG)
+    col_ok = torch.arange(off, off + table.shape[0],
+                          device=x.device) < cfg.vocab_size
+    logits = torch.where(col_ok[None, :], logits, NEG)
+    return logits if grp is None else grp.gather(logits, -1)
 
 
 def decode_logits_argmax(x, table, cfg: ModelConfig):

@@ -265,10 +265,13 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None):
     def self_attend(ap, h, layer):
         q = project_q(ap, h, cfg, cos_sin)
         k, v = project_kv(ap, h, cfg, cos_sin)
-        kc = update_paged_cache_chunk(pools["k"][layer], local_kv_heads(k),
-                                      bt, q_start, q_lens)
-        vc = update_paged_cache_chunk(pools["v"][layer], local_kv_heads(v),
-                                      bt, q_start, q_lens)
+        K_l = pools["k"].shape[-2]
+        kc = update_paged_cache_chunk(pools["k"][layer],
+                                      local_kv_heads(k, K_l), bt, q_start,
+                                      q_lens)
+        vc = update_paged_cache_chunk(pools["v"][layer],
+                                      local_kv_heads(v, K_l), bt, q_start,
+                                      q_lens)
         return paged_chunk_attention(q, kc, vc, bt, ctx_lens, q_lens,
                                      scale=scale)
 
@@ -307,10 +310,11 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
     def self_attend(ap, h, layer):
         q = project_q(ap, h, cfg, cos_sin)
         k, v = project_kv(ap, h, cfg, cos_sin)
-        kc = update_paged_cache(pools["k"][layer], local_kv_heads(k), bt,
-                                pos)
-        vc = update_paged_cache(pools["v"][layer], local_kv_heads(v), bt,
-                                pos)
+        K_l = pools["k"].shape[-2]
+        kc = update_paged_cache(pools["k"][layer], local_kv_heads(k, K_l),
+                                bt, pos)
+        vc = update_paged_cache(pools["v"][layer], local_kv_heads(v, K_l),
+                                bt, pos)
         return paged_decode_attention(q, kc, vc, bt, ctx_lens, scale=scale)
 
     def cross_attend(ap, h, layer):

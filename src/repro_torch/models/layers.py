@@ -75,11 +75,11 @@ _ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def apply_mlp(params, x, cfg: ModelConfig):
-    """The MLP. In training under a sharding "model" group whose ``ff``
-    slice the weights hold (Megatron-style: ``w_gate`` / ``w_in`` column
-    parallel, ``w_out`` row parallel), x enters through
-    ``collectives.copy_to`` and the partial outputs are summed over the
-    group."""
+    """The MLP. Where the weights hold a sharding "model" group's ``ff``
+    slice (Megatron-style: ``w_gate`` / ``w_in`` column parallel,
+    ``w_out`` row parallel; in training, or serving with sharded
+    weights), x enters through ``collectives.copy_to`` and the partial
+    outputs are summed over the group."""
     grp = collectives.shard_group(params["w_in"].shape[-1], cfg.d_ff,
                                   "the MLP's ff slice")
     x = collectives.copy_to(x, grp)

@@ -79,8 +79,9 @@ def _attn_part(lp, x, cfg: ModelConfig, attend):
     """The attention half of a block: ``attend`` maps the normed input to
     the attention output, which goes through ``out_proj`` and the
     post-block norm into the residual."""
+    # a rank's heads (row parallel, in training or with sharded weights):
+    # summed over "model"
     y = out_proj(lp["attn"], attend(apply_norm(lp["norm"], x, cfg)), x.dtype)
-    # a training rank's heads (row parallel): summed over "model"
     y = collectives.reduce_from(y, collectives.shard_group(
         lp["attn"]["wo"].shape[0], cfg.num_heads, "out_proj's heads"))
     return x + _post_norm(lp, "post_norm", y, cfg)
@@ -178,7 +179,8 @@ def _store_kv(pools, k, v, update, *args):
     *args)``: quantized first for an int8/fp8 pool, whose scale rows go
     into the scale pools. With tensor parallelism only this rank's kv
     heads, the pools' own. Returns the attention's scale keywords."""
-    k, v = local_kv_heads(k), local_kv_heads(v)
+    K_l = pools["k"].shape[-2]
+    k, v = local_kv_heads(k, K_l), local_kv_heads(v, K_l)
     scales = {}
     if "k_scale" in pools:
         kvd = quant.kv_dtype_name(pools["k"].dtype)
@@ -190,6 +192,15 @@ def _store_kv(pools, k, v, update, *args):
     update(pools["k"], k, *args)
     update(pools["v"], v, *args)
     return scales
+
+
+def _attn_kw(ap, cfg: ModelConfig, window) -> dict:
+    """The paged attention's keywords for a layer's attention params
+    ``ap``: its window, softcap and scale, and ``local_q`` where ``wq``
+    holds a rank's shard of the query heads (sharded weights)."""
+    return dict(window=window, cap=cfg.attn_logit_softcap,
+                scale=attention_scale(cfg),
+                local_q=ap["wq"].shape[1] != cfg.num_heads)
 
 
 def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
@@ -213,9 +224,8 @@ def decode_step_paged(params, cache, batch, cfg: ModelConfig, head=None):
         k, v = project_kv(ap, h, cfg, cos_sin)
         scales = _store_kv(pools, k, v, update_paged_cache, bt, pos)
         return paged_decode_attention(q, pools["k"], pools["v"], bt,
-                                      ctx_lens, window=window,
-                                      cap=cfg.attn_logit_softcap,
-                                      scale=attention_scale(cfg), **scales)
+                                      ctx_lens, **_attn_kw(ap, cfg, window),
+                                      **scales)
 
     def mamba(mp, h, m):
         conv, ssm = cache["conv"][m], cache["ssm"][m]
@@ -262,9 +272,8 @@ def prefill_chunk_paged(params, cache, batch, cfg: ModelConfig, head=None,
         scales = _store_kv(pools, k, v, update_paged_cache_chunk, bt,
                            q_start, q_lens)
         return paged_chunk_attention(q, pools["k"], pools["v"], bt, ctx_lens,
-                                     q_lens, window=window,
-                                     cap=cfg.attn_logit_softcap,
-                                     scale=attention_scale(cfg), **scales)
+                                     q_lens, **_attn_kw(ap, cfg, window),
+                                     **scales)
 
     def mamba(mp, h, m):
         conv, ssm = cache["conv"][m], cache["ssm"][m]
@@ -314,9 +323,8 @@ def prefill_chunk_ragged(params, cache, batch, cfg: ModelConfig, head=None):
         k, v = project_kv(ap, h, cfg, cos_sin)
         scales = {n: pools[n] for n in ("k_scale", "v_scale") if n in pools}
         return ragged_chunk_update_attend(
-            q, k, v, pools["k"], pools["v"], *seqs, window=window,
-            cap=cfg.attn_logit_softcap, scale=attention_scale(cfg),
-            **scales)[0]
+            q, k, v, pools["k"], pools["v"], *seqs,
+            **_attn_kw(ap, cfg, window), **scales)[0]
 
     x = _layers(params, cache, cfg, x, attend)
     last = (batch["ends"].long() - 1).clamp(0, T - 1)             # (S,)

@@ -63,20 +63,46 @@ addresses, read what was copied. ``abort`` cancels a request between
 steps.
 
 Tensor parallelism (``mesh``, a ``launch.mesh.make_host_mesh`` mesh whose
-"model" axis has tp > 1 ranks; one engine a rank): every rank holds the
-whole weights and K / tp kv heads of each page pool (and of whisper's
-cross K/V), attends its own heads and gathers them exactly before
-``out_proj`` (``models.attention``), so every rank computes the same bits
-as one device would. Host state (block tables, refcounts, hashes, the
+"model" axis has tp > 1 ranks; one engine a rank): every rank holds K /
+tp kv heads of each page pool (and of whisper's cross K/V) and attends
+its own heads. Host state (block tables, refcounts, hashes, the
 scheduler) is global and identical on every rank: rank 0 of the group
 owns submissions and aborts (``run()``, the async driver, ``abort``), and
 each ``step()`` first broadcasts what it received since the last step,
 its drain flag, its clock and its swap cost model's rates; the other
 ranks run ``follow()``, which replays them and steps, until rank 0's
-``close()``.
+``close()``. The group is the "model" axis (each data replica drives its
+own), or the whole mesh where a MoE block sums or splits over "data"
+too (a MoE model on a data axis).
+
+What a mesh computes (docs/torch-serving-mesh.md):
+- Weights whole on every rank (``shard_params=False``, the default): a
+  rank gathers its heads exactly before ``out_proj`` (``models.
+  attention``), so a dense model's every contraction runs whole, in one
+  device's order: its outputs are the tp = 1 engine's bits. A MoE block
+  runs the reference's mode for the mesh (``models.moe``: "ep_psum" at
+  decode, "ep_a2a" on chunks tp divides, "tp", grok-1's ``f2d``), each
+  rank taking its experts or d_ff columns from the whole leaves: its sums
+  run in another order, and under "ep_a2a" each rank's capacity is its
+  own (other assignments drop), so a MoE engine on a mesh is
+  argmax-close to tp = 1, not bitwise, as in the reference.
+- Sharded weights (``shard_params=True``; dense and MoE decoders, the
+  speculative draft under the same rules): each rank holds its cut of
+  every weight (``spmd.sharding.serving_layouts``): query and kv heads,
+  ff, vocab rows of the table and head over "model", the MoE leaves in
+  the cut their block's mode reads. The attention and MLP outputs are
+  partial sums over "model", the logits rows each rank's vocab shard,
+  gathered exactly. The sums reorder, so the outputs are argmax-close to
+  tp = 1 (the reference's "only argmax-close"). The weights are cut as
+  they are drawn (``init_model``'s ``place``), one layer at a time, so no
+  rank ever holds the whole model; given ``params`` are cut on the same
+  rule. The SSM, hybrid, encoder-decoder and VLM families are refused
+  (ROADMAP.md queue 1 item 12), as is ``pcfg.fsdp``.
+``stats`` gains each rank's ``weight_bytes`` and the MoE block's calls by
+mode (``moe_modes``).
 Under ``debug_invariants`` the ranks compare a digest of every step plan.
-The tensor-parallel engine runs eagerly, and refuses ``shard_params``,
-CUDA graphs and a shared index (ROADMAP.md queue 1 item 12).
+The tensor-parallel engine runs eagerly, and refuses CUDA graphs and a
+shared index (ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -90,7 +116,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.models import quant
 from repro_torch.models.api import init_model
 from repro_torch.models.transformer import PAGE_POOLS
@@ -328,8 +354,22 @@ def _runs(pairs):
     return out
 
 
+def weight_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(weight_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+# families whose weights a serving mesh can shard (shard_params=True)
+SHARDED_FAMILIES = ("dense", "moe")
+
+
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 pcfg: ParallelConfig | None = None,
                  max_batch: int = 8, block_size: int = 16,
                  max_len: int = 128, num_blocks: int | None = None,
                  max_num_batched_tokens: int | None = None,
@@ -342,16 +382,36 @@ class InferenceEngine:
                  swap_space_bytes: int = 0, swap_policy: str = "auto",
                  shared_index=None, mesh=None, shard_params: bool = False,
                  cuda_graphs: bool | None = None):
-        if shard_params:
-            _refuse_tp("shard_params=True (weights sharded over the mesh)")
+        self.pcfg = pcfg or ParallelConfig(remat="none")
         # tensor parallelism over the mesh's "model" axis: pools and the
-        # cross K/V shard by kv head, weights and slot state stay whole
+        # cross K/V shard by kv head, slot state stays whole, weights too
+        # unless shard_params
         self.tp = shd.serving_tp(mesh)
-        if self.tp > 1 and cuda_graphs:
+        dp = shd.mesh_shape(mesh).get("data", 1)
+        # as in the reference, shard_params needs a "model" axis
+        self.shard_params = bool(shard_params) and self.tp > 1
+        if self.shard_params:
+            for c in (cfg, draft_cfg):
+                if c is not None and c.family not in SHARDED_FAMILIES:
+                    _refuse_tp(f"shard_params=True for {c.name} (the "
+                               f"{c.family} family; sharded weights serve "
+                               "the dense and MoE decoders)")
+            if self.pcfg.fsdp:
+                _refuse_tp("shard_params=True with pcfg.fsdp (weights "
+                           "sharded over \"data\")")
+        moe = any(c is not None and c.moe is not None
+                  for c in (cfg, draft_cfg))
+        # the whole mesh steps together where a MoE block sums or splits
+        # over "data"; else each "model" group on its own
+        lockstep = moe and dp > 1
+        meshed = self.tp > 1 or lockstep
+        if meshed and cuda_graphs:
             _refuse_tp("cuda_graphs=True (collectives under CUDA graphs)")
-        if self.tp > 1 and shared_index is not None:
+        if meshed and shared_index is not None:
             _refuse_tp("shared_index (a router over tensor-parallel "
                        "engines)")
+        self.serve_mesh = collectives.ServeMesh(
+            mesh, f2d=self.pcfg.expert_ff_2d) if meshed else None
         if kv_dtype not in quant.KV_DTYPES:
             raise ValueError(
                 f"kv_dtype={kv_dtype!r} not in {sorted(quant.KV_DTYPES)}")
@@ -369,14 +429,15 @@ class InferenceEngine:
             shd.kv_heads_per_rank(cfg.num_kv_heads, self.tp)
             if draft_cfg is not None:
                 shd.kv_heads_per_rank(draft_cfg.num_kv_heads, self.tp)
-        self.group = (collectives.ModelGroup(mesh.get_group("model"))
-                      if self.tp > 1 else None)
+        sm = self.serve_mesh
+        self.group = (None if sm is None else sm.both if lockstep
+                      else sm.model)
         spec = self.runner.spec_tokens
         self.cfg = cfg
         self.device = torch.device(device)
         on_card = self.device.type == "cuda"
         if cuda_graphs is None:
-            cuda_graphs = on_card and self.tp == 1
+            cuda_graphs = on_card and sm is None
         if cuda_graphs and not on_card:
             raise ValueError(f"cuda_graphs=True on {self.device}: CUDA "
                              "graphs need a CUDA device")
@@ -476,11 +537,10 @@ class InferenceEngine:
                                encoder_cache=self.encoder_cache)
         self.max_batch = max_batch
         self.debug_invariants = debug_invariants
-        if params is None:
-            params = init_model(cfg, seed, self.device)
+        params = self._weights(cfg, params, seed, mesh)
         if draft_cfg is not None:
-            if draft_params is None:
-                draft_params = init_model(draft_cfg, seed + 1, self.device)
+            draft_params = self._weights(draft_cfg, draft_params, seed + 1,
+                                         mesh)
             params = {"tgt": params, "dft": draft_params}
         self.params = params
         self.runner.bind(self.params)
@@ -558,11 +618,19 @@ class InferenceEngine:
                       "slot_state_mib": round(slot_mib, 3),
                       "kv_dtype": kv_dtype,
                       "graph_captures": 0,
-                      # tensor parallelism: the degree, and the model
-                      # group's gathers (spmd.collectives.ModelGroup.stats;
-                      # "staged": through pinned host memory under gloo)
+                      # tensor parallelism: the degree, and the mesh
+                      # groups' collectives (spmd.collectives.ModelGroup.
+                      # stats; "staged": through pinned host memory under
+                      # gloo)
                       "tp": self.tp, "tp_gathers": 0, "tp_gather_bytes": 0,
                       "tp_staged_copies": 0, "tp_staged_bytes": 0,
+                      "tp_reduces": 0, "tp_reduce_bytes": 0,
+                      "tp_all_to_alls": 0,
+                      # this rank's weights (the fp32 head copy aside)
+                      "shard_params": self.shard_params,
+                      "weight_bytes": weight_bytes(self.params),
+                      # the MoE block's calls by mode (models.moe)
+                      "moe_modes": {},
                       # by (shape, mode): "decode", "chunk" (greedy),
                       # "decode/plain", "chunk/full", ...
                       "graph_replays": {"chunk": 0, "decode": 0}}
@@ -575,6 +643,29 @@ class InferenceEngine:
         # appended token, on_finish(req) after the request has retired
         self.on_token = None
         self.on_finish = None
+
+    def _weights(self, cfg: ModelConfig, params, seed: int, mesh):
+        """One model's weights on the device: ``params``, or drawn from
+        ``seed``; with ``shard_params``, this rank's cut of every leaf,
+        each part cut as soon as it is drawn (or from the given whole
+        leaves)."""
+        if not self.shard_params:
+            return (init_model(cfg, seed, self.device) if params is None
+                    else params)
+        sm = self.serve_mesh
+        layouts = shd.serving_layouts(cfg, self.pcfg, mesh)
+        coords = {"data": sm.data.rank, "model": sm.model.rank}
+        sizes = shd.mesh_shape(mesh)
+
+        def place(tree, path):
+            lay = layouts
+            for key in path:
+                lay = lay[key]
+            return shd.cut_tree(tree, lay, coords, sizes)
+
+        if params is None:
+            return init_model(cfg, seed, self.device, place=place)
+        return shd.cut_tree(params, layouts, coords, sizes)
 
     # -- derived stats -----------------------------------------------------
 
@@ -993,11 +1084,12 @@ class InferenceEngine:
         return self._group_step()
 
     def _group_step(self) -> bool:
-        with self._on_stream(), collectives.use(self.group):
+        with self._on_stream(), collectives.use(self.serve_mesh):
             ran = self._step()
-        if self.group is not None:
-            for k, v in self.group.stats.items():
+        if self.serve_mesh is not None:
+            for k, v in self.serve_mesh.stats.items():
                 self.stats[f"tp_{k}"] = v
+            self.stats["moe_modes"] = dict(self.serve_mesh.moe_modes)
         return ran
 
     def _step_message(self) -> dict:

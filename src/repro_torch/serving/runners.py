@@ -112,7 +112,8 @@ class ModelRunner:
     def bind(self, params):
         """Keep one fp32 copy of the logits table: ``decode_logits`` is a
         true fp32 product, and casting the table on every step would move
-        three times its bf16 bytes."""
+        three times its bf16 bytes. With sharded weights the table is the
+        rank's vocab shard, and so is the copy."""
         self.head = head_table(params["embed"], self.cfg).float()
 
     def init_cache(self, num_blocks: int, block_size: int, max_batch: int,
@@ -295,7 +296,8 @@ class EncDecRunner(ModelRunner):
         with tensor parallelism, this rank's kv heads of it."""
         kv = encdec.encode_cross_kv(params, frames[None], self.cfg)
         for name in ("xk", "xv"):
-            cache["cross"][name][:, slot] = local_kv_heads(kv[name][:, 0])
+            xkv = cache["cross"][name]
+            xkv[:, slot] = local_kv_heads(kv[name][:, 0], xkv.shape[-2])
 
     def step(self, params, cache, a, *, has_chunk, sampling="greedy"):
         logits_c = None

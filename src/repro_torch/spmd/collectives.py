@@ -30,28 +30,37 @@ sharded work), ``reduce_from`` (all-reduce forward, identity backward:
 where partial results leave it) and ``gather_seq`` (all-gather forward,
 this rank's slice of the gradient backward).
 
-The engine makes its group the current one (``use``) around each step;
-``current()`` is what the serving model code reads, as the JAX package's
-reads the ambient mesh. Thread-local: engines stepped by different
-threads keep their own. The train step makes its ``TrainMesh`` current
+The engine makes its ``ServeMesh`` (the serving mesh's "model", "data"
+and whole-mesh groups) the current one (``use``) around each step;
+``serving()`` and ``current()`` (its "model" group) are what the serving
+model code reads, as the JAX package's reads the ambient mesh.
+Thread-local: engines stepped by different threads keep their own. The
+train step makes its ``TrainMesh`` current
 (``use_train``) around the forward and backward; ``train()`` and
 ``tp_group()`` are what the training model code reads. That one is
 process-wide: the autograd engine runs a CUDA backward, and remat's
 recompute of the forward inside it, on a thread of its own (a
 thread-local mesh would be missing there, and the recompute would skip
 its collectives).
+
+``shard_group`` is how a weight finds the group whose shard it holds, in
+serving as in training: by the size of its sharded dim against the whole
+one (the serving mesh's "model" group, then its whole mesh for grok-1's
+expert d_ff over (data, model); the training mesh's "model" group).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+from collections import Counter
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["ModelGroup", "TrainMesh", "train_mesh", "current", "use",
-           "train", "use_train", "tp_group", "copy_to", "reduce_from",
+__all__ = ["ModelGroup", "TrainMesh", "ServeMesh", "train_mesh", "current",
+           "serving", "use", "train", "use_train", "tp_group",
+           "shard_group", "copy_to", "reduce_from",
            "gather_seq"]
 
 _LOCAL = threading.local()
@@ -255,6 +264,41 @@ class TrainMesh:
                 for k in self.data.stats}
 
 
+class ServeMesh:
+    """The groups of a serving mesh (a ``launch.mesh.make_host_mesh``
+    DeviceMesh) for one engine: ``model`` (tensor parallelism: kv heads,
+    and with sharded weights query heads, ff, vocab rows and experts),
+    ``data`` and ``both``, every rank of the mesh in its (data, model)
+    row-major order (rank ``d * model + m``: grok-1's expert d_ff over
+    both axes). Each is a ``ModelGroup`` of its own, so an engine's
+    counters are its own. ``f2d`` is grok-1's MoE serving layout
+    (``ParallelConfig.expert_ff_2d``: the expert d_ff over both axes, the
+    JAX package's ctx "moe_f2d"), which ``models.moe`` reads;
+    ``moe_modes`` counts the MoE block's calls by mode."""
+
+    def __init__(self, mesh, f2d: bool = False):
+        self.model = ModelGroup(mesh.get_group("model"))
+        self.data = ModelGroup(mesh.get_group("data"))
+        self.both = (self.model if self.data.size == 1 else
+                     self.data if self.model.size == 1 else
+                     ModelGroup(dist.group.WORLD))
+        if self.both.size != self.data.size * self.model.size:
+            raise ValueError("a serving mesh must span the whole process "
+                             "group")
+        self.f2d = f2d
+        self.moe_modes = Counter()
+
+    @property
+    def stats(self) -> dict:
+        """Every distinct group's counters, summed."""
+        groups = {id(g): g for g in (self.model, self.data, self.both)}
+        out = dict.fromkeys(self.model.stats, 0)
+        for g in groups.values():
+            for k, v in g.stats.items():
+                out[k] += v
+        return out
+
+
 def train_mesh(mesh) -> TrainMesh:
     """The ``TrainMesh`` of a DeviceMesh, made once per mesh (its groups'
     staging buffers and counters are shared by every user)."""
@@ -265,21 +309,28 @@ def train_mesh(mesh) -> TrainMesh:
     return tm
 
 
+def serving() -> ServeMesh | None:
+    """The serving mesh of the step running on this thread, or None."""
+    return getattr(_LOCAL, "mesh", None)
+
+
 def current() -> ModelGroup | None:
-    """The serving model group of the step running on this thread, or
+    """The serving "model" group of the step running on this thread, or
     None."""
-    return getattr(_LOCAL, "group", None)
+    sm = serving()
+    return None if sm is None else sm.model
 
 
 @contextlib.contextmanager
-def use(group: ModelGroup | None):
-    """Make ``group`` the current one on this thread for the block."""
-    prev = current()
-    _LOCAL.group = group
+def use(mesh: ServeMesh | None):
+    """Make ``mesh`` the current serving mesh on this thread for the
+    block."""
+    prev = serving()
+    _LOCAL.mesh = mesh
     try:
-        yield group
+        yield mesh
     finally:
-        _LOCAL.group = prev
+        _LOCAL.mesh = prev
 
 
 def train() -> TrainMesh | None:
@@ -307,18 +358,20 @@ def tp_group() -> ModelGroup | None:
 
 
 def shard_group(held: int, whole: int, what: str) -> ModelGroup | None:
-    """The "model" group whose shard a leaf is, by the size of its sharded
-    dim: None where it holds all ``whole`` entries, the current training
-    mesh's sharding "model" group where it holds ``whole / tp``; else a
-    ValueError naming ``what`` (a shard outside a training mesh, or of
-    another mesh)."""
+    """The group whose shard a leaf is, by the size of its sharded dim:
+    None where it holds all ``whole`` entries; where it holds ``whole /
+    n``, the current serving mesh's "model" group or its whole mesh (n
+    their sizes, in that order), or the current training mesh's sharding
+    "model" group; else a ValueError naming ``what`` (a shard outside a
+    mesh, or of another mesh)."""
     if held == whole:
         return None
-    grp = tp_group()
-    if grp is None or held * grp.size != whole:
-        raise ValueError(f"{what} of {held} is not a shard of {whole} "
-                         "under the current training mesh")
-    return grp
+    sm = serving()
+    for grp in ((sm.model, sm.both) if sm is not None else (tp_group(),)):
+        if grp is not None and grp.size > 1 and held * grp.size == whole:
+            return grp
+    raise ValueError(f"{what} of {held} is not a shard of {whole} under "
+                     "the current mesh")
 
 
 class _CopyTo(torch.autograd.Function):

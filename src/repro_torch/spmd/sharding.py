@@ -8,8 +8,20 @@ mesh axis name, or a tuple of names, as the JAX package's
 The serving half: the tensor-parallel engine shards its page pools (k,
 v, and the scale pools of quantized ones) and whisper's cross K/V by
 whole kv heads over the "model" axis, each rank holding K / tp heads;
-Mamba slot state and weights stay whole on every rank, and so does every
-piece of host metadata (block tables, refcounts, hashes, the scheduler).
+Mamba slot state stays whole on every rank, and so does every piece of
+host metadata (block tables, refcounts, hashes, the scheduler). Weights
+stay whole too, unless the engine shards them (``shard_params=True``,
+dense and MoE decoders): ``serving_layouts`` gives each leaf's cut, by
+``make_rules`` over ``models.api.param_specs`` with the kv-group cut of
+``wq`` / ``wo`` below: query and kv heads, ff, vocab rows (embedding
+table and head) over "model", norms and the router whole. The MoE
+leaves are the trap: the JAX package's rules cut expert d_ff for E < 16
+but its ``moe_block`` runs an expert-parallel mode whenever tp divides
+E, and its in_specs re-lay the weights on every call. Here they are
+stored in the cut their block's mode reads (``serving_rules``): whole
+experts cut over "model" for "ep_a2a" / "ep_psum", the expert d_ff over
+"model" for "tp", and over ("data", "model") for grok-1's ``f2d``
+(docs/torch-serving-mesh.md).
 
 The training half (``spmd.steps.make_train_step(..., mesh)``):
 ``make_rules`` maps logical axis names to mesh axes, ``resolve_spec`` a
@@ -273,3 +285,40 @@ def tree_layouts(params, specs, cfg: ModelConfig, rules: Rules, mesh):
         lambda logical, spec: Layout(spec, head_groups(cfg, logical, spec,
                                                        mesh)),
         specs, tree_pspecs(params, specs, rules, mesh))
+
+
+def serving_rules(cfg: ModelConfig, pcfg: ParallelConfig, tp: int) -> Rules:
+    """``make_rules`` for serving with sharded weights on a "model" axis
+    of ``tp`` ranks, the MoE leaves in the cut their block's mode reads:
+    experts over "model" where it runs "ep_*", the expert d_ff over
+    "model" (with ``expert_ff_2d``: over ("data", "model")) where it runs
+    "tp"."""
+    from repro_torch.models.moe import expert_cut
+    rules = make_rules(cfg, pcfg)
+    if cfg.moe is not None:
+        f2d = pcfg.expert_ff_2d
+        if expert_cut(cfg, tp, f2d) == "experts":
+            rules.update(experts="model", expert_ff=None)
+        else:
+            rules.update(experts=None,
+                         expert_ff=("data", "model") if f2d else "model")
+    return rules
+
+
+def serving_layouts(cfg: ModelConfig, pcfg: ParallelConfig, mesh):
+    """The ``Layout`` of every leaf of ``models.api.init_model``'s tree
+    for a serving engine with sharded weights on ``mesh``."""
+    from repro_torch.models.api import param_shapes, param_specs
+    rules = serving_rules(cfg, pcfg, serving_tp(mesh))
+    return tree_layouts(param_shapes(cfg), param_specs(cfg), cfg, rules,
+                        mesh)
+
+
+def cut_tree(params, layouts, coords: dict, sizes: dict):
+    """Each leaf's shard at mesh ``coords`` (``Layout.cut``), a copy of
+    its own bytes only (a leaf it leaves whole is itself), so that the
+    whole leaves can be freed."""
+    def one(x, lay):
+        y = lay.cut(x, coords, sizes)
+        return x if y is x else y.clone(memory_format=torch.contiguous_format)
+    return map_specs(one, params, layouts)

@@ -44,8 +44,10 @@ from repro_torch.spmd import zero
 def check_train_config(cfg: ModelConfig, pcfg: ParallelConfig,
                        ocfg: OptimizerConfig, mesh=None) -> None:
     """Raise on what the trainer cannot mean, naming ROADMAP: the options
-    not ported, tensor parallelism of a family other than the dense
-    decoders, then an unknown remat mode (``transformer.check_trainable``)."""
+    not ported (``fsdp``, ``seq_shard_activations``), tensor parallelism
+    of a family other than the dense decoders (the MoE, SSM, hybrid,
+    encoder-decoder and VLM families train data parallel), then an
+    unknown remat mode (``transformer.check_trainable``)."""
     refused = {"fsdp": pcfg.fsdp,
                "seq_shard_activations": pcfg.seq_shard_activations}
     for what, on in refused.items():
@@ -63,8 +65,9 @@ def check_train_config(cfg: ModelConfig, pcfg: ParallelConfig,
     if tp > 1 and cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel training (model={tp}) of the "
-            f"{cfg.family} family is not ported, only of the dense decoders; "
-            "it trains data parallel (ROADMAP.md queue 1 item 12)")
+            f"{cfg.family} family is not ported, only of the dense decoders "
+            "(the MoE, SSM, hybrid, encoder-decoder and VLM families train "
+            "data parallel; ROADMAP.md queue 1 item 12)")
     transformer.check_trainable(cfg, pcfg)
 
 

@@ -199,16 +199,17 @@ def test_latency_records_stay_bounded(setup, monkeypatch):
     ("glm4_9b", {"shared_index": object(), "enable_prefix_caching": False},
      ValueError, "enable_prefix_caching=True"),
     ("glm4_9b", {"swap_policy": "sometimes"}, ValueError, "swap_policy"),
-    ("glm4_9b", {"shard_params": True}, NotImplementedError,
-     "ROADMAP.md queue 1 item 12"),
+    ("zamba2_2p7b", {"mesh": {"data": 1, "model": 2}, "shard_params": True},
+     NotImplementedError, "ROADMAP.md queue 1 item 12"),
     ("glm4_9b", {"mesh": {"data": 1, "model": 2}, "cuda_graphs": True},
      NotImplementedError, "ROADMAP.md queue 1 item 12")])
 def test_engine_refuses_unported_options(arch, kw, exc, match):
     """The reference's ValueErrors: no host tier for a runner with slot
     state (its state has no block-swap form), no shared index without
     prefix caching; an unknown swap policy. Not ported yet: sharded
-    weights, and CUDA graphs of a tensor-parallel step (a mesh given by
-    its shape: the refusal comes before any process group is read)."""
+    weights of a hybrid model, and CUDA graphs of a tensor-parallel step
+    (a mesh given by its shape: the refusals come before any process
+    group is read)."""
     with pytest.raises(exc, match=match):
         InferenceEngine(get_config(arch, smoke=True), device="cpu", **kw)
 

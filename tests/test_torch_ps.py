@@ -5,12 +5,13 @@ final variables within 1e-4 relative of the reference's largest
 magnitude: the reference's variables drift to float64 and sync averages in
 arrival order), the full and sampled-softmax LM (one step's loss and every
 gradient, then 3 sync steps), Save/Restore across the two packages, and a
-straggler bound that cannot flake.
+straggler check that reads no clock (the straggler waits on an event).
 
 Batches come from ``np.random.default_rng((seed, w, s))`` per worker and
 step, so every worker thread draws the same batch in both packages
 whatever the threads' interleaving."""
 
+import threading
 import time
 
 import numpy as np
@@ -115,26 +116,74 @@ def test_modes_vs_reference(mode, n, backup, strag):
         assert ps.discarded == rs.discarded
 
 
-def straggled_step_times(mode, backup, delay):
-    """Step times of 4 steps where worker 0 sleeps ``delay`` at the first
-    (straggler_every 100), after one step that builds every plan."""
+JOIN_S = 60.0
+
+
+def straggled_trainer(mode, backup):
+    """A 4-worker trainer after one step that builds every plan, whose
+    worker 0 straggles at the next ``train``'s first step until the
+    returned event is set (``_maybe_straggle`` patched: a wait on the
+    event, not a sleep), and a counter of each worker's finished replica
+    runs in that call (``session.run`` wrapped)."""
     _, tr = trainer("port", mode, 4, backup=backup)
     tr.train(1, batch_fn)
-    tr.straggler_s, tr.straggler_every = delay, 100
-    return tr.train(4, batch_fn).step_times[1:]
+    gate = threading.Event()
+    ran = {w: threading.Event() for w in range(4)}
+    feeds = {id(rep[0]): w for w, rep in enumerate(tr.replicas)}
+
+    def straggle(w, step):
+        if w == 0 and step == 0:
+            assert gate.wait(JOIN_S), "the straggler was never released"
+
+    run = tr.session.run
+
+    def counted(fetches, feed_dict=None, *a, **kw):
+        out = run(fetches, feed_dict, *a, **kw)
+        for ph in feed_dict or {}:
+            if id(ph) in feeds:
+                ran[feeds[id(ph)]].set()
+        return out
+
+    tr._maybe_straggle = straggle
+    tr.session.run = counted
+    return tr, gate, ran
+
+
+def train_in_thread(tr, steps):
+    """``tr.train(steps)`` on a thread of its own; (thread, result box)."""
+    box = {}
+    t = threading.Thread(target=lambda: box.update(
+        stats=tr.train(steps, batch_fn)), daemon=True)
+    t.start()
+    return t, box
 
 
 def test_backup_beats_sync_under_straggle():
-    """Worker 0 sleeps 1 s in the first measured step. Sync waits for it:
-    its step times sum to at least the sleep (less the moment between the
-    coordinator releasing the workers and starting its clock). Backup (one
-    backup worker) never waits: its 4 steps take under a third of the
-    sleep (about 0.04 s of 0.33 alone on an 8-core host)."""
-    delay = 1.0
-    sync_s = sum(straggled_step_times("sync", 0, delay))
-    backup_s = sum(straggled_step_times("backup", 1, delay))
-    assert sync_s >= 0.95 * delay, sync_s
-    assert backup_s <= delay / 3, (backup_s, sync_s)
+    """Worker 0 straggles in the first measured step until an event is
+    set. Backup (one backup worker) never waits for it: its 4 steps
+    return while the event is still unset. Sync waits: once the other
+    three workers have run their first step, that step is still pending
+    while the event is unset; set, sync finishes its 4 steps. No clock:
+    every wait is on an event or a join, each bounded by JOIN_S only so
+    that a fault fails instead of hanging."""
+    tr, gate, _ = straggled_trainer("backup", 1)
+    t, box = train_in_thread(tr, 4)
+    t.join(JOIN_S)
+    assert not t.is_alive(), "backup waited for the straggler"
+    assert not gate.is_set()
+    assert len(box["stats"].step_times) == 1 + 4
+    gate.set()
+
+    tr, gate, ran = straggled_trainer("sync", 0)
+    t, box = train_in_thread(tr, 4)
+    for w in (1, 2, 3):
+        assert ran[w].wait(JOIN_S), f"worker {w} never ran its step"
+    assert t.is_alive() and len(tr.stats.step_times) == 1, \
+        "sync finished a step without the straggler"
+    gate.set()
+    t.join(JOIN_S)
+    assert not t.is_alive()
+    assert len(box["stats"].step_times) == 1 + 4
 
 
 LM = dict(vocab=512, d=16, unroll=2, n_ps=2)
